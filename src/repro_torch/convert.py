@@ -1,0 +1,31 @@
+"""Carry a reference-package parameter tree over to the port.
+
+The reference's ``init_params`` returns a tree of arrays; converted to numpy
+(``jax.tree.map(np.asarray, params)``) it goes through
+:func:`params_from_numpy`, so both packages can run on the same weights.
+The port itself makes its weights with ``models.model.init_params``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+__all__ = ["params_from_numpy"]
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
+    """Nested dict of numpy arrays -> the same tree of tensors on ``device``
+    in ``cfg.dtype``: ``embed (Vp, d)``, stacked ``layers/{ln1, attn/w_q..,
+    ln2, mlp/..}``, ``final_norm``. Arrays of any float type (bf16 ones
+    included) go through float32 on the way."""
+    dt = getattr(torch, cfg.dtype)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        arr = np.array(node, dtype=np.float32)      # a writable copy
+        return torch.from_numpy(arr).to(device=device, dtype=dt)
+
+    return conv(tree)

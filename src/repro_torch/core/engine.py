@@ -1,0 +1,408 @@
+"""FalconEngine: the unified dispatch surface for FalconGEMM (forward only).
+
+* **Context-scoped config** — ``with use(cfg): ...`` installs a
+  :class:`~repro_torch.core.falcon_gemm.FalconConfig` in a contextvar;
+  ``current_config()`` resolves it anywhere below. Explicit ``cfg=``
+  arguments remain as overrides.
+* **General entry points** — :func:`dot_general` / :func:`einsum` normalize
+  batched and transposed contractions down to the planned 2-D or grouped
+  core, so attention contractions hit the Decision Module, not just dense
+  layers.
+* **Backends** — execution strategies resolve through the
+  ``core.backends`` registry (``FalconConfig.backend`` is just a name).
+* **Precombined weights** — :class:`PlannedWeight` carries a weight with its
+  chosen LCMA and offline-combined B̃ (paper §IV-C "offline Combine B");
+  ``dense``/``dot_general``/``matmul`` accept it, and
+  :func:`precombine_params` lifts a whole param tree.
+
+``repro_torch.api`` re-exports this surface.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import math
+
+import torch
+
+from . import algorithms, backends
+from .falcon_gemm import FalconConfig, plan, plan_batched, precombine_weights
+from .lcma import LCMA
+
+__all__ = ["use", "current_config", "active_config", "config_scope",
+           "matmul", "dense", "dot_general", "einsum", "grouped_matmul",
+           "PlannedWeight", "plan_weight", "precombine_params"]
+
+
+# ---------------------------------------------------------------------------
+# Context-scoped configuration
+# ---------------------------------------------------------------------------
+
+_CONFIG: contextvars.ContextVar[FalconConfig | None] = \
+    contextvars.ContextVar("falcon_config", default=None)
+
+
+@contextlib.contextmanager
+def use(cfg: FalconConfig):
+    """Install ``cfg`` as the ambient FalconGEMM config for this context.
+
+    Nests: the innermost ``use`` wins; on exit the previous config is
+    restored (also on exception).
+    """
+    token = _CONFIG.set(cfg)
+    try:
+        yield cfg
+    finally:
+        _CONFIG.reset(token)
+
+
+def active_config() -> FalconConfig | None:
+    """The config installed by the innermost ``use``, or None outside any."""
+    return _CONFIG.get()
+
+
+def current_config() -> FalconConfig:
+    """The ambient config: innermost ``use``, else the default FalconConfig."""
+    return _CONFIG.get() or FalconConfig()
+
+
+def _resolve(cfg: FalconConfig | None) -> FalconConfig:
+    return cfg if cfg is not None else current_config()
+
+
+@contextlib.contextmanager
+def config_scope(default_factory):
+    """Model-entry config resolution: the ambient config, else
+    ``default_factory()`` (e.g. the model's own ``falcon_config_for``)."""
+    with use(active_config() or default_factory()):
+        yield
+
+
+# ---------------------------------------------------------------------------
+# Planned (precombined) weights
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PlannedWeight:
+    """A weight bundled with its chosen LCMA and offline-combined B̃.
+
+    ``dense`` / ``matmul`` / ``dot_general`` accept a PlannedWeight wherever
+    a (K, N) weight matrix is expected. ``algo is None`` marks a weight the
+    Decision Module left on standard GEMM. Stacked weights (a leading layer
+    dim) hold stacked tensors; ``pw[i]`` slices both.
+    """
+
+    w: torch.Tensor | None    # original weight (K, N) [or (L, K, N)]; None if dropped
+    bt: torch.Tensor | None   # precombined B̃ (R, K/k, N/n) [or (L, ...)]; None if GEMM
+    algo: str | None          # LCMA scheme name; None => standard GEMM
+    k: int                    # logical K of the matrix (trailing dims)
+    n: int                    # logical N
+
+    @property
+    def lcma(self) -> LCMA | None:
+        return algorithms.get(self.algo) if self.algo is not None else None
+
+    @property
+    def precombined(self) -> bool:
+        return self.bt is not None
+
+    def __getitem__(self, idx) -> "PlannedWeight":
+        return PlannedWeight(
+            w=None if self.w is None else self.w[idx],
+            bt=None if self.bt is None else self.bt[idx],
+            algo=self.algo, k=self.k, n=self.n)
+
+
+def plan_weight(w: torch.Tensor, cfg: FalconConfig | None = None,
+                m_hint: int = 1024, keep_weight: bool = True) -> PlannedWeight:
+    """Plan a static weight for serving: pick an LCMA and precombine B̃.
+
+    The Decision Module is consulted with ``precombined_b=True`` at an
+    activation-rows hint ``m_hint`` (use the serving prefill M). Weights of
+    rank 3 are treated as stacked (leading layer dim) and combined per
+    slice, in one grouped launch.
+    ``keep_weight=False`` drops the raw weight; the precombined path is then
+    always taken.
+    """
+    cfg = _resolve(cfg)
+    if w.ndim not in (2, 3):
+        return PlannedWeight(w=w, bt=None, algo=None,
+                             k=int(w.shape[-2]) if w.ndim >= 2 else 0,
+                             n=int(w.shape[-1]))
+    K, N = int(w.shape[-2]), int(w.shape[-1])
+    dtype = str(w.dtype).removeprefix("torch.")
+    d = plan(m_hint, K, N, cfg, dtype, precombined_b=True)
+    if not d.use_lcma:
+        return PlannedWeight(w=w, bt=None, algo=None, k=K, n=N)
+    return PlannedWeight(w=w if keep_weight else None,
+                         bt=precombine_weights(w, d.algo),
+                         algo=d.algo.name, k=K, n=N)
+
+
+# The dense decoder's projections (the reference's list less its MoE and
+# SSM leaves, which the port does not run).
+_DEFAULT_PRECOMBINE_PATTERNS = (
+    "w_q", "w_k", "w_v", "w_o", "mlp_gate", "mlp_up", "mlp_down", "lm_head",
+)
+
+
+def precombine_params(params, cfg: FalconConfig | None = None,
+                      m_hint: int = 1024, keep_weight: bool = True,
+                      patterns: tuple[str, ...] = _DEFAULT_PRECOMBINE_PATTERNS):
+    """Lift a nested-dict param tree into PlannedWeights for serving.
+
+    Projection leaves whose path matches ``patterns`` are planned (and
+    precombined where the Decision Module picks an LCMA); everything else —
+    including leaves that are already ``PlannedWeight``s, so the lift is
+    idempotent — passes through untouched. Returns (new_params, n_planned).
+    """
+    cfg = _resolve(cfg)
+    n_planned = 0
+
+    def walk(node, path):
+        nonlocal n_planned
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        if not isinstance(node, torch.Tensor) or node.ndim not in (2, 3) \
+                or not any(pat in path for pat in patterns):
+            return node
+        pw = plan_weight(node, cfg, m_hint=m_hint, keep_weight=keep_weight)
+        if pw.precombined:
+            n_planned += 1
+            return pw
+        return node  # GEMM-bound weight: keep the raw tensor
+
+    return walk(params, ""), n_planned
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
+                   cfg: FalconConfig) -> torch.Tensor:
+    """x (..., K) @ PlannedWeight -> (..., N); serving fast path."""
+    *lead, K = x.shape
+    if pw.algo is None:
+        return torch.matmul(x, pw.w)
+    x2 = x.reshape(-1, K)
+    if cfg.mode == pw.algo or pw.w is None:
+        use_pre = True           # forced scheme, or raw weight dropped
+    elif not cfg.enabled or cfg.mode == "gemm":
+        use_pre = False
+    else:
+        # Re-decide for the *actual* M (decode M is tiny, prefill M is large)
+        # with Combine B free; restrict candidates to the precombined scheme.
+        d = plan(x2.shape[0], K, pw.n,
+                 dataclasses.replace(cfg, mode="auto", candidates=(pw.algo,)),
+                 _dtype_name(x), precombined_b=True)
+        use_pre = d.use_lcma
+    if not use_pre:
+        return torch.matmul(x, pw.w)
+    be = backends.get_backend(cfg.backend)
+    out2 = be.apply_precombined(x2, pw.bt, pw.lcma, pw.n, cfg)
+    return out2.reshape(*lead, pw.n)
+
+
+def _apply_planned_grouped(a3: torch.Tensor, pw: PlannedWeight,
+                           cfg: FalconConfig) -> torch.Tensor:
+    """Grouped apply against a PlannedWeight: a3 (G, M, K) -> (G, M, N).
+
+    A 2-D PlannedWeight is the hoisted case (its B̃ is shared by the group);
+    a stacked one (``bt`` (G, R, K/k, N/n)) is applied per group element,
+    still as one grouped contraction. The Decision Module re-prices the
+    grouped problem at the actual (G, M), restricted to the weight's scheme.
+    """
+    G, M, K = a3.shape
+    if pw.algo is None:
+        return torch.matmul(a3, pw.w)
+    stacked = pw.bt.ndim == 4
+    if cfg.mode == pw.algo or pw.w is None:
+        use_pre = True
+    elif not cfg.enabled or cfg.mode == "gemm":
+        use_pre = False
+    else:
+        d = plan_batched(G, M, K, pw.n,
+                         dataclasses.replace(cfg, mode="auto",
+                                             candidates=(pw.algo,)),
+                         _dtype_name(a3), precombined_b=True,
+                         shared_b=not stacked)
+        use_pre = d.use_lcma
+    if not use_pre:
+        return torch.matmul(a3, pw.w)
+    be = backends.get_backend(cfg.backend)
+    return be.apply_grouped_precombined(a3, pw.bt, pw.lcma, pw.n, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch entry points
+# ---------------------------------------------------------------------------
+
+def _dispatch2d(a2: torch.Tensor, b2: torch.Tensor,
+                cfg: FalconConfig) -> torch.Tensor:
+    """Planned 2-D contraction: plan(), then the backend's LCMA or GEMM."""
+    M, K = a2.shape
+    d = plan(M, K, b2.shape[1], cfg, _dtype_name(a2))
+    if d.use_lcma:
+        return backends.get_backend(cfg.backend).apply(a2, b2, d.algo, cfg)
+    return torch.matmul(a2, b2)
+
+
+def _dispatch_grouped(a3: torch.Tensor, b: torch.Tensor,
+                      cfg: FalconConfig) -> torch.Tensor:
+    """Planned grouped contraction: one plan_batched decision for the group.
+
+    ``b`` is (K, N) shared by the group or (G, K, N) per group.
+    """
+    G, M, K = a3.shape
+    d = plan_batched(G, M, K, b.shape[-1], cfg, _dtype_name(a3),
+                     shared_b=b.ndim == 2)
+    if d.use_lcma:
+        return backends.get_backend(cfg.backend).apply_grouped(a3, b, d.algo, cfg)
+    return torch.matmul(a3, b)     # broadcasts the shared-b case
+
+
+def grouped_matmul(a: torch.Tensor, b, cfg: FalconConfig | None = None
+                   ) -> torch.Tensor:
+    """Grouped batched matmul ``out[g] = a[g] @ b[g]`` as one planned unit.
+
+    ``a``: (G, M, K). ``b``: (K, N) shared across the group (Combine B
+    hoisted, run once), (G, K, N) per group, or a :class:`PlannedWeight`.
+    """
+    cfg = _resolve(cfg)
+    if a.ndim != 3:
+        raise ValueError(f"grouped_matmul: a must be (G, M, K), "
+                         f"got {tuple(a.shape)}")
+    if isinstance(b, PlannedWeight):
+        return _apply_planned_grouped(a, b, cfg)
+    G, M, K = a.shape
+    if b.ndim not in (2, 3) or b.shape[-2] != K \
+            or (b.ndim == 3 and b.shape[0] != G):
+        raise ValueError(f"grouped_matmul: shapes do not conform: "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    return _dispatch_grouped(a, b, cfg)
+
+
+def matmul(a: torch.Tensor, b, cfg: FalconConfig | None = None) -> torch.Tensor:
+    """``a @ b`` with FalconGEMM dispatch. ``a``: (..., M, K), ``b``: (K, N)
+    or a :class:`PlannedWeight`."""
+    cfg = _resolve(cfg)
+    if isinstance(b, PlannedWeight):
+        return _apply_planned(a, b, cfg)
+    *lead, M, K = a.shape
+    K2, N = b.shape
+    if K != K2:
+        raise ValueError(f"matmul: contracting dims differ: "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    c = _dispatch2d(a.reshape(-1, K), b, cfg)
+    return c.reshape(*lead, M, N)
+
+
+def dense(x: torch.Tensor, w, cfg: FalconConfig | None = None) -> torch.Tensor:
+    """Linear layer contraction: x (..., K) @ w (K, N) [w may be planned]."""
+    cfg = _resolve(cfg)
+    if isinstance(w, PlannedWeight):
+        return _apply_planned(x, w, cfg)
+    *lead, K = x.shape
+    return matmul(x.reshape(-1, K), w, cfg).reshape(*lead, w.shape[1])
+
+
+def dot_general(a: torch.Tensor, b, dimension_numbers,
+                cfg: FalconConfig | None = None) -> torch.Tensor:
+    """``jax.lax.dot_general`` semantics with FalconGEMM dispatch.
+
+    ``dimension_numbers`` is ``((a_contract, b_contract), (a_batch,
+    b_batch))``; the output is (batch..., a_free..., b_free...). Free and
+    contracting dims are transposed adjacent and flattened to a (M, K) x
+    (K, N) problem: an unbatched contraction is priced by ``plan()``, a
+    **batched** one as a whole group by ``plan_batched`` (one grouped
+    decision for the batch, never per-element pricing).
+    """
+    cfg = _resolve(cfg)
+    (ac, bc), (ab, bb) = dimension_numbers
+    ac, bc, ab, bb = (tuple(int(i) for i in t) for t in (ac, bc, ab, bb))
+    if isinstance(b, PlannedWeight):
+        if ab or bb or ac != (a.ndim - 1,) or bc != (0,):
+            raise ValueError(
+                "PlannedWeight only supports the canonical dense contraction "
+                f"(((a.ndim-1,), (0,)), ((), ())); got {((ac, bc), (ab, bb))}")
+        return _apply_planned(a, b, cfg)
+    a_free = tuple(i for i in range(a.ndim) if i not in ac and i not in ab)
+    b_free = tuple(i for i in range(b.ndim) if i not in bc and i not in bb)
+    M = math.prod(a.shape[i] for i in a_free)
+    K = math.prod(a.shape[i] for i in ac)
+    N = math.prod(b.shape[i] for i in b_free)
+    batch_shape = tuple(a.shape[i] for i in ab)
+    out_shape = batch_shape + tuple(a.shape[i] for i in a_free) \
+        + tuple(b.shape[i] for i in b_free)
+    at = a.permute(ab + a_free + ac)
+    bt = b.permute(bb + bc + b_free)
+    if not ab:
+        c = _dispatch2d(at.reshape(M, K), bt.reshape(K, N), cfg)
+    else:
+        Bsz = math.prod(batch_shape)
+        c = _dispatch_grouped(at.reshape(Bsz, M, K), bt.reshape(Bsz, K, N), cfg)
+    return c.reshape(out_shape)
+
+
+def einsum(subscripts: str, *operands, cfg: FalconConfig | None = None
+           ) -> torch.Tensor:
+    """``torch.einsum`` with FalconGEMM dispatch for two-operand contractions.
+
+    Two-operand subscripts without ellipsis/repeats/sum-out reduce to
+    :func:`dot_general` (and so hit the Decision Module); anything else
+    falls back to ``torch.einsum`` unchanged.
+    """
+    if len(operands) == 2:
+        a, b = operands
+        parsed = _einsum_dimension_numbers(subscripts, a.ndim, b.ndim)
+        if parsed is not None:
+            dn, perm = parsed
+            out = dot_general(a, b, dn, cfg=cfg)
+            if perm != tuple(range(len(perm))):
+                out = out.permute(perm)
+            return out
+    return torch.einsum(subscripts, *operands)
+
+
+def _einsum_dimension_numbers(subscripts: str, a_ndim: int, b_ndim: int):
+    """Two-operand einsum -> (dimension_numbers, output permutation) or None.
+
+    None means "not expressible as a single dot_general" (ellipsis, repeated
+    labels within an operand, summed-out free labels, rank mismatch).
+    """
+    subs = subscripts.replace(" ", "")
+    if "." in subs:
+        return None
+    if "->" in subs:
+        lhs, out = subs.split("->")
+    else:
+        lhs, out = subs, None
+    terms = lhs.split(",")
+    if len(terms) != 2:
+        return None
+    ta, tb = terms
+    if len(ta) != a_ndim or len(tb) != b_ndim:
+        return None
+    if len(set(ta)) != len(ta) or len(set(tb)) != len(tb):
+        return None
+    if out is None:  # implicit mode: alphabetic order of non-shared labels
+        out = "".join(sorted(c for c in set(ta + tb)
+                             if (ta + tb).count(c) == 1))
+    if len(set(out)) != len(out) or any(c not in ta + tb for c in out):
+        return None
+    shared = [c for c in ta if c in tb]
+    batch = tuple(c for c in shared if c in out)
+    contract = tuple(c for c in shared if c not in out)
+    a_free = [c for c in ta if c not in tb]
+    b_free = [c for c in tb if c not in ta]
+    if any(c not in out for c in a_free + b_free):
+        return None  # summed-out free label: not a plain contraction
+    dn = ((tuple(ta.index(c) for c in contract),
+           tuple(tb.index(c) for c in contract)),
+          (tuple(ta.index(c) for c in batch),
+           tuple(tb.index(c) for c in batch)))
+    natural = list(batch) + a_free + b_free   # dot_general output order
+    perm = tuple(natural.index(c) for c in out)
+    return dn, perm

@@ -1,0 +1,25 @@
+"""The hand-written CUDA kernels of the LCMA pipeline and their wrappers."""
+from .fused_gemm import batched_fused_gemm_combine_h, fused_gemm_combine_h
+from .group_combine import batched_group_combine, group_combine
+from .ops import (falcon_grouped_matmul, falcon_grouped_matmul_precombined,
+                  falcon_matmul, falcon_matmul_precombined)
+
+# every kernel entry point; each carries its launch count as ``.launches``
+KERNELS = (group_combine, batched_group_combine, fused_gemm_combine_h,
+           batched_fused_gemm_combine_h)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+__all__ = ["group_combine", "batched_group_combine", "fused_gemm_combine_h",
+           "batched_fused_gemm_combine_h", "falcon_matmul",
+           "falcon_matmul_precombined", "falcon_grouped_matmul",
+           "falcon_grouped_matmul_precombined", "KERNELS",
+           "reset_launch_counts", "launch_counts"]

@@ -1,0 +1,103 @@
+"""Fused GEMM + Group Combine H (paper Alg. 2, stages 3-4): CUDA wrappers.
+
+Replaces the Pallas TPU kernels ``fused_gemm_combine_h`` and
+``batched_fused_gemm_combine_h`` (``src/repro/kernels/fused_gemm.py``). One
+CUDA kernel, ``csrc/fused_gemm.cu``, serves both: its grid carries the
+group, with G = 1 for the 2-D form, and a shared ``bt`` has group stride 0.
+On the H100 it is bound by operations at prefill M and by bytes (a stream
+over B̃) at decode M. The Pallas design keeps R f32 accumulators per output
+tile, which does not fit a Hopper SM for high-R schemes; this kernel
+finishes one H_r at a time over the K loop and folds it into the m*n output
+accumulators (Combine H is linear), so H never reaches memory and every
+scheme up to s555 gets a tile (``tuning.plan_fused_gemm_blocks``).
+
+A tensor on the CPU takes the plain version (``ref.fused_gemm_combine_h_ref``);
+a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import build, ref
+from .group_combine import coeff_table
+from .tuning import plan_fused_gemm_blocks
+
+__all__ = ["fused_gemm_combine_h", "batched_fused_gemm_combine_h"]
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(at, bt, w, out_dtype, at_ndim, what):
+    R, m, n = w.shape
+    if at.ndim != at_ndim or bt.ndim not in (3, at_ndim):
+        raise ValueError(f"{what}: unexpected ranks {tuple(at.shape)} x "
+                         f"{tuple(bt.shape)}")
+    if at.shape[-3] != R or bt.shape[-3] != R or at.shape[-1] != bt.shape[-2]:
+        raise ValueError(f"{what}: shapes do not conform: {tuple(at.shape)} x "
+                         f"{tuple(bt.shape)} with W {tuple(w.shape)}")
+    if bt.ndim == at_ndim and at_ndim == 4 and bt.shape[0] != at.shape[0]:
+        raise ValueError(f"{what}: group sizes differ: {tuple(at.shape)} x "
+                         f"{tuple(bt.shape)}")
+    if at.dtype not in _DTYPES or bt.dtype != at.dtype or out_dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtypes {at.dtype}/{bt.dtype} -> {out_dtype} "
+                        f"not supported (float32 and bfloat16 are)")
+    if at.device != bt.device or at.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: operands on {at.device} and {bt.device}")
+    if at.device.type == "cuda" and not (at.is_contiguous() and bt.is_contiguous()):
+        raise ValueError(f"{what}: the CUDA kernel needs contiguous operands")
+
+
+def _launch(at4: torch.Tensor, bt: torch.Tensor, w: np.ndarray,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    R, m, n = w.shape
+    G, _, X, Y = at4.shape
+    Z = bt.shape[-1]
+    out = torch.empty((G, m, n, X, Z), dtype=out_dtype, device=at4.device)
+    bx, bz, _ = plan_fused_gemm_blocks(X, m, n)
+    codes = build.DTYPE_CODES
+    lib = build.library("fused_gemm")
+    err = lib.falcon_fused_gemm_combine_h(
+        at4.device.index, at4.data_ptr(), bt.data_ptr(), out.data_ptr(),
+        coeff_table(w, at4.device).data_ptr(),
+        codes[str(at4.dtype).removeprefix("torch.")],
+        codes[str(out_dtype).removeprefix("torch.")],
+        G, R, m * n, X, Y, Z, R * Y * Z if bt.ndim == 4 else 0, bx, bz,
+        torch.cuda.current_stream(at4.device).cuda_stream)
+    build.check(lib, err, "fused_gemm_combine_h")
+    return out
+
+
+def fused_gemm_combine_h(at: torch.Tensor, bt: torch.Tensor, w: np.ndarray,
+                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """(R, X, Y) x (R, Y, Z) --W--> C parts (m, n, X, Z) in ``out_dtype``."""
+    out_dtype = out_dtype or at.dtype
+    _check(at, bt, w, out_dtype, 3, "fused_gemm_combine_h")
+    if at.device.type == "cpu":
+        return ref.fused_gemm_combine_h_ref(at, bt, w, out_dtype)
+    out = _launch(at[None], bt, w, out_dtype)[0]
+    fused_gemm_combine_h.launches += 1
+    return out
+
+
+def batched_fused_gemm_combine_h(at: torch.Tensor, bt: torch.Tensor,
+                                 w: np.ndarray,
+                                 out_dtype: torch.dtype | None = None
+                                 ) -> torch.Tensor:
+    """Grouped: (G, R, X, Y) x bt --W--> (G, m, n, X, Z).
+
+    ``bt`` is (G, R, Y, Z) per group or (R, Y, Z) shared by the group (the
+    hoisted Combine B, read with group stride 0, never replicated).
+    """
+    out_dtype = out_dtype or at.dtype
+    _check(at, bt, w, out_dtype, 4, "batched_fused_gemm_combine_h")
+    if at.device.type == "cpu":
+        bt_b = bt if bt.ndim == 4 else bt[None]
+        return ref.fused_gemm_combine_h_ref(at, bt_b, w, out_dtype)
+    out = _launch(at, bt, w, out_dtype)
+    batched_fused_gemm_combine_h.launches += 1
+    return out
+
+
+fused_gemm_combine_h.launches = 0   # kernel launches, counted by the wrapper
+batched_fused_gemm_combine_h.launches = 0

@@ -1,0 +1,114 @@
+"""Group Combine A/B (paper Alg. 2, stages 1-2): wrappers of the CUDA kernel.
+
+Replaces the Pallas TPU kernels ``group_combine`` and
+``batched_group_combine`` (``src/repro/kernels/group_combine.py``). One CUDA
+kernel, ``csrc/group_combine.cu``, serves both: its grid carries the group
+axis, with G = 1 for the 2-D form. It is bound by bytes on the H100: every
+input element is read once and R outputs are written, (d1*d2 + R)*X*Y
+elements against ~2 flops per coefficient term. One thread owns one (x, y)
+element: it reads the d1*d2 co-located inputs once (coalesced along Y, in
+place from the (d1*X, d2*Y) input, no relayout) and writes all R outputs,
+summed in f32 and rounded once.
+
+A tensor on the CPU takes the plain version (``ref.group_combine_ref``); a
+CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from . import build, ref
+from .tuning import plan_combine_blocks
+
+__all__ = ["group_combine", "batched_group_combine", "coeff_table"]
+
+_TABLES: dict[tuple, torch.Tensor] = {}
+_TABLES_LOCK = threading.Lock()
+
+
+def coeff_table(coeff: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The kernel's CSR coefficient table of ``coeff`` (R, d1, d2) on ``device``.
+
+    int32, laid out ``row_ptr[R+1] | part[nnz] | coeff[nnz]``: rank r's
+    nonzero terms with their flattened block index ``i*d2 + l``. Built once
+    per coefficient tensor and device and cached; the key is the tensor's
+    content, the part of ``LCMA.fingerprint`` it contributes.
+    """
+    coeff = np.asarray(coeff)
+    key = (coeff.shape, coeff.tobytes(), str(device))
+    tab = _TABLES.get(key)
+    if tab is None:
+        R = coeff.shape[0]
+        flat = coeff.reshape(R, -1).astype(np.int64)
+        rows, parts = np.nonzero(flat)              # row-major: r ascending
+        row_ptr = np.searchsorted(rows, np.arange(R + 1))
+        host = np.concatenate([row_ptr, parts, flat[rows, parts]]).astype(np.int32)
+        tab = torch.as_tensor(host, device=device)
+        with _TABLES_LOCK:
+            tab = _TABLES.setdefault(key, tab)
+    return tab
+
+
+def _check(x: torch.Tensor, coeff: np.ndarray, ndim: int, what: str):
+    if x.ndim != ndim:
+        raise ValueError(f"{what}: expected a {ndim}-D input, got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: dtype {x.dtype} not supported "
+                        f"(float32 and bfloat16 are)")
+    R, d1, d2 = coeff.shape
+    M, K = x.shape[-2:]
+    if M % d1 or K % d2:
+        raise ValueError(f"{what}: input {tuple(x.shape)} is not divisible by "
+                         f"the coefficient grid ({d1}, {d2}) — pad first")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError(f"{what}: the CUDA kernel needs a contiguous input")
+    return R, d1, d2, M // d1, K // d2
+
+
+def _launch(x3: torch.Tensor, coeff: np.ndarray, R, d1, d2, X, Y) -> torch.Tensor:
+    G = x3.shape[0]
+    out = torch.empty((G, R, X, Y), dtype=x3.dtype, device=x3.device)
+    bx, by = plan_combine_blocks(Y, d1 * d2)
+    lib = build.library("group_combine")
+    err = lib.falcon_group_combine(
+        x3.device.index, x3.data_ptr(), out.data_ptr(),
+        coeff_table(coeff, x3.device).data_ptr(),
+        build.DTYPE_CODES[str(x3.dtype).removeprefix("torch.")],
+        G, R, d1, d2, X, Y, bx, by,
+        torch.cuda.current_stream(x3.device).cuda_stream)
+    build.check(lib, err, "group_combine")
+    return out
+
+
+def group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
+    """Group Combine of ``x`` (d1*X, d2*Y) -> (R, X, Y).
+
+    ``coeff`` is U (R, m, k) for Combine A (x = A) or V (R, k, n) for Combine
+    B (x = B). Dimensions must divide exactly; padding is the caller's
+    (``repro_torch.kernels.ops``).
+    """
+    R, d1, d2, X, Y = _check(x, coeff, 2, "group_combine")
+    if x.device.type == "cpu":
+        return ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff)
+    out = _launch(x[None], coeff, R, d1, d2, X, Y)[0]
+    group_combine.launches += 1
+    return out
+
+
+def batched_group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
+    """Group Combine over a group: (G, d1*X, d2*Y) -> (G, R, X, Y)."""
+    R, d1, d2, X, Y = _check(x, coeff, 3, "batched_group_combine")
+    if x.device.type == "cpu":
+        return ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff)
+    out = _launch(x, coeff, R, d1, d2, X, Y)
+    batched_group_combine.launches += 1
+    return out
+
+
+group_combine.launches = 0          # kernel launches, counted by the wrapper
+batched_group_combine.launches = 0

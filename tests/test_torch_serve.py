@@ -1,0 +1,133 @@
+"""Guards of the PyTorch port: what it imports, where it runs, how it fails.
+
+The port imports torch and numpy and nothing of JAX or of the reference
+package; its entry points run on the card unless the caller asks for the
+CPU, and on a machine without a card they fail instead of falling back.
+"""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.core import algorithms as talg
+from repro_torch.kernels import build
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+ENV = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+
+
+def _modules():
+    return sorted("repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+
+
+def test_port_imports_no_jax_and_nothing_of_the_reference():
+    mods = _modules()
+    assert "repro_torch.kernels.ops" in mods and len(mods) > 20
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=ENV, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+
+
+def test_no_reference_or_jax_import_statement():
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [f"{f}: {m.group(0).strip()}" for f in files
+                 for m in IMPORT.finditer(f.read_text())]
+    assert offenders == []
+
+
+def test_launcher_runs_on_cpu_when_asked():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "granite_3_2b",
+         "--device", "cpu", "--batch", "2", "--prompt-len", "8", "--gen", "3"],
+        capture_output=True, text=True, env=ENV, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "sample:" in out.stdout
+
+
+def test_launcher_without_device_cpu_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works here")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "granite_3_2b",
+         "--gen", "2"], capture_output=True, text=True, env=ENV, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
+                         text=True, cwd=tmp_path, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed here")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.library("fused_gemm")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+    assert not (tmp_path / "kernels").exists()
+
+
+def test_library_name_follows_the_sources():
+    paths = {name: build._lib_path(name) for name in build.SOURCES}
+    assert len(set(paths.values())) == len(build.SOURCES)
+    for name, path in paths.items():
+        assert path.parent == build.BUILD_DIR and path.name.startswith(name + "-")
+    assert build.BUILD_DIR == REPO / "build" / "kernels"
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
+    return torch.device("cuda")
+
+
+# Run on a machine with a card (no JAX there): python -m pytest -q -m cuda
+# tests/test_torch_serve.py
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["strassen", "s555"])
+def test_cuda_kernels_match_plain_versions(name, cuda_device, rng):
+    tl = talg.get(name)
+    x = torch.tensor(rng.standard_normal((tl.m * 37, tl.k * 53)), dtype=torch.float32)
+    got = K.group_combine(x.to(cuda_device), tl.U).cpu()
+    torch.testing.assert_close(got, K.group_combine(x, tl.U), atol=1e-5, rtol=1e-6)
+    at = torch.tensor(rng.standard_normal((2, tl.R, 19, 23)), dtype=torch.float32)
+    bt = torch.tensor(rng.standard_normal((tl.R, 23, 21)), dtype=torch.float32)
+    got = K.batched_fused_gemm_combine_h(at.to(cuda_device), bt.to(cuda_device), tl.W)
+    torch.testing.assert_close(got.cpu(), K.batched_fused_gemm_combine_h(at, bt, tl.W),
+                               atol=1e-4, rtol=1e-5)
