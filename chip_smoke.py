@@ -5,11 +5,13 @@
 Phases, one JSON line each: device, build (nvcc for sm_90a from
 src/repro_torch/csrc), every kernel entry point against its plain PyTorch
 version (six schemes x f32/bf16 x ragged shapes and every shape the served
-model gives the kernel), the four ops
-pipelines against torch.matmul at granite shapes, kernel times, model parity
-(2 layers at full width, f32, strassen vs gemm), serving full granite_3_2b
-(40 layers, bf16, forced strassen, 4 requests x 16 tokens) with every
-kernel's launch count, and what auto mode decides on the h100_sxm profile.
+model gives the kernel; the int8 kernels likewise), the ops pipelines
+against torch.matmul at granite shapes, kernel times, model parity (2
+layers at full width, f32, strassen vs gemm), serving full granite_3_2b (40
+layers, bf16, 4 requests x 16 tokens) three ways with every kernel's launch
+count: forced strassen, int8 in auto mode (``--quant``) and int8 with forced
+strassen, each int8 run held to the fp run on the same weights; and what
+auto mode decides on the h100_sxm profile, fp and with the int8 tier.
 Any failure raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
@@ -37,6 +39,7 @@ from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core.hardware import H100_SXM  # noqa: E402
 from repro_torch.core.lcma import LCMA  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.quant_combine import scale_block  # noqa: E402
 from repro_torch.launch.serve import run_oneshot  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
@@ -46,17 +49,28 @@ DEV = "cuda"
 # value once, so they differ by at most one bf16 ulp (2**-7 relative).
 TOL = {torch.float32: {"combine": 1e-5, "fused": 1e-4},
        torch.bfloat16: {"combine": 1e-2, "fused": 1e-2}}
+# int8 kernels vs plain versions. Quant Group Combine: the same f32 sums and
+# scale, so q may differ by one step at most and the scales by 1e-6
+# relative. Fused int8: exact int sums, the same dequantize and Combine H
+# order; f32 out 1e-5 normalized, bf16 out one bf16 ulp.
+QUANT_TOL = {"dq": 1, "scale": 1e-6, torch.float32: 1e-5, torch.bfloat16: 1e-2}
 OPS_TOL = 1e-4          # f32 LCMA pipeline vs torch.matmul, normalized
+OPS_QUANT_TOL = 0.02    # f32 int8 LCMA vs torch.matmul, relative Frobenius
 PARITY_TOL = 1e-3       # 2-layer f32 prefill logits, strassen vs gemm, normalized
+QUALITY_TOL = 0.15      # int8 vs fp serve logits, prefix-matched relative
 
 SOURCES = {"group_combine": "src/repro_torch/csrc/group_combine.cu",
            "batched_group_combine": "src/repro_torch/csrc/group_combine.cu",
            "fused_gemm_combine_h": "src/repro_torch/csrc/fused_gemm.cu",
-           "batched_fused_gemm_combine_h": "src/repro_torch/csrc/fused_gemm.cu"}
+           "batched_fused_gemm_combine_h": "src/repro_torch/csrc/fused_gemm.cu",
+           "group_combine_quant": "src/repro_torch/csrc/quant_combine.cu",
+           "fused_gemm_combine_h_quant": "src/repro_torch/csrc/quant_combine.cu"}
 REPLACES = {"group_combine": "src/repro/kernels/group_combine.py:47",
             "batched_group_combine": "src/repro/kernels/group_combine.py:111",
             "fused_gemm_combine_h": "src/repro/kernels/fused_gemm.py:71",
-            "batched_fused_gemm_combine_h": "src/repro/kernels/fused_gemm.py:147"}
+            "batched_fused_gemm_combine_h": "src/repro/kernels/fused_gemm.py:147",
+            "group_combine_quant": "src/repro/kernels/quant_combine.py:59",
+            "fused_gemm_combine_h_quant": "src/repro/kernels/quant_combine.py:125"}
 
 
 def emit(phase: str, **kw) -> None:
@@ -180,6 +194,98 @@ def phase_kernels() -> None:
     emit("kernels", cases=n, worst_err=worst)
 
 
+def quant_combine_err(got, want) -> tuple[int, int, float]:
+    """(max |q - q_plain| in int8 steps, number of such flips, max relative
+    scale error) of the quant Group Combine against its plain version."""
+    (q, s), (q0, s0) = got, want
+    if q.shape != q0.shape or s.shape != s0.shape or q.dtype != torch.int8:
+        raise AssertionError(f"group_combine_quant: {q.shape} {q.dtype} / {s.shape} vs "
+                             f"plain {q0.shape} / {s0.shape}")
+    dq = (q.int() - q0.int()).abs()
+    return (int(dq.max().item()), int((dq > 0).sum().item()),
+            ((s - s0).abs() / s0).max().item())
+
+
+def check_quant_combine(what: str, got, want) -> tuple[int, int, float]:
+    dq, flips, ds = quant_combine_err(got, want)
+    if dq > QUANT_TOL["dq"] or not ds <= QUANT_TOL["scale"]:
+        raise AssertionError(f"{what}: |dq| {dq} ({flips} flips), scale error {ds}")
+    return dq, flips, ds
+
+
+def quant_combine_case(l, dtype, X, Y, by, gen):
+    x = randn(l.m * X, l.k * Y, dtype=dtype, gen=gen)
+    return (lambda: kernels.group_combine_quant(x, l.U, by),
+            lambda: ref.group_combine_quant_ref(x, l.U, by))
+
+
+def fused_quant_case(l, X, Y, Z, by, out_dtype, gen):
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, device=DEV, generator=gen, dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, device=DEV, generator=gen) * 0.02 + 1e-3
+
+    aq, bq = i8(l.R, X, Y), i8(l.R, Y, Z)
+    a_s, b_s = scales(l.R, X, Y // by), scales(l.R, Y // by, Z)
+    return (lambda: kernels.fused_gemm_combine_h_quant(aq, a_s, bq, b_s, l.W,
+                                                       out_dtype=out_dtype),
+            lambda: ref.fused_gemm_combine_h_quant_ref(aq, a_s, bq, b_s, l.W, out_dtype))
+
+
+# The products of the planned leaves (the LM head is never planned), at the
+# prefill and decode M of the served model.
+PROJ_PLANNED = [(M_, K, N) for M_, K, N in PROJ if N != 49408]
+
+
+def phase_quant_kernels() -> None:
+    """The two int8 kernels against their plain versions: every scheme, f32
+    and bf16, a ragged shape and every shape a planned leaf gives them
+    (the scale block ``by`` as ``kernels.quant_combine.scale_block`` sets it
+    for the weight)."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    worst = {"group_combine_quant": [0, 0, 0.0], "fused_gemm_combine_h_quant": {}}
+    n = 0
+    for l in schemes():
+        g = lambda M_, K, N: (cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n))  # noqa: E731
+        combine = [(37, 75, 25)] + [(X, Y, scale_block(Y)) for X, Y in sorted(
+            {(cdiv(M_, l.m), cdiv(K, l.k)) for M_, K, _ in PROJ_PLANNED})]
+        fused = [(37, 75, 45, 25)] + [(*g(*mkn), scale_block(g(*mkn)[1]))
+                                      for mkn in PROJ_PLANNED]
+        for dtype in (torch.float32, torch.bfloat16):
+            for X, Y, by in combine:
+                kfn, pfn = quant_combine_case(l, dtype, X, Y, by, gen)
+                got = kfn()
+                torch.cuda.synchronize()
+                dq, flips, ds = check_quant_combine(f"group_combine_quant/{l.name}/{dtype}",
+                                                    got, pfn())
+                n += 1
+                emit("kernel_case", kernel="group_combine_quant", scheme=l.name,
+                     dtype=str(dtype), X=X, Y=Y, by=by, max_dq=dq, flips=flips,
+                     scale_err=ds, tol=[QUANT_TOL["dq"], QUANT_TOL["scale"]])
+                w = worst["group_combine_quant"]
+                w[:] = [max(w[0], dq), w[1] + flips, max(w[2], ds)]
+            for X, Y, Z, by in fused:
+                kfn, pfn = fused_quant_case(l, X, Y, Z, by, dtype, gen)
+                got = kfn()
+                torch.cuda.synchronize()
+                want = pfn()
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    raise AssertionError(f"fused_gemm_combine_h_quant/{l.name}: {got.shape} "
+                                         f"{got.dtype} vs plain {want.shape} {want.dtype}")
+                a, e = err(got, want)
+                tol = QUANT_TOL[dtype]
+                n += 1
+                emit("kernel_case", kernel="fused_gemm_combine_h_quant", scheme=l.name,
+                     dtype=str(dtype), X=X, Y=Y, Z=Z, by=by, max_abs_err=a, err=e, tol=tol)
+                if not e <= tol:
+                    raise AssertionError(f"fused_gemm_combine_h_quant/{l.name}/{dtype} "
+                                         f"{(X, Y, Z, by)}: error {e} > {tol}")
+                wf = worst["fused_gemm_combine_h_quant"]
+                wf[str(dtype)] = max(wf.get(str(dtype), 0.0), e)
+    emit("quant_kernels", cases=n, worst=worst)
+
+
 def phase_ops() -> None:
     gen = torch.Generator(device=DEV).manual_seed(2)
     l = alg.get("strassen")
@@ -207,6 +313,38 @@ def phase_ops() -> None:
                 if not e <= OPS_TOL:
                     raise AssertionError(f"{name} M={M_} N={N}: error {e} > {OPS_TOL}")
             del a, b, a3, b3, results
+    # Offline Combine B + int8 of each planned weight in bf16: the
+    # group_combine kernel, then the plain absmax and rounding, against the
+    # plain version of the whole step.
+    for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)):
+        w = randn(K, N, dtype=torch.bfloat16, gen=gen)
+        by = scale_block(K // l.k)
+        dq, flips, ds = check_quant_combine(
+            f"quantize_b_blockwise {K}x{N}", kernels.quantize_b_blockwise(w, l.V, by),
+            ref.quantize_b_blockwise_ref(w, l.V, by))
+        emit("ops", fn="quantize_b_blockwise", K=K, N=N, by=by, max_dq=dq, flips=flips,
+             scale_err=ds, tol=[QUANT_TOL["dq"], QUANT_TOL["scale"]])
+    # The int8 pipeline through the engine: forced strassen with the int8
+    # tier, a weight planned with its B̃q, dense() -> falcon_matmul_quant.
+    with falcon.use(falcon.FalconConfig(mode="strassen", quantize=True)):
+        for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)):
+            b = randn(K, N, gen=gen)
+            pw = falcon.plan_weight(b, m_hint=256)
+            for M_ in (256, 4):
+                a = randn(M_, K, gen=gen)
+                before = kernels.fused_gemm_combine_h_quant.launches
+                got = falcon.dense(a, pw)
+                if kernels.fused_gemm_combine_h_quant.launches != before + 1:
+                    raise AssertionError("ops: dense() on a quantized weight did not "
+                                         "launch the int8 kernel")
+                want = a @ b
+                rel = ((got - want).norm() / want.norm()).item()
+                emit("ops", fn="falcon_matmul_quant (dense)", M=M_, K=K, N=N,
+                     rel_frobenius_err=rel, tol=OPS_QUANT_TOL)
+                if not rel <= OPS_QUANT_TOL:
+                    raise AssertionError(f"falcon_matmul_quant M={M_} K={K} N={N}: "
+                                         f"relative error {rel} > {OPS_QUANT_TOL}")
+            del b, pw
     torch.cuda.empty_cache()
 
 
@@ -247,22 +385,36 @@ def phase_times() -> dict:
     fa = H100_SXM.flops_for("float32")         # combines run on the CUDA cores
     out = {}
 
-    def record(name, kfn, pfn, flops, nbytes, peak, logical):
+    def record(name, kfn, pfn, flops, nbytes, peak, logical, library="matmul"):
+        """Time kernel ``name`` (``name@decode`` for a second call shape)
+        after checking it once more against its plain version. The library
+        yardstick is bf16 ``torch.matmul`` of the logical shape for a fused
+        kernel, or the ``library`` call where one is given (None: none)."""
+        kernel = name.split("@")[0]
         got = kfn()
         torch.cuda.synchronize()
-        a, e = err(got, pfn())
-        tol = TOL[bf]["fused" if "fused" in name else "combine"]
-        if not e <= tol:
-            raise AssertionError(f"time/{name}: error {e} > {tol}")
+        if kernel == "group_combine_quant":
+            a, _, e = check_quant_combine(f"time/{name}", got, pfn())
+            tol = QUANT_TOL["scale"]
+        else:
+            a, e = err(got, pfn())
+            tol = (QUANT_TOL[bf] if kernel.endswith("_quant")
+                   else TOL[bf]["fused" if "fused" in name else "combine"])
+            if not e <= tol:
+                raise AssertionError(f"time/{name}: error {e} > {tol}")
         ms, plain = time_ms(kfn), time_ms(pfn)
         Mq, Kq, Nq, G = logical
         xa = randn(G, Mq, Kq, dtype=bf, gen=gen) if G > 1 else randn(Mq, Kq, dtype=bf, gen=gen)
         xb = randn(G, Kq, Nq, dtype=bf, gen=gen) if G > 1 else randn(Kq, Nq, dtype=bf, gen=gen)
         matmul_ms = time_ms(lambda: torch.matmul(xa, xb))
+        if callable(library):
+            library_ms = time_ms(library)
+        else:
+            library_ms = matmul_ms if library == "matmul" and "fused" in name else None
         bms, by = bound_ms(flops, nbytes, peak)
         out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                     "library_ms": matmul_ms if "fused" in name else None,
-                     "matmul_ms": matmul_ms, "max_abs_err": a, "err": e, "tol": tol,
+                     "library_ms": library_ms, "matmul_ms": matmul_ms,
+                     "max_abs_err": a, "err": e, "tol": tol,
                      "logical_mkn": [Mq, Kq, Nq], "groups": G}
         emit("time", kernel=name, **out[name])
 
@@ -295,6 +447,36 @@ def phase_times() -> dict:
            lambda: ref.fused_gemm_combine_h_ref(at4, bt4, l.W),
            G * 2.0 * l.R * X * Y * Z, G * (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
            (64, 64, 80, G))
+    del at, bt, at4, bt4
+    # The int8 path (auto mode with --quant): mlp_up (2048 -> 8192) at
+    # prefill, M = 256, and at decode, M = 4. Y = 1024, by = 128.
+    fq = H100_SXM.flops_for("int8")
+    Y, Z = 1024, 4096
+    by = scale_block(Y)
+    w = randn(2048, 8192, dtype=bf, gen=gen)
+    bq, bs = kernels.quantize_b_blockwise(w, l.V, by)
+    del w
+    for M_, tag in ((256, ""), (4, "@decode")):
+        X = M_ // 2
+        a = randn(M_, 2048, dtype=bf, gen=gen)
+        record("group_combine_quant" + tag,
+               lambda: kernels.group_combine_quant(a, l.U, by),
+               lambda: ref.group_combine_quant_ref(a, l.U, by),
+               2.0 * l.nnz_u * X * Y + 2.0 * l.R * X * Y,
+               M_ * 2048 * it + l.R * X * Y + 4 * l.R * X * (Y // by), fa,
+               (M_, 2048, 8192, 1), library=None)
+        aq, as_ = kernels.group_combine_quant(a, l.U, by)
+        a8 = torch.randint(-127, 128, (M_, 2048), device=DEV, generator=gen, dtype=torch.int8)
+        b8 = torch.randint(-127, 128, (8192, 2048), device=DEV, generator=gen,
+                           dtype=torch.int8).t()
+        record("fused_gemm_combine_h_quant" + tag,
+               lambda: kernels.fused_gemm_combine_h_quant(aq, as_, bq, bs, l.W, out_dtype=bf),
+               lambda: ref.fused_gemm_combine_h_quant_ref(aq, as_, bq, bs, l.W, bf),
+               2.0 * l.R * X * Y * Z,
+               l.R * (X * Y + Y * Z) + 4 * l.R * (X + Z) * (Y // by) + 4 * X * Z * it, fq,
+               (M_, 2048, 8192, 1),
+               # torch._int_mm, the int8 product of the logical shape: M > 16 only
+               library=(lambda: torch._int_mm(a8, b8)) if M_ > 16 else None)
     torch.cuda.empty_cache()
     return out
 
@@ -326,55 +508,145 @@ def phase_parity() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve() -> dict:
-    cfg = dataclasses.replace(get_config("granite_3_2b"), falcon_mode="strassen")
-    params = M.init_params(cfg, 0, DEV)
+BATCH, PROMPT, GEN = 4, 64, 16
+
+
+def serve(phase: str, cfg, params, quantize: bool = False) -> tuple[dict, dict]:
+    """One full-width one-shot serve through ``run_oneshot``, the launch
+    counts set to 0 just before it and read just after. Emits the phase's
+    line, checks the tokens and logits, returns (result, launch counts)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    res = run_oneshot(cfg, batch=4, prompt_len=64, gen=16, seed=0, device=DEV,
-                      params=params)
+    res = run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, device=DEV,
+                      params=params, quantize=quantize)
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     logits = torch.stack(res["logits"])
     finite = bool(torch.isfinite(logits[..., :cfg.vocab_size]).all().item())
     tok = res["tokens"]
-    emit("serve", arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
-         mode=cfg.falcon_mode, batch=4, prompt_len=64, new_tokens=16,
-         n_precombined=res["n_precombined"], **res["timings"],
-         max_memory_allocated=peak, launches=counts, launches_by_phase=res["launches"],
-         logits_finite=finite, sample=tok[0].tolist())
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         mode=cfg.falcon_mode, quantize=quantize, batch=BATCH, prompt_len=PROMPT,
+         new_tokens=GEN, n_precombined=res["n_precombined"], quantized=res["quantized"],
+         **res["timings"], max_memory_allocated=peak, launches=counts,
+         launches_by_phase=res["launches"], logits_finite=finite, sample=tok[0].tolist())
+    if not finite or logits.shape[-1] != M.padded_vocab(cfg):
+        raise AssertionError(f"{phase}: logits not finite or of the wrong width")
+    if tok.shape != (BATCH, GEN) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
+        raise AssertionError(f"{phase}: tokens out of range: {tok}")
+    return res, counts
+
+
+def check_int8_launches(phase: str, res: dict, n_leaves: int, layers: int) -> None:
+    """Both int8 kernels ran once per quantized leaf and layer at prefill and
+    at every decode step."""
+    per_step = n_leaves * layers
+    want = {"prefill": per_step, "decode": per_step * (GEN - 1)}
+    for name in ("group_combine_quant", "fused_gemm_combine_h_quant"):
+        got = {p: res["launches"][p][name] for p in want}
+        if got != want:
+            raise AssertionError(f"{phase}: {name} launched {got}, expected {want}")
+
+
+def quality(phase: str, q: dict, fp: dict, vocab: int) -> None:
+    """int8 against fp serving on the same weights: the largest logit error
+    over the steps each request's tokens still agree (prefix-matched, as
+    tests/test_quant_serve.py), relative to that request's largest fp
+    logit."""
+    worst, compared = 0.0, 0
+    for b in range(BATCH):
+        scale = max(lg[b, :vocab].float().abs().max().item() for lg in fp["logits"])
+        for t in range(GEN):
+            if not torch.equal(q["tokens"][b, :t], fp["tokens"][b, :t]):
+                break
+            d = (q["logits"][t][b, :vocab].float() - fp["logits"][t][b, :vocab].float())
+            worst = max(worst, d.abs().max().item() / max(scale, 1e-30))
+            compared += 1
+    same = (q["tokens"] == fp["tokens"]).float().mean().item()
+    emit("quality", of=phase, steps_compared=compared, rel_logit_err=worst,
+         tol=QUALITY_TOL, token_agreement=same)
+    if compared < BATCH or not worst <= QUALITY_TOL:
+        raise AssertionError(f"{phase}: int8 vs fp logit error {worst} over {compared} "
+                             f"steps (tolerance {QUALITY_TOL})")
+
+
+def phase_serve() -> tuple[dict, dict]:
+    """Slice 1's path: bf16, forced strassen, every fp kernel. Returns the
+    launch counts and the run (the int8 forced run is held to it)."""
+    cfg = dataclasses.replace(get_config("granite_3_2b"), falcon_mode="strassen")
+    params = M.init_params(cfg, 0, DEV)
+    res, counts = serve("serve", cfg, params)
     if res["n_precombined"] != 7:
         raise AssertionError(f"serve: {res['n_precombined']} stacked leaves precombined, "
                              f"expected 7")
-    if min(counts.values()) <= 0:
+    fp_kernels = ("group_combine", "batched_group_combine", "fused_gemm_combine_h",
+                  "batched_fused_gemm_combine_h")
+    if min(counts[k] for k in fp_kernels) <= 0:
         raise AssertionError(f"serve: a kernel was never launched: {counts}")
-    if not finite or logits.shape[-1] != M.padded_vocab(cfg):
-        raise AssertionError("serve: logits not finite or of the wrong width")
-    if tok.shape != (4, 16) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
-        raise AssertionError(f"serve: tokens out of range: {tok}")
-    del res
-    profile_serve(cfg, params)
+    profile_serve("profile", cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return counts, {k: res[k] for k in ("logits", "tokens")}
+
+
+def phase_serve_quant() -> dict:
+    """The int8 path as a user starts it (``--quant``): auto mode on the
+    h100_sxm profile. The leaves it quantizes must be those the Decision
+    Module prices to int8 at the prefill M; both int8 kernels run at prefill
+    and every decode step. Held to the fp run (auto: every product on GEMM)
+    on the same weights. Returns the launch counts."""
+    cfg = get_config("granite_3_2b")
+    params = M.init_params(cfg, 0, DEV)
+    fcfg = dataclasses.replace(M.falcon_config_for(cfg), quantize=True)
+    priced = sorted(f"layers/{grp}/{name}" for grp in ("attn", "mlp")
+                    for name, w in params["layers"][grp].items()
+                    if falcon.plan(BATCH * PROMPT, *w.shape[-2:], fcfg, cfg.dtype,
+                                   precombined_b=True).quantized)
+    fp, _ = serve("serve_fp_auto", cfg, params)
+    res, counts = serve("serve_quant", cfg, params, quantize=True)
+    if sorted(res["quantized"]) != priced or priced != ["layers/mlp/mlp_gate",
+                                                        "layers/mlp/mlp_up"]:
+        raise AssertionError(f"serve_quant: quantized {res['quantized']}, the pricing "
+                             f"names {priced}")
+    check_int8_launches("serve_quant", res, len(priced), cfg.num_layers)
+    quality("serve_quant", res, fp, cfg.vocab_size)
+    del fp, res
+    profile_serve("profile_quant", cfg, params, quantize=True)
     del params
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_serve(cfg, params) -> None:
+def phase_serve_quant_forced(fp_forced: dict) -> None:
+    """Forced strassen with the int8 tier: all seven leaves int8, held to
+    the forced fp run of ``phase_serve`` on the same weights (seed 0)."""
+    cfg = dataclasses.replace(get_config("granite_3_2b"), falcon_mode="strassen")
+    params = M.init_params(cfg, 0, DEV)
+    res, _ = serve("serve_quant_forced", cfg, params, quantize=True)
+    if res["n_quantized"] != 7:
+        raise AssertionError(f"serve_quant_forced: {res['quantized']} quantized, "
+                             f"expected all 7 leaves")
+    check_int8_launches("serve_quant_forced", res, 7, cfg.num_layers)
+    quality("serve_quant_forced", res, fp_forced, cfg.vocab_size)
+    del params, res
+    torch.cuda.empty_cache()
+
+
+def profile_serve(phase: str, cfg, params, quantize: bool = False) -> None:
     """Where the time goes: device time by kernel over one more one-shot run
     (precombine, prefill, one decode step) under torch.profiler, and the
     share of that window the device was busy."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = run_oneshot(cfg, batch=4, prompt_len=64, gen=2, seed=0, device=DEV,
-                          params=params)
+        res = run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=2, seed=0, device=DEV,
+                          params=params, quantize=quantize)
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     us = lambda e: getattr(e, "self_device_time_total", 0)  # noqa: E731
     dev.sort(key=us, reverse=True)
     device_ms = sum(us(e) for e in dev) / 1e3
-    emit("profile", window="precombine + prefill + 1 decode step (profiler on)",
+    emit(phase, window="precombine + prefill + 1 decode step (profiler on)",
          wall_ms=wall_ms, timings=res["timings"],
          device_ms=device_ms if dev else "not measured",
          busy_share=device_ms / wall_ms if dev else "not measured",
@@ -386,14 +658,17 @@ def phase_decisions() -> None:
     shapes = {"w_q/w_o": (2048, 2048), "w_k/w_v": (2048, 512), "mlp_gate/up": (2048, 8192),
               "mlp_down": (8192, 2048), "lm_head": (2048, 49408)}
     cfg = falcon.FalconConfig()                      # auto mode on h100_sxm
-    out = {}
-    for M_ in (4, 256, 4096):
-        for name, (K, N) in shapes.items():
-            for pre in (False, True):
-                d = falcon.plan(M_, K, N, cfg, "bfloat16", precombined_b=pre)
-                key = f"M={M_} {name}{' precombined' if pre else ''}"
-                out[key] = d.algo.name if d.use_lcma else "gemm"
-    emit("decisions", hardware=cfg.hardware, decisions=out)
+    for quantize in (False, True):
+        c = dataclasses.replace(cfg, quantize=quantize)
+        out = {}
+        for M_ in (4, 256, 4096):
+            for name, (K, N) in shapes.items():
+                for pre in (False, True):
+                    d = falcon.plan(M_, K, N, c, "bfloat16", precombined_b=pre)
+                    key = f"M={M_} {name}{' precombined' if pre else ''}"
+                    out[key] = (f"{d.algo.name}/{d.precision} ({d.speedup:.3f}x)"
+                                if d.use_lcma else "gemm")
+        emit("decisions", hardware=cfg.hardware, quantize=quantize, decisions=out)
 
 
 def main() -> None:
@@ -410,11 +685,16 @@ def main() -> None:
     t0 = time.perf_counter()
     emit("build", seconds=build.build_all(), wall=time.perf_counter() - t0)
     phase_kernels()
+    phase_quant_kernels()
     phase_ops()
     times = phase_times()
     phase_parity()
-    counts = phase_serve()
+    counts, fp_forced = phase_serve()
+    # each path's kernels count launches from its own run
+    counts.update({k: v for k, v in phase_serve_quant().items() if k.endswith("_quant")})
+    phase_serve_quant_forced(fp_forced)
     phase_decisions()
+    emit("total", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": counts[k], "max_abs_err": times[k]["max_abs_err"],

@@ -8,6 +8,10 @@
 
     pw = falcon.plan_weight(w, m_hint=batch * prompt_len)   # offline Combine B
     y = falcon.dense(x, pw)                                 # serving fast path
+
+    with falcon.use(falcon.FalconConfig(quantize=True)):    # the int8 tier
+        pw = falcon.plan_weight(w, m_hint=256)   # also bakes int8 B̃q + scales
+        y = falcon.dense(x, pw)                  # int8 where the decision says
 """
 from __future__ import annotations
 

@@ -33,6 +33,11 @@ ApplyGroupedFn = Callable
 # apply_grouped_precombined(a3, bt, lcma, n_logical, cfg) -> C3 : grouped
 # serving path against precombined B̃ (R, K/k, N/n) or (G, R, K/k, N/n).
 ApplyGroupedPrecombinedFn = Callable
+# apply_quant(a2, bq, b_scales, lcma, n_logical, cfg) -> C : int8 serving
+# path against offline-quantized B̃q (R, K/k, N/n) int8 + f32 block scales
+# (the quantized PlannedWeight tier). None means the backend has no int8
+# path and the quantized tier is not servable on it.
+ApplyQuantFn = Callable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +49,7 @@ class Backend:
     apply_precombined: ApplyPrecombinedFn
     apply_grouped: ApplyGroupedFn
     apply_grouped_precombined: ApplyGroupedPrecombinedFn
+    apply_quant: ApplyQuantFn | None = None
     description: str = ""
 
 
@@ -55,13 +61,15 @@ def register_backend(name: str, impl, *,
                      apply_precombined: ApplyPrecombinedFn | None = None,
                      apply_grouped: ApplyGroupedFn | None = None,
                      apply_grouped_precombined: ApplyGroupedPrecombinedFn | None = None,
+                     apply_quant: ApplyQuantFn | None = None,
                      description: str = "", overwrite: bool = False) -> Backend:
     """Register an execution backend under ``name``.
 
     ``impl`` is a callable ``(a2, b, lcma, cfg) -> C`` or a ready-made
-    :class:`Backend`. A callable without the other entry points gets the
-    built-in kernel pipeline's for them. Re-registering an existing name
-    requires ``overwrite=True``.
+    :class:`Backend`. A callable without the other fp entry points gets the
+    built-in kernel pipeline's for them; ``apply_quant`` stays None unless
+    given, so such a backend serves no int8 tier. Re-registering an existing
+    name requires ``overwrite=True``.
     """
     if isinstance(impl, Backend):
         be = dataclasses.replace(impl, name=name)
@@ -72,7 +80,7 @@ def register_backend(name: str, impl, *,
             apply_grouped=apply_grouped or _cuda_apply_grouped,
             apply_grouped_precombined=(apply_grouped_precombined
                                        or _cuda_apply_grouped_precombined),
-            description=description)
+            apply_quant=apply_quant, description=description)
     else:
         raise TypeError(f"register_backend: impl must be callable or Backend, "
                         f"got {type(impl).__name__}")
@@ -127,9 +135,15 @@ def _cuda_apply_grouped_precombined(a3, bt, l, n_logical, cfg):
     return ops.falcon_grouped_matmul_precombined(a3, bt, l, n_logical)
 
 
+def _cuda_apply_quant(a2, bq, b_scales, l, n_logical, cfg):
+    from repro_torch.kernels import ops
+    return ops.falcon_matmul_quant(a2, bq, b_scales, l, n_logical)
+
+
 _REGISTRY["cuda"] = Backend(
     "cuda", _cuda_apply,
     apply_precombined=_cuda_apply_precombined,
     apply_grouped=_cuda_apply_grouped,
     apply_grouped_precombined=_cuda_apply_grouped_precombined,
+    apply_quant=_cuda_apply_quant,
     description="hand-written CUDA kernel pipeline (plain versions on CPU)")

@@ -35,7 +35,8 @@ __all__ = ["StageCost", "LCMAEstimate", "Decision", "GroupedDecision",
            "gemm_time", "estimate", "decide",
            "eq8_is_memory_bound", "eq10_profitable",
            "gemm_time_batched", "estimate_grouped",
-           "decide_batched", "batched_is_memory_bound"]
+           "decide_batched", "batched_is_memory_bound",
+           "estimate_quant", "estimate_grouped_quant"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +65,7 @@ class LCMAEstimate:
     lcma: LCMA
     stages: tuple[StageCost, ...]
     padded_shape: tuple[int, int, int]
+    precision: str = "fp"        # "fp" (io dtype) or "int8" (quantized tier)
 
     @property
     def time(self) -> float:
@@ -80,10 +82,15 @@ class Decision:
     gemm_seconds: float
     lcma_seconds: float | None
     estimates: tuple[LCMAEstimate, ...]
+    precision: str = "fp"        # "fp" or "int8": the winning tier's precision
 
     @property
     def use_lcma(self) -> bool:
         return self.algo is not None
+
+    @property
+    def quantized(self) -> bool:
+        return self.use_lcma and self.precision == "int8"
 
     @property
     def speedup(self) -> float:
@@ -220,11 +227,129 @@ def eq10_profitable(l: LCMA, M: int, N: int, K: int, hw: HardwareProfile | str,
     return num / den > hw.flops_for(dtype) / hw.beta
 
 
+# ---------------------------------------------------------------------------
+# Quantized (int8) tier (paper §IV-C: quantization fused into the Combines)
+#
+# The quantized pipeline (kernels/quant_combine.py) folds symmetric 127-level
+# block-scaled quantization into Combine A/B, runs the R-batched GEMM on int8
+# operands with an int32 accumulator, and dequantizes inside the fused
+# Combine-H epilogue. The cost model prices that pipeline:
+#
+#   * combine stages pay the quant pass (abs-max + scale) in flops, write the
+#     combined operand as int8 (1 B/elem) plus f32 scales (one per reduction
+#     block of _QUANT_BLOCK elements);
+#   * the GEMM stage reads int8 operands at the profile's int8 throughput
+#     (``hw.flops_for("int8")``; flops_mul when the profile has none);
+#   * the output is written once in the io dtype (dequantized on-chip).
+#
+# Eq. 8 deliberately does NOT gate this tier: the guard models same-dtype
+# traffic, and int8 operands cut the memory side, so a memory-bound fp GEMM
+# can still be a quantized-LCMA win. Selection is instead gated by the
+# accuracy budget: the static int8 error bound (stability pass, eps =
+# 1/(2*127)) must fit the caller's ``accuracy_budget``.
+# ---------------------------------------------------------------------------
+
+# Reduction-block depth of the block-scaled quantization (kernel default).
+_QUANT_BLOCK = 128
+
+
+def _quant_eligible(l: LCMA, accuracy_budget: float | None) -> bool:
+    """Static eligibility of scheme ``l`` for the int8 tier.
+
+    Requires (a) the quant reduction block cannot overflow the int32
+    accumulator, and (b) when a budget is set, the scheme's int8 error bound
+    fits it. Import is lazy: ``repro_torch.analysis`` imports ``core``.
+    """
+    from repro_torch.analysis import stability as _stab
+    if _QUANT_BLOCK > _stab.max_safe_accum_depth(32):
+        return False
+    if accuracy_budget is None:
+        return True
+    return l.stability.within_budget(accuracy_budget, "int8")
+
+
+def estimate_quant(l: LCMA, M: int, N: int, K: int,
+                   hw: HardwareProfile | str, dtype: str = "bfloat16",
+                   precombined_b: bool = False) -> LCMAEstimate:
+    """Per-stage cost of one *quantized* LCMA application.
+
+    ``dtype`` is the io dtype (A input, C output); the combined operands move
+    as int8 with f32 block scales. ``precombined_b=True`` models an
+    offline-quantized B̃q (the PlannedWeight path): no Combine-B stage, int8
+    B traffic only.
+    """
+    hw = _resolve_hw(hw)
+    by = _dtype_bytes(dtype)
+    m, k, n, R = l.m, l.k, l.n, l.R
+    Mp, Kp, Np = _pad_up(M, m), _pad_up(K, k), _pad_up(N, n)
+    Ms, Ks, Ns = Mp // m, Kp // k, Np // n
+    Ksb = -(-Ks // _QUANT_BLOCK)       # scale blocks along the reduction
+    Fa = hw.flops_add
+    Fq = hw.flops_for("int8") * hw.lcma_gemm_efficiency
+    stages = []
+
+    def stage(name, flops, nbytes, unit):
+        stages.append(StageCost(name, flops, nbytes, flops / unit, nbytes / hw.beta))
+
+    # Combine A + quantize: combine flops plus the quant pass (abs-max scan
+    # and scale multiply, ~2 ops/elem of the combined tensor); reads fp A,
+    # writes int8 Ã plus one f32 scale per block.
+    stage("combine_a+quant",
+          (l.nnz_u - R) * Ms * Ks + 2.0 * R * Ms * Ks,
+          Mp * Kp * by + R * Ms * Ks + R * Ms * Ksb * 4, Fa)
+    if not precombined_b:
+        stage("combine_b+quant",
+              (l.nnz_v - R) * Ks * Ns + 2.0 * R * Ks * Ns,
+              Kp * Np * by + R * Ks * Ns + R * Ksb * Ns * 4, Fa)
+    # Fused int8 GEMM + dequantizing Combine H: int8 operands (1 B/elem),
+    # f32 scales, one fp output write.
+    stage("gemm+combine_h[int8]", 2.0 * R * Ms * Ns * Ks,
+          R * (Ms * Ks + Ks * Ns) + R * (Ms * Ksb + Ksb * Ns) * 4
+          + Mp * Np * by, Fq)
+    return LCMAEstimate(l, tuple(stages), (Mp, Np, Kp), precision="int8")
+
+
+def estimate_grouped_quant(l: LCMA, B: int, M: int, N: int, K: int,
+                           hw: HardwareProfile | str, dtype: str = "bfloat16",
+                           precombined_b: bool = False,
+                           shared_b: bool = False) -> LCMAEstimate:
+    """Grouped analogue of :func:`estimate_quant` (see :func:`estimate_grouped`
+    for the B-scaling and ``eff_B`` launch-amortization model)."""
+    hw = _resolve_hw(hw)
+    by = _dtype_bytes(dtype)
+    m, k, n, R = l.m, l.k, l.n, l.R
+    Mp, Kp, Np = _pad_up(M, m), _pad_up(K, k), _pad_up(N, n)
+    Ms, Ks, Ns = Mp // m, Kp // k, Np // n
+    Ksb = -(-Ks // _QUANT_BLOCK)
+    nb = 1 if shared_b else B
+    Fa = hw.flops_add
+    eff = hw.lcma_gemm_efficiency
+    eff_b = B * eff / (B * eff + 1.0 - eff)
+    Fq = hw.flops_for("int8") * eff_b
+    stages = []
+
+    def stage(name, flops, nbytes, unit):
+        stages.append(StageCost(name, flops, nbytes, flops / unit, nbytes / hw.beta))
+
+    stage("combine_a+quant",
+          ((l.nnz_u - R) * Ms * Ks + 2.0 * R * Ms * Ks) * B,
+          (Mp * Kp * by + R * Ms * Ks + R * Ms * Ksb * 4) * B, Fa)
+    if not precombined_b:
+        stage("combine_b+quant",
+              ((l.nnz_v - R) * Ks * Ns + 2.0 * R * Ks * Ns) * nb,
+              (Kp * Np * by + R * Ks * Ns + R * Ksb * Ns * 4) * nb, Fa)
+    stage("gemm+combine_h[int8]", 2.0 * R * Ms * Ns * Ks * B,
+          B * (R * Ms * Ks + R * Ms * Ksb * 4 + Mp * Np * by)
+          + nb * (R * Ks * Ns + R * Ksb * Ns * 4), Fq)
+    return LCMAEstimate(l, tuple(stages), (Mp, Np, Kp), precision="int8")
+
+
 def decide(M: int, N: int, K: int, hw: HardwareProfile | str, dtype: str = "bfloat16",
            candidates: list[LCMA] | None = None,
            precombined_b: bool = False,
            min_speedup: float = 1.0,
-           accuracy_budget: float | None = None) -> Decision:
+           accuracy_budget: float | None = None,
+           quantize: bool = False) -> Decision:
     """Select the best LCMA for (M, N, K) or fall back to standard GEMM.
 
     ``hw`` may be a ``HardwareProfile`` or a profile *name*; names resolve
@@ -235,6 +360,13 @@ def decide(M: int, N: int, K: int, hw: HardwareProfile | str, dtype: str = "bflo
     error bound (``l.stability.error_bound(dtype)``) exceeds the given
     relative-error ceiling; filtered-out schemes never get priced, so a
     numerically aggressive scheme cannot win on speed alone.
+
+    ``quantize=True`` additionally prices every budget-eligible candidate's
+    int8 tier (:func:`estimate_quant`) and picks the best (scheme, precision)
+    pair jointly; the winner's tier is reported in ``Decision.precision``.
+    The Eq. 8 fast path only skips the *fp* estimates — the quantized tier
+    moves less operand traffic, so it stays in the running even when the fp
+    GEMM is memory-bound.
     """
     hw = _resolve_hw(hw)
     t_gemm = gemm_time(M, N, K, hw, dtype)
@@ -242,13 +374,21 @@ def decide(M: int, N: int, K: int, hw: HardwareProfile | str, dtype: str = "bflo
         candidates = algorithms.candidates()
     candidates = _filter_by_budget(candidates, accuracy_budget, dtype)
     if eq8_is_memory_bound(M, N, K, hw, dtype):
-        # Eq. 8 fast path: memory-bound GEMM => no LCMA can win.
-        return Decision(M, N, K, dtype, None, t_gemm, None, ())
-    ests = tuple(estimate(l, M, N, K, hw, dtype, precombined_b=precombined_b)
-                 for l in candidates)
+        # Eq. 8 fast path: memory-bound GEMM => same-precision LCMA
+        # cannot win. The quantized tier is exempt (see docstring).
+        if not quantize:
+            return Decision(M, N, K, dtype, None, t_gemm, None, ())
+        ests: tuple[LCMAEstimate, ...] = ()
+    else:
+        ests = tuple(estimate(l, M, N, K, hw, dtype, precombined_b=precombined_b)
+                     for l in candidates)
+    if quantize:
+        ests += tuple(estimate_quant(l, M, N, K, hw, dtype, precombined_b=precombined_b)
+                      for l in candidates if _quant_eligible(l, accuracy_budget))
     best = min(ests, key=lambda e: e.time, default=None)
     if best is not None and best.time * min_speedup < t_gemm:
-        return Decision(M, N, K, dtype, best.lcma, t_gemm, best.time, ests)
+        return Decision(M, N, K, dtype, best.lcma, t_gemm, best.time, ests,
+                        precision=best.precision)
     return Decision(M, N, K, dtype, None, t_gemm, None, ests)
 
 
@@ -345,13 +485,16 @@ def decide_batched(B: int, M: int, N: int, K: int, hw: HardwareProfile | str,
                    candidates: list[LCMA] | None = None,
                    precombined_b: bool = False, shared_b: bool = False,
                    min_speedup: float = 1.0,
-                   accuracy_budget: float | None = None) -> GroupedDecision:
+                   accuracy_budget: float | None = None,
+                   quantize: bool = False) -> GroupedDecision:
     """Select the best LCMA for a grouped contraction, or batched GEMM.
 
     The grouped analogue of :func:`decide`: one Decision for the whole
     ``B x (M, K) @ (K, N)`` group. ``B=1`` degenerates to the 2-D model
     (same estimates as ``decide``). ``accuracy_budget`` filters candidates
-    by static error bound exactly as in :func:`decide`.
+    by static error bound exactly as in :func:`decide`; ``quantize=True``
+    prices the int8 tier jointly (and bypasses the grouped Eq. 8 guard for
+    it), exactly as in :func:`decide`.
     """
     hw = _resolve_hw(hw)
     t_gemm = gemm_time_batched(B, M, N, K, hw, dtype, shared_b=shared_b)
@@ -359,14 +502,23 @@ def decide_batched(B: int, M: int, N: int, K: int, hw: HardwareProfile | str,
         candidates = algorithms.candidates()
     candidates = _filter_by_budget(candidates, accuracy_budget, dtype)
     if batched_is_memory_bound(B, M, N, K, hw, dtype, shared_b=shared_b):
-        return GroupedDecision(M, N, K, dtype, None, t_gemm, None, (),
-                               B=B, shared_b=shared_b)
-    ests = tuple(estimate_grouped(l, B, M, N, K, hw, dtype,
-                                  precombined_b=precombined_b, shared_b=shared_b)
-                 for l in candidates)
+        if not quantize:
+            return GroupedDecision(M, N, K, dtype, None, t_gemm, None, (),
+                                   B=B, shared_b=shared_b)
+        ests: tuple[LCMAEstimate, ...] = ()
+    else:
+        ests = tuple(estimate_grouped(l, B, M, N, K, hw, dtype,
+                                      precombined_b=precombined_b, shared_b=shared_b)
+                     for l in candidates)
+    if quantize:
+        ests += tuple(estimate_grouped_quant(l, B, M, N, K, hw, dtype,
+                                             precombined_b=precombined_b,
+                                             shared_b=shared_b)
+                      for l in candidates if _quant_eligible(l, accuracy_budget))
     best = min(ests, key=lambda e: e.time, default=None)
     if best is not None and best.time * min_speedup < t_gemm:
         return GroupedDecision(M, N, K, dtype, best.lcma, t_gemm, best.time,
-                               ests, B=B, shared_b=shared_b)
+                               ests, precision=best.precision,
+                               B=B, shared_b=shared_b)
     return GroupedDecision(M, N, K, dtype, None, t_gemm, None, ests,
                            B=B, shared_b=shared_b)

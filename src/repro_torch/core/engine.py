@@ -11,7 +11,8 @@
 * **Backends** — execution strategies resolve through the
   ``core.backends`` registry (``FalconConfig.backend`` is just a name).
 * **Precombined weights** — :class:`PlannedWeight` carries a weight with its
-  chosen LCMA and offline-combined B̃ (paper §IV-C "offline Combine B");
+  chosen LCMA and offline-combined B̃ (paper §IV-C "offline Combine B"),
+  and under ``FalconConfig.quantize`` its int8 B̃q with block scales;
   ``dense``/``dot_general``/``matmul`` accept it, and
   :func:`precombine_params` lifts a whole param tree.
 
@@ -27,7 +28,7 @@ import math
 import torch
 
 from . import algorithms, backends
-from .falcon_gemm import FalconConfig, plan, plan_batched, precombine_weights
+from .falcon_gemm import FalconConfig, _pad2, plan, plan_batched, precombine_weights
 from .lcma import LCMA
 
 __all__ = ["use", "current_config", "active_config", "config_scope",
@@ -90,7 +91,13 @@ class PlannedWeight:
     ``dense`` / ``matmul`` / ``dot_general`` accept a PlannedWeight wherever
     a (K, N) weight matrix is expected. ``algo is None`` marks a weight the
     Decision Module left on standard GEMM. Stacked weights (a leading layer
-    dim) hold stacked tensors; ``pw[i]`` slices both.
+    dim) hold stacked tensors; ``pw[i]`` slices all of them.
+
+    Planned under ``cfg.quantize``, the weight also carries the
+    offline-quantized B̃q (int8) and its f32 block scales
+    (``kernels.quant_combine.quantize_b_blockwise``), so the serve path can
+    route through the backend's int8 ``apply_quant`` pipeline whenever the
+    Decision Module picks the quantized tier at the actual M.
     """
 
     w: torch.Tensor | None    # original weight (K, N) [or (L, K, N)]; None if dropped
@@ -98,6 +105,8 @@ class PlannedWeight:
     algo: str | None          # LCMA scheme name; None => standard GEMM
     k: int                    # logical K of the matrix (trailing dims)
     n: int                    # logical N
+    bq: torch.Tensor | None = None        # int8 B̃q (R, K/k, N/n) [or (L, ...)]
+    b_scales: torch.Tensor | None = None  # f32 block scales (R, (K/k)/by, N/n)
 
     @property
     def lcma(self) -> LCMA | None:
@@ -107,11 +116,16 @@ class PlannedWeight:
     def precombined(self) -> bool:
         return self.bt is not None
 
+    @property
+    def quantized(self) -> bool:
+        return self.bq is not None
+
     def __getitem__(self, idx) -> "PlannedWeight":
-        return PlannedWeight(
-            w=None if self.w is None else self.w[idx],
-            bt=None if self.bt is None else self.bt[idx],
-            algo=self.algo, k=self.k, n=self.n)
+        def take(t):
+            return None if t is None else t[idx]
+        return PlannedWeight(w=take(self.w), bt=take(self.bt), algo=self.algo,
+                             k=self.k, n=self.n, bq=take(self.bq),
+                             b_scales=take(self.b_scales))
 
 
 def plan_weight(w: torch.Tensor, cfg: FalconConfig | None = None,
@@ -121,7 +135,10 @@ def plan_weight(w: torch.Tensor, cfg: FalconConfig | None = None,
     The Decision Module is consulted with ``precombined_b=True`` at an
     activation-rows hint ``m_hint`` (use the serving prefill M). Weights of
     rank 3 are treated as stacked (leading layer dim) and combined per
-    slice, in one grouped launch.
+    slice, in one grouped launch. Under ``cfg.quantize`` (on a backend with
+    an int8 path) the int8 B̃q and its scales are baked too, whichever tier
+    won at ``m_hint``: the serve-time re-decision picks fp or int8 at the
+    actual M, so both must be available.
     ``keep_weight=False`` drops the raw weight; the precombined path is then
     always taken.
     """
@@ -135,9 +152,35 @@ def plan_weight(w: torch.Tensor, cfg: FalconConfig | None = None,
     d = plan(m_hint, K, N, cfg, dtype, precombined_b=True)
     if not d.use_lcma:
         return PlannedWeight(w=w, bt=None, algo=None, k=K, n=N)
+    l = d.algo
+    bq = b_scales = None
+    if cfg.quantize and backends.get_backend(cfg.backend).apply_quant is not None:
+        bq, b_scales = _quantize_weight(w, l)
     return PlannedWeight(w=w if keep_weight else None,
-                         bt=precombine_weights(w, d.algo),
-                         algo=d.algo.name, k=K, n=N)
+                         bt=precombine_weights(w, l),
+                         algo=l.name, k=K, n=N, bq=bq, b_scales=b_scales)
+
+
+def _quantize_weight(w: torch.Tensor, l: LCMA, by: int | None = None):
+    """Offline Combine B + blockwise int8 quantization of a weight (K, N),
+    or of a stack (L, K, N) one slice at a time, so that a stack's f32 B̃
+    never exists whole.
+
+    Returns ``(B̃q int8 (R, K/k, N/n), f32 scales (R, (K/k)/by, N/n))``, each
+    with the stack's leading dim. ``by`` defaults to
+    ``kernels.quant_combine.scale_block`` of the combined K.
+    """
+    from repro_torch.kernels.quant_combine import quantize_b_blockwise, scale_block
+    w3 = w if w.ndim == 3 else w[None]
+    Y, Z = -(-w.shape[-2] // l.k), -(-w.shape[-1] // l.n)
+    by = by or scale_block(Y)
+    bq = torch.empty((w3.shape[0], l.R, Y, Z), dtype=torch.int8, device=w.device)
+    scales = torch.empty((w3.shape[0], l.R, Y // by, Z), dtype=torch.float32,
+                         device=w.device)
+    for i in range(w3.shape[0]):
+        bq[i], scales[i] = quantize_b_blockwise(
+            _pad2(w3[i], l.k, l.n).contiguous(), l.V, by=by)
+    return (bq, scales) if w.ndim == 3 else (bq[0], scales[0])
 
 
 # The dense decoder's projections (the reference's list less its MoE and
@@ -187,21 +230,29 @@ def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
     if pw.algo is None:
         return torch.matmul(x, pw.w)
     x2 = x.reshape(-1, K)
+    use_quant = False
     if cfg.mode == pw.algo or pw.w is None:
         use_pre = True           # forced scheme, or raw weight dropped
+        use_quant = pw.quantized and cfg.quantize
     elif not cfg.enabled or cfg.mode == "gemm":
         use_pre = False
     else:
         # Re-decide for the *actual* M (decode M is tiny, prefill M is large)
         # with Combine B free; restrict candidates to the precombined scheme.
+        # cfg.quantize rides through the replace, so the decision also picks
+        # the precision tier: int8 routes to the baked quant buffers below.
         d = plan(x2.shape[0], K, pw.n,
                  dataclasses.replace(cfg, mode="auto", candidates=(pw.algo,)),
                  _dtype_name(x), precombined_b=True)
         use_pre = d.use_lcma
+        use_quant = pw.quantized and d.quantized
     if not use_pre:
         return torch.matmul(x, pw.w)
     be = backends.get_backend(cfg.backend)
-    out2 = be.apply_precombined(x2, pw.bt, pw.lcma, pw.n, cfg)
+    if use_quant and be.apply_quant is not None:
+        out2 = be.apply_quant(x2, pw.bq, pw.b_scales, pw.lcma, pw.n, cfg)
+    else:
+        out2 = be.apply_precombined(x2, pw.bt, pw.lcma, pw.n, cfg)
     return out2.reshape(*lead, pw.n)
 
 
@@ -241,7 +292,11 @@ def _apply_planned_grouped(a3: torch.Tensor, pw: PlannedWeight,
 
 def _dispatch2d(a2: torch.Tensor, b2: torch.Tensor,
                 cfg: FalconConfig) -> torch.Tensor:
-    """Planned 2-D contraction: plan(), then the backend's LCMA or GEMM."""
+    """Planned 2-D contraction: plan(), then the backend's LCMA or GEMM.
+
+    As in the reference, a decision for the int8 tier runs the fp LCMA here
+    (only ``use_lcma`` is read): int8 operands exist only for PlannedWeights.
+    """
     M, K = a2.shape
     d = plan(M, K, b2.shape[1], cfg, _dtype_name(a2))
     if d.use_lcma:
@@ -253,7 +308,8 @@ def _dispatch_grouped(a3: torch.Tensor, b: torch.Tensor,
                       cfg: FalconConfig) -> torch.Tensor:
     """Planned grouped contraction: one plan_batched decision for the group.
 
-    ``b`` is (K, N) shared by the group or (G, K, N) per group.
+    ``b`` is (K, N) shared by the group or (G, K, N) per group. An int8-tier
+    decision runs the fp grouped LCMA, as in the reference.
     """
     G, M, K = a3.shape
     d = plan_batched(G, M, K, b.shape[-1], cfg, _dtype_name(a3),

@@ -43,6 +43,11 @@ class FalconConfig:
     # Higham-style relative-error bound (``LCMA.stability.error_bound``)
     # exceeds the budget are rejected BEFORE pricing. None disables.
     accuracy_budget: float | None = None
+    # Put the int8-quantized tier into the Decision Module's search: every
+    # budget-eligible candidate is additionally priced quantized
+    # (``decision.estimate_quant``) and the winner's tier lands in
+    # ``Decision.precision``. PlannedWeights then also carry int8 B̃q.
+    quantize: bool = False
     # Per-device scaling of (M, K, N): number of shards per dim.
     shards: tuple[int, int, int] = (1, 1, 1)
     # Memoize auto-mode Decisions in the process plan cache.
@@ -124,14 +129,14 @@ def plan(M: int, K: int, N: int, cfg: FalconConfig, dtype: str = "bfloat16",
             precombined_b=precombined_b, mode=cfg.mode,
             candidates=cfg.candidates, max_grid=cfg.max_grid,
             min_speedup=cfg.min_speedup,
-            accuracy_budget=cfg.accuracy_budget)
+            accuracy_budget=cfg.accuracy_budget, quantize=cfg.quantize)
         hit = cache.lookup(key)
         if hit is not None:
             return hit
     d = dec.decide(Ml, Nl, Kl, cfg.profile, dtype,
                    candidates=cfg.candidate_schemes(),
                    precombined_b=precombined_b, min_speedup=cfg.min_speedup,
-                   accuracy_budget=cfg.accuracy_budget)
+                   accuracy_budget=cfg.accuracy_budget, quantize=cfg.quantize)
     if cache is not None:
         cache.insert(key, d)
     return d
@@ -174,7 +179,7 @@ def plan_batched(B: int, M: int, K: int, N: int, cfg: FalconConfig,
             precombined_b=precombined_b, mode=cfg.mode,
             candidates=cfg.candidates, max_grid=cfg.max_grid,
             min_speedup=cfg.min_speedup, batch=B, shared_b=shared_b,
-            accuracy_budget=cfg.accuracy_budget)
+            accuracy_budget=cfg.accuracy_budget, quantize=cfg.quantize)
         hit = cache.lookup(key)
         if isinstance(hit, dec.GroupedDecision):
             return hit
@@ -182,7 +187,8 @@ def plan_batched(B: int, M: int, K: int, N: int, cfg: FalconConfig,
                            candidates=cfg.candidate_schemes(),
                            precombined_b=precombined_b, shared_b=shared_b,
                            min_speedup=cfg.min_speedup,
-                           accuracy_budget=cfg.accuracy_budget)
+                           accuracy_budget=cfg.accuracy_budget,
+                           quantize=cfg.quantize)
     if cache is not None:
         cache.insert(key, d)
     return d

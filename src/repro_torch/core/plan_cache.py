@@ -92,7 +92,8 @@ def plan_key(M: int, K: int, N: int, hw: HardwareProfile, dtype: str, *,
              mode: str = "auto", candidates: tuple[str, ...] | None = None,
              max_grid: int = 5, min_speedup: float = 1.0,
              batch: int = 1, shared_b: bool = False,
-             accuracy_budget: float | None = None) -> str:
+             accuracy_budget: float | None = None,
+             quantize: bool = False) -> str:
     """Cache key for one Decision-Module invocation (local, per-device shape).
 
     ``batch > 1`` keys a *grouped* decision (``plan_batched``): the whole
@@ -103,6 +104,10 @@ def plan_key(M: int, K: int, N: int, hw: HardwareProfile, dtype: str, *,
     ``accuracy_budget`` appends an ``ab=`` token only when a budget is set:
     a budget narrows the candidate set statically (stability-pass filter), so
     a budgeted plan must not alias the unbudgeted one.
+
+    ``quantize`` appends a ``quant=1`` token only when the int8 tier was in
+    the candidate search (the same conditional-token rule: fp-only keys keep
+    their format).
     """
     cands = ",".join(candidates) if candidates is not None else f"grid<={max_grid}"
     shape = f"{M}x{K}x{N}" if batch == 1 else \
@@ -114,6 +119,8 @@ def plan_key(M: int, K: int, N: int, hw: HardwareProfile, dtype: str, *,
     ]
     if accuracy_budget is not None:
         parts.append(f"ab={accuracy_budget:g}")
+    if quantize:
+        parts.append("quant=1")
     return "|".join(parts)
 
 
@@ -164,6 +171,8 @@ def _encode(d: dec.Decision) -> dict:
         # cache-audit pass both prove the cached decision still refers to the
         # coefficients it priced (a renamed/edited scheme drops the entry).
         out["algo_fp"] = d.algo.fingerprint
+    if d.precision != "fp":
+        out["prec"] = d.precision
     if isinstance(d, dec.GroupedDecision):
         out["B"] = d.B
         out["shared_b"] = d.shared_b
@@ -186,6 +195,7 @@ def _decode(payload: dict) -> dec.Decision | None:
             lcma_seconds=(None if payload["lcma_seconds"] is None
                           else float(payload["lcma_seconds"])),
             estimates=(),
+            precision=str(payload.get("prec", "fp")),
         )
         if "B" in payload:   # grouped entry (plan_batched)
             return dec.GroupedDecision(B=int(payload["B"]),

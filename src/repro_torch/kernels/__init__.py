@@ -2,11 +2,14 @@
 from .fused_gemm import batched_fused_gemm_combine_h, fused_gemm_combine_h
 from .group_combine import batched_group_combine, group_combine
 from .ops import (falcon_grouped_matmul, falcon_grouped_matmul_precombined,
-                  falcon_matmul, falcon_matmul_precombined)
+                  falcon_matmul, falcon_matmul_precombined, falcon_matmul_quant)
+from .quant_combine import (fused_gemm_combine_h_quant, group_combine_quant,
+                            quantize_b_blockwise)
 
 # every kernel entry point; each carries its launch count as ``.launches``
 KERNELS = (group_combine, batched_group_combine, fused_gemm_combine_h,
-           batched_fused_gemm_combine_h)
+           batched_fused_gemm_combine_h, group_combine_quant,
+           fused_gemm_combine_h_quant)
 
 
 def reset_launch_counts() -> None:
@@ -21,5 +24,7 @@ def launch_counts() -> dict[str, int]:
 __all__ = ["group_combine", "batched_group_combine", "fused_gemm_combine_h",
            "batched_fused_gemm_combine_h", "falcon_matmul",
            "falcon_matmul_precombined", "falcon_grouped_matmul",
-           "falcon_grouped_matmul_precombined", "KERNELS",
+           "falcon_grouped_matmul_precombined", "falcon_matmul_quant",
+           "group_combine_quant", "fused_gemm_combine_h_quant",
+           "quantize_b_blockwise", "KERNELS",
            "reset_launch_counts", "launch_counts"]

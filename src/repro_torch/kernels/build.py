@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <repo>/src/repro_torch/kernels/build.py -> <repo>/build/kernels
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("group_combine", "fused_gemm")
+SOURCES = ("group_combine", "fused_gemm", "quant_combine")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
@@ -41,6 +41,13 @@ _SIGNATURES = {
         # bt_group_stride, bx, bz, stream
         "falcon_fused_gemm_combine_h": [_I] + [_P] * 4 + [_I] * 8
         + [ctypes.c_longlong, _I, _I, _P],
+    },
+    "quant_combine": {
+        # device, in, q, scales, table, dtype, R, d1, d2, X, Y, by, warps, stream
+        "falcon_group_combine_quant": [_I] + [_P] * 4 + [_I] * 8 + [_P],
+        # device, aq, as, bq, bs, out, table, out_dtype, R, mn, X, Y, Z, by,
+        # aligned, bx, bz, stream
+        "falcon_fused_gemm_quant": [_I] + [_P] * 6 + [_I] * 10 + [_P],
     },
 }
 

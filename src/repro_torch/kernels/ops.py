@@ -3,8 +3,10 @@
 ``falcon_matmul`` runs
   Group Combine A  ->  Group Combine B  ->  fused GEMM + Group Combine H
 with all padding/unpadding handled here so the kernels see grid-divisible
-operands (they mask their own ragged tile edges). On CPU tensors every
-kernel wrapper takes its plain version, so the same pipeline runs in tests.
+operands (they mask their own ragged tile edges). ``falcon_matmul_quant``
+is the int8 serving variant against offline-quantized weights. On CPU
+tensors every kernel wrapper takes its plain version, so the same pipelines
+run in tests.
 """
 from __future__ import annotations
 
@@ -16,9 +18,11 @@ from repro_torch.core.lcma import LCMA
 from repro_torch.core.falcon_gemm import _pad2, _pad3
 from .fused_gemm import batched_fused_gemm_combine_h, fused_gemm_combine_h
 from .group_combine import batched_group_combine, group_combine
+from .quant_combine import fused_gemm_combine_h_quant, group_combine_quant
 
 __all__ = ["falcon_matmul", "falcon_matmul_precombined",
-           "falcon_grouped_matmul", "falcon_grouped_matmul_precombined"]
+           "falcon_grouped_matmul", "falcon_grouped_matmul_precombined",
+           "falcon_matmul_quant"]
 
 
 def _check_k(ap: torch.Tensor, bt: torch.Tensor, l: LCMA, K: int, what: str):
@@ -102,4 +106,24 @@ def falcon_grouped_matmul_precombined(a3: torch.Tensor, bt: torch.Tensor,
                          f"differ: {tuple(a3.shape)} vs B̃ {tuple(bt.shape)}")
     at = batched_group_combine(ap, l.U)
     cp = batched_fused_gemm_combine_h(at, bt, l.W, out_dtype=a3.dtype)
+    return _reassemble(cp, M, n_logical)
+
+
+def falcon_matmul_quant(a: torch.Tensor, bq: torch.Tensor, b_scales: torch.Tensor,
+                        l: LCMA, n_logical: int) -> torch.Tensor:
+    """Quantized serving pipeline against offline-quantized B̃q + scales.
+
+    The int8 variant of :func:`falcon_matmul_precombined`: the quantizing
+    Group Combine A (int8 Ã and per-(row, K-block) f32 scales in one pass
+    over A), then the fused int8 GEMM + dequantizing Combine H. ``bq``
+    (R, K/k, N/n) int8 and ``b_scales`` (R, (K/k)/by, N/n) come from
+    ``quantize_b_blockwise``; A's scale block is forced to B's ``by`` so the
+    two block-scale grids line up. C comes out in ``a``'s dtype.
+    """
+    M, K = a.shape
+    ap = _pad2(a, l.m, l.k).contiguous()
+    _check_k(ap, bq, l, K, "falcon_matmul_quant")
+    by = bq.shape[-2] // b_scales.shape[-2]
+    aq, a_scales = group_combine_quant(ap, l.U, by)
+    cp = fused_gemm_combine_h_quant(aq, a_scales, bq, b_scales, l.W, out_dtype=a.dtype)
     return _reassemble(cp, M, n_logical)

@@ -11,7 +11,9 @@ import torch
 from repro_torch.core.lcma import LCMA
 
 __all__ = ["group_combine_ref", "fused_gemm_combine_h_ref", "matmul_ref",
-           "lcma_matmul_ref", "grouped_lcma_matmul_ref", "split_blocks"]
+           "lcma_matmul_ref", "grouped_lcma_matmul_ref", "split_blocks",
+           "group_combine_quant_ref", "fused_gemm_combine_h_quant_ref",
+           "quantize_blocks_ref", "quantize_b_blockwise_ref"]
 
 
 def _coeff(c: np.ndarray, device) -> torch.Tensor:
@@ -87,3 +89,115 @@ def grouped_lcma_matmul_ref(a3: torch.Tensor, b: torch.Tensor, l: LCMA,
                          f"(K, N) | (G, K, N), got {tuple(a3.shape)} @ "
                          f"{tuple(b.shape)}")
     return lcma_matmul_ref(a3, b, l, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 tier. The reference's quantized kernels fix the order of every f32
+# operation; these versions keep it, so the CUDA kernels, which keep it too,
+# agree with both bit for bit on the same inputs.
+# ---------------------------------------------------------------------------
+
+_INV127 = float(np.float32(1) / np.float32(127))   # f32(1/127), exact as a float
+
+
+def _signed_sum(terms) -> torch.Tensor | None:
+    """Sum ``(c, t)`` in the given order as the reference's kernels do:
+    ``t``, ``-t`` or ``t * c``, the first term taken as is, then added."""
+    acc = None
+    for c, t in terms:
+        c = int(c)
+        if c == 0:
+            continue
+        t = t if c == 1 else (-t if c == -1 else t * c)
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def _quantize(acc: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric 127-level quantization with one scale per slice along
+    ``dim``: ``s = max(amax / 127, 1e-12)``, ``q = clip(round(acc / s))``,
+    rounding half to even.
+
+    ``amax / 127`` is taken as ``amax * f32(1/127)``: XLA rewrites a division
+    by a constant into a product with its rounded reciprocal, so that is what
+    the reference computes (one ulp from the true quotient at times, enough
+    to move a ``q`` on a rounding boundary). ``acc / s`` is a true division
+    there and here."""
+    s = torch.clamp_min(acc.abs().amax(dim=dim, keepdim=True) * _INV127, 1e-12)
+    q = torch.clamp(torch.round(acc / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def group_combine_quant_ref(x: torch.Tensor, coeff: np.ndarray,
+                            by: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (d1*X, d2*Y) -> (q int8 (R, X, Y), scales f32 (R, X, Y/by)).
+
+    Combine A in f32 over the nonzero terms in ascending (i, l) order, then
+    one scale per (rank, row, K-block of ``by`` columns).
+    """
+    R, d1, d2 = coeff.shape
+    parts = split_blocks(x, d1, d2)
+    X, Y = parts.shape[-2:]
+    if Y % by:
+        raise ValueError(f"group_combine_quant_ref: K-block {by} does not divide Y={Y}")
+    qs, ss = [], []
+    for r in range(R):
+        acc = _signed_sum((coeff[r, i, l], parts[i, l].float())
+                          for i in range(d1) for l in range(d2))
+        if acc is None:
+            acc = torch.zeros((X, Y), dtype=torch.float32, device=x.device)
+        q, s = _quantize(acc.reshape(X, Y // by, by), dim=2)
+        qs.append(q.reshape(X, Y))
+        ss.append(s[..., 0])
+    return torch.stack(qs), torch.stack(ss)
+
+
+def fused_gemm_combine_h_quant_ref(aq: torch.Tensor, a_scales: torch.Tensor,
+                                   bq: torch.Tensor, b_scales: torch.Tensor,
+                                   w: np.ndarray, out_dtype=torch.float32
+                                   ) -> torch.Tensor:
+    """aq (R, X, Y) int8, a_scales (R, X, Yb), bq (R, Y, Z) int8, b_scales
+    (R, Yb, Z); w (R, m, n) -> (m, n, X, Z) in ``out_dtype``.
+
+    H_r sums ``(int-product * a_scale) * b_scale`` over the K-blocks in
+    ascending order, then Combine H runs in ascending r. The int-product is
+    an f32 matmul of the int8 values, exact while every partial sum stays
+    below 2**24 (by <= 128: at most 128 * 127**2) and TF32 is off.
+    """
+    R, m, n = w.shape
+    _, X, Y = aq.shape
+    Yb = a_scales.shape[-1]
+    by = Y // Yb
+    h = []
+    for r in range(R):
+        hr = None
+        for y in range(Yb):
+            part = torch.matmul(aq[r, :, y * by:(y + 1) * by].float(),
+                                bq[r, y * by:(y + 1) * by].float())
+            t = part * a_scales[r, :, y:y + 1] * b_scales[r, y:y + 1]
+            hr = t if hr is None else hr + t
+        h.append(hr)
+    out = torch.empty((m, n, X, bq.shape[-1]), dtype=out_dtype, device=aq.device)
+    for i in range(m):
+        for j in range(n):
+            acc = _signed_sum((w[r, i, j], h[r]) for r in range(R))
+            out[i, j] = 0 if acc is None else acc.to(out_dtype)
+    return out
+
+
+def quantize_blocks_ref(bt: torch.Tensor, by: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Combined weight (R, Y, Z) -> (bq int8 (R, Y, Z), scales f32
+    (R, Y/by, Z)): one scale per (rank, K-block, column)."""
+    R, Y, Z = bt.shape
+    if Y % by:
+        raise ValueError(f"quantize_blocks_ref: K-block {by} does not divide Y={Y}")
+    q, s = _quantize(bt.float().reshape(R, Y // by, by, Z), dim=2)
+    return q.reshape(R, Y, Z), s[:, :, 0]
+
+
+def quantize_b_blockwise_ref(b: torch.Tensor, coeff: np.ndarray,
+                             by: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Offline Combine B of a static weight (K, N), in the weight's dtype,
+    then blockwise int8 quantization (:func:`quantize_blocks_ref`)."""
+    R, d1, d2 = coeff.shape
+    return quantize_blocks_ref(group_combine_ref(split_blocks(b, d1, d2), coeff), by)

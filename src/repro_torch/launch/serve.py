@@ -1,15 +1,17 @@
 """One-shot serving: batched prefill, then greedy decode in lockstep.
 
-    python -m repro_torch.launch.serve --arch granite_3_2b --full
+    python -m repro_torch.launch.serve --arch granite_3_2b --full [--quant]
 
 runs on the card (``--device cuda``, the default) or, with ``--device cpu``,
 through the kernels' plain versions. Static weights are lifted to
-PlannedWeights (offline Combine B) where the Decision Module picks an LCMA.
-The continuous-batching engine comes with a later slice.
+PlannedWeights (offline Combine B) where the Decision Module picks an LCMA;
+``--quant`` puts the int8 tier into its search and bakes int8 B̃q into the
+PlannedWeights. The continuous-batching engine comes with a later slice.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -20,7 +22,7 @@ from repro_torch import kernels
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan_cache
-from repro_torch.core.engine import active_config
+from repro_torch.core.engine import PlannedWeight, active_config
 from repro_torch.models import model as M
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -32,25 +34,37 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _quantized_leaves(params, path: str = "") -> list[str]:
+    """Paths (``layers/mlp/mlp_up``) of the planned leaves with int8 B̃q."""
+    if isinstance(params, dict):
+        return [p for k, v in params.items()
+                for p in _quantized_leaves(v, f"{path}/{k}" if path else k)]
+    return [path] if isinstance(params, PlannedWeight) and params.quantized else []
+
+
 def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
                 gen: int = 32, seed: int = 0, device="cuda",
-                precombine: bool = True, params: dict | None = None) -> dict:
+                precombine: bool = True, params: dict | None = None,
+                quantize: bool = False) -> dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens for ``gen``
     greedy tokens each.
 
     ``params`` defaults to ``init_params(cfg, seed, device)``. The FalconGEMM
-    policy is the ambient config, else the model's ``falcon_config_for``.
-    Returns
+    policy is the ambient config, else the model's ``falcon_config_for``;
+    ``quantize=True`` turns its int8 tier on. Returns
     ``tokens`` (batch, gen) int64 on the CPU, ``logits`` (the last-position
     logits of the prefill and of every decode step, each (batch, Vp)),
-    ``n_precombined``, ``timings`` (host clock, synchronized) and
-    ``launches`` (kernel launches per phase).
+    ``n_precombined``, ``quantized`` (the paths of the planned leaves that
+    carry int8 B̃q) and ``n_quantized``, ``timings`` (host clock,
+    synchronized) and ``launches`` (kernel launches per phase).
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_oneshot: no CUDA device (pass device='cpu' to "
                            "run the kernels' plain versions)")
     fcfg = active_config() or M.falcon_config_for(cfg)
+    if quantize:
+        fcfg = dataclasses.replace(fcfg, quantize=True)
     if params is None:
         params = M.init_params(cfg, seed, device)
     rng = np.random.default_rng(seed)
@@ -94,10 +108,13 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
 
         _, t_decode = phase("decode", decode_all)
     n_steps = max(gen - 1, 1)
+    quantized = _quantized_leaves(params)
     return {
         "tokens": torch.stack(out_tokens, 1).cpu(),
         "logits": all_logits,
         "n_precombined": n_planned,
+        "quantized": quantized,
+        "n_quantized": len(quantized),
         "timings": {"precombine_s": t_pre, "prefill_ms": t_prefill * 1e3,
                     "decode_ms_per_step": t_decode / n_steps * 1e3,
                     "decode_steps": gen - 1,
@@ -117,14 +134,19 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--no-precombine", dest="precombine", action="store_false")
+    ap.add_argument("--quant", action="store_true",
+                    help="serve with the int8-quantized decision tier: the "
+                         "Decision Module prices quantized execution next to "
+                         "fp, and planned weights carry offline-quantized "
+                         "B̃q + scales")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch) if args.full else smoke_config(args.arch)
     res = run_oneshot(cfg, batch=args.batch, prompt_len=args.prompt_len,
                       gen=args.gen, seed=args.seed, device=args.device,
-                      precombine=args.precombine)
+                      precombine=args.precombine, quantize=args.quant)
     t = res["timings"]
     print(f"offline Combine B: {res['n_precombined']} weight tensor(s) "
-          f"precombined into PlannedWeights")
+          f"precombined into PlannedWeights, {res['n_quantized']} with int8 B̃q")
     print(f"prefill: {t['prefill_ms']:.1f} ms for {args.batch}x{args.prompt_len} tokens")
     print(f"decode:  {t['decode_ms_per_step']:.2f} ms/step "
           f"({t['tokens_per_s']:.1f} tok/s overall)")

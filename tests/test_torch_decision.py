@@ -126,3 +126,112 @@ def test_precombine_weights_matches_reference(name, rng):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
     stacked = tfg.precombine_weights(torch.tensor(np.stack([w, 2 * w])), tl)
     np.testing.assert_allclose(stacked[1].numpy(), 2 * want, atol=2e-6, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The int8 tier
+# ---------------------------------------------------------------------------
+
+QUANT_PROFILES = {"h100": PROFILES["h100"],
+                  "cpu": dict(thw.CPU_HOST.to_dict(), name="parity_cpu")}
+# granite's projections at decode (M = 4) and prefill (M = 256), and a
+# ragged shape whose combined K takes a short scale block
+QUANT_SHAPES = [(M, K, N) for M in (4, 256)
+                for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+                             (2048, 49408))] + [(1000, 999, 1001), (64, 256, 512)]
+
+
+def _same_quant(dj, dt):
+    _same(dj, dt)
+    assert dj.precision == dt.precision and dj.quantized == dt.quantized
+    assert [e.precision for e in dt.estimates] == [e.precision for e in dj.estimates]
+
+
+@pytest.mark.parametrize("profile", sorted(QUANT_PROFILES))
+@pytest.mark.parametrize("precombined_b", [False, True])
+def test_decide_quant_matches_reference(profile, precombined_b):
+    hj, ht = _profiles(QUANT_PROFILES[profile])
+    tiers = set()
+    for M, K, N in QUANT_SHAPES:
+        for budget in (None, 0.05):
+            kw = dict(precombined_b=precombined_b, min_speedup=1.02,
+                      accuracy_budget=budget, quantize=True)
+            dj = jdec.decide(M, N, K, hj, "bfloat16", **kw)
+            dt = tdec.decide(M, N, K, ht, "bfloat16", **kw)
+            _same_quant(dj, dt)
+            tiers.add(dt.precision if dt.use_lcma else "gemm")
+    if profile == "h100" and precombined_b:
+        assert "int8" in tiers
+
+
+@pytest.mark.parametrize("profile", sorted(QUANT_PROFILES))
+@pytest.mark.parametrize("shared_b", [False, True])
+def test_decide_batched_quant_matches_reference(profile, shared_b):
+    hj, ht = _profiles(QUANT_PROFILES[profile])
+    for B, M, K, N in [(1, 256, 2048, 8192), (2, 4, 2048, 2048), (128, 64, 64, 80),
+                       (16, 512, 1024, 1024), (3, 13, 23, 17)]:
+        for pre in (False, True):
+            kw = dict(precombined_b=pre, shared_b=shared_b, quantize=True)
+            dj = jdec.decide_batched(B, M, N, K, hj, "bfloat16", **kw)
+            dt = tdec.decide_batched(B, M, N, K, ht, "bfloat16", **kw)
+            _same_quant(dj, dt)
+            assert (dj.B, dj.shared_b) == (dt.B, dt.shared_b)
+
+
+def test_quant_tier_on_h100_picks_int8_strassen_for_granite():
+    """Auto mode with the int8 tier on the data-sheet profile: at the prefill
+    hint (M = 256) only mlp_gate/mlp_up (2048 -> 8192) take int8 strassen
+    against a precombined weight; at decode (M = 4) every projection does.
+    Without ``quantize`` none does (the Eq. 8 guard declines them)."""
+    cfg = tfg.FalconConfig(quantize=True, min_speedup=1.02)
+    proj = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+    for M, picked in ((256, {(2048, 8192)}), (4, set(proj))):
+        for K, N in proj:
+            d = tfg.plan(M, K, N, cfg, "bfloat16", precombined_b=True)
+            assert d.quantized == ((K, N) in picked), (M, K, N)
+            if d.quantized:
+                assert d.algo.name == "strassen" and d.speedup > 1.02
+            fp = tfg.plan(M, K, N, dataclasses.replace(cfg, quantize=False), "bfloat16",
+                          precombined_b=True)
+            assert not fp.use_lcma
+
+
+def test_plan_key_gains_quant_token_only_when_quantizing():
+    from repro_torch.core import plan_cache
+    hw = thw.get_profile("h100_sxm")
+    plain = plan_cache.plan_key(4, 2048, 2048, hw, "bfloat16", precombined_b=True)
+    quant = plan_cache.plan_key(4, 2048, 2048, hw, "bfloat16", precombined_b=True,
+                                quantize=True)
+    assert "quant=" not in plain
+    assert quant == plain + "|quant=1"
+    grouped = plan_cache.plan_key(4, 2048, 2048, hw, "bfloat16", batch=2, quantize=True)
+    assert grouped.endswith("|quant=1") and grouped != quant
+
+
+def test_plan_cache_round_trip_keeps_precision(tmp_path):
+    """A cached int8 decision comes back int8, from memory and from disk; an
+    fp plan of the same shape has its own key."""
+    from repro_torch.core import plan_cache
+    path = str(tmp_path / "plans.json")
+    cache = plan_cache.configure(path)
+    try:
+        cfg = tfg.FalconConfig(quantize=True, min_speedup=1.02)
+        d = tfg.plan(4, 2048, 8192, cfg, "bfloat16", precombined_b=True)
+        g = tfg.plan_batched(2, 4, 2048, 2048, cfg, "bfloat16", precombined_b=True,
+                             shared_b=True)
+        assert d.quantized and g.quantized
+        assert tfg.plan(4, 2048, 8192, cfg, "bfloat16", precombined_b=True) is d
+        assert cache.stats.hits == 1
+        fp = tfg.plan(4, 2048, 8192, dataclasses.replace(cfg, quantize=False), "bfloat16",
+                      precombined_b=True)
+        assert not fp.use_lcma and len(cache) == 3
+        cache.save()
+    finally:
+        plan_cache.reset()
+    fresh = plan_cache.PlanCache(path)
+    assert len(fresh) == 3
+    got = {k: fresh.lookup(k) for k in fresh.keys()}
+    for key, dd in got.items():
+        assert dd.precision == ("int8" if "quant=1" in key else "fp")
+    assert sum(dd.quantized for dd in got.values()) == 2
+    assert sum(isinstance(dd, tdec.GroupedDecision) for dd in got.values()) == 1

@@ -61,6 +61,20 @@ def test_launcher_runs_on_cpu_when_asked():
     assert "sample:" in out.stdout
 
 
+def test_launcher_quant_runs_on_cpu_when_asked():
+    """``--quant`` on the CPU: the int8 tier is priced, planned leaves carry
+    int8 B̃q, and the kernels' plain versions serve."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "granite_3_2b",
+         "--device", "cpu", "--batch", "2", "--prompt-len", "8", "--gen", "3", "--quant"],
+        capture_output=True, text=True, env=ENV, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n = re.search(r"(\d+) weight tensor\(s\) precombined into PlannedWeights, (\d+) with "
+                  r"int8", out.stdout)
+    assert n and int(n.group(2)) == int(n.group(1)) > 0, out.stdout
+    assert "sample:" in out.stdout
+
+
 def test_launcher_without_device_cpu_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works here")
@@ -131,3 +145,20 @@ def test_cuda_kernels_match_plain_versions(name, cuda_device, rng):
     got = K.batched_fused_gemm_combine_h(at.to(cuda_device), bt.to(cuda_device), tl.W)
     torch.testing.assert_close(got.cpu(), K.batched_fused_gemm_combine_h(at, bt, tl.W),
                                atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["strassen", "laderman"])
+def test_cuda_quant_kernels_match_plain_versions(name, cuda_device, rng):
+    tl = talg.get(name)
+    x = torch.tensor(rng.standard_normal((tl.m * 37, tl.k * 75)), dtype=torch.float32)
+    q, s = K.group_combine_quant(x.to(cuda_device), tl.U, 25)
+    q0, s0 = K.group_combine_quant(x, tl.U, 25)
+    assert torch.equal(q.cpu(), q0) and torch.equal(s.cpu(), s0)
+    before = K.fused_gemm_combine_h_quant.launches
+    got = K.fused_gemm_combine_h_quant(q, s, q.transpose(1, 2).contiguous(),
+                                       s.transpose(1, 2).contiguous(), tl.W)
+    assert K.fused_gemm_combine_h_quant.launches == before + 1
+    want = K.fused_gemm_combine_h_quant(q0, s0, q0.transpose(1, 2).contiguous(),
+                                        s0.transpose(1, 2).contiguous(), tl.W)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-6)
