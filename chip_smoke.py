@@ -3,15 +3,22 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each: device, build (nvcc for sm_90a from
-src/repro_torch/csrc), every kernel entry point against its plain PyTorch
-version (six schemes x f32/bf16 x ragged shapes and every shape the served
-model gives the kernel; the int8 kernels likewise), the ops pipelines
-against torch.matmul at granite shapes, kernel times, model parity (2
-layers at full width, f32, strassen vs gemm), serving full granite_3_2b (40
-layers, bf16, 4 requests x 16 tokens) three ways with every kernel's launch
-count: forced strassen, int8 in auto mode (``--quant``) and int8 with forced
-strassen, each int8 run held to the fp run on the same weights; and what
-auto mode decides on the h100_sxm profile, fp and with the int8 tier.
+src/repro_torch/csrc, one process per source, all at once), every kernel
+entry point against its plain PyTorch version (six schemes x f32/bf16 x
+ragged shapes and every shape the served model gives the kernel; the int8
+kernels likewise; the tiled GEMM at ragged, unaligned, probe and decode
+shapes), the ops pipelines against torch.matmul at granite shapes, kernel
+times (CUDA events around 50 back-to-back launches, or the profiler's
+device time where the wrapper's host cost exceeds the kernel's), model
+parity (2 layers at full width, f32, strassen vs gemm), serving full
+granite_3_2b (40 layers, bf16, 4 requests x 16 tokens) three ways with
+every kernel's launch count: forced strassen, int8 in auto mode
+(``--quant``) and int8 with forced strassen, each int8 run held to the fp
+run on the same weights; what auto mode decides on the h100_sxm profile;
+then the calibration path: ``repro_torch.tools.tune`` measures the card
+(through the tiled GEMM), the data-sheet and calibrated decisions side by
+side, and granite served in auto mode under the calibrated profile with the
+warmed plan cache, held to the fp auto run.
 Any failure raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
@@ -27,7 +34,8 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -35,7 +43,7 @@ import torch  # noqa: E402
 import repro_torch.api as falcon  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import algorithms as alg  # noqa: E402
+from repro_torch.core import algorithms as alg, plan_cache  # noqa: E402
 from repro_torch.core.hardware import H100_SXM  # noqa: E402
 from repro_torch.core.lcma import LCMA  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -64,13 +72,15 @@ SOURCES = {"group_combine": "src/repro_torch/csrc/group_combine.cu",
            "fused_gemm_combine_h": "src/repro_torch/csrc/fused_gemm.cu",
            "batched_fused_gemm_combine_h": "src/repro_torch/csrc/fused_gemm.cu",
            "group_combine_quant": "src/repro_torch/csrc/quant_combine.cu",
-           "fused_gemm_combine_h_quant": "src/repro_torch/csrc/quant_combine.cu"}
+           "fused_gemm_combine_h_quant": "src/repro_torch/csrc/quant_combine.cu",
+           "tiled_matmul": "src/repro_torch/csrc/tiled_matmul.cu"}
 REPLACES = {"group_combine": "src/repro/kernels/group_combine.py:47",
             "batched_group_combine": "src/repro/kernels/group_combine.py:111",
             "fused_gemm_combine_h": "src/repro/kernels/fused_gemm.py:71",
             "batched_fused_gemm_combine_h": "src/repro/kernels/fused_gemm.py:147",
             "group_combine_quant": "src/repro/kernels/quant_combine.py:59",
-            "fused_gemm_combine_h_quant": "src/repro/kernels/quant_combine.py:125"}
+            "fused_gemm_combine_h_quant": "src/repro/kernels/quant_combine.py:125",
+            "tiled_matmul": "src/repro/kernels/fused_gemm.py:222"}
 
 
 def emit(phase: str, **kw) -> None:
@@ -137,21 +147,27 @@ def fused_case(l, dtype, X, Y, Z, gen, groups=None, shared=False):
 PROJ = [(M_, K, N) for M_ in (256, 4)
         for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (2048, 49408))]
 ATTN = [(64, 64, 80), (64, 80, 64), (1, 64, 80), (1, 80, 64)]
+# The tune phase's probes (M, K, N): the autotuner runs Group Combine A and
+# B, the fused kernel, the quant Group Combine and the LCMA pipeline on each.
+PROBES = [(256, 2048, 8192), (256, 8192, 2048), (4096, 4096, 4096)]
 
 
 def kernel_cases(l, dtype, gen):
     """Generators of (kernel call, plain call) per entry point: ragged shapes,
-    then every shape the main path gives the kernel under scheme ``l``. Lazy,
-    so only one case's tensors live at a time."""
+    then every shape the main path gives the kernel under scheme ``l`` (the
+    served model's products and the tune phase's probes). Lazy, so only one
+    case's tensors live at a time."""
     g = lambda M_, K, N: (cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n))  # noqa: E731
-    weights = sorted({(K, N) for _, K, N in PROJ})
+    products = sorted(set(PROJ + PROBES))
+    weights = sorted({(K, N) for _, K, N in products})
     return {
         "group_combine": itertools.chain(
             [combine_case(l, dtype, (37 * l.m, 53 * l.k), "U", gen, False),
              combine_case(l, dtype, (53 * l.k, 29 * l.n), "V", gen, False)],
             (combine_case(l, dtype, (M_, K), "U", gen, False)
-             for M_, K in sorted({(M_, K) for M_, K, _ in PROJ})),
-            # Combine B: offline for the projections, each step for the LM head
+             for M_, K in sorted({(M_, K) for M_, K, _ in products})),
+            # Combine B: offline for the projections, each step for the LM
+            # head, each call of the pipeline probe
             (combine_case(l, dtype, kn, "V", gen, False) for kn in weights)),
         "batched_group_combine": itertools.chain(
             [combine_case(l, dtype, (19 * l.m, 23 * l.k), "U", gen, True)],
@@ -159,7 +175,7 @@ def kernel_cases(l, dtype, gen):
             (combine_case(l, dtype, (K, N), "V", gen, True) for _, K, N in ATTN[:2])),
         "fused_gemm_combine_h": itertools.chain(
             [fused_case(l, dtype, 37, 53, 45, gen)],
-            (fused_case(l, dtype, *g(*mkn), gen) for mkn in PROJ)),
+            (fused_case(l, dtype, *g(*mkn), gen) for mkn in products)),
         "batched_fused_gemm_combine_h": itertools.chain(
             [fused_case(l, dtype, 19, 23, 21, gen, groups=3),
              fused_case(l, dtype, 19, 23, 21, gen, groups=3, shared=True),
@@ -240,16 +256,16 @@ PROJ_PLANNED = [(M_, K, N) for M_, K, N in PROJ if N != 49408]
 
 def phase_quant_kernels() -> None:
     """The two int8 kernels against their plain versions: every scheme, f32
-    and bf16, a ragged shape and every shape a planned leaf gives them
-    (the scale block ``by`` as ``kernels.quant_combine.scale_block`` sets it
-    for the weight)."""
+    and bf16, a ragged shape and every shape a planned leaf gives them, and
+    the quant Group Combine at the tune phase's probes (the scale block
+    ``by`` as ``kernels.quant_combine.scale_block`` sets it)."""
     gen = torch.Generator(device=DEV).manual_seed(4)
     worst = {"group_combine_quant": [0, 0, 0.0], "fused_gemm_combine_h_quant": {}}
     n = 0
     for l in schemes():
         g = lambda M_, K, N: (cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n))  # noqa: E731
         combine = [(37, 75, 25)] + [(X, Y, scale_block(Y)) for X, Y in sorted(
-            {(cdiv(M_, l.m), cdiv(K, l.k)) for M_, K, _ in PROJ_PLANNED})]
+            {(cdiv(M_, l.m), cdiv(K, l.k)) for M_, K, _ in PROJ_PLANNED + PROBES})]
         fused = [(37, 75, 45, 25)] + [(*g(*mkn), scale_block(g(*mkn)[1]))
                                       for mkn in PROJ_PLANNED]
         for dtype in (torch.float32, torch.bfloat16):
@@ -286,6 +302,51 @@ def phase_quant_kernels() -> None:
     emit("quant_kernels", cases=n, worst=worst)
 
 
+# The tiled GEMM's cases (M, K, N): ragged, K unaligned for 16-byte loads in
+# both dtypes, the autotuner's three probe shapes, and decode rows.
+TILED_SHAPES = [(13, 23, 17), (64, 101, 72), *PROBES, (4, 2048, 8192)]
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data pointer is not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def phase_tiled_kernels() -> None:
+    """The tiled GEMM against its plain version in f32 and bf16, with the
+    ``fused`` tolerance of ``TOL``: the same f32 sums in another order, and
+    in bf16 one rounding of each. One aligned shape also runs from operands
+    whose pointers are not 16-byte aligned (the element-wise path)."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    n, worst = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(shape, False) for shape in TILED_SHAPES] + [((256, 512, 384), True)]
+        for (M_, K, N), shift in cases:
+            a, b = randn(M_, K, dtype=dtype, gen=gen), randn(K, N, dtype=dtype, gen=gen)
+            if shift:
+                a, b = misaligned(a), misaligned(b)
+            got = kernels.tiled_matmul(a, b)
+            torch.cuda.synchronize()
+            want = ref.tiled_matmul_ref(a, b)
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"tiled_matmul: {got.shape} {got.dtype} vs plain "
+                                     f"{want.shape} {want.dtype}")
+            abs_err, e = err(got, want)
+            tol = TOL[dtype]["fused"]
+            n += 1
+            emit("kernel_case", kernel="tiled_matmul", dtype=str(dtype), M=M_, K=K, N=N,
+                 misaligned=shift, max_abs_err=abs_err, err=e, tol=tol)
+            if not e <= tol:
+                raise AssertionError(f"tiled_matmul {dtype} {(M_, K, N)}: error {e} > {tol}")
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), e)
+            del a, b, got, want
+    torch.cuda.empty_cache()
+    emit("tiled_kernels", cases=n, worst_err=worst)
+
+
 def phase_ops() -> None:
     gen = torch.Generator(device=DEV).manual_seed(2)
     l = alg.get("strassen")
@@ -313,6 +374,27 @@ def phase_ops() -> None:
                 if not e <= OPS_TOL:
                     raise AssertionError(f"{name} M={M_} N={N}: error {e} > {OPS_TOL}")
             del a, b, a3, b3, results
+    # The tune phase's pipeline probe: bf16, as the calibration runs it,
+    # against the plain pipeline on the same inputs (one rounding of each
+    # combined operand and of the output in both), and f32 against
+    # torch.matmul.
+    for M_, K_, N in PROBES:
+        for dtype in (torch.bfloat16, torch.float32):
+            a, b = randn(M_, K_, dtype=dtype, gen=gen), randn(K_, N, dtype=dtype, gen=gen)
+            got = ops.falcon_matmul(a, b, l)
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                want, tol, vs = ref.lcma_matmul_ref(a, b, l), TOL[dtype]["fused"], "plain"
+            else:
+                want, tol, vs = a @ b, OPS_TOL, "torch.matmul"
+            a_, e = err(got, want)
+            emit("ops", fn="falcon_matmul (tune probe)", M=M_, K=K_, N=N, dtype=str(dtype),
+                 against=vs, max_abs_err=a_, err=e, tol=tol)
+            if got.shape != want.shape or not e <= tol:
+                raise AssertionError(f"falcon_matmul probe {(M_, K_, N)} {dtype}: "
+                                     f"{tuple(got.shape)} vs {tuple(want.shape)}, "
+                                     f"error {e} > {tol}")
+            del a, b, got, want
     # Offline Combine B + int8 of each planned weight in bf16: the
     # group_combine kernel, then the plain absmax and rounding, against the
     # plain version of the whole step.
@@ -352,19 +434,56 @@ def phase_ops() -> None:
 # Times at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
-    for _ in range(warmup):
+WARMUP, LAUNCHES, RUNS = 3, 50, 5
+
+
+def events_ms(fn) -> tuple[float, float]:
+    """(device ms, host ms) per call: after WARMUP calls, RUNS runs of
+    LAUNCHES back-to-back calls, each between one CUDA event pair (device)
+    and one host-clock pair around the enqueueing loop (host); medians."""
+    for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    dev, host = [], []
+    for _ in range(RUNS):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(LAUNCHES):
+            fn()
+        t1 = time.perf_counter()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+        dev.append(s.elapsed_time(e) / LAUNCHES)
+        host.append((t1 - t0) * 1e3 / LAUNCHES)
+    return statistics.median(dev), statistics.median(host)
+
+
+def profiler_ms(fn) -> float | None:
+    """Device ms per call from torch.profiler: the device time of every
+    kernel LAUNCHES calls ran, over LAUNCHES (None if it saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(LAUNCHES):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA"))
+    return us / 1e3 / LAUNCHES if us > 0 else None
+
+
+def time_ms(fn) -> dict:
+    """Time per call of ``fn`` (its operands built beforehand). ``ms`` is the
+    events' time over back-to-back launches, unless the host's time per call
+    exceeds the device's: then the queue ran dry between launches, the events
+    measured the host, and ``ms`` is the profiler's device time. ``source``
+    says which."""
+    ev, host = events_ms(fn)
+    dev = profiler_ms(fn)
+    host_bound = dev is not None and host > dev
+    return {"ms": dev if host_bound else ev, "source": "profiler" if host_bound else "events",
+            "events_ms": ev, "host_ms": host, "profiler_ms": dev}
 
 
 def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -376,7 +495,8 @@ def phase_times() -> dict:
     """Each kernel at the largest call the served model makes of it (bf16,
     forced strassen): the tied LM head's runtime Combine B, the Combine A of
     the attention scores at prefill, the mlp_up product at prefill and the
-    attention scores product at prefill."""
+    attention scores product at prefill; the int8 kernels at mlp_up; the
+    tiled GEMM at two of the tune path's probes."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     l = alg.get("strassen")
     bf = torch.bfloat16
@@ -386,10 +506,11 @@ def phase_times() -> dict:
     out = {}
 
     def record(name, kfn, pfn, flops, nbytes, peak, logical, library="matmul"):
-        """Time kernel ``name`` (``name@decode`` for a second call shape)
+        """Time kernel ``name`` (``name@<tag>`` for a second call shape)
         after checking it once more against its plain version. The library
-        yardstick is bf16 ``torch.matmul`` of the logical shape for a fused
-        kernel, or the ``library`` call where one is given (None: none)."""
+        yardstick is bf16 ``torch.matmul`` of the logical shape for a
+        product kernel, or the ``library`` call where one is given (None:
+        none). Kernel, plain version and yardsticks are timed alike."""
         kernel = name.split("@")[0]
         got = kfn()
         torch.cuda.synchronize()
@@ -399,23 +520,28 @@ def phase_times() -> dict:
         else:
             a, e = err(got, pfn())
             tol = (QUANT_TOL[bf] if kernel.endswith("_quant")
-                   else TOL[bf]["fused" if "fused" in name else "combine"])
+                   else TOL[bf]["combine" if kernel.endswith("group_combine") else "fused"])
             if not e <= tol:
                 raise AssertionError(f"time/{name}: error {e} > {tol}")
-        ms, plain = time_ms(kfn), time_ms(pfn)
+        del got
+        k, plain = time_ms(kfn), time_ms(pfn)
         Mq, Kq, Nq, G = logical
         xa = randn(G, Mq, Kq, dtype=bf, gen=gen) if G > 1 else randn(Mq, Kq, dtype=bf, gen=gen)
         xb = randn(G, Kq, Nq, dtype=bf, gen=gen) if G > 1 else randn(Kq, Nq, dtype=bf, gen=gen)
-        matmul_ms = time_ms(lambda: torch.matmul(xa, xb))
+        matmul = time_ms(lambda: torch.matmul(xa, xb))
         if callable(library):
-            library_ms = time_ms(library)
+            lib = time_ms(library)
         else:
-            library_ms = matmul_ms if library == "matmul" and "fused" in name else None
+            lib = matmul if library == "matmul" and not kernel.endswith("group_combine") \
+                else None
         bms, by = bound_ms(flops, nbytes, peak)
-        out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                     "library_ms": library_ms, "matmul_ms": matmul_ms,
+        out[name] = {"ms": k["ms"], "source": k["source"], "plain_ms": plain["ms"],
+                     "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib and lib["ms"], "matmul_ms": matmul["ms"],
                      "max_abs_err": a, "err": e, "tol": tol,
-                     "logical_mkn": [Mq, Kq, Nq], "groups": G}
+                     "logical_mkn": [Mq, Kq, Nq], "groups": G,
+                     "timing": {"kernel": k, "plain": plain, "matmul": matmul,
+                                "library": lib}}
         emit("time", kernel=name, **out[name])
 
     # LM head Combine B: embed.T (2048, 49408) -> (7, 1024, 24704)
@@ -477,6 +603,15 @@ def phase_times() -> dict:
                (M_, 2048, 8192, 1),
                # torch._int_mm, the int8 product of the logical shape: M > 16 only
                library=(lambda: torch._int_mm(a8, b8)) if M_ > 16 else None)
+    del aq, as_, bq, bs, a8, b8
+    # The tiled GEMM on the tune path: its first probe (bound by bytes) and
+    # the 4096^3 probe (bound by operations), bf16.
+    for (M_, K, N), tag in (((256, 2048, 8192), ""), ((4096, 4096, 4096), "@4096")):
+        a, b = randn(M_, K, dtype=bf, gen=gen), randn(K, N, dtype=bf, gen=gen)
+        record("tiled_matmul" + tag, lambda: kernels.tiled_matmul(a, b),
+               lambda: ref.tiled_matmul_ref(a, b), 2.0 * M_ * K * N,
+               (M_ * K + K * N + M_ * N) * it, fx, (M_, K, N, 1))
+        del a, b
     torch.cuda.empty_cache()
     return out
 
@@ -548,11 +683,11 @@ def check_int8_launches(phase: str, res: dict, n_leaves: int, layers: int) -> No
             raise AssertionError(f"{phase}: {name} launched {got}, expected {want}")
 
 
-def quality(phase: str, q: dict, fp: dict, vocab: int) -> None:
-    """int8 against fp serving on the same weights: the largest logit error
-    over the steps each request's tokens still agree (prefix-matched, as
-    tests/test_quant_serve.py), relative to that request's largest fp
-    logit."""
+def quality(phase: str, q: dict, fp: dict, vocab: int) -> float:
+    """A serve against fp serving on the same weights: the largest logit
+    error over the steps each request's tokens still agree (prefix-matched,
+    as tests/test_quant_serve.py), relative to that request's largest fp
+    logit. Returns it."""
     worst, compared = 0.0, 0
     for b in range(BATCH):
         scale = max(lg[b, :vocab].float().abs().max().item() for lg in fp["logits"])
@@ -566,8 +701,9 @@ def quality(phase: str, q: dict, fp: dict, vocab: int) -> None:
     emit("quality", of=phase, steps_compared=compared, rel_logit_err=worst,
          tol=QUALITY_TOL, token_agreement=same)
     if compared < BATCH or not worst <= QUALITY_TOL:
-        raise AssertionError(f"{phase}: int8 vs fp logit error {worst} over {compared} "
+        raise AssertionError(f"{phase}: logit error against fp {worst} over {compared} "
                              f"steps (tolerance {QUALITY_TOL})")
+    return worst
 
 
 def phase_serve() -> tuple[dict, dict]:
@@ -589,12 +725,12 @@ def phase_serve() -> tuple[dict, dict]:
     return counts, {k: res[k] for k in ("logits", "tokens")}
 
 
-def phase_serve_quant() -> dict:
+def phase_serve_quant() -> tuple[dict, dict]:
     """The int8 path as a user starts it (``--quant``): auto mode on the
     h100_sxm profile. The leaves it quantizes must be those the Decision
     Module prices to int8 at the prefill M; both int8 kernels run at prefill
     and every decode step. Held to the fp run (auto: every product on GEMM)
-    on the same weights. Returns the launch counts."""
+    on the same weights. Returns the launch counts and the fp auto run."""
     cfg = get_config("granite_3_2b")
     params = M.init_params(cfg, 0, DEV)
     fcfg = dataclasses.replace(M.falcon_config_for(cfg), quantize=True)
@@ -610,11 +746,11 @@ def phase_serve_quant() -> dict:
                              f"names {priced}")
     check_int8_launches("serve_quant", res, len(priced), cfg.num_layers)
     quality("serve_quant", res, fp, cfg.vocab_size)
-    del fp, res
+    del res
     profile_serve("profile_quant", cfg, params, quantize=True)
     del params
     torch.cuda.empty_cache()
-    return counts
+    return counts, {k: fp[k] for k in ("logits", "tokens")}
 
 
 def phase_serve_quant_forced(fp_forced: dict) -> None:
@@ -671,6 +807,115 @@ def phase_decisions() -> None:
         emit("decisions", hardware=cfg.hardware, quantize=quantize, decisions=out)
 
 
+# ---------------------------------------------------------------------------
+# The calibration path: tune CLI -> calibrated profile + warmed plan cache ->
+# serving under it
+# ---------------------------------------------------------------------------
+
+TUNED = "h100_sxm_autotuned"
+TUNE_OUT = os.path.join(ROOT, "build", "tune", f"{TUNED}.json")
+TUNE_ARGV = ["--hardware", "h100_sxm", "--backend", "cuda", "--dtype", "bfloat16",
+             "--quant", "--warm-workload", "granite_3_2b",
+             *(a for mkn in PROBES for a in ("--shape", ",".join(map(str, mkn)))),
+             "--out", TUNE_OUT]
+# granite_3_2b's planned leaves as (K, N): d 2048, 32 x 64 query and 8 x 64
+# key/value heads, d_ff 8192
+LEAVES = {"w_q": (2048, 2048), "w_k": (2048, 512), "w_v": (2048, 512),
+          "w_o": (2048, 2048), "mlp_gate": (2048, 8192), "mlp_up": (2048, 8192),
+          "mlp_down": (8192, 2048)}
+
+
+def phase_tune() -> tuple[dict, str]:
+    """``python -m repro_torch.tools.tune`` in this process (so the serve
+    below resolves the very profile it registers): the probes time the tiled
+    GEMM, Group Combine A, the fused kernel, the LCMA pipeline, torch._int_mm
+    and the quant Group Combine on the card; the CLI prints its static vs
+    calibrated table, writes the profile and warms the plan cache. Returns
+    the launch counts of the run and the plan cache's path."""
+    from repro_torch.core.hardware import get_profile
+    from repro_torch.tools import tune
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = tune.main(TUNE_ARGV)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if rc != 0 or counts["tiled_matmul"] <= 0:
+        raise AssertionError(f"tune: exit {rc}, launches {counts}")
+    with open(TUNE_OUT) as f:
+        meta = json.load(f)["_metadata"]
+    prof = get_profile(TUNED)
+    cal = {"flops_mul": prof.flops_mul, "flops_add": prof.flops_add, "beta": prof.beta,
+           "lcma_gemm_efficiency": prof.lcma_gemm_efficiency,
+           "flops_int8": meta["flops_int8"], "beta_quant": meta["beta_quant"]}
+    static = {"flops_mul": H100_SXM.flops_for("bfloat16"), "flops_add": H100_SXM.flops_add,
+              "beta": H100_SXM.beta, "lcma_gemm_efficiency": H100_SXM.lcma_gemm_efficiency,
+              "flops_int8": H100_SXM.flops_for("int8"), "beta_quant": None}
+    if not all(np.isfinite(v) and v > 0 for v in cal.values()):
+        raise AssertionError(f"tune: calibrated numbers not finite and positive: {cal}")
+    plans = os.path.join(os.path.dirname(TUNE_OUT), f"{TUNED}.plans.json")
+    emit("tune", argv=TUNE_ARGV, seconds=seconds, profile=TUNE_OUT, plans=plans,
+         static=static, calibrated=cal, model_rel_err=meta["model_rel_err"],
+         probes=meta["probes"], launches=counts,
+         tiled_matmul_launches=counts["tiled_matmul"])
+    return counts, plans
+
+
+def phase_decisions_tuned() -> None:
+    """Each granite leaf (precombined, as a PlannedWeight is priced) at the
+    prefill and decode M, fp and int8 tiers, on the data sheet and on the
+    calibrated profile side by side: the scheme, precision and predicted
+    speedup taken, or for GEMM the best candidate's predicted speedup."""
+    out = {}
+    for quantize in (False, True):
+        for M_ in (256, 4):
+            for leaf, (K, N) in LEAVES.items():
+                row = {}
+                for hw in ("h100_sxm", TUNED):
+                    c = falcon.FalconConfig(hardware=hw, quantize=quantize,
+                                            use_plan_cache=False)
+                    d = falcon.plan(M_, K, N, c, "bfloat16", precombined_b=True)
+                    best = min(d.estimates, key=lambda e: e.time, default=None)
+                    row[hw] = (f"{d.algo.name}/{d.precision} ({d.speedup:.3f}x)" if d.use_lcma
+                               else f"gemm (best {best.lcma.name}/{best.precision} "
+                                    f"{d.gemm_seconds / best.time:.3f}x)" if best
+                               else "gemm (Eq. 8: memory-bound)")
+                out[f"{'int8 tier' if quantize else 'fp'} M={M_} {leaf}"] = row
+    emit("decisions_tuned", decisions=out)
+
+
+def phase_serve_tuned(fp_auto: dict, plans: str) -> dict:
+    """Full granite, bf16, auto mode under the calibrated profile, the plan
+    cache loaded from the tune phase's file as ``--plan-cache`` loads it and
+    flushed after. Held to the fp auto run on the same weights: within
+    QUALITY_TOL, and exactly equal where no kernel ran (every product on
+    the same torch.matmul). Returns the launch counts."""
+    cfg = get_config("granite_3_2b")
+    params = M.init_params(cfg, 0, DEV)
+    cache = plan_cache.configure(path=plans)
+    loaded = len(cache)
+    fcfg = dataclasses.replace(M.falcon_config_for(cfg), hardware=TUNED)
+    with falcon.use(fcfg):
+        res, counts = serve("serve_tuned", cfg, params)
+    st = plan_cache.stats().as_dict()
+    plan_cache.flush()
+    planned = sorted(f"layers/{grp}/{name}" for grp in ("attn", "mlp")
+                     for name, w in params["layers"][grp].items()
+                     if falcon.plan(BATCH * PROMPT, *w.shape[-2:], fcfg, cfg.dtype,
+                                    precombined_b=True).use_lcma)
+    emit("serve_tuned_plan", hardware=TUNED, planned=planned,
+         n_precombined=res["n_precombined"], plans_loaded=loaded, plan_cache=st)
+    if res["n_precombined"] != len(planned):
+        raise AssertionError(f"serve_tuned: {res['n_precombined']} leaves precombined, "
+                             f"the pricing names {planned}")
+    worst = quality("serve_tuned", res, fp_auto, cfg.vocab_size)
+    if sum(counts.values()) == 0 and worst != 0.0:
+        raise AssertionError(f"serve_tuned: no kernel ran, yet the logits differ from "
+                             f"the fp auto run by {worst}")
+    del params, res
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -686,14 +931,20 @@ def main() -> None:
     emit("build", seconds=build.build_all(), wall=time.perf_counter() - t0)
     phase_kernels()
     phase_quant_kernels()
+    phase_tiled_kernels()
     phase_ops()
     times = phase_times()
     phase_parity()
     counts, fp_forced = phase_serve()
     # each path's kernels count launches from its own run
-    counts.update({k: v for k, v in phase_serve_quant().items() if k.endswith("_quant")})
+    quant_counts, fp_auto = phase_serve_quant()
+    counts.update({k: v for k, v in quant_counts.items() if k.endswith("_quant")})
     phase_serve_quant_forced(fp_forced)
     phase_decisions()
+    tune_counts, plans = phase_tune()
+    counts["tiled_matmul"] = tune_counts["tiled_matmul"]
+    phase_decisions_tuned()
+    phase_serve_tuned(fp_auto, plans)
     emit("total", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],

@@ -32,7 +32,7 @@ from .hardware import HardwareProfile, get_profile
 from .lcma import LCMA
 
 __all__ = ["StageCost", "LCMAEstimate", "Decision", "GroupedDecision",
-           "gemm_time", "estimate", "decide",
+           "gemm_time", "estimate", "lcma_time", "decide",
            "eq8_is_memory_bound", "eq10_profitable",
            "gemm_time_batched", "estimate_grouped",
            "decide_batched", "batched_is_memory_bound",
@@ -214,6 +214,11 @@ def estimate(l: LCMA, M: int, N: int, K: int, hw: HardwareProfile | str,
     stage("gemm+combine_h", 2.0 * R * Ms * Ns * Ks,
           (R * (Ms * Ks + Ks * Ns) + Mp * Np) * by, Fx)
     return LCMAEstimate(l, tuple(stages), (Mp, Np, Kp))
+
+
+def lcma_time(l: LCMA, M: int, N: int, K: int, hw: HardwareProfile, **kw) -> float:
+    """Predicted seconds of one LCMA application (the sum of its stages)."""
+    return estimate(l, M, N, K, hw, **kw).time
 
 
 def eq10_profitable(l: LCMA, M: int, N: int, K: int, hw: HardwareProfile | str,

@@ -57,8 +57,8 @@ class HardwareProfile:
 # Tensor cores: 989 TFLOP/s bf16, 1979 TOP/s int8; float32 runs on the CUDA
 # cores at 67 TFLOP/s (TF32 stays off), which is also FLOPS_+ for the combines.
 # 80 GB HBM3 at 3.35 TB/s; 232,448 B of shared
-# memory per block; wgmma tiles are 64 rows. Calibration on the card is the
-# autotune slice's job.
+# memory per block; wgmma tiles are 64 rows. ``repro_torch.tools.tune``
+# measures the card and registers the calibrated ``h100_sxm_autotuned``.
 H100_SXM = HardwareProfile(
     name="h100_sxm",
     flops_mul=989e12,

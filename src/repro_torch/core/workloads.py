@@ -1,0 +1,182 @@
+"""Workload registry: one config -> its contraction set -> the warm grid.
+
+Every planned contraction of a dense-family :class:`ModelConfig` (attention
+projections, the attention einsums, the swiglu MLP, the padded lm head) is
+listed once here as a symbolic :class:`ContractionSpec`. The tune CLI warms
+the plan cache over :func:`warm_shapes`: the dense projection pairs of a
+workload swept over ``WARM_TOKENS``, plus square operators.
+
+The paper's three LLM serving workloads (§IV-B: DeepSeek-R1, Qwen3.5,
+HunyuanVideo projections) are registry entries too, addressable by name,
+so ``contraction_set("deepseek_r1")`` and a model config give grids of the
+same form.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = [
+    "ContractionSpec", "Contraction", "contraction_set",
+    "dense_projection_shapes", "paper_workloads", "paper_projection_shapes",
+    "warm_shapes", "shape_token", "WARM_TOKENS", "WARM_SQUARE",
+]
+
+# Paper §IV-B LLM projection (K, N) pairs. Data only — addressed through
+# contraction_set(<name>) / paper_projection_shapes(<name>).
+_PAPER_PROJECTIONS = {
+    "deepseek_r1": [(7168, 18432), (18432, 7168), (7168, 2048), (2048, 7168),
+                    (7168, 4096), (4096, 7168), (1536, 7168), (7168, 1536),
+                    (7168, 9216), (9216, 7168), (7168, 7168)],
+    "qwen3_5": [(5120, 25600), (25600, 5120), (5120, 5120), (5120, 640),
+                (640, 5120), (5120, 13824), (13824, 5120)],
+    "hunyuan_video": [(3072, 12288), (12288, 3072), (3072, 3072),
+                      (3072, 9216), (9216, 3072), (3072, 6144)],
+}
+
+# Tokens-per-call (batch x seq) grid and square operator sizes used to
+# pre-warm the plan cache for serving.
+WARM_TOKENS = [128, 512, 2048, 8192]
+WARM_SQUARE = [512, 1024, 2048, 4096, 8192, 16384]
+
+
+@dataclasses.dataclass(frozen=True)
+class ContractionSpec:
+    """One planned contraction class, with symbolic M/K/N/group dims.
+
+    Dims are ints (from the config) or symbol strings bound per call:
+    ``tokens`` (batch * sequence, the projection rows), ``logit_tokens``
+    (lm-head rows), ``attn_q`` / ``attn_kv`` / ``head_dim`` (attention
+    einsums), and the group ``attn_groups`` (batch * heads).
+    """
+    kind: str              # dense | attention
+    role: str              # e.g. "attn.w_q", "mlp.down"
+    m: int | str
+    k: int | str
+    n: int | str
+    group: int | str = 1          # 1 => plain 2-D contraction
+    shared_b: bool = False
+    # B operand is a static model weight => precombinable offline
+    # (falcon.precombine_params) and eligible for the int8 quant tier.
+    weight_static: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Contraction:
+    """A concrete contraction — what the plan cache is keyed on."""
+    kind: str
+    role: str
+    m: int
+    k: int
+    n: int
+    group: int = 1
+    shared_b: bool = False
+    weight_static: bool = True
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (self.m, self.k, self.n)
+
+    def key_shape(self) -> str:
+        """The shape token as it appears inside a plan-cache key."""
+        if self.group == 1:
+            return f"{self.m}x{self.k}x{self.n}"
+        return f"g{self.group}x{self.m}x{self.k}x{self.n}|sb={int(self.shared_b)}"
+
+
+def _resolve_arch(arch):
+    """str -> ModelConfig via the configs registry; pass configs through."""
+    if isinstance(arch, str):
+        from repro_torch.configs import registry
+        return registry.get_config(arch)
+    return arch
+
+
+def paper_workloads() -> list[str]:
+    """The paper's §IV-B LLM workload names (addressable by contraction_set)."""
+    return list(_PAPER_PROJECTIONS)
+
+
+def paper_projection_shapes(workload: str) -> list[tuple[int, int]]:
+    """(K, N) projection pairs of one paper workload, via the registry."""
+    return [(s.k, s.n) for s in contraction_set(workload)]
+
+
+def _paper_specs(workload: str) -> list[ContractionSpec]:
+    return [ContractionSpec("dense", f"{workload}.proj{i}", "tokens", k, n)
+            for i, (k, n) in enumerate(_PAPER_PROJECTIONS[workload])]
+
+
+def _model_specs(cfg) -> list[ContractionSpec]:
+    """Forward contraction specs of one dense-family ModelConfig."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: the port's registry lists the "
+                                  f"dense family only (got {cfg.family!r})")
+    d, heads, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    kv = cfg.num_kv_heads or heads
+    specs = [
+        ContractionSpec("dense", "attn.w_q", "tokens", d, heads * hd),
+        ContractionSpec("dense", "attn.w_k", "tokens", d, kv * hd),
+        ContractionSpec("dense", "attn.w_v", "tokens", d, kv * hd),
+        ContractionSpec("dense", "attn.w_o", "tokens", heads * hd, d),
+        # QK^T and AV einsums: grouped over B*H heads (GQA K/V are repeated
+        # up to H before the einsum), activation x activation.
+        ContractionSpec("attention", "attn.qk", "attn_q", "head_dim", "attn_kv",
+                        group="attn_groups", weight_static=False),
+        ContractionSpec("attention", "attn.av", "attn_q", "attn_kv", "head_dim",
+                        group="attn_groups", weight_static=False),
+    ]
+    if cfg.mlp_type == "swiglu":
+        specs.append(ContractionSpec("dense", "mlp.gate", "tokens", d, cfg.d_ff))
+    specs += [ContractionSpec("dense", "mlp.up", "tokens", d, cfg.d_ff),
+              ContractionSpec("dense", "mlp.down", "tokens", cfg.d_ff, d)]
+    vp = -(-cfg.vocab_size // 256) * 256   # padded vocab (models.model.padded_vocab)
+    specs.append(ContractionSpec("dense", "lm_head", "logit_tokens", d, vp))
+    return specs
+
+
+def contraction_set(arch, *, quantize: bool = False) -> list[ContractionSpec]:
+    """Every planned contraction ``arch`` runs, as symbolic specs.
+
+    ``arch`` is a :class:`ModelConfig`, a registry arch id
+    (``"granite_3_2b"``) or a paper workload name (``"deepseek_r1"``).
+    ``quantize=True`` keeps the contractions the int8 tier can serve (a
+    static-weight B operand).
+    """
+    if isinstance(arch, str) and arch in _PAPER_PROJECTIONS:
+        specs = _paper_specs(arch)
+    else:
+        specs = _model_specs(_resolve_arch(arch))
+    if quantize:
+        specs = [s for s in specs if s.weight_static and s.kind == "dense"]
+    return specs
+
+
+def dense_projection_shapes(arch) -> list[tuple[int, int]]:
+    """Deduplicated dense-projection ``(K, N)`` pairs of one arch."""
+    out: list[tuple[int, int]] = []
+    for s in contraction_set(arch):
+        if s.kind == "dense" and (s.k, s.n) not in out:
+            out.append((s.k, s.n))
+    return out
+
+
+def warm_shapes(workload: str = "deepseek_r1") -> list[tuple[int, int, int]]:
+    """(M, K, N) grid the tune CLI warms the plan cache with: the dense
+    projection pairs of ``workload`` (a paper workload or a registry arch
+    id) over the WARM_TOKENS grid, plus square operator sizes."""
+    pairs = [(s.k, s.n) for s in contraction_set(workload) if s.kind == "dense"
+             and isinstance(s.k, int) and isinstance(s.n, int)]
+    out = [(m, k, n) for m in WARM_TOKENS for k, n in pairs]
+    out += [(s, s, s) for s in WARM_SQUARE]
+    return out
+
+
+def shape_token(plan_key: str) -> str:
+    """Extract the shape token (``MxKxN`` / ``gGxMxKxN|sb=b``) of a plan key,
+    following ``core.plan_cache.plan_key``'s layout: part 2 is the shape,
+    and a grouped shape carries its ``sb=`` flag as the next part."""
+    parts = plan_key.split("|")
+    tok = parts[2]
+    if tok.startswith("g") and len(parts) > 3 and parts[3].startswith("sb="):
+        tok += "|" + parts[3]
+    return tok

@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <repo>/src/repro_torch/kernels/build.py -> <repo>/build/kernels
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("group_combine", "fused_gemm", "quant_combine")
+SOURCES = ("group_combine", "fused_gemm", "quant_combine", "tiled_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
@@ -48,6 +48,10 @@ _SIGNATURES = {
         # device, aq, as, bq, bs, out, table, out_dtype, R, mn, X, Y, Z, by,
         # aligned, bx, bz, stream
         "falcon_fused_gemm_quant": [_I] + [_P] * 6 + [_I] * 10 + [_P],
+    },
+    "tiled_matmul": {
+        # device, a, b, c, in_dtype, out_dtype, M, K, N, bm, bn, stream
+        "falcon_tiled_matmul": [_I] + [_P] * 3 + [_I] * 7 + [_P],
     },
 }
 

@@ -1,4 +1,5 @@
-"""Fused GEMM + Group Combine H (paper Alg. 2, stages 3-4): CUDA wrappers.
+"""Fused GEMM + Group Combine H (paper Alg. 2, stages 3-4), and the plain
+tiled GEMM: CUDA wrappers.
 
 Replaces the Pallas TPU kernels ``fused_gemm_combine_h`` and
 ``batched_fused_gemm_combine_h`` (``src/repro/kernels/fused_gemm.py``). One
@@ -11,8 +12,11 @@ finishes one H_r at a time over the K loop and folds it into the m*n output
 accumulators (Combine H is linear), so H never reaches memory and every
 scheme up to s555 gets a tile (``tuning.plan_fused_gemm_blocks``).
 
-A tensor on the CPU takes the plain version (``ref.fused_gemm_combine_h_ref``);
-a CUDA tensor launches the kernel or raises.
+``tiled_matmul`` replaces the Pallas ``tiled_matmul``, the non-LCMA
+baseline the autotuner times for FLOPS_x (``csrc/tiled_matmul.cu``).
+
+A tensor on the CPU takes the plain version (``ref.fused_gemm_combine_h_ref``,
+``ref.tiled_matmul_ref``); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -21,9 +25,9 @@ import torch
 
 from . import build, ref
 from .group_combine import coeff_table
-from .tuning import plan_fused_gemm_blocks
+from .tuning import plan_fused_gemm_blocks, plan_tiled_matmul_blocks
 
-__all__ = ["fused_gemm_combine_h", "batched_fused_gemm_combine_h"]
+__all__ = ["fused_gemm_combine_h", "batched_fused_gemm_combine_h", "tiled_matmul"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -99,5 +103,38 @@ def batched_fused_gemm_combine_h(at: torch.Tensor, bt: torch.Tensor,
     return out
 
 
+def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """(M, K) @ (K, N) -> (M, N) in ``out_dtype`` (default ``a``'s), summed
+    in f32 and rounded once. Any M, K, N: the kernel masks its own edges."""
+    out_dtype = out_dtype or a.dtype
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"tiled_matmul: shapes do not conform: {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype or out_dtype not in _DTYPES:
+        raise TypeError(f"tiled_matmul: dtypes {a.dtype}/{b.dtype} -> {out_dtype} "
+                        f"not supported (float32 and bfloat16 are)")
+    if a.device != b.device or a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"tiled_matmul: operands on {a.device} and {b.device}")
+    if a.device.type == "cpu":
+        return ref.tiled_matmul_ref(a, b, out_dtype)
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("tiled_matmul: the CUDA kernel needs contiguous operands")
+    (M, K), N = a.shape, b.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    bm, bn, _ = plan_tiled_matmul_blocks(M, N)
+    codes = build.DTYPE_CODES
+    lib = build.library("tiled_matmul")
+    err = lib.falcon_tiled_matmul(
+        a.device.index, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        codes[str(a.dtype).removeprefix("torch.")],
+        codes[str(out_dtype).removeprefix("torch.")], M, K, N, bm, bn,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(lib, err, "tiled_matmul")
+    tiled_matmul.launches += 1
+    return out
+
+
 fused_gemm_combine_h.launches = 0   # kernel launches, counted by the wrapper
 batched_fused_gemm_combine_h.launches = 0
+tiled_matmul.launches = 0

@@ -4,7 +4,8 @@
   Group Combine A  ->  Group Combine B  ->  fused GEMM + Group Combine H
 with all padding/unpadding handled here so the kernels see grid-divisible
 operands (they mask their own ragged tile edges). ``falcon_matmul_quant``
-is the int8 serving variant against offline-quantized weights. On CPU
+is the int8 serving variant against offline-quantized weights; ``matmul``
+is the plain tiled GEMM, the autotuner's non-LCMA control. On CPU
 tensors every kernel wrapper takes its plain version, so the same pipelines
 run in tests.
 """
@@ -16,13 +17,13 @@ from repro_torch.core.lcma import LCMA
 # one padding definition shared with the rest of the dispatch core — two
 # execution paths that pad differently diverge at the edges
 from repro_torch.core.falcon_gemm import _pad2, _pad3
-from .fused_gemm import batched_fused_gemm_combine_h, fused_gemm_combine_h
+from .fused_gemm import batched_fused_gemm_combine_h, fused_gemm_combine_h, tiled_matmul
 from .group_combine import batched_group_combine, group_combine
 from .quant_combine import fused_gemm_combine_h_quant, group_combine_quant
 
 __all__ = ["falcon_matmul", "falcon_matmul_precombined",
            "falcon_grouped_matmul", "falcon_grouped_matmul_precombined",
-           "falcon_matmul_quant"]
+           "falcon_matmul_quant", "matmul"]
 
 
 def _check_k(ap: torch.Tensor, bt: torch.Tensor, l: LCMA, K: int, what: str):
@@ -127,3 +128,12 @@ def falcon_matmul_quant(a: torch.Tensor, bq: torch.Tensor, b_scales: torch.Tenso
     aq, a_scales = group_combine_quant(ap, l.U, by)
     cp = fused_gemm_combine_h_quant(aq, a_scales, bq, b_scales, l.W, out_dtype=a.dtype)
     return _reassemble(cp, M, n_logical)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Standard GEMM (M, K) @ (K, N) -> (M, N) in ``a``'s dtype through the
+    tiled kernel, any shape (a ValueError where they do not conform). The
+    counterpart of the reference's ``matmul_pallas``, without its (8, 128)
+    padding: the kernel masks its ragged edges, so the result comes out
+    (M, N) as it is."""
+    return tiled_matmul(a.contiguous(), b.contiguous())

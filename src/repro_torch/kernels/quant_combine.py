@@ -27,7 +27,7 @@ import torch
 from repro_torch.analysis.stability import max_safe_accum_depth
 from . import build, ref
 from .group_combine import coeff_table, group_combine
-from .tuning import plan_fused_gemm_quant_blocks, plan_quant_combine_warps
+from .tuning import plan_fused_gemm_quant_blocks, plan_quant_combine_warps, scale_block
 
 __all__ = ["group_combine_quant", "fused_gemm_combine_h_quant",
            "quantize_b_blockwise", "scale_block"]
@@ -133,13 +133,6 @@ def fused_gemm_combine_h_quant(aq: torch.Tensor, a_scales: torch.Tensor,
     build.check(lib, err, "fused_gemm_combine_h_quant")
     fused_gemm_combine_h_quant.launches += 1
     return out
-
-
-def scale_block(Y: int) -> int:
-    """K-block of the weight scales for a combined K of ``Y``: the largest
-    divisor of Y that is <= 128, so the blocks tile Y exactly and each int32
-    sum stays far inside ``max_safe_accum_depth(32)``."""
-    return next(d for d in range(min(128, Y), 0, -1) if Y % d == 0)
 
 
 def quantize_b_blockwise(b: torch.Tensor, coeff: np.ndarray,

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.core.lcma import LCMA
 
-__all__ = ["group_combine_ref", "fused_gemm_combine_h_ref", "matmul_ref",
+__all__ = ["group_combine_ref", "fused_gemm_combine_h_ref", "tiled_matmul_ref",
            "lcma_matmul_ref", "grouped_lcma_matmul_ref", "split_blocks",
            "group_combine_quant_ref", "fused_gemm_combine_h_quant_ref",
            "quantize_blocks_ref", "quantize_b_blockwise_ref"]
@@ -45,7 +45,8 @@ def fused_gemm_combine_h_ref(at: torch.Tensor, bt: torch.Tensor, w: np.ndarray,
     return c.to(out_dtype)
 
 
-def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+def tiled_matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """(M, K) @ (K, N): the f32 product of the upcast operands, cast once."""
     out_dtype = out_dtype or a.dtype
     return torch.matmul(a.float(), b.float()).to(out_dtype)
 

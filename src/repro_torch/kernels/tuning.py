@@ -14,7 +14,8 @@ __all__ = ["SMEM_BUDGET", "REGS_PER_THREAD", "REGS_PER_SM", "THREADS",
            "FUSED_TILES", "FUSED_BK", "QUANT_BK", "combine_smem", "plan_combine_blocks",
            "fused_gemm_smem", "fused_gemm_regs", "plan_fused_gemm_blocks",
            "quant_combine_smem", "plan_quant_combine_warps", "fused_gemm_quant_smem",
-           "plan_fused_gemm_quant_blocks"]
+           "plan_fused_gemm_quant_blocks", "TILED_TILES", "TILED_BK", "TILED_MIN_BLOCKS", "STATIC_SMEM",
+           "tiled_matmul_smem", "plan_tiled_matmul_blocks", "scale_block", "block_plans"]
 
 SMEM_BUDGET = 232_448      # bytes of shared memory one block may use
 REGS_PER_THREAD = 255
@@ -27,6 +28,12 @@ FUSED_TILES = ((64, 64), (16, 64))
 FUSED_BK = 16              # K depth of one shared-memory stage (kBK)
 QUANT_BK = 64              # K depth of one int8 stage of csrc/quant_combine.cu (kQBK)
 QUANT_COMBINE_WARPS = 8    # most rows (one warp each) a quant-combine block holds
+# Tile shapes csrc/tiled_matmul.cu instantiates, as (bm, bn), largest first:
+# 256 threads in a 16 x 16 layout, each owning a (bm/16) x (bn/16) micro-tile.
+TILED_TILES = ((128, 128), (64, 64), (16, 64))
+TILED_BK = 16              # K depth of one shared-memory stage (kTBK)
+TILED_MIN_BLOCKS = 128     # blocks that keep (nearly) all 132 SMs busy
+STATIC_SMEM = 48 * 1024    # cap on a block's static __shared__ arrays (tiled GEMM)
 
 
 def combine_smem(bx: int, by: int, nparts: int) -> int:
@@ -115,3 +122,79 @@ def plan_fused_gemm_quant_blocks(X: int, m: int, n: int,
     """Tile ``(bx, bz)`` of the int8 fused kernel: the same tiles and rule
     as :func:`plan_fused_gemm_blocks`; the K-block comes from the scales."""
     return _plan_fused_tile(X, m, n, fused_gemm_quant_smem, budget)
+
+
+def tiled_matmul_smem(bm: int, bn: int, bk: int = TILED_BK) -> int:
+    """Shared memory of one tiled-GEMM block: one f32 stage of the A tile
+    (rows padded by one word) and of the B tile."""
+    return 4 * (bm * (bk + 1) + bk * bn)
+
+
+def plan_tiled_matmul_blocks(M: int, N: int,
+                             budget: int = SMEM_BUDGET) -> tuple[int, int, int]:
+    """Tile ``(bm, bn, bk)`` of the tiled GEMM for a (M, N) output.
+
+    Decode rows (M <= 16) take the flat 16 x 64 tile. Otherwise the largest
+    tile whose grid has at least ``TILED_MIN_BLOCKS`` blocks, so a short-M
+    product still spreads over the card; a problem too small for that takes
+    the tile that gives it the most blocks. The kernel's tiles are static
+    ``__shared__`` arrays, so ``budget`` is capped at ``STATIC_SMEM``.
+    """
+    budget = min(budget, STATIC_SMEM)
+    fits = [(bm, bn) for bm, bn in TILED_TILES
+            if tiled_matmul_smem(bm, bn) <= budget
+            and fused_gemm_regs(bm, bn) <= REGS_PER_THREAD
+            and fused_gemm_regs(bm, bn) * THREADS <= REGS_PER_SM]
+    if not fits:
+        raise ValueError(f"no tiled-GEMM tile fits {budget} bytes of shared memory")
+    blocks = {t: -(-M // t[0]) * -(-N // t[1]) for t in fits}
+    if M <= 16 and (16, 64) in blocks:
+        tile = (16, 64)
+    else:
+        tile = next((t for t in fits if blocks[t] >= TILED_MIN_BLOCKS),
+                    max(fits, key=lambda t: blocks[t]))
+    return (*tile, TILED_BK)
+
+
+def scale_block(Y: int) -> int:
+    """K-block of the int8 scales for a combined K of ``Y``: the largest
+    divisor of Y that is <= 128, so the blocks tile Y exactly and each int32
+    sum stays far inside ``max_safe_accum_depth(32)``."""
+    return next(d for d in range(min(128, Y), 0, -1) if Y % d == 0)
+
+
+def block_plans(l, M: int, K: int, N: int, dtype: str = "float32",
+                hw=None) -> dict:
+    """Every tile the kernel pipeline picks for one LCMA application on the
+    padded (M, K, N), with its shared-memory bytes, as plain data.
+
+    The export for the autotuner (``core.autotune.calibrate`` embeds it in
+    the profile's metadata) and for offline inspection. ``hw`` (a
+    ``HardwareProfile``) clamps the budget to its ``vmem_bytes``, the
+    per-block shared memory of the part. The kernels stage every operand as
+    f32 in shared memory, so ``dtype`` is recorded but changes no tile.
+    """
+    budget = SMEM_BUDGET
+    if hw is not None and getattr(hw, "vmem_bytes", None):
+        budget = min(budget, int(hw.vmem_bytes))
+    m, k, n, R = l.m, l.k, l.n, l.R
+    Mp, Kp, Np = -(-M // m) * m, -(-K // k) * k, -(-N // n) * n
+    X, Y, Z = Mp // m, Kp // k, Np // n
+    ca = plan_combine_blocks(Y, m * k, budget)
+    cb = plan_combine_blocks(Z, k * n, budget)
+    fg = plan_fused_gemm_blocks(X, m, n, budget)
+    by = scale_block(Y)
+    qw = plan_quant_combine_warps(X, m * k, by, budget)
+    fq = plan_fused_gemm_quant_blocks(X, m, n, budget)
+    return {
+        "grid": [m, k, n], "R": R, "dtype": str(dtype),
+        "padded_shape": [Mp, Kp, Np],
+        "combine_a": list(ca), "combine_b": list(cb), "fused_gemm": list(fg),
+        "quant_combine_a": {"warps": qw, "by": by}, "fused_gemm_quant": list(fq),
+        "combine_a_smem_bytes": combine_smem(*ca, m * k),
+        "combine_b_smem_bytes": combine_smem(*cb, k * n),
+        "fused_gemm_smem_bytes": fused_gemm_smem(fg[0], fg[1], m, n),
+        "quant_combine_a_smem_bytes": quant_combine_smem(qw, m * k, by),
+        "fused_gemm_quant_smem_bytes": fused_gemm_quant_smem(*fq, m, n),
+        "smem_budget_bytes": budget,
+    }

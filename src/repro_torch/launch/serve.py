@@ -1,12 +1,15 @@
 """One-shot serving: batched prefill, then greedy decode in lockstep.
 
     python -m repro_torch.launch.serve --arch granite_3_2b --full [--quant]
+        [--plan-cache PATH]
 
 runs on the card (``--device cuda``, the default) or, with ``--device cpu``,
 through the kernels' plain versions. Static weights are lifted to
 PlannedWeights (offline Combine B) where the Decision Module picks an LCMA;
 ``--quant`` puts the int8 tier into its search and bakes int8 B̃q into the
-PlannedWeights. The continuous-batching engine comes with a later slice.
+PlannedWeights. ``--plan-cache`` loads a plan cache warmed by
+``repro_torch.tools.tune`` before serving and flushes it after. The
+continuous-batching engine comes with a later slice.
 """
 from __future__ import annotations
 
@@ -139,7 +142,14 @@ def main(argv=None) -> None:
                          "Decision Module prices quantized execution next to "
                          "fp, and planned weights carry offline-quantized "
                          "B̃q + scales")
+    ap.add_argument("--plan-cache", default=None, metavar="PATH",
+                    help="persistent Decision plan cache (JSON, written by "
+                         "repro_torch.tools.tune); loaded before serving and "
+                         "flushed back on exit")
     args = ap.parse_args(argv)
+    if args.plan_cache:
+        cache = plan_cache.configure(path=args.plan_cache)
+        print(f"plan cache: {len(cache)} plans loaded from {args.plan_cache}")
     cfg = get_config(args.arch) if args.full else smoke_config(args.arch)
     res = run_oneshot(cfg, batch=args.batch, prompt_len=args.prompt_len,
                       gen=args.gen, seed=args.seed, device=args.device,
@@ -154,6 +164,8 @@ def main(argv=None) -> None:
     st = plan_cache.stats()
     print(f"plan cache: {st.hits} hits / {st.misses} misses "
           f"({st.hit_rate:.0%} hit rate, {len(plan_cache.default_cache())} plans)")
+    if args.plan_cache:
+        plan_cache.flush()
 
 
 if __name__ == "__main__":

@@ -220,7 +220,7 @@ def test_ref_matches_float64_matmul(rng):
     a, b = rng.standard_normal((2, 9, 12)), rng.standard_normal((12, 6))
     got = ref.grouped_lcma_matmul_ref(torch.tensor(a), torch.tensor(b), tl)
     np.testing.assert_allclose(got.numpy(), a @ b, atol=1e-4)
-    c = ref.matmul_ref(torch.tensor(a[0]).bfloat16(), torch.tensor(b).bfloat16())
+    c = ref.tiled_matmul_ref(torch.tensor(a[0]).bfloat16(), torch.tensor(b).bfloat16())
     assert c.dtype == torch.bfloat16
     np.testing.assert_allclose(c.float().numpy(), a[0] @ b, atol=0.1, rtol=0.02)
     with pytest.raises(ValueError):
@@ -263,17 +263,31 @@ def test_planner_fits_every_candidate():
                 assert tuning.combine_smem(bx, by, coeff[0].size) <= tuning.SMEM_BUDGET
     assert tuning.plan_fused_gemm_blocks(2, 2, 2)[:2] == (16, 64)    # decode rows
     assert tuning.plan_fused_gemm_blocks(128, 2, 2)[:2] == (64, 64)
+    for M, N in ((4, 8192), (13, 17), (256, 2048), (256, 8192), (4096, 4096)):
+        bm, bn, bk = tuning.plan_tiled_matmul_blocks(M, N)
+        assert (bm, bn) in tuning.TILED_TILES and bk == tuning.TILED_BK
+        assert tuning.tiled_matmul_smem(bm, bn) <= 48 * 1024    # static shared memory
+        assert tuning.fused_gemm_regs(bm, bn) <= tuning.REGS_PER_THREAD
+    assert tuning.plan_tiled_matmul_blocks(4, 8192)[:2] == (16, 64)     # decode rows
+    assert tuning.plan_tiled_matmul_blocks(256, 2048)[:2] == (64, 64)   # >= 128 blocks
+    assert tuning.plan_tiled_matmul_blocks(4096, 4096)[:2] == (128, 128)
 
 
 def test_kernel_sources_agree_with_planner():
     """The tile shapes, stage depth and block size the planner assumes are
-    the ones csrc/fused_gemm.cu instantiates."""
+    the ones csrc/fused_gemm.cu and csrc/tiled_matmul.cu instantiate."""
     src = (build.CSRC / "fused_gemm.cu").read_text()
     tiles = set((int(a), int(b)) for a, b in
                 re.findall(r"if \(bx == (\d+) && bz == (\d+)\)", src))
     assert tiles == set(tuning.FUSED_TILES)
     assert f"kBK = {tuning.FUSED_BK};" in src
     assert f"kThreads = {tuning.THREADS};" in src
+    src = (build.CSRC / "tiled_matmul.cu").read_text()
+    tiles = set((int(a), int(b)) for a, b in
+                re.findall(r"if \(bm == (\d+) && bn == (\d+)\)", src))
+    assert tiles == set(tuning.TILED_TILES)
+    assert f"kTBK = {tuning.TILED_BK};" in src
+    assert f"kTThreads = {tuning.THREADS};" in src
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
 

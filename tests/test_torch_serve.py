@@ -162,3 +162,20 @@ def test_cuda_quant_kernels_match_plain_versions(name, cuda_device, rng):
     want = K.fused_gemm_combine_h_quant(q0, s0, q0.transpose(1, 2).contiguous(),
                                         s0.transpose(1, 2).contiguous(), tl.W)
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 23, 17), (256, 512, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tiled_matmul_matches_plain_version(shape, dtype, cuda_device, rng):
+    """Ragged (element-wise loads, masked edges) and aligned (16-byte loads)
+    against the plain version on the CPU: f32 sums in another order; in
+    bf16 both round an f32 sum once, so they differ by one bf16 ulp at most."""
+    M, K_, N = shape
+    a = torch.tensor(rng.standard_normal((M, K_)), dtype=torch.float32).to(dtype)
+    b = torch.tensor(rng.standard_normal((K_, N)), dtype=torch.float32).to(dtype)
+    before = K.tiled_matmul.launches
+    got = K.tiled_matmul(a.to(cuda_device), b.to(cuda_device))
+    assert K.tiled_matmul.launches == before + 1
+    tol = dict(atol=1e-4, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-3, rtol=1e-2)
+    torch.testing.assert_close(got.cpu().float(), K.tiled_matmul(a, b).float(), **tol)
