@@ -3,22 +3,23 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each: device, build (nvcc for sm_90a from
-src/repro_torch/csrc, one process per source, all at once), every kernel
-entry point against its plain PyTorch version (six schemes x f32/bf16 x
-ragged shapes and every shape the served model gives the kernel; the int8
+src/repro_torch/csrc, one process per source, all at once), every kernel entry
+point against its plain PyTorch version (six schemes x f32/bf16 x ragged
+shapes, ragged decode rows whose reduction the tensor-core fused kernels split
+across blocks, and every shape the served model gives the kernel; the int8
 kernels likewise; the tiled GEMM at ragged, unaligned, probe and decode
-shapes), the ops pipelines against torch.matmul at granite shapes, kernel
-times (CUDA events around 50 back-to-back launches, or the profiler's
-device time where the wrapper's host cost exceeds the kernel's), model
-parity (2 layers at full width, f32, strassen vs gemm), serving full
-granite_3_2b (40 layers, bf16, 4 requests x 16 tokens) three ways with
-every kernel's launch count: forced strassen, int8 in auto mode
-(``--quant``) and int8 with forced strassen, each int8 run held to the fp
-run on the same weights; what auto mode decides on the h100_sxm profile;
-then the calibration path: ``repro_torch.tools.tune`` measures the card
-(through the tiled GEMM), the data-sheet and calibrated decisions side by
-side, and granite served in auto mode under the calibrated profile with the
-warmed plan cache, held to the fp auto run.
+shapes), the ops pipelines against torch.matmul at granite shapes, kernel times
+(CUDA events around 50 back-to-back launches, or the profiler's device time
+where the wrapper's host cost exceeds the kernel's; the fused kernels' lines
+carry their planned tile, ring stages and splits), model parity (2 layers at
+full width, f32, strassen vs gemm), serving full granite_3_2b (40 layers, bf16,
+4 requests x 16 tokens) three ways with every kernel's launch count: forced
+strassen, int8 in auto mode (``--quant``) and int8 with forced strassen, each
+int8 run held to the fp run on the same weights; what auto mode decides on the
+h100_sxm profile; then the calibration path: ``repro_torch.tools.tune``
+measures the card (through the tiled GEMM), the data-sheet and calibrated
+decisions side by side, and granite served in auto mode under the calibrated
+profile with the warmed plan cache, held to the fp auto run.
 Any failure raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
@@ -26,6 +27,7 @@ without one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -46,7 +48,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import algorithms as alg, plan_cache  # noqa: E402
 from repro_torch.core.hardware import H100_SXM  # noqa: E402
 from repro_torch.core.lcma import LCMA  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref, tuning  # noqa: E402
 from repro_torch.kernels.quant_combine import scale_block  # noqa: E402
 from repro_torch.launch.serve import run_oneshot  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -128,8 +130,14 @@ def combine_case(l, dtype, shape, which, gen, grouped):
             lambda: ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff))
 
 
-def fused_case(l, dtype, X, Y, Z, gen, groups=None, shared=False):
+def fused_case(l, dtype, X, Y, Z, gen, groups=None, shared=False, split=False):
+    """``split``: a case the bf16 planner must split (S > 1), checked here."""
     lead = () if groups is None else (groups,)
+    if split and dtype == torch.bfloat16:
+        plan = tuning.plan_fused_tc(groups or 1, X, Y, Z, l.R, l.m, l.n, shared_b=shared)
+        if plan.splits < 2:
+            raise AssertionError(f"fused case {(groups, X, Y, Z)} under {l.name} is not "
+                                 f"split: {plan}")
     at = randn(*lead, l.R, X, Y, dtype=dtype, gen=gen)
     bt = randn(*(() if shared else lead), l.R, Y, Z, dtype=dtype, gen=gen)
     if groups is None:
@@ -174,11 +182,14 @@ def kernel_cases(l, dtype, gen):
             (combine_case(l, dtype, (M_, K), "U", gen, True) for M_, K, _ in ATTN),
             (combine_case(l, dtype, (K, N), "V", gen, True) for _, K, N in ATTN[:2])),
         "fused_gemm_combine_h": itertools.chain(
-            [fused_case(l, dtype, 37, 53, 45, gen)],
+            [fused_case(l, dtype, 37, 53, 45, gen),
+             # ragged decode rows, the reduction split across blocks (bf16)
+             fused_case(l, dtype, 3, 301, 45, gen, split=True)],
             (fused_case(l, dtype, *g(*mkn), gen) for mkn in products)),
         "batched_fused_gemm_combine_h": itertools.chain(
             [fused_case(l, dtype, 19, 23, 21, gen, groups=3),
              fused_case(l, dtype, 19, 23, 21, gen, groups=3, shared=True),
+             fused_case(l, dtype, 2, 333, 45, gen, groups=3, shared=True, split=True),
              fused_case(l, dtype, *g(4, 2048, 2048), gen, groups=2, shared=True)],
             (fused_case(l, dtype, *g(*mkn), gen, groups=128) for mkn in ATTN)),
     }
@@ -266,8 +277,12 @@ def phase_quant_kernels() -> None:
         g = lambda M_, K, N: (cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n))  # noqa: E731
         combine = [(37, 75, 25)] + [(X, Y, scale_block(Y)) for X, Y in sorted(
             {(cdiv(M_, l.m), cdiv(K, l.k)) for M_, K, _ in PROJ_PLANNED + PROBES})]
-        fused = [(37, 75, 45, 25)] + [(*g(*mkn), scale_block(g(*mkn)[1]))
-                                      for mkn in PROJ_PLANNED]
+        # ragged, then ragged decode rows with a K-block that is no multiple
+        # of 32, split across blocks (S > 1, checked), then the leaves' shapes
+        fused = [(37, 75, 45, 25), (3, 300, 45, 100)] + [
+            (*g(*mkn), scale_block(g(*mkn)[1])) for mkn in PROJ_PLANNED]
+        if tuning.plan_fused_tc(1, 3, 300, 45, l.R, l.m, l.n, by=100).splits < 2:
+            raise AssertionError(f"quant case (3, 300, 45, 100) under {l.name} is not split")
         for dtype in (torch.float32, torch.bfloat16):
             for X, Y, by in combine:
                 kfn, pfn = quant_combine_case(l, dtype, X, Y, by, gen)
@@ -494,7 +509,8 @@ def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
 def phase_times() -> dict:
     """Each kernel at the largest call the served model makes of it (bf16,
     forced strassen): the tied LM head's runtime Combine B, the Combine A of
-    the attention scores at prefill, the mlp_up product at prefill and the
+    the attention scores at prefill, the mlp_up product at prefill (and at
+    decode, and the LM head's at decode: the split reduction) and the
     attention scores product at prefill; the int8 kernels at mlp_up; the
     tiled GEMM at two of the tune path's probes."""
     gen = torch.Generator(device=DEV).manual_seed(3)
@@ -505,12 +521,14 @@ def phase_times() -> dict:
     fa = H100_SXM.flops_for("float32")         # combines run on the CUDA cores
     out = {}
 
-    def record(name, kfn, pfn, flops, nbytes, peak, logical, library="matmul"):
+    def record(name, kfn, pfn, flops, nbytes, peak, logical, library="matmul", plan=None):
         """Time kernel ``name`` (``name@<tag>`` for a second call shape)
         after checking it once more against its plain version. The library
         yardstick is bf16 ``torch.matmul`` of the logical shape for a
         product kernel, or the ``library`` call where one is given (None:
-        none). Kernel, plain version and yardsticks are timed alike."""
+        none). Kernel, plain version and yardsticks are timed alike.
+        ``plan``: the tensor-core fused kernel's plan for this call (tile,
+        ring stages, splits), printed on the line."""
         kernel = name.split("@")[0]
         got = kfn()
         torch.cuda.synchronize()
@@ -540,6 +558,8 @@ def phase_times() -> dict:
                      "library_ms": lib and lib["ms"], "matmul_ms": matmul["ms"],
                      "max_abs_err": a, "err": e, "tol": tol,
                      "logical_mkn": [Mq, Kq, Nq], "groups": G,
+                     "plan": plan and {k: plan.as_dict()[k] for k in
+                                       ("bx", "bz", "bk", "stages", "splits", "blocks")},
                      "timing": {"kernel": k, "plain": plain, "matmul": matmul,
                                 "library": lib}}
         emit("time", kernel=name, **out[name])
@@ -556,14 +576,17 @@ def phase_times() -> dict:
     record("batched_group_combine", lambda: kernels.batched_group_combine(x3, l.U),
            lambda: ref.group_combine_ref(ref.split_blocks(x3, 2, 2), l.U),
            128 * 2.0 * l.nnz_u * X * Y, 128 * (4 + l.R) * X * Y * it, fa, (64, 64, 80, 128))
-    # mlp_up at prefill: (256, 2048) @ (2048, 8192)
-    X, Y, Z = 128, 1024, 4096
-    at = randn(l.R, X, Y, dtype=bf, gen=gen)
-    bt = randn(l.R, Y, Z, dtype=bf, gen=gen)
-    record("fused_gemm_combine_h", lambda: kernels.fused_gemm_combine_h(at, bt, l.W),
-           lambda: ref.fused_gemm_combine_h_ref(at, bt, l.W),
-           2.0 * l.R * X * Y * Z, (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
-           (256, 2048, 8192, 1))
+    # mlp_up at prefill: (256, 2048) @ (2048, 8192); at decode, M = 4; the
+    # tied LM head at decode: (4, 2048) @ (2048, 49408)
+    for tag, (Mq, X, Y, Z) in (("", (256, 128, 1024, 4096)), ("@decode", (4, 2, 1024, 4096)),
+                               ("@lm_head_decode", (4, 2, 1024, 24704))):
+        at = randn(l.R, X, Y, dtype=bf, gen=gen)
+        bt = randn(l.R, Y, Z, dtype=bf, gen=gen)
+        record("fused_gemm_combine_h" + tag, lambda: kernels.fused_gemm_combine_h(at, bt, l.W),
+               lambda: ref.fused_gemm_combine_h_ref(at, bt, l.W),
+               2.0 * l.R * X * Y * Z, (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
+               (Mq, 2 * Y, 2 * Z, 1), plan=tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2))
+        del at, bt
     # attention scores at prefill: 128 groups of (64, 64) @ (64, 80)
     G, X, Y, Z = 128, 32, 32, 40
     at4 = randn(G, l.R, X, Y, dtype=bf, gen=gen)
@@ -572,8 +595,8 @@ def phase_times() -> dict:
            lambda: kernels.batched_fused_gemm_combine_h(at4, bt4, l.W),
            lambda: ref.fused_gemm_combine_h_ref(at4, bt4, l.W),
            G * 2.0 * l.R * X * Y * Z, G * (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
-           (64, 64, 80, G))
-    del at, bt, at4, bt4
+           (64, 64, 80, G), plan=tuning.plan_fused_tc(G, X, Y, Z, l.R, 2, 2))
+    del at4, bt4
     # The int8 path (auto mode with --quant): mlp_up (2048 -> 8192) at
     # prefill, M = 256, and at decode, M = 4. Y = 1024, by = 128.
     fq = H100_SXM.flops_for("int8")
@@ -602,7 +625,8 @@ def phase_times() -> dict:
                l.R * (X * Y + Y * Z) + 4 * l.R * (X + Z) * (Y // by) + 4 * X * Z * it, fq,
                (M_, 2048, 8192, 1),
                # torch._int_mm, the int8 product of the logical shape: M > 16 only
-               library=(lambda: torch._int_mm(a8, b8)) if M_ > 16 else None)
+               library=(lambda: torch._int_mm(a8, b8)) if M_ > 16 else None,
+               plan=tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2, by=by))
     del aq, as_, bq, bs, a8, b8
     # The tiled GEMM on the tune path: its first probe (bound by bytes) and
     # the 4096^3 probe (bound by operations), bf16.
@@ -764,30 +788,61 @@ def phase_serve_quant_forced(fp_forced: dict) -> None:
                              f"expected all 7 leaves")
     check_int8_launches("serve_quant_forced", res, 7, cfg.num_layers)
     quality("serve_quant_forced", res, fp_forced, cfg.vocab_size)
-    del params, res
+    del res
+    profile_serve("profile_quant_forced", cfg, params, quantize=True)
+    del params
     torch.cuda.empty_cache()
 
 
 def profile_serve(phase: str, cfg, params, quantize: bool = False) -> None:
-    """Where the time goes: device time by kernel over one more one-shot run
-    (precombine, prefill, one decode step) under torch.profiler, and the
-    share of that window the device was busy."""
+    """Where the time of serving goes: prefill and one decode step, against
+    weights precombined beforehand (outside the window), under
+    torch.profiler: device time by kernel and the share of the window the
+    device was busy. Then the same run under cProfile (:func:`host_split`)."""
     from torch.profiler import ProfilerActivity, profile
+    fcfg = dataclasses.replace(M.falcon_config_for(cfg), quantize=quantize)
+    with falcon.use(fcfg), torch.inference_mode():
+        planned, _ = falcon.precombine_params(params, m_hint=BATCH * PROMPT)
+    run = functools.partial(run_oneshot, cfg, batch=BATCH, prompt_len=PROMPT, gen=2,
+                            seed=0, device=DEV, params=planned, precombine=False,
+                            quantize=quantize)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=2, seed=0, device=DEV,
-                          params=params, quantize=quantize)
+        res = run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     us = lambda e: getattr(e, "self_device_time_total", 0)  # noqa: E731
     dev.sort(key=us, reverse=True)
     device_ms = sum(us(e) for e in dev) / 1e3
-    emit(phase, window="precombine + prefill + 1 decode step (profiler on)",
+    emit(phase, window="prefill + 1 decode step (profiler on)",
          wall_ms=wall_ms, timings=res["timings"],
          device_ms=device_ms if dev else "not measured",
          busy_share=device_ms / wall_ms if dev else "not measured",
          top=[{"kernel": e.key[:90], "ms": us(e) / 1e3, "calls": e.count}
-              for e in dev[:12]])
+              for e in dev[:12]],
+         host=host_split(run))
+
+
+def host_split(run) -> dict:
+    """``run()`` under cProfile: the host ms inside the model's forward,
+    inside the ops pipelines (``kernels/ops.py``) and inside the kernel
+    wrappers (the functions that count launches), each summed over its
+    calls. cProfile slows the host, so the shares are what to read."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(run)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    key = lambda f: (f.__code__.co_filename, f.__code__.co_firstlineno,  # noqa: E731
+                     f.__code__.co_name)
+    cum = lambda fns: sum(stats[key(f)][3] for f in fns if key(f) in stats) * 1e3  # noqa: E731
+    pipelines = (ops.falcon_matmul, ops.falcon_matmul_precombined, ops.falcon_grouped_matmul,
+                 ops.falcon_grouped_matmul_precombined, ops.falcon_matmul_quant, ops.matmul)
+    return {"wall_ms": wall_ms, "forward_ms": cum([M.forward]), "ops_ms": cum(pipelines),
+            "wrappers_ms": cum(kernels.KERNELS)}
 
 
 def phase_decisions() -> None:

@@ -1,28 +1,33 @@
 // Fused GEMM + Group Combine H (paper Alg. 2, stages 3-4) for Hopper.
 //
-// Replaces the Pallas TPU kernels fused_gemm_combine_h and
-// batched_fused_gemm_combine_h (src/repro/kernels/fused_gemm.py). For every
-// group g it computes the C parts
+// Replaces the Pallas TPU kernels fused_gemm_combine_h
+// (src/repro/kernels/fused_gemm.py:71) and batched_fused_gemm_combine_h
+// (:147). For every group g it computes the C parts
 //     out[g, i, j] = sum_r W[r, i, j] * (At[g, r] @ Bt[g, r])      (m, n, X, Z)
 // with every product H_r = At_r @ Bt_r summed in f32 and never stored.
 // Bt has a group stride of 0 when one combined B is shared by the group.
 //
-// Bound on the H100: operations at large M (2*R*X*Y*Z against
-// (R*(XY + YZ) + m*n*XZ) * itemsize bytes); bytes at decode-sized M, where
-// the kernel is a stream over Bt.
+// Bound on the H100: bytes at the served shapes, where the kernel is a
+// stream over Bt (mlp_up at prefill: 116 operations per byte against the
+// card's ~295); operations only at 4096^3-class products.
 //
-// Design. The Pallas kernel keeps R f32 accumulators per output tile across
-// the K loop. On Hopper that is R*bx*bz*4 bytes: for s555 (R = 110) no useful
-// tile fits in registers or in the 227 KB of shared memory. Combine H is
-// linear, so a block instead finishes H_r for one r over the whole K loop
-// (in registers), adds W[r, i, j] * H_r into the m*n output accumulators it
-// holds in shared memory, and goes on to r + 1. That needs m*n tiles of state
-// (m*n <= R), and it sums over r in the same ascending order, skipping
-// zeros, as the Pallas kernel. The product itself is a shared-memory-tiled
-// FMA loop: 256 threads, each owning a (BX/16) x (BZ/16) micro-tile, operands
-// loaded as bf16 or f32 and widened to f32. Ragged tile edges are masked.
-// The tile shape is chosen by kernels/tuning.py:plan_fused_gemm_blocks.
-#include "common.cuh"
+// The entry point picks the kernel by the operands' dtype:
+//  - bf16: the tensor-core kernel of csrc/fused_tc.cuh (mma.sync fed by a
+//    cp.async ring, H_r in the MMA fragments, Combine H folded from
+//    registers, the (r, K) reduction split across blocks where the output
+//    tiles alone would leave SMs idle, with a fixed-order second pass).
+//  - f32: the SIMT kernel below, unchanged since its first port: TF32 on the
+//    tensor cores would not meet f32 accuracy. The Pallas kernel keeps R f32
+//    accumulators per output tile; on Hopper that is R*bx*bz*4 bytes, which
+//    for s555 (R = 110) fits no useful tile. Combine H is linear, so a block
+//    instead finishes H_r for one r over the whole K loop (in registers),
+//    adds W[r, i, j] * H_r into the m*n output accumulators it holds in
+//    shared memory, and goes on to r + 1, in the Pallas kernel's ascending
+//    order, skipping zeros. The product is a shared-memory-tiled FMA loop:
+//    256 threads, each owning a (BX/16) x (BZ/16) micro-tile. Ragged tile
+//    edges are masked. Its tile is chosen by
+//    kernels/tuning.py:plan_fused_gemm_blocks.
+#include "fused_tc.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kBK = 16;  // K depth of one shared-memory stage
@@ -149,23 +154,33 @@ static int launch_tile(int bx, int bz, const void* at, const void* bt, void* out
 }
 
 // at (G, R, X, Y), bt (G, R, Y, Z) or shared (R, Y, Z) with bt_group_stride
-// 0, out (G, m*n, X, Z); all contiguous. in_dtype is at's and bt's type.
+// 0, out (G, m*n, X, Z); all contiguous. in_dtype is at's and bt's type: bf16
+// runs on the tensor cores with tile (bx, bz) and `splits` reduction splits
+// (ws: a (splits, G, m*n, X, Z) f32 workspace when splits > 1; vec: Y and Z
+// multiples of 8 and both pointers 16-byte aligned; smem_bytes: the
+// planner's shared memory for the tile, held to the kernel's layout); f32
+// runs the SIMT kernel, whose tiles take splits == 1 (smem_bytes unused).
 extern "C" int falcon_fused_gemm_combine_h(int device, const void* at, const void* bt,
-                                           void* out, const void* table, int in_dtype,
-                                           int out_dtype, int G, int R, int mn, int X,
-                                           int Y, int Z, long long bt_group_stride,
-                                           int bx, int bz, void* stream) {
+                                           void* out, void* ws, const void* table,
+                                           int in_dtype, int out_dtype, int G, int R, int mn,
+                                           int X, int Y, int Z, long long bt_group_stride,
+                                           int vec, int bx, int bz, int splits,
+                                           int smem_bytes, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tab = static_cast<const int*>(table);
-  if (in_dtype == FALCON_F32 && out_dtype == FALCON_F32)
+  if (in_dtype == FALCON_BF16) {
+    const ftc::Args p{at, bt, nullptr, nullptr, out, static_cast<float*>(ws), tab, R, mn,
+                      X, Y, Z, ftc::kBK, splits, vec, bt_group_stride, smem_bytes};
+    if (out_dtype == FALCON_F32) return ftc::launch_tile<false, float>(bx, bz, p, G, s);
+    if (out_dtype == FALCON_BF16) return ftc::launch_tile<false, __nv_bfloat16>(bx, bz, p, G, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (in_dtype != FALCON_F32 || splits != 1) return (int)cudaErrorInvalidValue;
+  if (out_dtype == FALCON_F32)
     return launch_tile<float, float>(bx, bz, at, bt, out, tab, G, R, mn, X, Y, Z, bt_group_stride, s);
-  if (in_dtype == FALCON_F32 && out_dtype == FALCON_BF16)
+  if (out_dtype == FALCON_BF16)
     return launch_tile<float, __nv_bfloat16>(bx, bz, at, bt, out, tab, G, R, mn, X, Y, Z, bt_group_stride, s);
-  if (in_dtype == FALCON_BF16 && out_dtype == FALCON_F32)
-    return launch_tile<__nv_bfloat16, float>(bx, bz, at, bt, out, tab, G, R, mn, X, Y, Z, bt_group_stride, s);
-  if (in_dtype == FALCON_BF16 && out_dtype == FALCON_BF16)
-    return launch_tile<__nv_bfloat16, __nv_bfloat16>(bx, bz, at, bt, out, tab, G, R, mn, X, Y, Z, bt_group_stride, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -37,17 +37,17 @@ _SIGNATURES = {
         "falcon_group_combine": [_I, _P, _P, _P] + [_I] * 9 + [_P],
     },
     "fused_gemm": {
-        # device, at, bt, out, table, in_dtype, out_dtype, G, R, mn, X, Y, Z,
-        # bt_group_stride, bx, bz, stream
-        "falcon_fused_gemm_combine_h": [_I] + [_P] * 4 + [_I] * 8
-        + [ctypes.c_longlong, _I, _I, _P],
+        # device, at, bt, out, ws, table, in_dtype, out_dtype, G, R, mn, X, Y,
+        # Z, bt_group_stride, vec, bx, bz, splits, smem_bytes, stream
+        "falcon_fused_gemm_combine_h": [_I] + [_P] * 5 + [_I] * 8
+        + [ctypes.c_longlong] + [_I] * 5 + [_P],
     },
     "quant_combine": {
         # device, in, q, scales, table, dtype, R, d1, d2, X, Y, by, warps, stream
         "falcon_group_combine_quant": [_I] + [_P] * 4 + [_I] * 8 + [_P],
-        # device, aq, as, bq, bs, out, table, out_dtype, R, mn, X, Y, Z, by,
-        # aligned, bx, bz, stream
-        "falcon_fused_gemm_quant": [_I] + [_P] * 6 + [_I] * 10 + [_P],
+        # device, aq, as, bq, bs, out, ws, table, out_dtype, R, mn, X, Y, Z,
+        # by, vec, bx, bz, splits, smem_bytes, stream
+        "falcon_fused_gemm_quant": [_I] + [_P] * 7 + [_I] * 12 + [_P],
     },
     "tiled_matmul": {
         # device, a, b, c, in_dtype, out_dtype, M, K, N, bm, bn, stream

@@ -7,10 +7,12 @@ in ``csrc/quant_combine.cu``:
 * ``group_combine_quant`` — Combine A in f32 and symmetric int8
   quantization with one f32 scale per (rank, row, K-block of ``by``
   columns), in one pass over A. Bound by bytes on the H100.
-* ``fused_gemm_combine_h_quant`` — int8 x int8 products summed exactly in
-  int32 per K-block, dequantized by the row and column scales, then Combine
-  H, as in slice 1's fused kernel: H never reaches memory and C is written
-  once in the io dtype. Bound by bytes at serving M (the int8 B̃q stream).
+* ``fused_gemm_combine_h_quant`` — int8 x int8 products on the tensor
+  cores, summed exactly in int32 per K-block, dequantized by the row and
+  column scales, then Combine H from registers: H never reaches memory and
+  C is written once in the io dtype. Bound by bytes at serving M (the int8
+  B̃q stream); at decode the reduction is split across blocks on K-block
+  boundaries (``tuning.plan_fused_tc``) and summed by a second pass.
 
 ``quantize_b_blockwise`` (offline Combine B + int8 of a static weight) has
 no Pallas kernel of its own: it is the ``group_combine`` kernel at the
@@ -27,7 +29,7 @@ import torch
 from repro_torch.analysis.stability import max_safe_accum_depth
 from . import build, ref
 from .group_combine import coeff_table, group_combine
-from .tuning import plan_fused_gemm_quant_blocks, plan_quant_combine_warps, scale_block
+from .tuning import plan_fused_tc, plan_quant_combine_warps, scale_block
 
 __all__ = ["group_combine_quant", "fused_gemm_combine_h_quant",
            "quantize_b_blockwise", "scale_block"]
@@ -120,15 +122,18 @@ def fused_gemm_combine_h_quant(aq: torch.Tensor, a_scales: torch.Tensor,
             f"is {max_safe_accum_depth(32)} — use a smaller scale block")
     if not _on_card(aq, a_scales, bq, b_scales, what="fused_gemm_combine_h_quant"):
         return ref.fused_gemm_combine_h_quant_ref(aq, a_scales, bq, b_scales, w, out_dtype)
-    bx, bz = plan_fused_gemm_quant_blocks(X, m, n)
-    aligned = int(Y % 4 == 0 and Z % 4 == 0 and by % 4 == 0
-                  and aq.data_ptr() % 4 == 0 and bq.data_ptr() % 4 == 0)
+    plan = plan_fused_tc(1, X, Y, Z, R, m, n, by=by)
+    vec = int(Y % 16 == 0 and Z % 16 == 0 and by % 16 == 0
+              and aq.data_ptr() % 16 == 0 and bq.data_ptr() % 16 == 0)
     out = torch.empty((m, n, X, Z), dtype=out_dtype, device=aq.device)
+    ws = (torch.empty((plan.splits, m * n, X, Z), dtype=torch.float32, device=aq.device)
+          if plan.splits > 1 else None)
     lib = build.library("quant_combine")
     err = lib.falcon_fused_gemm_quant(
         aq.device.index, aq.data_ptr(), a_scales.data_ptr(), bq.data_ptr(),
-        b_scales.data_ptr(), out.data_ptr(), coeff_table(w, aq.device).data_ptr(),
-        _code(out_dtype), R, m * n, X, Y, Z, by, aligned, bx, bz,
+        b_scales.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
+        coeff_table(w, aq.device).data_ptr(), _code(out_dtype), R, m * n, X, Y, Z, by,
+        vec, plan.bx, plan.bz, plan.splits, plan.smem_bytes,
         torch.cuda.current_stream(aq.device).cuda_stream)
     build.check(lib, err, "fused_gemm_combine_h_quant")
     fused_gemm_combine_h_quant.launches += 1
@@ -144,5 +149,7 @@ def quantize_b_blockwise(b: torch.Tensor, coeff: np.ndarray,
     return ref.quantize_blocks_ref(group_combine(b, coeff), by)
 
 
-group_combine_quant.launches = 0          # kernel launches, counted by the wrapper
+# Calls that launched the kernel, counted by the wrapper; a fused call with
+# splits > 1 also launches the reduce pass, which is not counted.
+group_combine_quant.launches = 0
 fused_gemm_combine_h_quant.launches = 0

@@ -4,29 +4,53 @@ Picks each kernel's block (CTA) tile from the two budgets that bind on an
 H100 SM: the shared memory one block may use (232,448 bytes) and the
 registers (at most 255 per thread, 65,536 per SM). The reference planner's
 high-rank failure mode — an ``(R, bx, bz)`` f32 accumulator that outgrows
-on-chip memory — cannot occur here: the fused kernel finishes one rank at a
-time and keeps only the ``m*n`` output accumulators (see
-``csrc/fused_gemm.cu``), so every scheme of the library gets a tile.
+on-chip memory — cannot occur here: the fused kernels finish one rank at a
+time and keep only the ``m*n`` output accumulators (see
+``csrc/fused_tc.cuh``), so every scheme of the library gets a tile.
+
+The tensor-core fused kernels (bf16 and int8) also get a split count S:
+where the output tiles alone leave the card idle (decode rows), the
+flattened (rank, K-chunk) reduction is cut into S contiguous ranges, one
+block each, and a second pass sums the S f32 partials in fixed order.
 """
 from __future__ import annotations
 
-__all__ = ["SMEM_BUDGET", "REGS_PER_THREAD", "REGS_PER_SM", "THREADS",
-           "FUSED_TILES", "FUSED_BK", "QUANT_BK", "combine_smem", "plan_combine_blocks",
+import functools
+from dataclasses import asdict, dataclass
+
+__all__ = ["SMEM_BUDGET", "REGS_PER_THREAD", "REGS_PER_SM", "THREADS", "SMS",
+           "FUSED_TILES", "FUSED_BK", "combine_smem", "plan_combine_blocks",
            "fused_gemm_smem", "fused_gemm_regs", "plan_fused_gemm_blocks",
-           "quant_combine_smem", "plan_quant_combine_warps", "fused_gemm_quant_smem",
-           "plan_fused_gemm_quant_blocks", "TILED_TILES", "TILED_BK", "TILED_MIN_BLOCKS", "STATIC_SMEM",
+           "TC_THREADS", "TC_TILES", "TC_WARPS", "TC_BK", "TC_STAGES", "TC_ACC_REGS",
+           "SPLIT_MIN_BLOCKS", "FusedPlan", "fused_tc_smem", "fused_tc_regs",
+           "plan_fused_tc", "split_ranges",
+           "quant_combine_smem", "plan_quant_combine_warps",
+           "TILED_TILES", "TILED_BK", "TILED_MIN_BLOCKS", "STATIC_SMEM",
            "tiled_matmul_smem", "plan_tiled_matmul_blocks", "scale_block", "block_plans"]
 
 SMEM_BUDGET = 232_448      # bytes of shared memory one block may use
 REGS_PER_THREAD = 255
 REGS_PER_SM = 65_536
-THREADS = 256              # threads per block of both kernels
+THREADS = 256              # threads per block of the SIMT kernels
+SMS = 132                  # streaming multiprocessors of an H100 SXM
 
-# Tile shapes csrc/fused_gemm.cu instantiates, as (bx, bz): 256 threads in a
-# 16 x 16 layout, each owning a (bx/16) x (bz/16) micro-tile.
+# Tile shapes the f32 SIMT kernel of csrc/fused_gemm.cu instantiates, as
+# (bx, bz): 256 threads in a 16 x 16 layout, each owning a (bx/16) x (bz/16)
+# micro-tile.
 FUSED_TILES = ((64, 64), (16, 64))
 FUSED_BK = 16              # K depth of one shared-memory stage (kBK)
-QUANT_BK = 64              # K depth of one int8 stage of csrc/quant_combine.cu (kQBK)
+
+# The tensor-core fused kernels (csrc/fused_tc.cuh, bf16 and int8): 4 warps;
+# a block owns a bz x bx tile of H^T (z on the MMA's 16-row side, the rows x
+# of A on its 8-wide side), the warps laid out warps_z x warps_x.
+TC_THREADS = 128
+TC_TILES = ((32, 64), (16, 64), (8, 64))     # (bx, bz), widest first
+TC_WARPS = {(32, 64): (2, 2), (16, 64): (4, 1), (8, 64): (4, 1)}
+TC_BK = 128                # K elements of one ring stage (both dtypes)
+TC_STAGES = 3              # depth of the cp.async ring
+TC_PAD = 16                # bytes after every staged row (ldmatrix without bank conflicts)
+TC_ACC_REGS = 4            # m*n up to this: output accumulators in registers
+SPLIT_MIN_BLOCKS = 2 * SMS  # blocks a split grid aims for
 QUANT_COMBINE_WARPS = 8    # most rows (one warp each) a quant-combine block holds
 # Tile shapes csrc/tiled_matmul.cu instantiates, as (bm, bn), largest first:
 # 256 threads in a 16 x 16 layout, each owning a (bm/16) x (bn/16) micro-tile.
@@ -81,6 +105,7 @@ def _plan_fused_tile(X: int, m: int, n: int, smem, budget: int) -> tuple[int, in
                      f"{budget} bytes of shared memory")
 
 
+@functools.lru_cache(maxsize=4096)
 def plan_fused_gemm_blocks(X: int, m: int, n: int,
                            budget: int = SMEM_BUDGET) -> tuple[int, int, int]:
     """Tile ``(bx, bz, bk)`` of the fused GEMM + Combine H kernel.
@@ -111,17 +136,123 @@ def plan_quant_combine_warps(X: int, nparts: int, by: int,
                      f"memory — use a smaller scale block")
 
 
-def fused_gemm_quant_smem(bx: int, bz: int, m: int, n: int) -> int:
-    """Shared memory of one int8 fused block: ``m*n`` f32 output accumulator
-    tiles plus one int8 stage of the Aq and Bq tiles."""
-    return 4 * m * n * bx * bz + QUANT_BK * (bx + bz)
+@dataclass(frozen=True)
+class FusedPlan:
+    """One launch of a tensor-core fused kernel.
+
+    ``bx`` x ``bz`` is the output tile (rows of A x columns of B); the
+    reduction over (rank, K) is a sequence of ``units`` units of
+    ``steps_per_unit`` ring stages of ``bk`` K elements each (bf16: one
+    stage per unit; int8: one unit per K-block of ``by`` columns, so a split
+    never cuts an int32 sum). ``splits`` contiguous unit ranges
+    (:func:`split_ranges`) go to as many blocks per tile, at most
+    ``split_max``; ``splits > 1`` needs a (splits, G, m*n, X, Z) f32
+    workspace.
+    """
+    bx: int
+    bz: int
+    bk: int
+    stages: int
+    splits: int
+    units: int
+    steps_per_unit: int
+    acc_in_regs: bool
+    smem_bytes: int
+    tiles: int
+    split_max: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def as_dict(self) -> dict:
+        return {**asdict(self), "blocks": self.blocks}
 
 
-def plan_fused_gemm_quant_blocks(X: int, m: int, n: int,
-                                 budget: int = SMEM_BUDGET) -> tuple[int, int]:
-    """Tile ``(bx, bz)`` of the int8 fused kernel: the same tiles and rule
-    as :func:`plan_fused_gemm_blocks`; the K-block comes from the scales."""
-    return _plan_fused_tile(X, m, n, fused_gemm_quant_smem, budget)
+def _row(n: int, itemsize: int) -> int:
+    """Bytes of one staged row of ``n`` elements, padded."""
+    return n * itemsize + TC_PAD
+
+
+def fused_tc_smem(bx: int, bz: int, mn: int, quant: bool) -> int:
+    """Shared memory of one tensor-core fused block: the ring (an At tile
+    [bx][bk] and a Bt tile [bk][bz] per stage, and for int8 the f32 row and
+    column scales of the stage's K-block), for int8 the transposed Bq tile
+    [bz][bk] the MMA reads, and the m*n f32 output accumulators where they
+    do not stay in registers."""
+    isz = 1 if quant else 2
+    total = TC_STAGES * (bx * _row(TC_BK, isz) + TC_BK * _row(bz, isz))
+    if quant:
+        total += TC_STAGES * 4 * (bx + bz) + bz * _row(TC_BK, 1)
+    if mn > TC_ACC_REGS:
+        total += 4 * mn * bx * bz
+    return total
+
+
+def fused_tc_regs(bx: int, bz: int, mn: int, quant: bool) -> int:
+    """Registers per thread, estimated: the MMA accumulators and the H
+    fragment, the output accumulators when they are held in registers, one
+    A and one B operand fragment, and a fixed allowance for addressing."""
+    wz, wx = TC_WARPS[(bx, bz)]
+    mt, nt = bz // wz // 16, bx // wx // 8
+    frag = mt * nt * 4
+    regs = 2 * frag + 4 * mt + 2 * nt + 64
+    if mn <= TC_ACC_REGS:
+        regs += mn * frag
+    return regs
+
+
+def split_ranges(units: int, splits: int) -> list[tuple[int, int]]:
+    """The unit range ``[begin, end)`` of each split, as the kernel computes
+    it: ``begin = units * s // splits``."""
+    return [(units * s // splits, units * (s + 1) // splits) for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_fused_tc(G: int, X: int, Y: int, Z: int, R: int, m: int, n: int,
+                  by: int | None = None, shared_b: bool = False,
+                  budget: int = SMEM_BUDGET) -> FusedPlan:
+    """Tile and split of the tensor-core fused GEMM + Combine H kernel for
+    ``G`` groups of (R, X, Y) x (R, Y, Z); ``by`` is the int8 K-block (None:
+    bf16); ``shared_b``: one Bt read by every group.
+
+    The tile is the widest of ``TC_TILES`` whose x side X needs (decode rows
+    take the 8-wide tile) and that fits both budgets. ``splits`` is 1 where
+    the tiles alone reach ``SMS`` blocks; otherwise enough to reach
+    ``SPLIT_MIN_BLOCKS``, at most one unit per split and at most as many
+    f32 partials as the operands have bytes (the partials' round trip must
+    not outweigh the stream it parallelizes).
+    """
+    quant = by is not None
+    mn = m * n
+    if X > 16:
+        cands = TC_TILES
+    elif X > 8:
+        cands = TC_TILES[1:]
+    else:
+        cands = TC_TILES[2:]
+    for bx, bz in cands:
+        smem = fused_tc_smem(bx, bz, mn, quant)
+        if smem <= budget and fused_tc_regs(bx, bz, mn, quant) <= REGS_PER_THREAD:
+            break
+    else:
+        raise ValueError(f"no tensor-core fused tile fits m*n={mn} accumulator tiles "
+                         f"in {budget} bytes of shared memory")
+    tiles = G * -(-X // bx) * -(-Z // bz)
+    if quant:
+        if by < 1 or Y % by:
+            raise ValueError(f"K-block {by} does not divide Y = {Y}")
+        units, per_unit = R * (Y // by), -(-by // TC_BK)
+    else:
+        units, per_unit = R * -(-Y // TC_BK), 1
+    isz = 1 if quant else 2
+    operand_bytes = isz * R * (G * X * Y + (1 if shared_b else G) * Y * Z)
+    split_max = max(1, min(units, operand_bytes // (4 * G * mn * X * Z)))
+    # blockIdx.z carries (group, split): at most 65,535 of them
+    split_max = max(1, min(split_max, 65_535 // G))
+    splits = 1 if tiles >= SMS else min(-(-SPLIT_MIN_BLOCKS // tiles), split_max)
+    return FusedPlan(bx, bz, TC_BK, TC_STAGES, splits, units, per_unit,
+                     mn <= TC_ACC_REGS, smem, tiles, split_max)
 
 
 def tiled_matmul_smem(bm: int, bn: int, bk: int = TILED_BK) -> int:
@@ -171,8 +302,9 @@ def block_plans(l, M: int, K: int, N: int, dtype: str = "float32",
     The export for the autotuner (``core.autotune.calibrate`` embeds it in
     the profile's metadata) and for offline inspection. ``hw`` (a
     ``HardwareProfile``) clamps the budget to its ``vmem_bytes``, the
-    per-block shared memory of the part. The kernels stage every operand as
-    f32 in shared memory, so ``dtype`` is recorded but changes no tile.
+    per-block shared memory of the part. ``fused_gemm`` is the f32 SIMT
+    kernel's tile, ``fused_gemm_tc`` and ``fused_gemm_quant`` the bf16 and
+    int8 tensor-core plans (tile, ring depth, split); ``dtype`` is recorded.
     """
     budget = SMEM_BUDGET
     if hw is not None and getattr(hw, "vmem_bytes", None):
@@ -185,16 +317,19 @@ def block_plans(l, M: int, K: int, N: int, dtype: str = "float32",
     fg = plan_fused_gemm_blocks(X, m, n, budget)
     by = scale_block(Y)
     qw = plan_quant_combine_warps(X, m * k, by, budget)
-    fq = plan_fused_gemm_quant_blocks(X, m, n, budget)
+    ft = plan_fused_tc(1, X, Y, Z, R, m, n, budget=budget)
+    fq = plan_fused_tc(1, X, Y, Z, R, m, n, by=by, budget=budget)
     return {
         "grid": [m, k, n], "R": R, "dtype": str(dtype),
         "padded_shape": [Mp, Kp, Np],
         "combine_a": list(ca), "combine_b": list(cb), "fused_gemm": list(fg),
-        "quant_combine_a": {"warps": qw, "by": by}, "fused_gemm_quant": list(fq),
+        "fused_gemm_tc": ft.as_dict(),
+        "quant_combine_a": {"warps": qw, "by": by}, "fused_gemm_quant": fq.as_dict(),
         "combine_a_smem_bytes": combine_smem(*ca, m * k),
         "combine_b_smem_bytes": combine_smem(*cb, k * n),
         "fused_gemm_smem_bytes": fused_gemm_smem(fg[0], fg[1], m, n),
         "quant_combine_a_smem_bytes": quant_combine_smem(qw, m * k, by),
-        "fused_gemm_quant_smem_bytes": fused_gemm_quant_smem(*fq, m, n),
+        "fused_gemm_tc_smem_bytes": ft.smem_bytes,
+        "fused_gemm_quant_smem_bytes": fq.smem_bytes,
         "smem_budget_bytes": budget,
     }

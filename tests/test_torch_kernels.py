@@ -248,7 +248,8 @@ def test_coeff_table_is_csr_of_the_scheme(name):
 
 def test_planner_fits_every_candidate():
     """Every scheme of candidates(max_grid=5), up to s555, gets a tile that
-    fits the shared-memory and register budgets, for prefill and decode rows."""
+    fits the shared-memory and register budgets, for prefill and decode
+    rows: the f32 SIMT tile, and the bf16 and int8 tensor-core plans."""
     for l in talg.candidates(max_grid=5):
         for X in (2, 16, 17, 128, 1024):
             bx, bz, bk = tuning.plan_fused_gemm_blocks(X, l.m, l.n)
@@ -256,6 +257,16 @@ def test_planner_fits_every_candidate():
             assert tuning.fused_gemm_smem(bx, bz, l.m, l.n) <= tuning.SMEM_BUDGET
             assert tuning.fused_gemm_regs(bx, bz) <= tuning.REGS_PER_THREAD
             assert tuning.fused_gemm_regs(bx, bz) * tuning.THREADS <= tuning.REGS_PER_SM
+            for by in (None, 128):
+                p = tuning.plan_fused_tc(1, X, 1024, 1024, l.R, l.m, l.n, by=by)
+                assert (p.bx, p.bz) in tuning.TC_TILES
+                assert (p.bk, p.stages) == (tuning.TC_BK, tuning.TC_STAGES)
+                assert p.acc_in_regs == (l.m * l.n <= tuning.TC_ACC_REGS)
+                assert p.smem_bytes == tuning.fused_tc_smem(p.bx, p.bz, l.m * l.n,
+                                                             by is not None)
+                assert p.smem_bytes <= tuning.SMEM_BUDGET
+                assert tuning.fused_tc_regs(p.bx, p.bz, l.m * l.n, by is not None) \
+                    <= tuning.REGS_PER_THREAD
         for coeff in (l.U, l.V):
             for Y in (1, 40, 1024):
                 bx, by = tuning.plan_combine_blocks(Y, coeff.shape[1] * coeff.shape[2])
@@ -263,6 +274,9 @@ def test_planner_fits_every_candidate():
                 assert tuning.combine_smem(bx, by, coeff[0].size) <= tuning.SMEM_BUDGET
     assert tuning.plan_fused_gemm_blocks(2, 2, 2)[:2] == (16, 64)    # decode rows
     assert tuning.plan_fused_gemm_blocks(128, 2, 2)[:2] == (64, 64)
+    tc = lambda X: tuning.plan_fused_tc(1, X, 1024, 4096, 7, 2, 2)  # noqa: E731
+    assert (tc(2).bx, tc(16).bx, tc(17).bx, tc(128).bx) == (8, 16, 32, 32)
+    assert tc(128).splits == 1 and tc(2).splits > 1        # mlp_up: prefill, decode
     for M, N in ((4, 8192), (13, 17), (256, 2048), (256, 8192), (4096, 4096)):
         bm, bn, bk = tuning.plan_tiled_matmul_blocks(M, N)
         assert (bm, bn) in tuning.TILED_TILES and bk == tuning.TILED_BK
@@ -274,14 +288,28 @@ def test_planner_fits_every_candidate():
 
 
 def test_kernel_sources_agree_with_planner():
-    """The tile shapes, stage depth and block size the planner assumes are
-    the ones csrc/fused_gemm.cu and csrc/tiled_matmul.cu instantiate."""
+    """The tile shapes, stage depths and block sizes the planner assumes are
+    the ones csrc/fused_gemm.cu (f32 SIMT), csrc/fused_tc.cuh (bf16 and
+    int8 tensor cores) and csrc/tiled_matmul.cu instantiate."""
     src = (build.CSRC / "fused_gemm.cu").read_text()
     tiles = set((int(a), int(b)) for a, b in
                 re.findall(r"if \(bx == (\d+) && bz == (\d+)\)", src))
     assert tiles == set(tuning.FUSED_TILES)
     assert f"kBK = {tuning.FUSED_BK};" in src
     assert f"kThreads = {tuning.THREADS};" in src
+    assert '#include "fused_tc.cuh"' in src
+    assert '#include "fused_tc.cuh"' in (build.CSRC / "quant_combine.cu").read_text()
+    src = (build.CSRC / "fused_tc.cuh").read_text()
+    warps = {(int(a), int(b)): (int(c), int(d)) for a, b, c, d in re.findall(
+        r"if \(bx == (\d+) && bz == (\d+)\) return launch_acc<QUANT, Tout, \d+, \d+, "
+        r"(\d+), (\d+)>", src)}
+    assert warps == tuning.TC_WARPS and set(warps) == set(tuning.TC_TILES)
+    assert f"kBK = {tuning.TC_BK};" in src
+    assert f"kStages = {tuning.TC_STAGES};" in src
+    assert f"kThreads = {tuning.TC_THREADS};" in src
+    assert f"kPad = {tuning.TC_PAD};" in src
+    assert f"kAccRegs = {tuning.TC_ACC_REGS};" in src
+    assert "smem != (size_t)p.smem_bytes" in src     # the launcher holds the planner's bytes
     src = (build.CSRC / "tiled_matmul.cu").read_text()
     tiles = set((int(a), int(b)) for a, b in
                 re.findall(r"if \(bm == (\d+) && bn == (\d+)\)", src))
@@ -290,6 +318,70 @@ def test_kernel_sources_agree_with_planner():
     assert f"kTThreads = {tuning.THREADS};" in src
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
+
+
+# The served model's logical products (M, K, N), as chip_smoke.py's PROJ:
+# prefill M = 4 x 64 and decode M = 4; granite_3_2b's projections and the
+# tied LM head (vocab 49155 padded to 49408).
+GRANITE_PROJ = [(M, K, N) for M in (256, 4)
+                for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+                             (2048, 49408))]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("mkn", GRANITE_PROJ, ids=lambda t: "x".join(map(str, t)))
+def test_split_plan_fills_the_card_for_granite(mkn, quant):
+    """Under strassen, every granite leaf at prefill and decode is planned
+    to at least one block per SM, or its split is the largest the planner
+    allows; the split only appears where the tiles alone do not fill it."""
+    l = talg.get("strassen")
+    M, K_, N = mkn
+    X, Y, Z = -(-M // l.m), K_ // l.k, N // l.n
+    p = tuning.plan_fused_tc(1, X, Y, Z, l.R, l.m, l.n,
+                             by=tuning.scale_block(Y) if quant else None)
+    assert p.blocks >= tuning.SMS or p.splits == p.split_max
+    assert 1 <= p.splits <= p.split_max <= p.units
+    if p.tiles >= tuning.SMS:
+        assert p.splits == 1
+    else:
+        assert p.splits == min(-(-tuning.SPLIT_MIN_BLOCKS // p.tiles), p.split_max)
+
+
+def _split_chunks(plan, Y, by):
+    """For each split, the (rank, first K index) of every ring stage it runs,
+    in order, as csrc/fused_tc.cuh walks the flattened sequence: unit u is
+    (rank u // per_rank, K-block u % per_rank) of ``by`` columns (bf16: of
+    TC_BK columns), cut into ``steps_per_unit`` stages."""
+    unit_k = by or plan.bk
+    per_rank = -(-Y // unit_k)
+    return [[(u // per_rank, (u % per_rank) * unit_k + c * plan.bk)
+             for u in range(b, e) for c in range(plan.steps_per_unit)]
+            for b, e in tuning.split_ranges(plan.units, plan.splits)]
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 4096, 128), (2, 1024, 256, 128),
+                                   (37, 75, 45, 25), (3, 300, 40, 100), (1, 40, 32, None),
+                                   (2, 4096, 1024, None), (19, 23, 21, None)])
+@pytest.mark.parametrize("name", ["strassen", "laderman", "s555"])
+def test_split_ranges_cover_every_chunk_once(name, shape):
+    """The S unit ranges cover every (rank, K-chunk) step of the reduction
+    exactly once and in order; int8 ranges start on K-block boundaries, so
+    no int32 sum is cut."""
+    l = talg.get(name)
+    X, Y, Z, by = shape
+    p = tuning.plan_fused_tc(1, X, Y, Z, l.R, l.m, l.n, by=by)
+    ranges = tuning.split_ranges(p.units, p.splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == p.units
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    chunks = _split_chunks(p, Y, by)
+    flat = [c for part in chunks for c in part]
+    unit_k = by or tuning.TC_BK
+    want = [(r, yb * unit_k + c * tuning.TC_BK) for r in range(l.R)
+            for yb in range(-(-Y // unit_k)) for c in range(p.steps_per_unit)]
+    assert flat == want
+    assert all(len(part) > 0 for part in chunks)
+    if by is not None:
+        assert all(part[0][1] % by == 0 for part in chunks)
 
 
 def test_wrappers_check_inputs_and_count_no_cpu_launches():

@@ -179,3 +179,36 @@ def test_cuda_tiled_matmul_matches_plain_version(shape, dtype, cuda_device, rng)
     assert K.tiled_matmul.launches == before + 1
     tol = dict(atol=1e-4, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-3, rtol=1e-2)
     torch.testing.assert_close(got.cpu().float(), K.tiled_matmul(a, b).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["strassen", "laderman"])
+def test_cuda_fused_kernels_split_at_decode(name, cuda_device, rng):
+    """Decode rows (X = 2), where the planner splits the (rank, K) reduction
+    across blocks (S > 1) and a second pass sums the partials in fixed
+    order: the bf16 and the int8 tensor-core kernels against their plain
+    versions on the CPU. bf16: both round an f32 sum once (one bf16 ulp);
+    int8: exact int32 K-block sums, f32 dequantize and Combine H in another
+    order of the partial sums."""
+    from repro_torch.kernels import tuning
+    tl = talg.get(name)
+    X, Y, Z, by = 2, 512, 1024, 128
+    assert tuning.plan_fused_tc(1, X, Y, Z, tl.R, tl.m, tl.n).splits > 1
+    assert tuning.plan_fused_tc(1, X, Y, Z, tl.R, tl.m, tl.n, by=by).splits > 1
+    at = torch.tensor(rng.standard_normal((tl.R, X, Y)), dtype=torch.float32).bfloat16()
+    bt = torch.tensor(rng.standard_normal((tl.R, Y, Z)), dtype=torch.float32).bfloat16()
+    before = K.fused_gemm_combine_h.launches
+    got = K.fused_gemm_combine_h(at.to(cuda_device), bt.to(cuda_device), tl.W)
+    assert K.fused_gemm_combine_h.launches == before + 1
+    torch.testing.assert_close(got.cpu().float(), K.fused_gemm_combine_h(at, bt, tl.W).float(),
+                               atol=1e-2, rtol=1e-2)
+    aq = torch.tensor(rng.integers(-127, 128, (tl.R, X, Y)), dtype=torch.int8)
+    bq = torch.tensor(rng.integers(-127, 128, (tl.R, Y, Z)), dtype=torch.int8)
+    a_s = torch.tensor(rng.uniform(1e-3, 2e-2, (tl.R, X, Y // by)), dtype=torch.float32)
+    b_s = torch.tensor(rng.uniform(1e-3, 2e-2, (tl.R, Y // by, Z)), dtype=torch.float32)
+    before = K.fused_gemm_combine_h_quant.launches
+    got = K.fused_gemm_combine_h_quant(*(t.to(cuda_device) for t in (aq, a_s, bq, b_s)), tl.W)
+    assert K.fused_gemm_combine_h_quant.launches == before + 1
+    want = K.fused_gemm_combine_h_quant(aq, a_s, bq, b_s, tl.W)
+    scale = max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5 * scale, rtol=1e-5)
