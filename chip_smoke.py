@@ -3,15 +3,19 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each: device, build (nvcc for sm_90a from
-src/repro_torch/csrc, one process per source, all at once), every kernel entry
+src/repro_torch/csrc, one process per source, all at once; then ptxas's
+registers, shared memory and spills of the tiled GEMM's and the Group
+Combine's kernels), every kernel entry
 point against its plain PyTorch version (six schemes x f32/bf16 x ragged
 shapes, ragged decode rows whose reduction the tensor-core fused kernels split
 across blocks, and every shape the served model gives the kernel; the int8
 kernels likewise; the tiled GEMM at ragged, unaligned, probe and decode
-shapes), the ops pipelines against torch.matmul at granite shapes, kernel times
-(CUDA events around 50 back-to-back launches, or the profiler's device time
-where the wrapper's host cost exceeds the kernel's; the fused kernels' lines
-carry their planned tile, ring stages and splits), model parity (2 layers at
+shapes, each case's route asserted: the tensor cores for aligned bf16, the
+SIMT kernel for f32, ragged and misaligned operands), the ops pipelines
+against torch.matmul at granite shapes, kernel times (CUDA events around 50
+back-to-back launches, or the profiler's device time where the wrapper's host
+cost exceeds the kernel's; each line carries the call's plan: tile, ring
+stages and splits, or the Group Combine's vector width and block), model parity (2 layers at
 full width, f32, strassen vs gemm), serving full granite_3_2b (40 layers, bf16,
 4 requests x 16 tokens) three ways with every kernel's launch count: forced
 strassen, int8 in auto mode (``--quant``) and int8 with forced strassen, each
@@ -49,6 +53,7 @@ from repro_torch.core import algorithms as alg, plan_cache  # noqa: E402
 from repro_torch.core.hardware import H100_SXM  # noqa: E402
 from repro_torch.core.lcma import LCMA  # noqa: E402
 from repro_torch.kernels import build, ops, ref, tuning  # noqa: E402
+from repro_torch.kernels.group_combine import launch_plan  # noqa: E402
 from repro_torch.kernels.quant_combine import scale_block  # noqa: E402
 from repro_torch.launch.serve import run_oneshot  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -318,8 +323,13 @@ def phase_quant_kernels() -> None:
 
 
 # The tiled GEMM's cases (M, K, N): ragged, K unaligned for 16-byte loads in
-# both dtypes, the autotuner's three probe shapes, and decode rows.
-TILED_SHAPES = [(13, 23, 17), (64, 101, 72), *PROBES, (4, 2048, 8192)]
+# both dtypes, one tensor-core tile, aligned shapes with ragged tiles (M, K
+# and N tails, a B box wholly outside the matrix, a split K with a tail), the
+# autotuner's three probe shapes, and decode rows. The two ragged shapes have
+# row strides TMA cannot address.
+TILED_RAGGED = [(13, 23, 17), (64, 101, 72)]
+TILED_SHAPES = [*TILED_RAGGED, (128, 64, 128), (200, 136, 264), (300, 1000, 520), *PROBES,
+                (4, 2048, 8192)]
 
 
 def misaligned(t: torch.Tensor) -> torch.Tensor:
@@ -330,11 +340,24 @@ def misaligned(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def tiled_call(a, b, want_route: str, **kw) -> torch.Tensor:
+    """``kernels.tiled_matmul(a, b)``, checked to have taken ``want_route``."""
+    before = dict(kernels.tiled_matmul.routes)
+    got = kernels.tiled_matmul(a, b, **kw)
+    moved = {r: kernels.tiled_matmul.routes[r] - before[r] for r in before}
+    if moved != {r: int(r == want_route) for r in before}:
+        raise AssertionError(f"tiled_matmul {tuple(a.shape)} @ {tuple(b.shape)} {a.dtype}: "
+                             f"routes {moved}, expected {want_route}")
+    return got
+
+
 def phase_tiled_kernels() -> None:
     """The tiled GEMM against its plain version in f32 and bf16, with the
     ``fused`` tolerance of ``TOL``: the same f32 sums in another order, and
-    in bf16 one rounding of each. One aligned shape also runs from operands
-    whose pointers are not 16-byte aligned (the element-wise path)."""
+    in bf16 one rounding of each. Aligned bf16 must take the tensor-core
+    route (TMA + wgmma); f32, the ragged shapes and one aligned shape run
+    from operands whose pointers are not 16-byte aligned must take the SIMT
+    kernel."""
     gen = torch.Generator(device=DEV).manual_seed(5)
     n, worst = 0, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -343,7 +366,9 @@ def phase_tiled_kernels() -> None:
             a, b = randn(M_, K, dtype=dtype, gen=gen), randn(K, N, dtype=dtype, gen=gen)
             if shift:
                 a, b = misaligned(a), misaligned(b)
-            got = kernels.tiled_matmul(a, b)
+            route = ("wgmma" if dtype == torch.bfloat16 and not shift
+                     and (M_, K, N) not in TILED_RAGGED else "simt")
+            got = tiled_call(a, b, route)
             torch.cuda.synchronize()
             want = ref.tiled_matmul_ref(a, b)
             if got.shape != want.shape or got.dtype != want.dtype:
@@ -353,7 +378,7 @@ def phase_tiled_kernels() -> None:
             tol = TOL[dtype]["fused"]
             n += 1
             emit("kernel_case", kernel="tiled_matmul", dtype=str(dtype), M=M_, K=K, N=N,
-                 misaligned=shift, max_abs_err=abs_err, err=e, tol=tol)
+                 misaligned=shift, route=route, max_abs_err=abs_err, err=e, tol=tol)
             if not e <= tol:
                 raise AssertionError(f"tiled_matmul {dtype} {(M_, K, N)}: error {e} > {tol}")
             worst[str(dtype)] = max(worst.get(str(dtype), 0.0), e)
@@ -501,6 +526,24 @@ def time_ms(fn) -> dict:
             "events_ms": ev, "host_ms": host, "profiler_ms": dev}
 
 
+def fused_plan(plan) -> dict:
+    """The tile, ring depth and split of a tensor-core fused plan."""
+    return {k: plan.as_dict()[k] for k in ("bx", "bz", "bk", "stages", "splits", "blocks")}
+
+
+def combine_library(x: torch.Tensor, coeff: np.ndarray):
+    """One PyTorch call computing Group Combine of ``x`` (2-D, or 3-D with
+    the group first) under ``coeff``: an einsum of the coefficients (built on
+    the card here, outside the call) with a view of ``x``, f32 sums rounded
+    once to ``x``'s dtype as the kernel does."""
+    R, d1, d2 = coeff.shape
+    c = torch.as_tensor(np.array(coeff, np.float32), dtype=x.dtype, device=x.device)
+    *g, rows, cols = x.shape
+    xv = x.view(*g, d1, rows // d1, d2, cols // d2)
+    eq = "ril,gixly->grxy" if g else "ril,ixly->rxy"
+    return lambda: torch.einsum(eq, c, xv)
+
+
 def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak, nbytes / H100_SXM.beta
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
@@ -508,11 +551,12 @@ def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
 
 def phase_times() -> dict:
     """Each kernel at the largest call the served model makes of it (bf16,
-    forced strassen): the tied LM head's runtime Combine B, the Combine A of
+    forced strassen): the tied LM head's runtime Combine B (and Combine A
+    at prefill and at decode, of mlp_up and of mlp_down), the Combine A of
     the attention scores at prefill, the mlp_up product at prefill (and at
     decode, and the LM head's at decode: the split reduction) and the
     attention scores product at prefill; the int8 kernels at mlp_up; the
-    tiled GEMM at two of the tune path's probes."""
+    tiled GEMM at the tune path's three probes and at decode rows."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     l = alg.get("strassen")
     bf = torch.bfloat16
@@ -526,9 +570,12 @@ def phase_times() -> dict:
         after checking it once more against its plain version. The library
         yardstick is bf16 ``torch.matmul`` of the logical shape for a
         product kernel, or the ``library`` call where one is given (None:
-        none). Kernel, plain version and yardsticks are timed alike.
-        ``plan``: the tensor-core fused kernel's plan for this call (tile,
-        ring stages, splits), printed on the line."""
+        none; a Group Combine's computes the same function and is held to
+        the plain version too). Kernel, plain version and yardsticks are
+        timed alike.
+        ``plan``: the kernel's plan for this call as a dict (the tile, ring
+        stages and splits of a product kernel; the Group Combine's vector
+        width, block and rows), printed on the line."""
         kernel = name.split("@")[0]
         got = kfn()
         torch.cuda.synchronize()
@@ -542,6 +589,11 @@ def phase_times() -> dict:
             if not e <= tol:
                 raise AssertionError(f"time/{name}: error {e} > {tol}")
         del got
+        lib_err = None
+        if callable(library) and kernel.endswith("group_combine"):
+            _, lib_err = err(library(), pfn())      # the same function, checked
+            if not lib_err <= tol:
+                raise AssertionError(f"time/{name}: library error {lib_err} > {tol}")
         k, plain = time_ms(kfn), time_ms(pfn)
         Mq, Kq, Nq, G = logical
         xa = randn(G, Mq, Kq, dtype=bf, gen=gen) if G > 1 else randn(Mq, Kq, dtype=bf, gen=gen)
@@ -550,32 +602,42 @@ def phase_times() -> dict:
         if callable(library):
             lib = time_ms(library)
         else:
-            lib = matmul if library == "matmul" and not kernel.endswith("group_combine") \
-                else None
+            lib = matmul if library == "matmul" else None
         bms, by = bound_ms(flops, nbytes, peak)
         out[name] = {"ms": k["ms"], "source": k["source"], "plain_ms": plain["ms"],
                      "bound_ms": bms, "bound_by": by,
-                     "library_ms": lib and lib["ms"], "matmul_ms": matmul["ms"],
+                     "library_ms": lib and lib["ms"], "library_err": lib_err,
+                     "matmul_ms": matmul["ms"],
                      "max_abs_err": a, "err": e, "tol": tol,
                      "logical_mkn": [Mq, Kq, Nq], "groups": G,
-                     "plan": plan and {k: plan.as_dict()[k] for k in
-                                       ("bx", "bz", "bk", "stages", "splits", "blocks")},
+                     "plan": plan,
                      "timing": {"kernel": k, "plain": plain, "matmul": matmul,
                                 "library": lib}}
         emit("time", kernel=name, **out[name])
 
-    # LM head Combine B: embed.T (2048, 49408) -> (7, 1024, 24704)
-    x = randn(2048, 49408, dtype=bf, gen=gen)
-    X, Y = 1024, 24704
-    record("group_combine", lambda: kernels.group_combine(x, l.V),
-           lambda: ref.group_combine_ref(ref.split_blocks(x, 2, 2), l.V),
-           2.0 * l.nnz_v * X * Y, (4 + l.R) * X * Y * it, fa, (256, 2048, 49408, 1))
+    # LM head Combine B: embed.T (2048, 49408) -> (7, 1024, 24704); Combine
+    # A at prefill (256 rows) and at decode (4) of a K = 2048 leaf (mlp_up,
+    # the attention projections) and of mlp_down (K = 8192)
+    for tag, (rows, cols), coeff, nnz, mkn in (
+            ("", (2048, 49408), l.V, l.nnz_v, (256, 2048, 49408)),
+            ("@prefill_a", (256, 2048), l.U, l.nnz_u, (256, 2048, 8192)),
+            ("@decode_a", (4, 2048), l.U, l.nnz_u, (4, 2048, 8192)),
+            ("@prefill_a_down", (256, 8192), l.U, l.nnz_u, (256, 8192, 2048)),
+            ("@decode_a_down", (4, 8192), l.U, l.nnz_u, (4, 8192, 2048))):
+        x = randn(rows, cols, dtype=bf, gen=gen)
+        X, Y = rows // 2, cols // 2
+        record("group_combine" + tag, lambda: kernels.group_combine(x, coeff),
+               lambda: ref.group_combine_ref(ref.split_blocks(x, 2, 2), coeff),
+               2.0 * nnz * X * Y, (4 + l.R) * X * Y * it, fa, (*mkn, 1),
+               library=combine_library(x, coeff), plan=launch_plan(x, coeff).as_dict())
+        del x
     # attention scores Combine A at prefill: q (B*H=128, 64, 64)
     x3 = randn(128, 64, 64, dtype=bf, gen=gen)
     X, Y = 32, 32
     record("batched_group_combine", lambda: kernels.batched_group_combine(x3, l.U),
            lambda: ref.group_combine_ref(ref.split_blocks(x3, 2, 2), l.U),
-           128 * 2.0 * l.nnz_u * X * Y, 128 * (4 + l.R) * X * Y * it, fa, (64, 64, 80, 128))
+           128 * 2.0 * l.nnz_u * X * Y, 128 * (4 + l.R) * X * Y * it, fa, (64, 64, 80, 128),
+           library=combine_library(x3, l.U), plan=launch_plan(x3, l.U).as_dict())
     # mlp_up at prefill: (256, 2048) @ (2048, 8192); at decode, M = 4; the
     # tied LM head at decode: (4, 2048) @ (2048, 49408)
     for tag, (Mq, X, Y, Z) in (("", (256, 128, 1024, 4096)), ("@decode", (4, 2, 1024, 4096)),
@@ -585,7 +647,8 @@ def phase_times() -> dict:
         record("fused_gemm_combine_h" + tag, lambda: kernels.fused_gemm_combine_h(at, bt, l.W),
                lambda: ref.fused_gemm_combine_h_ref(at, bt, l.W),
                2.0 * l.R * X * Y * Z, (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
-               (Mq, 2 * Y, 2 * Z, 1), plan=tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2))
+               (Mq, 2 * Y, 2 * Z, 1),
+               plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2)))
         del at, bt
     # attention scores at prefill: 128 groups of (64, 64) @ (64, 80)
     G, X, Y, Z = 128, 32, 32, 40
@@ -595,7 +658,7 @@ def phase_times() -> dict:
            lambda: kernels.batched_fused_gemm_combine_h(at4, bt4, l.W),
            lambda: ref.fused_gemm_combine_h_ref(at4, bt4, l.W),
            G * 2.0 * l.R * X * Y * Z, G * (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
-           (64, 64, 80, G), plan=tuning.plan_fused_tc(G, X, Y, Z, l.R, 2, 2))
+           (64, 64, 80, G), plan=fused_plan(tuning.plan_fused_tc(G, X, Y, Z, l.R, 2, 2)))
     del at4, bt4
     # The int8 path (auto mode with --quant): mlp_up (2048 -> 8192) at
     # prefill, M = 256, and at decode, M = 4. Y = 1024, by = 128.
@@ -626,15 +689,19 @@ def phase_times() -> dict:
                (M_, 2048, 8192, 1),
                # torch._int_mm, the int8 product of the logical shape: M > 16 only
                library=(lambda: torch._int_mm(a8, b8)) if M_ > 16 else None,
-               plan=tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2, by=by))
+               plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2, by=by)))
     del aq, as_, bq, bs, a8, b8
-    # The tiled GEMM on the tune path: its first probe (bound by bytes) and
-    # the 4096^3 probe (bound by operations), bf16.
-    for (M_, K, N), tag in (((256, 2048, 8192), ""), ((4096, 4096, 4096), "@4096")):
+    # The tiled GEMM on the tune path, bf16 on the tensor-core route: its
+    # two short-M probes (bound by bytes) and the 4096^3 probe (bound by
+    # operations); and decode rows (K split across blocks).
+    for (M_, K, N), tag in (((256, 2048, 8192), ""), ((256, 8192, 2048), "@probe2"),
+                            ((4096, 4096, 4096), "@4096"), ((4, 2048, 8192), "@decode")):
         a, b = randn(M_, K, dtype=bf, gen=gen), randn(K, N, dtype=bf, gen=gen)
+        tiled_call(a, b, "wgmma")
         record("tiled_matmul" + tag, lambda: kernels.tiled_matmul(a, b),
                lambda: ref.tiled_matmul_ref(a, b), 2.0 * M_ * K * N,
-               (M_ * K + K * N + M_ * N) * it, fx, (M_, K, N, 1))
+               (M_ * K + K * N + M_ * N) * it, fx, (M_, K, N, 1),
+               plan={"route": "wgmma", **tuning.plan_tiled_wgmma(M_, K, N).as_dict()})
         del a, b
     torch.cuda.empty_cache()
     return out
@@ -688,7 +755,10 @@ def serve(phase: str, cfg, params, quantize: bool = False) -> tuple[dict, dict]:
          mode=cfg.falcon_mode, quantize=quantize, batch=BATCH, prompt_len=PROMPT,
          new_tokens=GEN, n_precombined=res["n_precombined"], quantized=res["quantized"],
          **res["timings"], max_memory_allocated=peak, launches=counts,
-         launches_by_phase=res["launches"], logits_finite=finite, sample=tok[0].tolist())
+         launches_by_phase=res["launches"],
+         group_combine_by_shape={"x".join(map(str, k)): v
+                                 for k, v in kernels.group_combine.shapes.items()},
+         logits_finite=finite, sample=tok[0].tolist())
     if not finite or logits.shape[-1] != M.padded_vocab(cfg):
         raise AssertionError(f"{phase}: logits not finite or of the wrong width")
     if tok.shape != (BATCH, GEN) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
@@ -894,8 +964,12 @@ def phase_tune() -> tuple[dict, str]:
     rc = tune.main(TUNE_ARGV)
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    routes = dict(kernels.tiled_matmul.routes)
     if rc != 0 or counts["tiled_matmul"] <= 0:
         raise AssertionError(f"tune: exit {rc}, launches {counts}")
+    if routes != {"wgmma": counts["tiled_matmul"], "simt": 0}:
+        raise AssertionError(f"tune: the bf16 probes' tiled GEMM calls took routes {routes}, "
+                             f"expected all {counts['tiled_matmul']} on wgmma")
     with open(TUNE_OUT) as f:
         meta = json.load(f)["_metadata"]
     prof = get_profile(TUNED)
@@ -911,7 +985,7 @@ def phase_tune() -> tuple[dict, str]:
     emit("tune", argv=TUNE_ARGV, seconds=seconds, profile=TUNE_OUT, plans=plans,
          static=static, calibrated=cal, model_rel_err=meta["model_rel_err"],
          probes=meta["probes"], launches=counts,
-         tiled_matmul_launches=counts["tiled_matmul"])
+         tiled_matmul_launches=counts["tiled_matmul"], tiled_matmul_routes=routes)
     return counts, plans
 
 
@@ -984,6 +1058,8 @@ def main() -> None:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     emit("build", seconds=build.build_all(), wall=time.perf_counter() - t0)
+    emit("ptxas", kernels={name: build.ptxas_report(name)
+                           for name in ("tiled_matmul", "group_combine")})
     phase_kernels()
     phase_quant_kernels()
     phase_tiled_kernels()

@@ -38,6 +38,30 @@ struct CoeffTable {
       : row_ptr(table), part(table + R + 1), coeff(table + R + 1 + table[R]) {}
 };
 
+// out[i] = sum_s ws[s, i] in ascending s, rounded once to Tout: the second
+// pass of a reduction split across blocks (the fused kernels of fused_tc.cuh,
+// the tiled GEMM's tensor-core route). A fixed order and no atomics, so the
+// result does not change from run to run.
+template <typename Tout>
+__global__ void split_reduce_kernel(const float* __restrict__ ws, Tout* __restrict__ out,
+                                    long long count, int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
+       i += (long long)gridDim.x * blockDim.x) {
+    float a = ws[i];
+    for (int s = 1; s < splits; ++s) a = __fadd_rn(a, ws[s * count + i]);
+    out[i] = from_f32<Tout>(a);
+  }
+}
+
+template <typename Tout>
+static int launch_split_reduce(const float* ws, Tout* out, long long count, int splits,
+                               cudaStream_t s) {
+  const long long want = (count + 255) / 256, cap = 4LL * 132 * 8;
+  const int blocks = (int)(want < cap ? want : cap);
+  split_reduce_kernel<Tout><<<blocks, 256, 0, s>>>(ws, out, count, splits);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* falcon_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -28,8 +28,8 @@
 //  - Split reduction: blockIdx.z carries (group, split). With splits > 1 a
 //    block takes a contiguous range of units (int8: whole K-blocks, so no
 //    int32 sum is cut) and writes its f32 partial of every output part to a
-//    workspace; split_reduce_kernel sums the partials in fixed order, so the
-//    result is deterministic (no atomics).
+//    workspace; split_reduce_kernel (common.cuh) sums the partials in fixed
+//    order, so the result is deterministic (no atomics).
 // Tiles, ring depth and splits are planned by kernels/tuning.py:plan_fused_tc.
 #pragma once
 
@@ -457,18 +457,6 @@ __global__ void __launch_bounds__(kThreads) fused_tc_kernel(const Args p) {
   }
 }
 
-// out[i] = sum_s ws[s, i] in ascending s, rounded once to Tout.
-template <typename Tout>
-__global__ void split_reduce_kernel(const float* __restrict__ ws, Tout* __restrict__ out,
-                                    long long count, int splits) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
-       i += (long long)gridDim.x * blockDim.x) {
-    float a = ws[i];
-    for (int s = 1; s < splits; ++s) a = __fadd_rn(a, ws[s * count + i]);
-    out[i] = from_f32<Tout>(a);
-  }
-}
-
 template <bool QUANT, typename Tout, int BX, int BZ, int WZ, int WX, bool ACC_REGS>
 static int launch(const Args& p, int G, cudaStream_t s) {
   auto kernel = fused_tc_kernel<QUANT, Tout, BX, BZ, WZ, WX, ACC_REGS>;
@@ -483,12 +471,8 @@ static int launch(const Args& p, int G, cudaStream_t s) {
   kernel<<<grid, kThreads, smem, s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return (int)err;
-  const long long count = (long long)G * p.mn * p.X * p.Z;
-  const long long want = (count + 255) / 256, cap = 4LL * 132 * 8;
-  const int blocks = (int)(want < cap ? want : cap);
-  split_reduce_kernel<Tout><<<blocks, 256, 0, s>>>(p.ws, static_cast<Tout*>(p.out), count,
-                                                    p.splits);
-  return (int)cudaGetLastError();
+  return launch_split_reduce<Tout>(p.ws, static_cast<Tout*>(p.out),
+                                   (long long)G * p.mn * p.X * p.Z, p.splits, s);
 }
 
 template <bool QUANT, typename Tout, int BX, int BZ, int WZ, int WX>

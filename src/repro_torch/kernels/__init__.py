@@ -16,6 +16,8 @@ KERNELS = (group_combine, batched_group_combine, fused_gemm_combine_h,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    tiled_matmul.routes = dict.fromkeys(tiled_matmul.routes, 0)
+    group_combine.shapes.clear()
 
 
 def launch_counts() -> dict[str, int]:

@@ -5,13 +5,16 @@ library with a plain C interface, named by a hash of the sources and flags
 (``build/kernels/<name>-<hash>.so`` at the repository root), and loaded with
 ``ctypes``. A library is built at its first use, so importing this module
 compiles nothing; :func:`build_all` starts one ``nvcc`` per source at once
-and waits for all of them. A failed build raises with the compiler's output.
+and waits for all of them. A failed build raises with the compiler's output;
+a successful one keeps it beside the library (``<name>-<hash>.log``), where
+:func:`ptxas_report` reads each kernel's registers, shared memory and spills.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -19,22 +22,23 @@ import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES",
-           "library", "build_all", "check"]
+           "library", "build_all", "check", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <repo>/src/repro_torch/kernels/build.py -> <repo>/build/kernels
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("group_combine", "fused_gemm", "quant_combine", "tiled_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "group_combine": {
-        # device, in, out, table, dtype, G, R, d1, d2, X, Y, bx, by, stream
-        "falcon_group_combine": [_I, _P, _P, _P] + [_I] * 9 + [_P],
+        # device, in, out, table, table_len, dtype, G, R, d1, d2, X, Y, vec, ty,
+        # tx, rows, smem_bytes, stream
+        "falcon_group_combine": [_I, _P, _P, _P] + [_I] * 13 + [_P],
     },
     "fused_gemm": {
         # device, at, bt, out, ws, table, in_dtype, out_dtype, G, R, mn, X, Y,
@@ -52,6 +56,8 @@ _SIGNATURES = {
     "tiled_matmul": {
         # device, a, b, c, in_dtype, out_dtype, M, K, N, bm, bn, stream
         "falcon_tiled_matmul": [_I] + [_P] * 3 + [_I] * 7 + [_P],
+        # device, a, b, c, ws, out_dtype, M, K, N, bm, bn, splits, smem_bytes, stream
+        "falcon_tiled_matmul_wgmma": [_I] + [_P] * 4 + [_I] * 8 + [_P],
     },
 }
 
@@ -92,6 +98,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -141,6 +148,30 @@ def library(name: str) -> ctypes.CDLL:
                     _finish(name, *_start(name))
                 lib = _libs[name] = _load(name, path)
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Each kernel of ``csrc/<name>.cu`` as ``-Xptxas -v`` reported it when
+    the library was built: mangled name, registers per thread, static shared
+    memory bytes, spill store and load bytes. Empty if no build log is kept."""
+    log = _lib_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    out, cur = [], None
+    for line in log.read_text().splitlines():
+        if m := _ENTRY.search(line):
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+        elif cur is not None and (m := _SPILL.search(line)):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and (m := _USED.search(line)):
+            cur["registers"], cur["smem"] = int(m.group(1)), int(m.group(2) or 0)
+    return out
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -17,7 +17,13 @@ across blocks and summed by a second, fixed-order pass
 (``tuning.plan_fused_gemm_blocks``), since TF32 would not meet f32 accuracy.
 
 ``tiled_matmul`` replaces the Pallas ``tiled_matmul``, the non-LCMA
-baseline the autotuner times for FLOPS_x (``csrc/tiled_matmul.cu``).
+baseline the autotuner times for FLOPS_x (``csrc/tiled_matmul.cu``). It has
+two routes, chosen before the launch by ``tuning.tiled_route``: bf16
+operands that TMA can address run on the tensor cores (TMA ring + wgmma,
+``tuning.plan_tiled_wgmma``, K split across blocks where the tiles alone
+leave the card idle), the rest (f32, unaligned bf16) on the SIMT kernel
+(``tuning.plan_tiled_matmul_blocks``). The wrapper counts launches per
+route in ``tiled_matmul.routes``.
 
 A tensor on the CPU takes the plain version (``ref.fused_gemm_combine_h_ref``,
 ``ref.tiled_matmul_ref``); a CUDA tensor launches the kernel or raises.
@@ -29,7 +35,8 @@ import torch
 
 from . import build, ref
 from .group_combine import coeff_table
-from .tuning import plan_fused_gemm_blocks, plan_fused_tc, plan_tiled_matmul_blocks
+from .tuning import (plan_fused_gemm_blocks, plan_fused_tc, plan_tiled_matmul_blocks,
+                     plan_tiled_wgmma, tiled_route)
 
 __all__ = ["fused_gemm_combine_h", "batched_fused_gemm_combine_h", "tiled_matmul"]
 
@@ -138,16 +145,27 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError("tiled_matmul: the CUDA kernel needs contiguous operands")
     (M, K), N = a.shape, b.shape[1]
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    bm, bn, _ = plan_tiled_matmul_blocks(M, N)
     codes = build.DTYPE_CODES
+    out_code = codes[str(out_dtype).removeprefix("torch.")]
+    stream = torch.cuda.current_stream(a.device).cuda_stream
     lib = build.library("tiled_matmul")
-    err = lib.falcon_tiled_matmul(
-        a.device.index, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-        codes[str(a.dtype).removeprefix("torch.")],
-        codes[str(out_dtype).removeprefix("torch.")], M, K, N, bm, bn,
-        torch.cuda.current_stream(a.device).cuda_stream)
-    build.check(lib, err, "tiled_matmul")
+    route = tiled_route(str(a.dtype).removeprefix("torch."), K, N, a.data_ptr(), b.data_ptr())
+    if route == "wgmma":
+        plan = plan_tiled_wgmma(M, K, N)
+        ws = (torch.empty((plan.splits, M, N), dtype=torch.float32, device=a.device)
+              if plan.splits > 1 else None)
+        err = lib.falcon_tiled_matmul_wgmma(
+            a.device.index, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, out_code, M, K, N,
+            plan.bm, plan.bn, plan.splits, plan.smem_bytes, stream)
+    else:
+        bm, bn, _ = plan_tiled_matmul_blocks(M, N)
+        err = lib.falcon_tiled_matmul(a.device.index, a.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), codes[str(a.dtype).removeprefix("torch.")],
+                                      out_code, M, K, N, bm, bn, stream)
+    build.check(lib, err, f"tiled_matmul ({route})")
     tiled_matmul.launches += 1
+    tiled_matmul.routes[route] += 1
     return out
 
 
@@ -156,3 +174,4 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
 fused_gemm_combine_h.launches = 0
 batched_fused_gemm_combine_h.launches = 0
 tiled_matmul.launches = 0
+tiled_matmul.routes = {"wgmma": 0, "simt": 0}   # the same launches, by route

@@ -5,10 +5,13 @@ Replaces the Pallas TPU kernels ``group_combine`` and
 kernel, ``csrc/group_combine.cu``, serves both: its grid carries the group
 axis, with G = 1 for the 2-D form. It is bound by bytes on the H100: every
 input element is read once and R outputs are written, (d1*d2 + R)*X*Y
-elements against ~2 flops per coefficient term. One thread owns one (x, y)
-element: it reads the d1*d2 co-located inputs once (coalesced along Y, in
-place from the (d1*X, d2*Y) input, no relayout) and writes all R outputs,
-summed in f32 and rounded once.
+elements against ~2 flops per coefficient term. So it is a stream of
+16-byte accesses: a thread owns 16 bytes of consecutive y in a few rows,
+reads its d1*d2 co-located vectors once (in place from the (d1*X, d2*Y)
+input, no relayout) and writes each of the R outputs with one store, summed
+in f32 over the scheme's coefficient table (staged in shared memory) and
+rounded once. Where Y or a pointer rules out 16-byte access the same kernel
+moves single elements; ``tuning.plan_combine`` decides before the launch.
 
 A tensor on the CPU takes the plain version (``ref.group_combine_ref``); a
 CUDA tensor launches the kernel or raises.
@@ -16,14 +19,15 @@ CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import threading
+from collections import Counter
 
 import numpy as np
 import torch
 
 from . import build, ref
-from .tuning import plan_combine_blocks
+from .tuning import CombinePlan, plan_combine
 
-__all__ = ["group_combine", "batched_group_combine", "coeff_table"]
+__all__ = ["group_combine", "batched_group_combine", "coeff_table", "launch_plan"]
 
 _TABLES: dict[tuple, torch.Tensor] = {}
 _TABLES_LOCK = threading.Lock()
@@ -70,16 +74,27 @@ def _check(x: torch.Tensor, coeff: np.ndarray, ndim: int, what: str):
     return R, d1, d2, M // d1, K // d2
 
 
+def launch_plan(x: torch.Tensor, coeff: np.ndarray,
+                out: torch.Tensor | None = None) -> CombinePlan:
+    """The plan a wrapper launches for ``x`` (2-D, or 3-D with the group
+    first) under ``coeff``: 16-byte access needs ``x`` and ``out`` (the
+    output it writes, where given; a fresh allocation) 16-byte aligned."""
+    R, d1, d2 = coeff.shape
+    aligned = x.data_ptr() % 16 == 0 and (out is None or out.data_ptr() % 16 == 0)
+    return plan_combine(x.shape[0] if x.ndim == 3 else 1, x.shape[-2] // d1,
+                        x.shape[-1] // d2, coeff, x.element_size(), aligned)
+
+
 def _launch(x3: torch.Tensor, coeff: np.ndarray, R, d1, d2, X, Y) -> torch.Tensor:
     G = x3.shape[0]
     out = torch.empty((G, R, X, Y), dtype=x3.dtype, device=x3.device)
-    bx, by = plan_combine_blocks(Y, d1 * d2)
+    tab = coeff_table(coeff, x3.device)
+    plan = launch_plan(x3, coeff, out)
     lib = build.library("group_combine")
     err = lib.falcon_group_combine(
-        x3.device.index, x3.data_ptr(), out.data_ptr(),
-        coeff_table(coeff, x3.device).data_ptr(),
+        x3.device.index, x3.data_ptr(), out.data_ptr(), tab.data_ptr(), tab.numel(),
         build.DTYPE_CODES[str(x3.dtype).removeprefix("torch.")],
-        G, R, d1, d2, X, Y, bx, by,
+        G, R, d1, d2, X, Y, plan.vec, plan.ty, plan.tx, plan.rows, plan.smem_bytes,
         torch.cuda.current_stream(x3.device).cuda_stream)
     build.check(lib, err, "group_combine")
     return out
@@ -97,6 +112,7 @@ def group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
         return ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff)
     out = _launch(x[None], coeff, R, d1, d2, X, Y)[0]
     group_combine.launches += 1
+    group_combine.shapes[tuple(x.shape)] += 1
     return out
 
 
@@ -111,4 +127,5 @@ def batched_group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
 
 
 group_combine.launches = 0          # kernel launches, counted by the wrapper
+group_combine.shapes = Counter()    # the same launches by input shape
 batched_group_combine.launches = 0

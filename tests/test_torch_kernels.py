@@ -30,7 +30,7 @@ from repro_torch.core import algorithms as talg
 from repro_torch.core.falcon_gemm import precombine_weights as t_pre
 from repro_torch.core.lcma import LCMA
 from repro_torch.kernels import build, ref, tuning
-from repro_torch.kernels.group_combine import coeff_table
+from repro_torch.kernels.group_combine import coeff_table, launch_plan
 
 from _schemes import mag2_111, mag2_scheme
 
@@ -268,29 +268,163 @@ def test_planner_fits_every_candidate():
                 assert tuning.fused_tc_regs(p.bx, p.bz, l.m * l.n, by is not None) \
                     <= tuning.REGS_PER_THREAD
         for coeff in (l.U, l.V):
-            for Y in (1, 40, 1024):
-                bx, by = tuning.plan_combine_blocks(Y, coeff.shape[1] * coeff.shape[2])
-                assert bx * by == tuning.THREADS
-                assert tuning.combine_smem(bx, by, coeff[0].size) <= tuning.SMEM_BUDGET
+            nparts = coeff.shape[1] * coeff.shape[2]
+            table_len = coeff_table(coeff, torch.device("cpu")).numel()
+            for G, X, Y in ((1, 2, 1024), (1, 17, 40), (1, 1024, 24704), (128, 32, 32),
+                            (3, 5, 1)):
+                for isz in (2, 4):
+                    p = tuning.plan_combine(G, X, Y, coeff, isz)
+                    assert p.vec == (16 // isz if Y % (16 // isz) == 0 else 1)
+                    assert 1 <= p.threads <= tuning.THREADS and p.rows in (1, 2, 4, 8)
+                    assert p.smem_bytes == tuning.combine_smem(nparts, p.threads, table_len,
+                                                               p.vec * isz)
+                    assert p.smem_bytes <= tuning.SMEM_BUDGET
+                    regs = tuning.combine_regs(p.vec)
+                    assert regs <= tuning.REGS_PER_THREAD
+                    assert regs * p.threads <= tuning.REGS_PER_SM
     assert tuning.plan_fused_gemm_blocks(2, 2, 2)[:2] == (16, 64)    # decode rows
     assert tuning.plan_fused_gemm_blocks(128, 2, 2)[:2] == (64, 64)
     tc = lambda X: tuning.plan_fused_tc(1, X, 1024, 4096, 7, 2, 2)  # noqa: E731
     assert (tc(2).bx, tc(16).bx, tc(17).bx, tc(128).bx) == (8, 16, 32, 32)
     assert tc(128).splits == 1 and tc(2).splits > 1        # mlp_up: prefill, decode
+    # the tiled GEMM's SIMT route (f32, unaligned bf16)
     for M, N in ((4, 8192), (13, 17), (256, 2048), (256, 8192), (4096, 4096)):
         bm, bn, bk = tuning.plan_tiled_matmul_blocks(M, N)
         assert (bm, bn) in tuning.TILED_TILES and bk == tuning.TILED_BK
         assert tuning.tiled_matmul_smem(bm, bn) <= 48 * 1024    # static shared memory
-        assert tuning.fused_gemm_regs(bm, bn) <= tuning.REGS_PER_THREAD
+        assert tuning.tiled_simt_regs(bm, bn) <= tuning.REGS_PER_THREAD
+        assert tuning.tiled_simt_regs(bm, bn) * tuning.THREADS <= tuning.REGS_PER_SM
     assert tuning.plan_tiled_matmul_blocks(4, 8192)[:2] == (16, 64)     # decode rows
     assert tuning.plan_tiled_matmul_blocks(256, 2048)[:2] == (64, 64)   # >= 128 blocks
     assert tuning.plan_tiled_matmul_blocks(4096, 4096)[:2] == (128, 128)
+    # its tensor-core route (aligned bf16)
+    wg = tuning.plan_tiled_wgmma
+    assert (wg(4096, 4096, 4096).bm, wg(4096, 4096, 4096).bn) == (128, 256)
+    assert wg(4096, 4096, 4096).splits == 1
+    assert (wg(256, 2048, 8192).bm, wg(256, 2048, 8192).bn) == (128, 128)   # probe 1
+    assert wg(256, 2048, 8192).splits == 1 and wg(256, 2048, 8192).blocks >= 128
+    assert wg(4, 2048, 8192).bm == 64 and wg(4, 2048, 8192).splits > 1       # decode rows
+
+
+# (M, K, N): the tune probes, decode rows, ragged and tiny aligned shapes
+WG_SHAPES = [(4096, 4096, 4096), (256, 2048, 8192), (256, 8192, 2048), (4, 2048, 8192),
+             (4, 8192, 2048), (128, 64, 128), (200, 136, 264), (1, 8, 8), (65, 512, 520),
+             (4096, 2048, 512)]
+
+
+@pytest.mark.parametrize("mkn", WG_SHAPES, ids=lambda t: "x".join(map(str, t)))
+def test_tiled_wgmma_plan_fits_and_fills_the_card(mkn):
+    """The tensor-core tiled-GEMM plan is a tile the source instantiates,
+    fits shared memory and registers (with as many blocks an SM as its
+    shared memory allows), and reaches TILED_MIN_BLOCKS blocks or is split
+    as far as the resident blocks, the K stages and the partials' bytes
+    allow; the K ranges of a split cover every 64-deep stage once."""
+    M, K_, N = mkn
+    p = tuning.plan_tiled_wgmma(M, K_, N)
+    assert (p.bm, p.bn) in tuning.TILED_WG_TILES
+    assert (p.bk, p.stages) == (tuning.TILED_WG_BK, tuning.TILED_WG_STAGES)
+    assert p.smem_bytes == tuning.tiled_wgmma_smem(p.bm, p.bn) <= tuning.SMEM_BUDGET
+    assert p.threads == tuning.tiled_wgmma_threads(p.bm) == p.bm // 64 * 128 + 32
+    per_sm = tuning.SMEM_PER_SM // (p.smem_bytes + 1024)
+    regs = tuning.tiled_wgmma_regs(p.bn)
+    assert per_sm >= 1 and regs <= tuning.REGS_PER_THREAD
+    assert regs * p.threads * per_sm <= tuning.REGS_PER_SM
+    assert p.tiles == -(-M // p.bm) * -(-N // p.bn)
+    kblocks = -(-K_ // tuning.TILED_WG_BK)
+    if p.tiles >= tuning.TILED_MIN_BLOCKS:
+        assert p.splits == 1
+    else:
+        assert p.blocks <= tuning.SMS * per_sm or p.splits == 1
+        assert p.splits == 1 or kblocks // p.splits >= tuning.TILED_WG_MIN_KBLOCKS
+        assert p.splits == 1 or 4 * M * N * p.splits <= 2 * (M * K_ + K_ * N)
+    # the kernel's K range of split s: [kblocks * s // S, kblocks * (s + 1) // S)
+    ranges = [(kblocks * s // p.splits, kblocks * (s + 1) // p.splits)
+              for s in range(p.splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == kblocks
+    assert all(b0 < b1 for b0, b1 in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_tiled_wgmma_splits_the_second_probe():
+    """256x8192x2048 has 32 output tiles of 128 x 128 for 132 SMs: the K
+    range is split so the grid reaches TILED_MIN_BLOCKS."""
+    p = tuning.plan_tiled_wgmma(256, 8192, 2048)
+    assert p.tiles == 32 and p.splits > 1 and p.blocks >= tuning.TILED_MIN_BLOCKS
+
+
+@pytest.mark.parametrize("dtype,K,N,a_ptr,b_ptr,route", [
+    ("bfloat16", 2048, 8192, 0, 1024, "wgmma"),     # the probes, decode rows
+    ("bfloat16", 64, 128, 16, 4096, "wgmma"),
+    ("float32", 2048, 8192, 0, 1024, "simt"),       # TF32 would break 1e-4
+    ("bfloat16", 23, 17, 0, 1024, "simt"),          # K, N: row strides not 16 bytes
+    ("bfloat16", 2048, 8196, 0, 1024, "simt"),
+    ("bfloat16", 101, 72, 0, 1024, "simt"),
+    ("bfloat16", 512, 384, 2, 1026, "simt"),        # chip_smoke's misaligned case
+    ("bfloat16", 512, 384, 0, 1026, "simt"),
+])
+def test_tiled_route_rule(dtype, K, N, a_ptr, b_ptr, route):
+    """Aligned bf16 goes to the tensor cores; f32 and bf16 that TMA cannot
+    address to the SIMT kernel, decided before the launch."""
+    assert tuning.tiled_route(dtype, K, N, a_ptr, b_ptr) == route
+
+
+@pytest.mark.parametrize("G,X,Y,isz,aligned,vec", [
+    (1, 1024, 24704, 2, True, 8),      # the LM head's Combine B
+    (1, 1024, 24704, 4, True, 4),
+    (128, 32, 32, 2, True, 8),         # the attention scores' Combine A
+    (1, 2, 1024, 2, True, 8),          # mlp_up Combine A at decode
+    (1, 37, 53, 2, True, 1),           # Y no multiple of 8 bf16 ...
+    (1, 37, 54, 4, True, 1),           # ... or of 4 f32
+    (1, 128, 1024, 2, False, 1),       # a pointer not 16-byte aligned
+])
+def test_combine_plan_vector_width(G, X, Y, isz, aligned, vec):
+    """16-byte accesses where Y and both pointers allow them, the scalar
+    path otherwise; the grid covers every (group, row, y vector), and small
+    calls are spread over at least SMS blocks where 64-thread blocks can."""
+    p = tuning.plan_combine(G, X, Y, talg.get("strassen").U, isz, aligned)
+    assert p.vec == vec
+    yv = Y // p.vec
+    assert p.blocks == -(-yv // p.ty) * -(-X // (p.tx * p.rows)) * G
+    assert p.ty * p.vec * -(-yv // p.ty) >= Y and p.tx * p.rows * -(-X // (p.tx * p.rows)) >= X
+    assert p.blocks >= tuning.SMS or p.threads <= 64
+    if p.rows > 1:
+        assert p.blocks >= tuning.COMBINE_MIN_BLOCKS
+
+
+@pytest.mark.parametrize("offset,vec", [(0, 8), (1, 1)], ids=["aligned", "misaligned"])
+def test_launch_plan_reads_the_coefficients_and_the_pointers(offset, vec):
+    """The wrapper's plan comes from the scheme's coefficients and the
+    operands' alignment: a view one element into its storage takes the
+    scalar path, and an output that is misaligned does too."""
+    U = talg.get("strassen").U
+    x = torch.zeros(256 * 2048 + 8, dtype=torch.bfloat16)[offset:offset + 256 * 2048]
+    x = x.view(256, 2048)
+    p = launch_plan(x, U)
+    assert p == tuning.plan_combine(1, 128, 1024, U, 2, aligned=offset == 0)
+    assert p.vec == vec
+    out = torch.zeros(8, dtype=torch.bfloat16)[1:]
+    assert launch_plan(x, U, out).vec == 1
+
+
+def test_combine_plan_shrinks_blocks_to_fit_shared_memory():
+    """s555's 25 parts of 16 bytes for 256 threads and its table fit; a
+    tight budget halves the block along x until the slots and the table
+    fit."""
+    U = talg.get("s555").U
+    table = coeff_table(U, torch.device("cpu")).numel()
+    p = tuning.plan_combine(1, 1024, 4096, U, 2)
+    assert p.threads == 256 and p.smem_bytes == 25 * 256 * 16 + 4 * table
+    q = tuning.plan_combine(1, 1024, 4096, U, 2, budget=60_000)
+    assert q.threads < p.threads and q.smem_bytes <= 60_000
+    with pytest.raises(ValueError):
+        tuning.plan_combine(1, 1024, 4096, U, 2, budget=100)
 
 
 def test_kernel_sources_agree_with_planner():
     """The tile shapes, stage depths and block sizes the planner assumes are
     the ones csrc/fused_gemm.cu (f32 SIMT), csrc/fused_tc.cuh (bf16 and
-    int8 tensor cores) and csrc/tiled_matmul.cu instantiate."""
+    int8 tensor cores), csrc/tiled_matmul.cu (both routes) and
+    csrc/group_combine.cu instantiate."""
     src = (build.CSRC / "fused_gemm.cu").read_text()
     tiles = set((int(a), int(b)) for a, b in
                 re.findall(r"if \(bx == (\d+) && bz == (\d+)\)", src))
@@ -311,11 +445,33 @@ def test_kernel_sources_agree_with_planner():
     assert f"kAccRegs = {tuning.TC_ACC_REGS};" in src
     assert "smem != (size_t)p.smem_bytes" in src     # the launcher holds the planner's bytes
     src = (build.CSRC / "tiled_matmul.cu").read_text()
-    tiles = set((int(a), int(b)) for a, b in
-                re.findall(r"if \(bm == (\d+) && bn == (\d+)\)", src))
+    tiles = set((int(a), int(b)) for a, b in re.findall(
+        r"if \(bm == (\d+) && bn == (\d+)\) return launch<Tin, Tout, (?:\d+), (?:\d+)>", src))
     assert tiles == set(tuning.TILED_TILES)
     assert f"kTBK = {tuning.TILED_BK};" in src
     assert f"kTThreads = {tuning.THREADS};" in src
+    # the tensor-core route: the tiles TILED_WG_TILES names, each launched
+    # with its own template arguments; ring depth, stage depth and layout
+    wg = re.findall(r"if \(bm == (\d+) && bn == (\d+)\)\s+return launch_wgmma<Tout, (\d+), "
+                    r"(\d+)>", src)
+    assert all((a, b) == (c, d) for a, b, c, d in wg)
+    assert set((int(a), int(b)) for a, b, _, _ in wg) == set(tuning.TILED_WG_TILES)
+    assert f"kWgBK = {tuning.TILED_WG_BK};" in src
+    assert f"kWgStages = {tuning.TILED_WG_STAGES};" in src
+    assert "kBytes = 1024 + kWgStages * kStage + 2 * kWgStages * 8;" in src
+    assert "kThreads = BM / 64 * 128 + 32;" in src
+    assert "smem_bytes != L::kBytes" in src      # the launcher holds the planner's bytes
+    assert '#include "wgmma_tma.cuh"' in src
+    hdr = (build.CSRC / "wgmma_tma.cuh").read_text()
+    widths = {int(n) for n in re.findall(r"wgmma\.mma_async\.sync\.aligned\.m64n(\d+)k16", hdr)}
+    assert widths == {bn for _, bn in tuning.TILED_WG_TILES}
+    # Group Combine: the vector widths the planner picks, the launcher's check
+    src = (build.CSRC / "group_combine.cu").read_text()
+    for dtype, isz in (("FALCON_F32", 4), ("FALCON_BF16", 2)):
+        assert f"dtype == {dtype} && vec == {16 // isz}" in src
+        assert f"dtype == {dtype} && vec == 1" in src
+    assert "smem != (size_t)smem_bytes" in src
+    assert "return (slots + 15) / 16 * 16 + (size_t)table_len * 4;" in src
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
 
@@ -398,4 +554,7 @@ def test_wrappers_check_inputs_and_count_no_cpu_launches():
                                        torch.zeros(3, 7, 4, 4), tl.W)
     c = K.falcon_matmul(torch.ones(5, 6), torch.ones(6, 7), tl)
     torch.testing.assert_close(c, torch.full((5, 7), 6.0))
+    routes = dict(K.tiled_matmul.routes)
+    K.tiled_matmul(torch.ones(8, 16, dtype=torch.bfloat16), torch.ones(16, 8, dtype=torch.bfloat16))
     assert K.launch_counts() == before      # the CPU path launches nothing
+    assert K.tiled_matmul.routes == routes  # ... on either route

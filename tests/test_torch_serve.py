@@ -16,7 +16,7 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.core import algorithms as talg
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
@@ -124,6 +124,27 @@ def test_library_name_follows_the_sources():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
+def test_ptxas_report_reads_the_build_log(tmp_path, monkeypatch):
+    """Registers, static shared memory and spills of each kernel, as
+    ``-Xptxas -v`` printed them into the log kept beside the library."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    assert "-v" in build.NVCC_FLAGS and build.ptxas_report("tiled_matmul") == []
+    build._lib_path("tiled_matmul").with_suffix(".log").write_text(
+        "ptxas info    : Compiling entry function '_Z3fooi' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooi\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 154 registers, used 1 barriers, 5184 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 0 barriers\n")
+    assert build.ptxas_report("tiled_matmul") == [
+        {"kernel": "_Z3fooi", "spill_stores": 8, "spill_loads": 4, "registers": 154,
+         "smem": 5184},
+        {"kernel": "_Z3barv", "spill_stores": 0, "spill_loads": 0, "registers": 32,
+         "smem": 0}]
+    assert build.ptxas_report("group_combine") == []
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -168,7 +189,8 @@ def test_cuda_quant_kernels_match_plain_versions(name, cuda_device, rng):
 @pytest.mark.parametrize("shape", [(13, 23, 17), (256, 512, 384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_tiled_matmul_matches_plain_version(shape, dtype, cuda_device, rng):
-    """Ragged (element-wise loads, masked edges) and aligned (16-byte loads)
+    """Ragged (the SIMT kernel, element-wise loads, masked edges) and aligned
+    (f32: the SIMT kernel's 16-byte loads; bf16: the tensor-core route)
     against the plain version on the CPU: f32 sums in another order; in
     bf16 both round an f32 sum once, so they differ by one bf16 ulp at most."""
     M, K_, N = shape
@@ -212,3 +234,67 @@ def test_cuda_fused_kernels_split_at_decode(name, cuda_device, rng):
     want = K.fused_gemm_combine_h_quant(aq, a_s, bq, b_s, tl.W)
     scale = max(1.0, want.abs().max().item())
     torch.testing.assert_close(got.cpu(), want, atol=1e-5 * scale, rtol=1e-5)
+
+
+def _err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error normalized by max(1, max|want|), as chip_smoke.py's."""
+    d = (got.float() - want.float()).abs().max().item()
+    return d / max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn,route", [
+    ((256, 2048, 8192), "wgmma"), ((256, 8192, 2048), "wgmma"),   # the tune probes
+    ((4096, 4096, 4096), "wgmma"), ((4, 2048, 8192), "wgmma"),    # ... and decode rows
+    ((13, 23, 17), "simt"),                                       # ragged: no TMA
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_cuda_tiled_matmul_routes(mkn, route, cuda_device):
+    """bf16 at the tune probes and decode rows on the tensor-core route (the
+    second probe and the decode rows split K across blocks), a ragged shape
+    on the SIMT kernel; each against the plain version on the card, within
+    one bf16 ulp of the largest value."""
+    M, K_, N = mkn
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(M, K_, device=cuda_device, generator=gen).bfloat16()
+    b = torch.randn(K_, N, device=cuda_device, generator=gen).bfloat16()
+    before = dict(K.tiled_matmul.routes)
+    got = K.tiled_matmul(a, b)
+    assert {r: K.tiled_matmul.routes[r] - before[r] for r in before} == \
+        {r: int(r == route) for r in before}
+    want = ref.tiled_matmul_ref(a, b)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_group_combine_at_the_lm_head(dtype, cuda_device):
+    """The tied LM head's Combine B (2048 x 49408 -> 7 x 1024 x 24704),
+    16-byte accesses, against the plain version on the card: f32 sums in
+    another order (1e-5), in bf16 one rounding of each (one ulp)."""
+    tl = talg.get("strassen")
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(2048, 49408, device=cuda_device, generator=gen).to(dtype)
+    got = K.group_combine(x, tl.V)
+    want = ref.group_combine_ref(ref.split_blocks(x, 2, 2), tl.V)
+    assert got.shape == want.shape == (7, 1024, 24704) and got.dtype == dtype
+    assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_batched_group_combine_at_attention(dtype, cuda_device):
+    """The attention scores' Combine A at prefill (128 groups of 64 x 64 ->
+    7 x 32 x 32: Y = 32, small blocks) and a misaligned copy of it (the
+    scalar path), against the plain version on the card."""
+    tl = talg.get("strassen")
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(128, 64, 64, device=cuda_device, generator=gen).to(dtype)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    want = ref.group_combine_ref(ref.split_blocks(x, 2, 2), tl.U)
+    for inp in (x, shifted):
+        got = K.batched_group_combine(inp, tl.U)
+        assert got.shape == want.shape and got.dtype == dtype
+        assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
