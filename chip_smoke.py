@@ -4,18 +4,20 @@
 
 Phases, one JSON line each: device, build (nvcc for sm_90a from
 src/repro_torch/csrc, one process per source, all at once; then ptxas's
-registers, shared memory and spills of the tiled GEMM's and the Group
-Combine's kernels), every kernel entry
+registers, shared memory and spills of the tiled GEMM's, the Group
+Combine's and the quantizing Combine A's kernels), every kernel entry
 point against its plain PyTorch version (six schemes x f32/bf16 x ragged
 shapes, ragged decode rows whose reduction the tensor-core fused kernels split
 across blocks, and every shape the served model gives the kernel; the int8
-kernels likewise; the tiled GEMM at ragged, unaligned, probe and decode
+kernels likewise, the quantizing Combine A bit-equal on both its routes,
+each case's route asserted; the tiled GEMM at ragged, unaligned, probe and decode
 shapes, each case's route asserted: the tensor cores for aligned bf16, the
 SIMT kernel for f32, ragged and misaligned operands), the ops pipelines
 against torch.matmul at granite shapes, kernel times (CUDA events around 50
 back-to-back launches, or the profiler's device time where the wrapper's host
 cost exceeds the kernel's; each line carries the call's plan: tile, ring
-stages and splits, or the Group Combine's vector width and block), model parity (2 layers at
+stages and splits, or the Group Combine's vector width and block, or the
+quantizing Combine A's route, lanes and rank split), model parity (2 layers at
 full width, f32, strassen vs gemm), serving full granite_3_2b (40 layers, bf16,
 4 requests x 16 tokens) three ways with every kernel's launch count: forced
 strassen, int8 in auto mode (``--quant``) and int8 with forced strassen, each
@@ -54,6 +56,7 @@ from repro_torch.core.hardware import H100_SXM  # noqa: E402
 from repro_torch.core.lcma import LCMA  # noqa: E402
 from repro_torch.kernels import build, ops, ref, tuning  # noqa: E402
 from repro_torch.kernels.group_combine import launch_plan  # noqa: E402
+from repro_torch.kernels.quant_combine import launch_plan as quant_plan  # noqa: E402
 from repro_torch.kernels.quant_combine import scale_block  # noqa: E402
 from repro_torch.launch.serve import run_oneshot  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -64,11 +67,15 @@ DEV = "cuda"
 # value once, so they differ by at most one bf16 ulp (2**-7 relative).
 TOL = {torch.float32: {"combine": 1e-5, "fused": 1e-4},
        torch.bfloat16: {"combine": 1e-2, "fused": 1e-2}}
-# int8 kernels vs plain versions. Quant Group Combine: the same f32 sums and
-# scale, so q may differ by one step at most and the scales by 1e-6
-# relative. Fused int8: exact int sums, the same dequantize and Combine H
-# order; f32 out 1e-5 normalized, bf16 out one bf16 ulp.
+# int8 kernels vs plain versions. Quant Group Combine A: the same f32
+# operations in the same order, so q and the scales are bit-equal (QUANT_EXACT:
+# no q differs, no scale differs). Offline Combine B + int8
+# (quantize_b_blockwise, the Group Combine kernel then plain rounding): q
+# within one step, the scales within 1e-6 relative. Fused int8: exact int
+# sums, the same dequantize and Combine H order; f32 out 1e-5 normalized,
+# bf16 out one bf16 ulp.
 QUANT_TOL = {"dq": 1, "scale": 1e-6, torch.float32: 1e-5, torch.bfloat16: 1e-2}
+QUANT_EXACT = {"dq": 0, "scale": 0.0}
 OPS_TOL = 1e-4          # f32 LCMA pipeline vs torch.matmul, normalized
 OPS_QUANT_TOL = 0.02    # f32 int8 LCMA vs torch.matmul, relative Frobenius
 PARITY_TOL = 1e-3       # 2-layer f32 prefill logits, strassen vs gemm, normalized
@@ -238,17 +245,45 @@ def quant_combine_err(got, want) -> tuple[int, int, float]:
             ((s - s0).abs() / s0).max().item())
 
 
-def check_quant_combine(what: str, got, want) -> tuple[int, int, float]:
+def check_quant_combine(what: str, got, want, tol=QUANT_TOL) -> tuple[int, int, float]:
     dq, flips, ds = quant_combine_err(got, want)
-    if dq > QUANT_TOL["dq"] or not ds <= QUANT_TOL["scale"]:
-        raise AssertionError(f"{what}: |dq| {dq} ({flips} flips), scale error {ds}")
+    if dq > tol["dq"] or not ds <= tol["scale"]:
+        raise AssertionError(f"{what}: |dq| {dq} ({flips} flips), scale error {ds}, "
+                             f"tolerance {tol}")
     return dq, flips, ds
 
 
-def quant_combine_case(l, dtype, X, Y, by, gen):
-    x = randn(l.m * X, l.k * Y, dtype=dtype, gen=gen)
-    return (lambda: kernels.group_combine_quant(x, l.U, by),
-            lambda: ref.group_combine_quant_ref(x, l.U, by))
+def routed(kernel, want_route: str, *args, **kw):
+    """``kernel(*args, **kw)``, checked by the wrapper's ``routes`` counts to
+    have taken ``want_route`` (the tiled GEMM, the quant Group Combine)."""
+    before = dict(kernel.routes)
+    got = kernel(*args, **kw)
+    moved = {r: kernel.routes[r] - before[r] for r in before}
+    if moved != {r: int(r == want_route) for r in before}:
+        shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        raise AssertionError(f"{kernel.__name__} {shapes} {args[0].dtype}: routes {moved}, "
+                             f"expected {want_route}")
+    return got
+
+
+def quant_combine_case(l, dtype, X, Y, by, gen, shift=False, ties=False):
+    """``shift``: the input from a pointer that is not 16-byte aligned;
+    ``ties``: small values on a grid of halves and 127 at the first column
+    of every K-block, so most ranks' scales are small integers (127 * c *
+    f32(1/127) rounds to c) and many quotients land on half-integers, where
+    the kernel takes the true division. Returns the calls and the route the
+    kernel must take."""
+    if ties:
+        x = torch.randint(-8, 9, (l.m * X, l.k * Y), device=DEV, generator=gen) / 2.0
+        x[:, ::by] = 127.0
+        x = x.to(dtype)
+    else:
+        x = randn(l.m * X, l.k * Y, dtype=dtype, gen=gen)
+    if shift:
+        x = misaligned(x)
+    route = "vector" if not shift and by % (16 // x.element_size()) == 0 else "scalar"
+    return (lambda: routed(kernels.group_combine_quant, route, x, l.U, by),
+            lambda: ref.group_combine_quant_ref(x, l.U, by), route)
 
 
 def fused_quant_case(l, X, Y, Z, by, out_dtype, gen):
@@ -274,14 +309,21 @@ def phase_quant_kernels() -> None:
     """The two int8 kernels against their plain versions: every scheme, f32
     and bf16, a ragged shape and every shape a planned leaf gives them, and
     the quant Group Combine at the tune phase's probes (the scale block
-    ``by`` as ``kernels.quant_combine.scale_block`` sets it)."""
+    ``by`` as ``kernels.quant_combine.scale_block`` sets it), bit-equal,
+    each case on its asserted route: the vector route wherever ``by`` is a
+    multiple of 16 bytes of elements, and the scalar one at the ragged
+    case, at laderman's and s555's K-blocks, from a misaligned input, and
+    on a grid of rounding ties."""
     gen = torch.Generator(device=DEV).manual_seed(4)
     worst = {"group_combine_quant": [0, 0, 0.0], "fused_gemm_combine_h_quant": {}}
+    routes = {}
     n = 0
     for l in schemes():
         g = lambda M_, K, N: (cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n))  # noqa: E731
-        combine = [(37, 75, 25)] + [(X, Y, scale_block(Y)) for X, Y in sorted(
-            {(cdiv(M_, l.m), cdiv(K, l.k)) for M_, K, _ in PROJ_PLANNED + PROBES})]
+        combine = [(37, 75, 25, False, False), (64, 1024, 128, True, False),
+                   (16, 256, 128, False, True), (16, 256, 128, True, True)] + [
+            (X, Y, scale_block(Y), False, False) for X, Y in sorted(
+                {(cdiv(M_, l.m), cdiv(K, l.k)) for M_, K, _ in PROJ_PLANNED + PROBES})]
         # ragged, then ragged decode rows with a K-block that is no multiple
         # of 32, split across blocks (S > 1, checked), then the leaves' shapes
         fused = [(37, 75, 45, 25), (3, 300, 45, 100)] + [
@@ -289,16 +331,18 @@ def phase_quant_kernels() -> None:
         if tuning.plan_fused_tc(1, 3, 300, 45, l.R, l.m, l.n, by=100).splits < 2:
             raise AssertionError(f"quant case (3, 300, 45, 100) under {l.name} is not split")
         for dtype in (torch.float32, torch.bfloat16):
-            for X, Y, by in combine:
-                kfn, pfn = quant_combine_case(l, dtype, X, Y, by, gen)
+            for X, Y, by, shift, ties in combine:
+                kfn, pfn, route = quant_combine_case(l, dtype, X, Y, by, gen, shift, ties)
                 got = kfn()
                 torch.cuda.synchronize()
                 dq, flips, ds = check_quant_combine(f"group_combine_quant/{l.name}/{dtype}",
-                                                    got, pfn())
+                                                    got, pfn(), QUANT_EXACT)
                 n += 1
+                routes[(route, str(dtype))] = routes.get((route, str(dtype)), 0) + 1
                 emit("kernel_case", kernel="group_combine_quant", scheme=l.name,
-                     dtype=str(dtype), X=X, Y=Y, by=by, max_dq=dq, flips=flips,
-                     scale_err=ds, tol=[QUANT_TOL["dq"], QUANT_TOL["scale"]])
+                     dtype=str(dtype), X=X, Y=Y, by=by, misaligned=shift, ties=ties,
+                     route=route, max_dq=dq, flips=flips, scale_err=ds,
+                     tol=[QUANT_EXACT["dq"], QUANT_EXACT["scale"]])
                 w = worst["group_combine_quant"]
                 w[:] = [max(w[0], dq), w[1] + flips, max(w[2], ds)]
             for X, Y, Z, by in fused:
@@ -319,7 +363,11 @@ def phase_quant_kernels() -> None:
                                          f"{(X, Y, Z, by)}: error {e} > {tol}")
                 wf = worst["fused_gemm_combine_h_quant"]
                 wf[str(dtype)] = max(wf.get(str(dtype), 0.0), e)
-    emit("quant_kernels", cases=n, worst=worst)
+    if len(routes) != 4:
+        raise AssertionError(f"group_combine_quant: routes by dtype {routes}, expected both "
+                             f"routes in both dtypes")
+    emit("quant_kernels", cases=n, worst=worst,
+         group_combine_quant_routes={f"{r}/{d}": c for (r, d), c in routes.items()})
 
 
 # The tiled GEMM's cases (M, K, N): ragged, K unaligned for 16-byte loads in
@@ -340,17 +388,6 @@ def misaligned(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def tiled_call(a, b, want_route: str, **kw) -> torch.Tensor:
-    """``kernels.tiled_matmul(a, b)``, checked to have taken ``want_route``."""
-    before = dict(kernels.tiled_matmul.routes)
-    got = kernels.tiled_matmul(a, b, **kw)
-    moved = {r: kernels.tiled_matmul.routes[r] - before[r] for r in before}
-    if moved != {r: int(r == want_route) for r in before}:
-        raise AssertionError(f"tiled_matmul {tuple(a.shape)} @ {tuple(b.shape)} {a.dtype}: "
-                             f"routes {moved}, expected {want_route}")
-    return got
-
-
 def phase_tiled_kernels() -> None:
     """The tiled GEMM against its plain version in f32 and bf16, with the
     ``fused`` tolerance of ``TOL``: the same f32 sums in another order, and
@@ -368,7 +405,7 @@ def phase_tiled_kernels() -> None:
                 a, b = misaligned(a), misaligned(b)
             route = ("wgmma" if dtype == torch.bfloat16 and not shift
                      and (M_, K, N) not in TILED_RAGGED else "simt")
-            got = tiled_call(a, b, route)
+            got = routed(kernels.tiled_matmul, route, a, b)
             torch.cuda.synchronize()
             want = ref.tiled_matmul_ref(a, b)
             if got.shape != want.shape or got.dtype != want.dtype:
@@ -580,8 +617,8 @@ def phase_times() -> dict:
         got = kfn()
         torch.cuda.synchronize()
         if kernel == "group_combine_quant":
-            a, _, e = check_quant_combine(f"time/{name}", got, pfn())
-            tol = QUANT_TOL["scale"]
+            a, _, e = check_quant_combine(f"time/{name}", got, pfn(), QUANT_EXACT)
+            tol = QUANT_EXACT["scale"]
         else:
             a, e = err(got, pfn())
             tol = (QUANT_TOL[bf] if kernel.endswith("_quant")
@@ -676,7 +713,7 @@ def phase_times() -> dict:
                lambda: ref.group_combine_quant_ref(a, l.U, by),
                2.0 * l.nnz_u * X * Y + 2.0 * l.R * X * Y,
                M_ * 2048 * it + l.R * X * Y + 4 * l.R * X * (Y // by), fa,
-               (M_, 2048, 8192, 1), library=None)
+               (M_, 2048, 8192, 1), library=None, plan=quant_plan(a, l.U, by).as_dict())
         aq, as_ = kernels.group_combine_quant(a, l.U, by)
         a8 = torch.randint(-127, 128, (M_, 2048), device=DEV, generator=gen, dtype=torch.int8)
         b8 = torch.randint(-127, 128, (8192, 2048), device=DEV, generator=gen,
@@ -691,13 +728,24 @@ def phase_times() -> dict:
                library=(lambda: torch._int_mm(a8, b8)) if M_ > 16 else None,
                plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2, by=by)))
     del aq, as_, bq, bs, a8, b8
+    # The tune phase's Combine A + int8 probe on its 4096^2 input (probe 3):
+    # X = Y = 2048, by 128, bound by bytes
+    a = randn(4096, 4096, dtype=bf, gen=gen)
+    X = Y = 2048
+    by = scale_block(Y)
+    record("group_combine_quant@probe3", lambda: kernels.group_combine_quant(a, l.U, by),
+           lambda: ref.group_combine_quant_ref(a, l.U, by),
+           2.0 * l.nnz_u * X * Y + 2.0 * l.R * X * Y,
+           4096 * 4096 * it + l.R * X * Y + 4 * l.R * X * (Y // by), fa,
+           (4096, 4096, 4096, 1), library=None, plan=quant_plan(a, l.U, by).as_dict())
+    del a
     # The tiled GEMM on the tune path, bf16 on the tensor-core route: its
     # two short-M probes (bound by bytes) and the 4096^3 probe (bound by
     # operations); and decode rows (K split across blocks).
     for (M_, K, N), tag in (((256, 2048, 8192), ""), ((256, 8192, 2048), "@probe2"),
                             ((4096, 4096, 4096), "@4096"), ((4, 2048, 8192), "@decode")):
         a, b = randn(M_, K, dtype=bf, gen=gen), randn(K, N, dtype=bf, gen=gen)
-        tiled_call(a, b, "wgmma")
+        routed(kernels.tiled_matmul, "wgmma", a, b)
         record("tiled_matmul" + tag, lambda: kernels.tiled_matmul(a, b),
                lambda: ref.tiled_matmul_ref(a, b), 2.0 * M_ * K * N,
                (M_ * K + K * N + M_ * N) * it, fx, (M_, K, N, 1),
@@ -1058,8 +1106,11 @@ def main() -> None:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     emit("build", seconds=build.build_all(), wall=time.perf_counter() - t0)
-    emit("ptxas", kernels={name: build.ptxas_report(name)
-                           for name in ("tiled_matmul", "group_combine")})
+    emit("ptxas", kernels={**{name: build.ptxas_report(name)
+                              for name in ("tiled_matmul", "group_combine")},
+                           "group_combine_quant": [
+                               k for k in build.ptxas_report("quant_combine")
+                               if "group_combine_quant" in k["kernel"]]})
     phase_kernels()
     phase_quant_kernels()
     phase_tiled_kernels()

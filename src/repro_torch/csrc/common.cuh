@@ -24,6 +24,55 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
 
+// VEC elements of T moved as one access, widened to / rounded from f32: 16
+// bytes (4 f32 or 8 bf16) on the vector routes of Group Combine and its
+// quantizing form, one element on their scalar routes.
+template <typename T, int VEC>
+struct Pack;
+template <>
+struct Pack<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(Raw r, float* v) {
+    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+  }
+  static __device__ __forceinline__ Raw pack(const float* v) {
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Pack<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(Raw r, float* v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ Raw pack(const float* v) {
+    Raw r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    return r;
+  }
+};
+template <typename T>
+struct Pack<T, 1> {
+  using Raw = T;
+  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
+  static __device__ __forceinline__ void unpack(Raw r, float* v) { v[0] = to_f32(r); }
+  static __device__ __forceinline__ Raw pack(const float* v) { return from_f32<T>(v[0]); }
+};
+
 // Coefficient table of one scheme tensor (U, V or W of shape (R, d1, d2)),
 // built once per scheme by kernels/group_combine.py:coeff_table and cached on
 // the device. int32, laid out as

@@ -17,6 +17,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
     tiled_matmul.routes = dict.fromkeys(tiled_matmul.routes, 0)
+    group_combine_quant.routes = dict.fromkeys(group_combine_quant.routes, 0)
     group_combine.shapes.clear()
 
 

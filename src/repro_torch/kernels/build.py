@@ -47,8 +47,9 @@ _SIGNATURES = {
         + [ctypes.c_longlong] + [_I] * 5 + [_P],
     },
     "quant_combine": {
-        # device, in, q, scales, table, dtype, R, d1, d2, X, Y, by, warps, stream
-        "falcon_group_combine_quant": [_I] + [_P] * 4 + [_I] * 8 + [_P],
+        # device, in, q, scales, table, table_len, dtype, R, d1, d2, X, Y, by,
+        # vec, lanes, threads, splits, smem_bytes, stream
+        "falcon_group_combine_quant": [_I] + [_P] * 4 + [_I] * 13 + [_P],
         # device, aq, as, bq, bs, out, ws, table, out_dtype, R, mn, X, Y, Z,
         # by, vec, bx, bz, splits, smem_bytes, stream
         "falcon_fused_gemm_quant": [_I] + [_P] * 7 + [_I] * 12 + [_P],

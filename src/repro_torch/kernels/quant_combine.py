@@ -6,7 +6,11 @@ in ``csrc/quant_combine.cu``:
 
 * ``group_combine_quant`` — Combine A in f32 and symmetric int8
   quantization with one f32 scale per (rank, row, K-block of ``by``
-  columns), in one pass over A. Bound by bytes on the H100.
+  columns), in one pass over A. Bound by bytes on the H100, so a stream of
+  16-byte loads with the K-block's absmax taken in registers across its
+  lanes; where ``by`` or the input's pointer rules out 16-byte access, the
+  same kernel moves single elements (``launch_plan``: the route, decided
+  before the launch, counted in ``group_combine_quant.routes``).
 * ``fused_gemm_combine_h_quant`` — int8 x int8 products on the tensor
   cores, summed exactly in int32 per K-block, dequantized by the row and
   column scales, then Combine H from registers: H never reaches memory and
@@ -29,10 +33,10 @@ import torch
 from repro_torch.analysis.stability import max_safe_accum_depth
 from . import build, ref
 from .group_combine import coeff_table, group_combine
-from .tuning import plan_fused_tc, plan_quant_combine_warps, scale_block
+from .tuning import QuantCombinePlan, plan_fused_tc, plan_quant_combine, scale_block
 
 __all__ = ["group_combine_quant", "fused_gemm_combine_h_quant",
-           "quantize_b_blockwise", "scale_block"]
+           "quantize_b_blockwise", "scale_block", "launch_plan"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -53,6 +57,15 @@ def _code(dtype: torch.dtype) -> int:
     return build.DTYPE_CODES[str(dtype).removeprefix("torch.")]
 
 
+def launch_plan(x: torch.Tensor, coeff: np.ndarray, by: int) -> QuantCombinePlan:
+    """The plan ``group_combine_quant`` launches for ``x`` (d1*X, d2*Y)
+    under ``coeff`` with K-block ``by``: the vector route needs ``x``
+    16-byte aligned (the outputs are fresh allocations)."""
+    _, d1, d2 = coeff.shape
+    return plan_quant_combine(x.shape[0] // d1, x.shape[1] // d2, coeff, x.element_size(),
+                              by, x.data_ptr() % 16 == 0)
+
+
 def group_combine_quant(x: torch.Tensor, coeff: np.ndarray,
                         by: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantizing Group Combine of ``x`` (d1*X, d2*Y) -> (q int8 (R, X, Y),
@@ -69,16 +82,19 @@ def group_combine_quant(x: torch.Tensor, coeff: np.ndarray,
     if not _on_card(x, what="group_combine_quant"):
         return ref.group_combine_quant_ref(x, coeff, by)
     X, Y = M // d1, K // d2
-    warps = plan_quant_combine_warps(X, d1 * d2, by)
+    plan = launch_plan(x, coeff, by)
     q = torch.empty((R, X, Y), dtype=torch.int8, device=x.device)
     s = torch.empty((R, X, Y // by), dtype=torch.float32, device=x.device)
+    tab = coeff_table(coeff, x.device)
     lib = build.library("quant_combine")
     err = lib.falcon_group_combine_quant(
-        x.device.index, x.data_ptr(), q.data_ptr(), s.data_ptr(),
-        coeff_table(coeff, x.device).data_ptr(), _code(x.dtype),
-        R, d1, d2, X, Y, by, warps, torch.cuda.current_stream(x.device).cuda_stream)
+        x.device.index, x.data_ptr(), q.data_ptr(), s.data_ptr(), tab.data_ptr(),
+        tab.numel(), _code(x.dtype), R, d1, d2, X, Y, by, plan.vec, plan.lanes,
+        plan.threads, plan.splits, plan.smem_bytes,
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "group_combine_quant")
     group_combine_quant.launches += 1
+    group_combine_quant.routes[plan.route] += 1
     return q, s
 
 
@@ -152,4 +168,5 @@ def quantize_b_blockwise(b: torch.Tensor, coeff: np.ndarray,
 # Calls that launched the kernel, counted by the wrapper; a fused call with
 # splits > 1 also launches the reduce pass, which is not counted.
 group_combine_quant.launches = 0
+group_combine_quant.routes = {"vector": 0, "scalar": 0}   # the same launches, by route
 fused_gemm_combine_h_quant.launches = 0

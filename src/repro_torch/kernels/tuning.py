@@ -15,7 +15,10 @@ block each, and a second pass sums the S f32 partials in fixed order. The
 tiled GEMM's tensor-core route splits its K range the same way.
 
 The Group Combine kernel is a stream of 16-byte accesses; its plan is the
-vector width, the block shape and the rows each thread walks.
+vector width, the block shape and the rows each thread walks. Its
+quantizing form (Combine A fused with the int8 absmax) is one too; its plan
+is the route, the lanes per K-block, the units per block and the rank
+split.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ __all__ = ["SMEM_BUDGET", "SMEM_PER_SM", "REGS_PER_THREAD", "REGS_PER_SM", "THRE
            "TC_THREADS", "TC_TILES", "TC_WARPS", "TC_BK", "TC_STAGES", "TC_ACC_REGS",
            "SPLIT_MIN_BLOCKS", "FusedPlan", "fused_tc_smem", "fused_tc_regs",
            "plan_fused_tc", "split_ranges",
-           "quant_combine_smem", "plan_quant_combine_warps",
+           "QUANT_COMBINE_THREADS", "QUANT_SPLIT_MIN_BLOCKS", "QuantCombinePlan",
+           "quant_combine_smem", "quant_combine_regs", "plan_quant_combine",
            "TILED_TILES", "TILED_BK", "TILED_MIN_BLOCKS", "STATIC_SMEM",
            "tiled_matmul_smem", "tiled_simt_regs", "plan_tiled_matmul_blocks",
            "TILED_WG_TILES", "TILED_WG_BK", "TILED_WG_STAGES", "TILED_WG_MIN_KBLOCKS",
@@ -62,7 +66,6 @@ TC_STAGES = 3              # depth of the cp.async ring
 TC_PAD = 16                # bytes after every staged row (ldmatrix without bank conflicts)
 TC_ACC_REGS = 4            # m*n up to this: output accumulators in registers
 SPLIT_MIN_BLOCKS = 2 * SMS  # blocks a split grid aims for
-QUANT_COMBINE_WARPS = 8    # most rows (one warp each) a quant-combine block holds
 # The tiled GEMM's SIMT route (csrc/tiled_matmul.cu: f32 operands, and bf16
 # ones TMA cannot address): tiles as (bm, bn), largest first, 256 threads in
 # a 16 x 16 layout, each owning a (bm/16) x (bn/16) micro-tile.
@@ -79,6 +82,11 @@ TILED_WG_STAGES = 4        # kWgStages
 TILED_WG_MIN_KBLOCKS = 4   # K stages a split keeps, at least (fills the ring)
 # Group Combine: the grid a call is spread over before a thread takes more rows
 COMBINE_MIN_BLOCKS = 4 * SMS
+# Quant Group Combine A (csrc/quant_combine.cu): most threads a block holds
+# (kQcThreads), and the grid a small call's rank split aims for (~6 blocks
+# an SM: mlp_up's Combine A gets 4 rank groups at prefill, 7 at decode).
+QUANT_COMBINE_THREADS = 256
+QUANT_SPLIT_MIN_BLOCKS = 6 * SMS
 
 
 def _pow2_at_least(n: int) -> int:
@@ -214,22 +222,106 @@ def plan_fused_gemm_blocks(X: int, m: int, n: int,
     return (*_plan_fused_tile(X, m, n, fused_gemm_smem, budget), FUSED_BK)
 
 
-def quant_combine_smem(warps: int, nparts: int, by: int) -> int:
-    """Shared memory of one quant Group Combine block: per warp (one row),
-    its ``nparts`` input segments of one K-block and the block's f32 sums."""
-    return warps * (nparts + 1) * by * 4
+@dataclass(frozen=True)
+class QuantCombinePlan:
+    """One launch of the quant Group Combine A kernel: ``vec`` elements per
+    access (16 bytes: the vector route; 1: the scalar route), ``lanes``
+    lanes per K-block of ``by`` columns, blocks of ``threads`` threads
+    holding ``units`` (row, K-block) pairs each, consecutive in row-major
+    order, the R ranks cut into ``splits`` groups, one block each;
+    ``smem_bytes`` as the launcher's layout computes it."""
+    vec: int
+    by: int
+    lanes: int
+    splits: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+
+    @property
+    def route(self) -> str:
+        return "vector" if self.vec > 1 else "scalar"
+
+    @property
+    def per_lane(self) -> int:
+        """Vectors each lane walks (more than one where by / vec > 32)."""
+        return -(-(self.by // self.vec) // self.lanes)
+
+    @property
+    def units(self) -> int:
+        return self.threads // self.lanes
+
+    def as_dict(self) -> dict:
+        return {**asdict(self), "route": self.route, "per_lane": self.per_lane,
+                "units": self.units}
 
 
-def plan_quant_combine_warps(X: int, nparts: int, by: int,
-                             budget: int = SMEM_BUDGET) -> int:
-    """Rows (one warp each) per block of the quant Group Combine kernel:
-    up to 8, no more than X, as many as fit the shared memory."""
-    for warps in range(min(QUANT_COMBINE_WARPS, max(X, 1)), 0, -1):
-        if quant_combine_smem(warps, nparts, by) <= budget:
-            return warps
-    raise ValueError(f"quant Group Combine: a K-block of {by} columns with "
-                     f"{nparts} parts does not fit {budget} bytes of shared "
-                     f"memory — use a smaller scale block")
+def quant_combine_smem(nparts: int, per_lane: int, threads: int, table_len: int,
+                       vec_bytes: int) -> int:
+    """Shared memory of one quant Group Combine block: each thread's
+    ``nparts * per_lane`` slots of one access (``vec_bytes``: 16, or the
+    itemsize on the scalar route), rounded up to 16 bytes, then the
+    coefficient table of ``table_len`` ints."""
+    return combine_smem(nparts * per_lane, threads, table_len, vec_bytes)
+
+
+def quant_combine_regs(vec: int) -> int:
+    """Registers per thread, estimated: four 16-byte loads in flight (16),
+    the f32 sums, one unpacked slot and the rounded q values (3 * vec), and
+    a fixed allowance for addressing and the table walk."""
+    return 16 + 3 * vec + 48
+
+
+def plan_quant_combine(X: int, Y: int, coeff, itemsize: int, by: int,
+                       aligned: bool = True, budget: int = SMEM_BUDGET) -> QuantCombinePlan:
+    """Plan of the quant Group Combine A kernel for (d1*X, d2*Y) -> q (R, X,
+    Y), scales (R, X, Y/by) under ``coeff`` (R, d1, d2).
+
+    The vector route (16 bytes of elements per access) where ``by`` is a
+    multiple of it and the input is 16-byte aligned (``aligned``; the
+    outputs are fresh allocations), else the scalar route. A K-block gets
+    by/vec lanes rounded up to a power of two, at most 32. Blocks hold up
+    to ``QUANT_COMBINE_THREADS`` threads, fewer (down to 64) where the call
+    gives fewer than ``SMS`` blocks, and shrink until the slots and the
+    table fit ``budget`` and the registers an SM; a grid still under
+    ``QUANT_SPLIT_MIN_BLOCKS`` blocks splits the ranks to reach it.
+    """
+    R, d1, d2 = coeff.shape
+    return _plan_quant_combine(X, Y, R, d1 * d2, R + 1 + 2 * int(np.count_nonzero(coeff)),
+                               itemsize, by, aligned, budget)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_quant_combine(X, Y, R, nparts, table_len, itemsize, by, aligned,
+                        budget) -> QuantCombinePlan:
+    if by < 1 or Y % by:
+        raise ValueError(f"quant Group Combine: K-block {by} does not divide Y = {Y}")
+    wide = 16 // itemsize
+    vec = wide if aligned and by % wide == 0 else 1
+    nv = by // vec
+    lanes = min(32, _pow2_at_least(nv))
+    per_lane = -(-nv // lanes)
+    units = X * (Y // by)
+    threads = min(QUANT_COMBINE_THREADS, max(32, _pow2_at_least(units * lanes)))
+
+    def blocks(threads):
+        return -(-units // (threads // lanes))
+
+    while threads > 64 and blocks(threads) < SMS:
+        threads //= 2
+    vec_bytes = vec * itemsize
+    while (quant_combine_smem(nparts, per_lane, threads, table_len, vec_bytes) > budget
+           or quant_combine_regs(vec) * threads > REGS_PER_SM):
+        if threads == 32:
+            raise ValueError(f"no quant Group Combine block fits {nparts} parts of a "
+                             f"{by}-column K-block and a {table_len}-int table in "
+                             f"{budget} bytes of shared memory")
+        threads //= 2
+    b = blocks(threads)
+    splits = 1 if b >= QUANT_SPLIT_MIN_BLOCKS else min(R, -(-QUANT_SPLIT_MIN_BLOCKS // b))
+    return QuantCombinePlan(vec, by, lanes, splits, threads,
+                            quant_combine_smem(nparts, per_lane, threads, table_len, vec_bytes),
+                            b * splits)
 
 
 @dataclass(frozen=True)
@@ -501,7 +593,9 @@ def block_plans(l, M: int, K: int, N: int, dtype: str = "float32",
     ``HardwareProfile``) clamps the budget to its ``vmem_bytes``, the
     per-block shared memory of the part. ``combine_a``/``combine_b`` are
     the Group Combine plans (vector width, block, rows; 16-byte aligned
-    operands assumed), ``fused_gemm`` the f32 SIMT kernel's tile,
+    operands assumed), ``quant_combine_a`` the quant Group Combine A plan
+    (route, lanes, units per block, rank split; aligned input assumed),
+    ``fused_gemm`` the f32 SIMT kernel's tile,
     ``fused_gemm_tc`` and ``fused_gemm_quant`` the bf16 and int8
     tensor-core plans (tile, ring depth, split); ``dtype`` is recorded.
     """
@@ -516,7 +610,7 @@ def block_plans(l, M: int, K: int, N: int, dtype: str = "float32",
     cb = plan_combine(1, Y, Z, l.V, isz, budget=budget)
     fg = plan_fused_gemm_blocks(X, m, n, budget)
     by = scale_block(Y)
-    qw = plan_quant_combine_warps(X, m * k, by, budget)
+    qc = plan_quant_combine(X, Y, l.U, isz, by, budget=budget)
     ft = plan_fused_tc(1, X, Y, Z, R, m, n, budget=budget)
     fq = plan_fused_tc(1, X, Y, Z, R, m, n, by=by, budget=budget)
     return {
@@ -524,11 +618,11 @@ def block_plans(l, M: int, K: int, N: int, dtype: str = "float32",
         "padded_shape": [Mp, Kp, Np],
         "combine_a": ca.as_dict(), "combine_b": cb.as_dict(), "fused_gemm": list(fg),
         "fused_gemm_tc": ft.as_dict(),
-        "quant_combine_a": {"warps": qw, "by": by}, "fused_gemm_quant": fq.as_dict(),
+        "quant_combine_a": qc.as_dict(), "fused_gemm_quant": fq.as_dict(),
         "combine_a_smem_bytes": ca.smem_bytes,
         "combine_b_smem_bytes": cb.smem_bytes,
         "fused_gemm_smem_bytes": fused_gemm_smem(fg[0], fg[1], m, n),
-        "quant_combine_a_smem_bytes": quant_combine_smem(qw, m * k, by),
+        "quant_combine_a_smem_bytes": qc.smem_bytes,
         "fused_gemm_tc_smem_bytes": ft.smem_bytes,
         "fused_gemm_quant_smem_bytes": fq.smem_bytes,
         "smem_budget_bytes": budget,

@@ -420,6 +420,171 @@ def test_combine_plan_shrinks_blocks_to_fit_shared_memory():
         tuning.plan_combine(1, 1024, 4096, U, 2, budget=100)
 
 
+# The quant Group Combine A's calls: Combine A of granite's int8 leaves (K =
+# 2048: w_q, w_k, w_v, w_o, mlp_gate, mlp_up; K = 8192: mlp_down) at the
+# prefill and decode M, and of the tune probes, as (M, K).
+QC_CALLS = [(M, K_) for M in (256, 4) for K_ in (2048, 8192)] + [(256, 2048), (256, 8192),
+                                                                 (4096, 4096)]
+# chip_smoke.py's schemes
+QC_SCHEMES = ["strassen", "strassen-winograd", "laderman", "s444", "s555", "mag2"]
+
+
+def _port_scheme(name):
+    return _schemes(name)[1] if name == "mag2" else talg.get(name)
+
+
+def _check_quant_plan(p, X, Y, l, isz, by, aligned):
+    """A quant Group Combine plan fits and covers its call: the route rule,
+    the lanes of a K-block, the block, shared memory as the launcher
+    computes it, registers, the grid and the rank split."""
+    R, d1, d2 = l.U.shape
+    table_len = coeff_table(l.U, torch.device("cpu")).numel()
+    wide = 16 // isz
+    assert p.route == ("vector" if aligned and by % wide == 0 else "scalar")
+    assert p.vec == (wide if p.route == "vector" else 1) and p.by == by
+    nv = by // p.vec
+    assert p.lanes == min(32, 1 << (nv - 1).bit_length())
+    assert p.per_lane == -(-nv // p.lanes) and (p.per_lane == 1 or p.lanes == 32)
+    assert p.threads % 32 == 0 and 32 <= p.threads <= tuning.QUANT_COMBINE_THREADS
+    assert p.units == p.threads // p.lanes
+    assert p.smem_bytes == tuning.quant_combine_smem(d1 * d2, p.per_lane, p.threads, table_len,
+                                                     p.vec * isz)
+    assert p.smem_bytes == tuning.combine_smem(d1 * d2 * p.per_lane, p.threads, table_len,
+                                               p.vec * isz) <= tuning.SMEM_BUDGET
+    regs = tuning.quant_combine_regs(p.vec)
+    assert regs <= tuning.REGS_PER_THREAD and regs * p.threads <= tuning.REGS_PER_SM
+    grid = -(-X * (Y // by) // p.units)
+    assert p.blocks == grid * p.splits and 1 <= p.splits <= R
+    if grid >= tuning.QUANT_SPLIT_MIN_BLOCKS:
+        assert p.splits == 1
+    else:
+        assert p.splits == min(R, -(-tuning.QUANT_SPLIT_MIN_BLOCKS // grid))
+    assert grid >= tuning.SMS or p.threads <= 64
+
+
+@pytest.mark.parametrize("name", QC_SCHEMES)
+def test_quant_combine_plan_fits_every_call(name):
+    """Every scheme chip_smoke.py checks, at every Combine A call of
+    granite's int8 leaves and of the tune probes (their K-block from
+    ``scale_block``) and at K-blocks of 1, 25, 96 and 128, in both dtypes,
+    aligned or not: the plan fits and takes the expected route."""
+    l = _port_scheme(name)
+    calls = [(-(-M // l.m), K_ // l.k) for M, K_ in QC_CALLS]
+    calls = [(X, Y, tuning.scale_block(Y)) for X, Y in calls]
+    calls += [(X, 2400, by) for X in (2, 128) for by in (1, 25, 96)]
+    calls += [(X, 1024, 128) for X in (2, 128)]
+    for X, Y, by in calls:
+        for isz in (2, 4):
+            for aligned in (True, False):
+                p = tuning.plan_quant_combine(X, Y, l.U, isz, by, aligned)
+                _check_quant_plan(p, X, Y, l, isz, by, aligned)
+
+
+@pytest.mark.parametrize("by,isz,aligned,route,lanes", [
+    (128, 2, True, "vector", 16),      # granite's K-block, bf16: 16 lanes of 8
+    (128, 4, True, "vector", 32),      # f32: 32 lanes of 4
+    (96, 2, True, "vector", 16),       # 12 lanes, padded to 16
+    (96, 4, True, "vector", 32),       # 24 lanes, padded to 32
+    (128, 2, False, "scalar", 32),     # a pointer not 16-byte aligned: 4 columns a lane
+    (25, 2, True, "scalar", 32),       # chip_smoke's ragged case
+    (25, 4, True, "scalar", 32),
+    (1, 2, True, "scalar", 1),         # laderman at scale_block(683) = 1
+    (4, 2, True, "scalar", 4),
+    (4, 4, True, "vector", 1),
+])
+def test_quant_combine_route_rule(by, isz, aligned, route, lanes):
+    """The vector route exactly where ``by`` is a multiple of 16 bytes of
+    elements and the input is 16-byte aligned, decided before the launch."""
+    p = tuning.plan_quant_combine(128, by * 8, talg.get("strassen").U, isz, by, aligned)
+    assert (p.route, p.lanes) == (route, lanes)
+
+
+def test_quant_combine_plan_splits_ranks_at_decode():
+    """mlp_up's Combine A at decode (X = 2: 16 K-blocks for 132 SMs) splits
+    the ranks across blocks, one rank each under strassen and s444; at
+    prefill (256 blocks of 64 threads) into 4 rank groups; the 4096^2 probe
+    runs one block per 16 K-blocks, unsplit."""
+    U = talg.get("strassen").U
+    dec = tuning.plan_quant_combine(2, 1024, U, 2, 128)
+    assert (dec.route, dec.lanes, dec.threads, dec.splits) == ("vector", 16, 64, 7)
+    s444 = talg.get("s444")
+    assert tuning.plan_quant_combine(2, 512, s444.U, 2, 128).splits == s444.R
+    pre = tuning.plan_quant_combine(128, 1024, U, 2, 128)
+    assert (pre.threads, pre.splits, pre.blocks) == (64, 4, 1024)
+    probe = tuning.plan_quant_combine(2048, 2048, U, 2, 128)
+    assert (probe.threads, probe.units, probe.splits, probe.blocks) == (256, 16, 1, 2048)
+    with pytest.raises(ValueError, match="does not divide"):
+        tuning.plan_quant_combine(2, 100, U, 2, 128)
+
+
+def test_quant_launch_plan_reads_the_pointer():
+    """The wrapper's plan: the vector route for an aligned input, the
+    scalar one for a view one element into its storage."""
+    from repro_torch.kernels.quant_combine import launch_plan as quant_launch_plan
+    U = talg.get("strassen").U
+    for offset, route in ((0, "vector"), (1, "scalar")):
+        x = torch.zeros(256 * 2048 + 8, dtype=torch.bfloat16)[offset:offset + 256 * 2048]
+        p = quant_launch_plan(x.view(256, 2048), U, 128)
+        assert p == tuning.plan_quant_combine(128, 1024, U, 2, 128, aligned=offset == 0)
+        assert p.route == route
+
+
+def _quant_fast_quotient(acc, s, y):
+    """The kernel's quotient (csrc/quant_combine.cu:quantize) in numpy f32:
+    p = RN(acc * y), t = RN(p + 1.5 * 2^23), n = t - 1.5 * 2^23, and whether
+    p lies within 2^-14 of a half-integer (then the kernel divides)."""
+    f = np.float32
+    M = f(12582912.0)
+    p = (acc * y).astype(f)
+    t = (p + M).astype(f)
+    n = (t - M).astype(f)
+    near = np.abs((p - n).astype(f)) >= f(0.5) - f(2.0 ** -14)
+    return t, n, near
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "tiny"])
+def test_quant_fast_quotient_rounds_as_the_division(kind):
+    """Wherever the kernel keeps its product with an approximate reciprocal
+    (any y within one ulp of 1/s, as rcp.approx gives), the integer it
+    takes is rint(RN(acc / s)), the reference's, and its word's low byte is
+    that integer's; the values it sends to the division are few. Random
+    sums, sums on exact rounding ties (s a power of two) and sums so small
+    that s is the 1e-12 floor."""
+    f = np.float32
+    rng = np.random.default_rng(16)
+    acc = rng.standard_normal((4096, 128)).astype(f)
+    if kind == "ties":
+        acc = (rng.integers(-254, 255, acc.shape) / f(2)).astype(f)
+        acc[:, 0] = f(127)
+    elif kind == "tiny":
+        acc = (acc * f(1e-11)).astype(f)
+    amax = np.abs(acc).max(axis=1, keepdims=True)
+    s = np.maximum((amax * (f(1) / f(127))).astype(f), f(1e-12)).astype(f)
+    want = np.rint((acc / s).astype(f))
+    assert np.abs(want).max() <= 127                  # the clip never binds
+    y0 = (f(1) / s).astype(f)
+    sent = 0
+    for y in (y0, np.nextafter(y0, f(np.inf)), np.nextafter(y0, f(0))):
+        t, n, near = _quant_fast_quotient(acc, s, y)
+        np.testing.assert_array_equal(n[~near], want[~near])
+        low = (t.view(np.int32) & 0xFF).astype(np.int8)
+        np.testing.assert_array_equal(low[~near], want[~near].astype(np.int8))
+        sent = max(sent, int(near.sum()))
+    if kind == "ties":
+        assert sent > 0                               # ties do take the division
+    else:
+        assert sent <= acc.size // 1000
+
+
+def test_block_plans_export_the_quant_combine_plan():
+    l = talg.get("strassen")
+    bp = tuning.block_plans(l, 4096, 4096, 4096, dtype="bfloat16")
+    want = tuning.plan_quant_combine(2048, 2048, l.U, 2, 128)
+    assert bp["quant_combine_a"] == want.as_dict()
+    assert bp["quant_combine_a"]["route"] == "vector"
+    assert bp["quant_combine_a_smem_bytes"] == want.smem_bytes
+
+
 def test_kernel_sources_agree_with_planner():
     """The tile shapes, stage depths and block sizes the planner assumes are
     the ones csrc/fused_gemm.cu (f32 SIMT), csrc/fused_tc.cuh (bf16 and
@@ -472,6 +637,21 @@ def test_kernel_sources_agree_with_planner():
         assert f"dtype == {dtype} && vec == 1" in src
     assert "smem != (size_t)smem_bytes" in src
     assert "return (slots + 15) / 16 * 16 + (size_t)table_len * 4;" in src
+    assert "struct Pack<__nv_bfloat16, 8>" in (build.CSRC / "common.cuh").read_text()
+    # quant Group Combine A: block size, routes, the smem formula the
+    # launcher holds the planner to, and the bit-exact arithmetic
+    src = (build.CSRC / "quant_combine.cu").read_text()
+    assert f"kQcThreads = {tuning.QUANT_COMBINE_THREADS};" in src
+    for dtype, isz in (("FALCON_F32", 4), ("FALCON_BF16", 2)):
+        assert f"dtype == {dtype} && vec == {16 // isz}" in src
+        assert f"dtype == {dtype} && vec == 1" in src
+    assert "(size_t)nparts * per_lane * threads * sizeof(typename Pack<T, VEC>::Raw);" in src
+    assert "return (slots + 15) / 16 * 16 + (size_t)table_len * 4;" in src
+    assert "if (smem != (size_t)smem_bytes) return (int)cudaErrorInvalidValue;" in src
+    assert "__fmul_rn(amax, 1.f / 127.f)" in src and "rintf(__fdiv_rn(acc[e], s))" in src
+    assert "__fadd_rn(acc[e], __fmul_rn(cf, u[e]))" in src and "__fdividef" not in src
+    assert "rcp.approx.ftz.f32" in src and ">= 0.5f - 0x1p-14f" in src   # _quant_fast_quotient
+    assert "kRound = 12582912.f;" in src
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
 
@@ -556,5 +736,8 @@ def test_wrappers_check_inputs_and_count_no_cpu_launches():
     torch.testing.assert_close(c, torch.full((5, 7), 6.0))
     routes = dict(K.tiled_matmul.routes)
     K.tiled_matmul(torch.ones(8, 16, dtype=torch.bfloat16), torch.ones(16, 8, dtype=torch.bfloat16))
+    qroutes = dict(K.group_combine_quant.routes)
+    K.group_combine_quant(torch.ones(8, 16, dtype=torch.bfloat16), tl.U, 8)
     assert K.launch_counts() == before      # the CPU path launches nothing
     assert K.tiled_matmul.routes == routes  # ... on either route
+    assert K.group_combine_quant.routes == qroutes

@@ -39,6 +39,7 @@ from repro_torch.core import algorithms as talg, hardware as thw
 from repro_torch.core.engine import _quantize_weight
 from repro_torch.core.lcma import LCMA
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.quant_combine import launch_plan
 from repro_torch.launch.serve import run_oneshot
 from repro_torch.models import model as TM
 
@@ -85,14 +86,18 @@ def test_group_combine_quant_matches_pallas(name, dtype, rng):
     division the scale sometimes lands one ulp away, and a ``q`` that sits
     on a rounding boundary flips by one (1 in 10,752 for bf16 strassen)."""
     jl, tl = _schemes(name)
-    X, Y, by = 24, 64, 32
-    xj, xt = _pair(rng.standard_normal((jl.m * X, jl.k * Y)), dtype)
-    qj, sj = j_combine_quant(xj, jl.U, block=(X, by), interpret=True)
-    qt, st = K.group_combine_quant(xt, tl.U, by)
-    assert qt.dtype == torch.int8 and tuple(qt.shape) == (tl.R, X, Y)
-    assert st.dtype == torch.float32 and tuple(st.shape) == (tl.R, X, Y // by)
-    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
-    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-6, atol=0)
+    # K-blocks of 32 and of 128 (granite's): on the card both take the
+    # kernel's vector route (16-byte loads; one K-block over 4 and 16 bf16
+    # lanes or 8 and 32 f32 ones)
+    for X, Y, by in ((24, 64, 32), (8, 256, 128)):
+        xj, xt = _pair(rng.standard_normal((jl.m * X, jl.k * Y)), dtype)
+        assert launch_plan(xt, tl.U, by).route == "vector"
+        qj, sj = j_combine_quant(xj, jl.U, block=(X, by), interpret=True)
+        qt, st = K.group_combine_quant(xt, tl.U, by)
+        assert qt.dtype == torch.int8 and tuple(qt.shape) == (tl.R, X, Y)
+        assert st.dtype == torch.float32 and tuple(st.shape) == (tl.R, X, Y // by)
+        np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+        np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-6, atol=0)
 
 
 def test_group_combine_quant_rounds_half_to_even():

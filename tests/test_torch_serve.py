@@ -171,9 +171,29 @@ def test_cuda_kernels_match_plain_versions(name, cuda_device, rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["strassen", "laderman"])
 def test_cuda_quant_kernels_match_plain_versions(name, cuda_device, rng):
+    """The quant Group Combine on each route, bit-equal to its plain version
+    on the CPU: ragged f32 (by = 25, scalar), bf16 at granite's K-block (by
+    = 128, the vector route) and the same from a view whose pointer is not
+    16-byte aligned (scalar); each call's route counted by the wrapper.
+    Then the int8 fused kernel on the ragged case's operands."""
+    from repro_torch.kernels.quant_combine import launch_plan
     tl = talg.get(name)
+    xb = torch.tensor(rng.standard_normal((tl.m * 6, tl.k * 1024)), dtype=torch.float32)
+    shifted = torch.empty(xb.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    shifted = shifted.view(xb.shape)
+    shifted.copy_(xb.to(torch.bfloat16))
+    for xc, by, route in ((xb.to(torch.bfloat16).to(cuda_device), 128, "vector"),
+                          (shifted, 128, "scalar")):
+        assert launch_plan(xc, tl.U, by).route == route
+        before = dict(K.group_combine_quant.routes)
+        q, s = K.group_combine_quant(xc, tl.U, by)
+        assert K.group_combine_quant.routes[route] == before[route] + 1
+        q0, s0 = K.group_combine_quant(xc.cpu(), tl.U, by)
+        assert torch.equal(q.cpu(), q0) and torch.equal(s.cpu(), s0)
     x = torch.tensor(rng.standard_normal((tl.m * 37, tl.k * 75)), dtype=torch.float32)
+    before = dict(K.group_combine_quant.routes)
     q, s = K.group_combine_quant(x.to(cuda_device), tl.U, 25)
+    assert K.group_combine_quant.routes["scalar"] == before["scalar"] + 1
     q0, s0 = K.group_combine_quant(x, tl.U, 25)
     assert torch.equal(q.cpu(), q0) and torch.equal(s.cpu(), s0)
     before = K.fused_gemm_combine_h_quant.launches
