@@ -8,7 +8,8 @@ registers, shared memory and spills of the tiled GEMM's, the Group
 Combine's and the quantizing Combine A's kernels), every kernel entry
 point against its plain PyTorch version (six schemes x f32/bf16 x ragged
 shapes, ragged decode rows whose reduction the tensor-core fused kernels split
-across blocks, and every shape the served model gives the kernel; the int8
+across blocks, and every shape the served model gives the kernel, the
+continuous engine's bucket steps among them (bf16); the int8
 kernels likewise, the quantizing Combine A bit-equal on both its routes,
 each case's route asserted; the tiled GEMM at ragged, unaligned, probe and decode
 shapes, each case's route asserted: the tensor cores for aligned bf16, the
@@ -21,7 +22,15 @@ quantizing Combine A's route, lanes and rank split), model parity (2 layers at
 full width, f32, strassen vs gemm), serving full granite_3_2b (40 layers, bf16,
 4 requests x 16 tokens) three ways with every kernel's launch count: forced
 strassen, int8 in auto mode (``--quant``) and int8 with forced strassen, each
-int8 run held to the fp run on the same weights; what auto mode decides on the
+int8 run held to the fp run on the same weights; the continuous-batching
+ServeEngine on full granite_3_2b (16 ragged requests over 8 slots: forced
+strassen fp, forced strassen int8 and auto mode fp, each with every bucket's
+step replayed as a CUDA graph and eagerly, the two held to identical tokens
+and equal launch counts, each held to one-shot fp serving of the same
+requests, with the decode step profiled both ways and the 8-row step timed
+alone and in the engine, with and without the logits' copy to the host;
+then speculation with the prefix cache and chunked prefill); what auto mode
+decides on the
 h100_sxm profile; then the calibration path: ``repro_torch.tools.tune``
 measures the card (through the tiled GEMM), the data-sheet and calibrated
 decisions side by side, and granite served in auto mode under the calibrated
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import os
@@ -60,6 +70,9 @@ from repro_torch.kernels.quant_combine import launch_plan as quant_plan  # noqa:
 from repro_torch.kernels.quant_combine import scale_block  # noqa: E402
 from repro_torch.launch.serve import run_oneshot  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve.buckets import BucketPolicy, next_pow2  # noqa: E402
+from repro_torch.train.steps import make_decode_step, make_prefill_step  # noqa: E402
 
 DEV = "cuda"
 # Kernel vs plain version, error normalized by max(1, max|plain|). f32: the
@@ -131,13 +144,13 @@ def cdiv(a: int, b: int) -> int:
 # Cases: each returns (kernel call, plain call) on the same inputs
 # ---------------------------------------------------------------------------
 
-def combine_case(l, dtype, shape, which, gen, grouped):
+def combine_case(l, dtype, shape, which, gen, groups=None):
     coeff = l.U if which == "U" else l.V
     d1, d2 = coeff.shape[1:]
     rows, cols = shape
-    x = randn(*(((3,) if grouped else ()) + (d1 * cdiv(rows, d1), d2 * cdiv(cols, d2))),
+    x = randn(*(((groups,) if groups else ()) + (d1 * cdiv(rows, d1), d2 * cdiv(cols, d2))),
               dtype=dtype, gen=gen)
-    k = kernels.batched_group_combine if grouped else kernels.group_combine
+    k = kernels.batched_group_combine if groups else kernels.group_combine
     return (lambda: k(x, coeff),
             lambda: ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff))
 
@@ -171,6 +184,57 @@ ATTN = [(64, 64, 80), (64, 80, 64), (1, 64, 80), (1, 80, 64)]
 # B, the fused kernel, the quant Group Combine and the LCMA pipeline on each.
 PROBES = [(256, 2048, 8192), (256, 8192, 2048), (4096, 4096, 4096)]
 
+# The continuous engine of phase serve_engine: 8 slots, prompts of up to 64
+# tokens, 16 new ones; its speculative run takes γ = 2 and 16-token chunks.
+ENGINE = dict(max_slots=8, max_prompt_len=64, max_new_tokens=16)
+ENGINE_SPEC = dict(speculate=2, prefix_cache=True, prefill_chunk=16)
+
+
+def engine_policy(spec: bool) -> BucketPolicy:
+    """The bucket grid ServeEngine builds for ENGINE (and ENGINE_SPEC):
+    with chunks, prefill buckets top out at the chunk."""
+    seq = min(ENGINE["max_prompt_len"], ENGINE_SPEC["prefill_chunk"] if spec else 1 << 30)
+    return BucketPolicy.build(seq, ENGINE["max_slots"])
+
+
+def engine_keys(spec: bool) -> int:
+    """The slot cache's length, as ServeEngine sizes it."""
+    gamma = ENGINE_SPEC["speculate"] if spec else 0
+    return next_pow2(max(engine_policy(spec).prefill_seq[-1], ENGINE["max_prompt_len"])
+                     + ENGINE["max_new_tokens"] + gamma)
+
+
+def engine_steps(spec: bool) -> list[tuple[int, int]]:
+    """(rows, tokens per row) of every step the engine runs: each prefill
+    bucket and decode bucket; speculating, also each verify step's γ+1
+    tokens and the draft's 2-token catch-up (the draft's own prefill and
+    1-token steps are the target's shapes)."""
+    pol = engine_policy(spec)
+    steps = pol.prefill_shapes() + [(b, 1) for b in pol.decode_batch]
+    if spec:
+        steps += [(b, n) for b in pol.decode_batch for n in (ENGINE_SPEC["speculate"] + 1, 2)]
+    return steps
+
+
+def engine_products() -> tuple[list, list, list]:
+    """The shapes the engine runs give the kernels (in bf16), beyond PROJ
+    and ATTN:
+    (projections (M, K, N) of the plain and the speculative runs, those of
+    the plain run (the int8 run's), attention (groups, M, K, N)). M = rows x
+    tokens; the LM head takes each step's logit rows (a subset of these M).
+    Attention: rows x heads, each step's tokens as queries against the slot
+    cache's keys."""
+    cfg = get_config("granite_3_2b")
+    heads, hd = cfg.num_heads, cfg.resolved_head_dim
+    leaves = sorted({(K, N) for _, K, N in PROJ})
+    plain = sorted({b * s for b, s in engine_steps(False)} - {M_ for M_, _, _ in PROJ})
+    rows = sorted({b * s for spec in (False, True) for b, s in engine_steps(spec)}
+                  - {M_ for M_, _, _ in PROJ})
+    attn = sorted({(b * heads, s, k, n) for spec in (False, True) for b, s in engine_steps(spec)
+                   for k, n in ((hd, engine_keys(spec)), (engine_keys(spec), hd))})
+    return ([(M_, K, N) for M_ in rows for K, N in leaves],
+            [(M_, K, N) for M_ in plain for K, N in leaves], attn)
+
 
 def kernel_cases(l, dtype, gen):
     """Generators of (kernel call, plain call) per entry point: ragged shapes,
@@ -178,44 +242,55 @@ def kernel_cases(l, dtype, gen):
     served model's products and the tune phase's probes). Lazy, so only one
     case's tensors live at a time."""
     g = lambda M_, K, N: (cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n))  # noqa: E731
-    products = sorted(set(PROJ + PROBES))
+    # the engine serves bf16 only; cases are kept once per padded shape
+    # (the kernel's view: rows and columns in whole blocks)
+    engine_proj, _, engine_attn = engine_products() if dtype == torch.bfloat16 else ([], [], [])
+    products = sorted(set(PROJ + PROBES + engine_proj))
     weights = sorted({(K, N) for _, K, N in products})
     return {
         "group_combine": itertools.chain(
-            [combine_case(l, dtype, (37 * l.m, 53 * l.k), "U", gen, False),
-             combine_case(l, dtype, (53 * l.k, 29 * l.n), "V", gen, False)],
-            (combine_case(l, dtype, (M_, K), "U", gen, False)
-             for M_, K in sorted({(M_, K) for M_, K, _ in products})),
+            [combine_case(l, dtype, (37 * l.m, 53 * l.k), "U", gen),
+             combine_case(l, dtype, (53 * l.k, 29 * l.n), "V", gen)],
+            (combine_case(l, dtype, (X * l.m, Y * l.k), "U", gen)
+             for X, Y, _ in sorted({g(*mkn) for mkn in products})),
             # Combine B: offline for the projections, each step for the LM
             # head, each call of the pipeline probe
-            (combine_case(l, dtype, kn, "V", gen, False) for kn in weights)),
+            (combine_case(l, dtype, kn, "V", gen) for kn in weights)),
         "batched_group_combine": itertools.chain(
-            [combine_case(l, dtype, (19 * l.m, 23 * l.k), "U", gen, True)],
-            (combine_case(l, dtype, (M_, K), "U", gen, True) for M_, K, _ in ATTN),
-            (combine_case(l, dtype, (K, N), "V", gen, True) for _, K, N in ATTN[:2])),
+            [combine_case(l, dtype, (19 * l.m, 23 * l.k), "U", gen, 3)],
+            (combine_case(l, dtype, (M_, K), "U", gen, 3) for M_, K, _ in ATTN),
+            (combine_case(l, dtype, (K, N), "V", gen, 3) for _, K, N in ATTN[:2]),
+            # the engine's: both operands of each product are activations
+            (combine_case(l, dtype, (X * l.m, Y * l.k), "U", gen, G)
+             for G, X, Y, _ in sorted({(G, *g(*mkn)) for G, *mkn in engine_attn})),
+            (combine_case(l, dtype, (K, N), "V", gen, G)
+             for G, K, N in sorted({(G, K, N) for G, _, K, N in engine_attn}))),
         "fused_gemm_combine_h": itertools.chain(
             [fused_case(l, dtype, 37, 53, 45, gen),
              # ragged decode rows, the reduction split across blocks (bf16)
              fused_case(l, dtype, 3, 301, 45, gen, split=True)],
-            (fused_case(l, dtype, *g(*mkn), gen) for mkn in products)),
+            (fused_case(l, dtype, *xyz, gen) for xyz in sorted({g(*mkn) for mkn in products}))),
         "batched_fused_gemm_combine_h": itertools.chain(
             [fused_case(l, dtype, 19, 23, 21, gen, groups=3),
              fused_case(l, dtype, 19, 23, 21, gen, groups=3, shared=True),
              fused_case(l, dtype, 2, 333, 45, gen, groups=3, shared=True, split=True),
              fused_case(l, dtype, *g(4, 2048, 2048), gen, groups=2, shared=True)],
-            (fused_case(l, dtype, *g(*mkn), gen, groups=128) for mkn in ATTN)),
+            (fused_case(l, dtype, *g(*mkn), gen, groups=128) for mkn in ATTN),
+            (fused_case(l, dtype, *xyz, gen, groups=G)
+             for G, *xyz in sorted({(G, *g(*mkn)) for G, *mkn in engine_attn}))),
     }
 
 
 def phase_kernels() -> None:
     gen = torch.Generator(device=DEV).manual_seed(1)
-    worst = {}
+    worst, seconds = {}, {}
     n = 0
     for l in schemes():
         for dtype in (torch.float32, torch.bfloat16):
             for name, fns in kernel_cases(l, dtype, gen).items():
                 kind = "fused" if "fused" in name else "combine"
                 tol = TOL[dtype][kind]
+                t0 = time.perf_counter()
                 for kfn, pfn in fns:
                     got = kfn()
                     torch.cuda.synchronize()
@@ -230,7 +305,8 @@ def phase_kernels() -> None:
                     if not e <= tol:
                         raise AssertionError(f"{name}/{l.name}/{dtype}: error {e} > {tol}")
                     worst[name] = max(worst.get(name, 0.0), e)
-    emit("kernels", cases=n, worst_err=worst)
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+    emit("kernels", cases=n, worst_err=worst, seconds=seconds)
 
 
 def quant_combine_err(got, want) -> tuple[int, int, float]:
@@ -320,17 +396,21 @@ def phase_quant_kernels() -> None:
     n = 0
     for l in schemes():
         g = lambda M_, K, N: (cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n))  # noqa: E731
-        combine = [(37, 75, 25, False, False), (64, 1024, 128, True, False),
-                   (16, 256, 128, False, True), (16, 256, 128, True, True)] + [
-            (X, Y, scale_block(Y), False, False) for X, Y in sorted(
-                {(cdiv(M_, l.m), cdiv(K, l.k)) for M_, K, _ in PROJ_PLANNED + PROBES})]
-        # ragged, then ragged decode rows with a K-block that is no multiple
-        # of 32, split across blocks (S > 1, checked), then the leaves' shapes
-        fused = [(37, 75, 45, 25), (3, 300, 45, 100)] + [
-            (*g(*mkn), scale_block(g(*mkn)[1])) for mkn in PROJ_PLANNED]
         if tuning.plan_fused_tc(1, 3, 300, 45, l.R, l.m, l.n, by=100).splits < 2:
             raise AssertionError(f"quant case (3, 300, 45, 100) under {l.name} is not split")
         for dtype in (torch.float32, torch.bfloat16):
+            # in bf16 also the int8 engine run's leaves (its plain buckets)
+            leaves = PROJ_PLANNED + (engine_products()[1] if dtype == torch.bfloat16 else [])
+            tiles = sorted({g(*mkn) for mkn in leaves})
+            combine = [(37, 75, 25, False, False), (64, 1024, 128, True, False),
+                       (16, 256, 128, False, True), (16, 256, 128, True, True)] + [
+                (X, Y, scale_block(Y), False, False) for X, Y in sorted(
+                    {(X, Y) for X, Y, _ in tiles} | {g(*mkn)[:2] for mkn in PROBES})]
+            # ragged, then ragged decode rows with a K-block that is no
+            # multiple of 32, split across blocks (S > 1, checked), then the
+            # leaves' shapes
+            fused = [(37, 75, 45, 25), (3, 300, 45, 100)] + [
+                (X, Y, Z, scale_block(Y)) for X, Y, Z in tiles]
             for X, Y, by, shift, ties in combine:
                 kfn, pfn, route = quant_combine_case(l, dtype, X, Y, by, gen, shift, ties)
                 got = kfn()
@@ -514,25 +594,26 @@ def phase_ops() -> None:
 WARMUP, LAUNCHES, RUNS = 3, 50, 5
 
 
-def events_ms(fn) -> tuple[float, float]:
-    """(device ms, host ms) per call: after WARMUP calls, RUNS runs of
-    LAUNCHES back-to-back calls, each between one CUDA event pair (device)
-    and one host-clock pair around the enqueueing loop (host); medians."""
-    for _ in range(WARMUP):
+def events_ms(fn, warmup=WARMUP, launches=LAUNCHES, runs=RUNS) -> tuple[float, float]:
+    """(device ms, host ms) per call: after ``warmup`` calls, ``runs`` runs
+    of ``launches`` back-to-back calls, each between one CUDA event pair
+    (device) and one host-clock pair around the enqueueing loop (host);
+    medians."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     dev, host = [], []
-    for _ in range(RUNS):
+    for _ in range(runs):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         t0 = time.perf_counter()
-        for _ in range(LAUNCHES):
+        for _ in range(launches):
             fn()
         t1 = time.perf_counter()
         e.record()
         e.synchronize()
-        dev.append(s.elapsed_time(e) / LAUNCHES)
-        host.append((t1 - t0) * 1e3 / LAUNCHES)
+        dev.append(s.elapsed_time(e) / launches)
+        host.append((t1 - t0) * 1e3 / launches)
     return statistics.median(dev), statistics.median(host)
 
 
@@ -715,7 +796,10 @@ def phase_times() -> dict:
                M_ * 2048 * it + l.R * X * Y + 4 * l.R * X * (Y // by), fa,
                (M_, 2048, 8192, 1), library=None, plan=quant_plan(a, l.U, by).as_dict())
         aq, as_ = kernels.group_combine_quant(a, l.U, by)
-        a8 = torch.randint(-127, 128, (M_, 2048), device=DEV, generator=gen, dtype=torch.int8)
+        # torch._int_mm, the int8 product of the logical shape, needs more
+        # than 16 rows (a multiple of 8): decode's 4 rows are padded to 24
+        a8 = torch.randint(-127, 128, (max(M_, 24), 2048), device=DEV, generator=gen,
+                           dtype=torch.int8)
         b8 = torch.randint(-127, 128, (8192, 2048), device=DEV, generator=gen,
                            dtype=torch.int8).t()
         record("fused_gemm_combine_h_quant" + tag,
@@ -724,8 +808,7 @@ def phase_times() -> dict:
                2.0 * l.R * X * Y * Z,
                l.R * (X * Y + Y * Z) + 4 * l.R * (X + Z) * (Y // by) + 4 * X * Z * it, fq,
                (M_, 2048, 8192, 1),
-               # torch._int_mm, the int8 product of the logical shape: M > 16 only
-               library=(lambda: torch._int_mm(a8, b8)) if M_ > 16 else None,
+               library=lambda: torch._int_mm(a8, b8),
                plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2, by=by)))
     del aq, as_, bq, bs, a8, b8
     # The tune phase's Combine A + int8 probe on its 4096^2 input (probe 3):
@@ -825,24 +908,35 @@ def check_int8_launches(phase: str, res: dict, n_leaves: int, layers: int) -> No
             raise AssertionError(f"{phase}: {name} launched {got}, expected {want}")
 
 
-def quality(phase: str, q: dict, fp: dict, vocab: int) -> float:
-    """A serve against fp serving on the same weights: the largest logit
-    error over the steps each request's tokens still agree (prefix-matched,
-    as tests/test_quant_serve.py), relative to that request's largest fp
+def per_request(res: dict) -> list[tuple[list[int], list]]:
+    """A one-shot run (``run_oneshot``'s result) as (tokens, logits per
+    step) per request."""
+    return [(res["tokens"][b].tolist(), [lg[b] for lg in res["logits"]])
+            for b in range(res["tokens"].shape[0])]
+
+
+def quality(phase: str, q: list, fp: list, vocab: int) -> float:
+    """A serve against fp serving on the same weights and requests, each
+    given as (tokens, logits per step) per request: the largest logit error
+    over the steps each request's tokens still agree (prefix-matched, as
+    tests/test_quant_serve.py), relative to that request's largest fp
     logit. Returns it."""
-    worst, compared = 0.0, 0
-    for b in range(BATCH):
-        scale = max(lg[b, :vocab].float().abs().max().item() for lg in fp["logits"])
-        for t in range(GEN):
-            if not torch.equal(q["tokens"][b, :t], fp["tokens"][b, :t]):
+    row = lambda x: torch.as_tensor(x)[:vocab].float().cpu()  # noqa: E731
+    worst, compared, same, total = 0.0, 0, 0, 0
+    for (q_tok, q_lg), (f_tok, f_lg) in zip(q, fp, strict=True):
+        scale = max(row(lg).abs().max().item() for lg in f_lg)
+        n = min(len(q_tok), len(f_tok))
+        same += sum(a == b for a, b in zip(q_tok[:n], f_tok[:n]))
+        total += n
+        for t in range(n):
+            if q_tok[:t] != f_tok[:t]:
                 break
-            d = (q["logits"][t][b, :vocab].float() - fp["logits"][t][b, :vocab].float())
-            worst = max(worst, d.abs().max().item() / max(scale, 1e-30))
+            d = (row(q_lg[t]) - row(f_lg[t])).abs().max().item()
+            worst = max(worst, d / max(scale, 1e-30))
             compared += 1
-    same = (q["tokens"] == fp["tokens"]).float().mean().item()
     emit("quality", of=phase, steps_compared=compared, rel_logit_err=worst,
-         tol=QUALITY_TOL, token_agreement=same)
-    if compared < BATCH or not worst <= QUALITY_TOL:
+         tol=QUALITY_TOL, token_agreement=same / total)
+    if compared < len(q) or not worst <= QUALITY_TOL:
         raise AssertionError(f"{phase}: logit error against fp {worst} over {compared} "
                              f"steps (tolerance {QUALITY_TOL})")
     return worst
@@ -887,7 +981,7 @@ def phase_serve_quant() -> tuple[dict, dict]:
         raise AssertionError(f"serve_quant: quantized {res['quantized']}, the pricing "
                              f"names {priced}")
     check_int8_launches("serve_quant", res, len(priced), cfg.num_layers)
-    quality("serve_quant", res, fp, cfg.vocab_size)
+    quality("serve_quant", per_request(res), per_request(fp), cfg.vocab_size)
     del res
     profile_serve("profile_quant", cfg, params, quantize=True)
     del params
@@ -905,7 +999,7 @@ def phase_serve_quant_forced(fp_forced: dict) -> None:
         raise AssertionError(f"serve_quant_forced: {res['quantized']} quantized, "
                              f"expected all 7 leaves")
     check_int8_launches("serve_quant_forced", res, 7, cfg.num_layers)
-    quality("serve_quant_forced", res, fp_forced, cfg.vocab_size)
+    quality("serve_quant_forced", per_request(res), per_request(fp_forced), cfg.vocab_size)
     del res
     profile_serve("profile_quant_forced", cfg, params, quantize=True)
     del params
@@ -915,31 +1009,38 @@ def phase_serve_quant_forced(fp_forced: dict) -> None:
 def profile_serve(phase: str, cfg, params, quantize: bool = False) -> None:
     """Where the time of serving goes: prefill and one decode step, against
     weights precombined beforehand (outside the window), under
-    torch.profiler: device time by kernel and the share of the window the
-    device was busy. Then the same run under cProfile (:func:`host_split`)."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler (:func:`profiled`). Then the same run under cProfile
+    (:func:`host_split`)."""
     fcfg = dataclasses.replace(M.falcon_config_for(cfg), quantize=quantize)
     with falcon.use(fcfg), torch.inference_mode():
         planned, _ = falcon.precombine_params(params, m_hint=BATCH * PROMPT)
     run = functools.partial(run_oneshot, cfg, batch=BATCH, prompt_len=PROMPT, gen=2,
                             seed=0, device=DEV, params=planned, precombine=False,
                             quantize=quantize)
+    res, prof = profiled(run)
+    emit(phase, window="prefill + 1 decode step (profiler on)", timings=res["timings"],
+         **prof, host=host_split(run))
+
+
+def profiled(run) -> tuple[object, dict]:
+    """``run()`` under torch.profiler: its result, and the wall ms of the
+    window, the device ms in it, the share of the window the device was
+    busy, and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     us = lambda e: getattr(e, "self_device_time_total", 0)  # noqa: E731
     dev.sort(key=us, reverse=True)
     device_ms = sum(us(e) for e in dev) / 1e3
-    emit(phase, window="prefill + 1 decode step (profiler on)",
-         wall_ms=wall_ms, timings=res["timings"],
-         device_ms=device_ms if dev else "not measured",
-         busy_share=device_ms / wall_ms if dev else "not measured",
-         top=[{"kernel": e.key[:90], "ms": us(e) / 1e3, "calls": e.count}
-              for e in dev[:12]],
-         host=host_split(run))
+    return res, {"wall_ms": wall_ms, "device_ms": device_ms if dev else "not measured",
+                 "busy_share": device_ms / wall_ms if dev else "not measured",
+                 "top": [{"kernel": e.key[:90], "ms": us(e) / 1e3, "calls": e.count}
+                         for e in dev[:12]]}
 
 
 def host_split(run) -> dict:
@@ -961,6 +1062,223 @@ def host_split(run) -> dict:
                  ops.falcon_grouped_matmul_precombined, ops.falcon_matmul_quant, ops.matmul)
     return {"wall_ms": wall_ms, "forward_ms": cum([M.forward]), "ops_ms": cum(pipelines),
             "wrappers_ms": cum(kernels.KERNELS)}
+
+
+# ---------------------------------------------------------------------------
+# The continuous-batching engine: each bucket's step a CUDA graph, or eager
+# ---------------------------------------------------------------------------
+
+ENGINE_REQUESTS = 16
+ENGINE_FP_KERNELS = ("group_combine", "batched_group_combine", "fused_gemm_combine_h",
+                     "batched_fused_gemm_combine_h")
+
+
+def engine_requests(vocab: int) -> list[tuple[np.ndarray, int]]:
+    """16 ragged requests drawn as the continuous launcher draws them
+    (``launch.serve --continuous``, default_rng(0)): a prompt length in
+    [4, 64], its tokens, a budget in [1, 16]."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(ENGINE_REQUESTS):
+        plen = int(rng.integers(4, ENGINE["max_prompt_len"] + 1))
+        prompt = rng.integers(0, vocab, plen)
+        out.append((prompt, int(rng.integers(1, ENGINE["max_new_tokens"] + 1))))
+    return out
+
+
+def oneshot_reference(cfg, params, requests) -> list:
+    """Each request served alone through the one-shot steps (those of
+    ``run_oneshot``), fp, auto mode on h100_sxm (every product on
+    torch.matmul): (tokens, logits per step) per request."""
+    prefill = make_prefill_step(cfg, ENGINE["max_prompt_len"] + ENGINE["max_new_tokens"])
+    decode = make_decode_step(cfg)
+    out = []
+    with falcon.use(M.falcon_config_for(cfg)), torch.inference_mode():
+        for prompt, budget in requests:
+            logits, cache = prefill(params, torch.as_tensor(prompt, device=DEV)[None])
+            tokens, steps = [], []
+            for i in range(budget):
+                steps.append(logits[0, -1].float().cpu())
+                tokens.append(int(steps[-1].argmax()))
+                if i + 1 < budget:
+                    logits, _ = decode(params, cache, torch.tensor([[tokens[-1]]], device=DEV),
+                                       len(prompt) + i)
+            out.append((tokens, steps))
+    return out
+
+
+def engine_run(name: str, cfg, params, requests, cuda_graphs: bool, quantize: bool = False,
+               passes: int = 1, **kw) -> dict:
+    """One ServeEngine at full width: warm (planning, then each bucket's
+    warm-up run and capture), the launch counts set to 0, the requests
+    served ``passes`` times, the counts read; then 8 requests profiled over
+    4 decode steps (:func:`profile_engine`). Emits the ``serve_engine`` and
+    ``profile_engine`` lines; returns the outputs (tokens, logits per step,
+    per request and pass), the launch counts and the summary."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(cfg, params, device=DEV, seed=0, quantize=quantize,
+                         cuda_graphs=cuda_graphs, record_logits=True, **ENGINE, **kw)
+    spec = bool(kw.get("speculate"))
+    if engine.policy != engine_policy(spec) or engine.max_len != engine_keys(spec):
+        raise AssertionError(f"serve_engine/{name}: buckets {engine.policy}, cache "
+                             f"{engine.max_len}; the kernel cases took {engine_policy(spec)}, "
+                             f"{engine_keys(spec)}")
+    warm = engine.warm()
+    misses = plan_cache.stats().misses
+    kernels.reset_launch_counts()
+    reqs = []
+    for _ in range(passes):
+        reqs += [engine.submit(p, max_new_tokens=n) for p, n in requests]
+        engine.run()
+    state = kernels.launch_state()
+    plan_misses = plan_cache.stats().misses - misses
+    s = engine.summary()
+    steps = s["decode_steps"] + s["verify_steps"]
+    out = {"outputs": [(r.generated, r.logits) for r in reqs], "state": state, "summary": s,
+           "counts": kernels.launch_counts()}
+    emit("serve_engine", config=name, arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         mode=cfg.falcon_mode, quantize=quantize, cuda_graphs=s["cuda_graphs"], **kw,
+         requests=len(reqs), warm=warm, n_precombined=s["precombined_weights"],
+         prefill_ms_per_step=s["t_prefill"] / max(s["prefill_steps"], 1) * 1e3,
+         decode_ms_per_step=s["t_decode"] / max(steps, 1) * 1e3,
+         tokens_per_s=s["tokens_per_s"], decode_tokens_per_s=s["decode_tokens_per_s"],
+         prefill_steps=s["prefill_steps"], decode_steps=s["decode_steps"],
+         verify_steps=s["verify_steps"], generated_tokens=s["generated_tokens"],
+         bucket_hits=s["bucket_hits"], bucket_misses=s["bucket_misses"],
+         plan_misses_after_warm=plan_misses, acceptance_rate=s["acceptance_rate"],
+         prefix_hits=s["prefix_hits"], prefix_tokens_reused=s["prefix_tokens_reused"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=out["counts"],
+         sample=reqs[0].generated)
+    if plan_misses or s["bucket_misses"] or s["requests_finished"] != len(reqs):
+        raise AssertionError(f"serve_engine/{name}: {plan_misses} plan-cache misses after "
+                             f"warm, {s['bucket_misses']} bucket misses, "
+                             f"{s['requests_finished']}/{len(reqs)} requests finished")
+    if engine.graphs.enabled != cuda_graphs or (cuda_graphs and warm["graphs"] == 0):
+        raise AssertionError(f"serve_engine/{name}: graphs {warm['graphs']}, asked {cuda_graphs}")
+    profile_engine(name, engine, requests)
+    del engine, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_engine(name: str, engine, requests) -> None:
+    """Where a decode step of the engine goes: 8 requests (full budgets)
+    admitted and prefilled, then 4 decode steps under torch.profiler
+    (:func:`profiled`), then the step timed without it
+    (:func:`time_decode_step`)."""
+    new = [engine.submit(p, max_new_tokens=ENGINE["max_new_tokens"]) for p, _ in requests[:8]]
+    while len(engine.queue) or any(r.prefilled < r.prompt_len for r in new):
+        engine.step()
+    steps = engine.stats.decode_steps + engine.stats.verify_steps
+    _, prof = profiled(lambda: [engine.step() for _ in range(4)])
+    done = engine.stats.decode_steps + engine.stats.verify_steps - steps
+    emit("profile_engine", config=name, cuda_graphs=engine.graphs.enabled,
+         window=f"{done} decode steps of 8 requests (profiler on)",
+         ms_per_step=prof["wall_ms"] / 4, **prof)
+    if done != 4:
+        raise AssertionError(f"profile_engine/{name}: the window held {done} decode steps")
+    time_decode_step(name, engine)
+    engine.run()
+
+
+def time_decode_step(name: str, engine) -> None:
+    """The 8-row decode step (a verify round's, speculating) alone, then in
+    the engine. ``replay_ms``: CUDA events around 8 back-to-back calls of
+    the bucket's step (its graph's replay, or the eager step) on the last
+    step's inputs, so each call rewrites the same cache positions with the
+    same values; median of 3 runs after one warm-up. ``replay_host_ms``:
+    the host's time for the same loop (above ``replay_ms``: the events
+    measured the host). Then, unless the engine speculates, its whole decode
+    step on the host clock (inputs in, the step, the one synchronization,
+    the bookkeeping), alternately with and without the logits copied to the
+    host, 4 steps each; ``host_ms``: the step without the copy less the
+    replay."""
+    step = engine.graphs.steps[("spec", 8) if engine.gamma else ("decode", 8)]
+    with falcon.use(engine.fcfg), torch.inference_mode():
+        replay, host = events_ms(step, warmup=1, launches=8, runs=3)
+    line = {"replay_ms": replay, "replay_host_ms": host}
+    if not engine.gamma:
+        rows = engine.stats.decode_real_rows
+        ms = {True: [], False: []}
+        for i in range(8):
+            engine.record_logits = i % 2 == 0
+            t0 = time.perf_counter()
+            engine.step()
+            ms[engine.record_logits].append((time.perf_counter() - t0) * 1e3)
+        engine.record_logits = True
+        if engine.stats.decode_real_rows - rows != 64:
+            raise AssertionError(f"decode_step/{name}: the 8 timed steps served "
+                                 f"{engine.stats.decode_real_rows - rows} rows, not 8 x 8")
+        on, off = statistics.median(ms[True]), statistics.median(ms[False])
+        line.update(step_ms_logits=on, step_ms_no_logits=off, logits_copy_ms=on - off,
+                    host_ms=off - replay, steps_ms=ms)
+    emit("decode_step", config=name, cuda_graphs=engine.graphs.enabled, rows=8, **line)
+
+
+def phase_serve_engine() -> dict:
+    """The continuous-batching ServeEngine on full granite_3_2b, bf16, random
+    weights from seed 0, 16 ragged requests: forced strassen fp, forced
+    strassen int8 (``--quant``) and auto mode fp, each with every bucket's
+    step a CUDA graph and eagerly (``cuda_graphs=False``). The two give
+    identical tokens, logits within the bf16 TOL, and equal launch counts
+    (the graphs' counted at capture, added per replay); each is held to the
+    one-shot fp run of the same requests. Then speculation (γ = 2, identity
+    draft) with the prefix cache and 16-token prefill chunks, graphs on,
+    serving the requests twice, held to the plain forced engine. Returns
+    the launch counts of each graph run."""
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    base = get_config("granite_3_2b")
+    params = M.init_params(base, 0, DEV)
+    requests = engine_requests(base.vocab_size)
+    fp_ref = oneshot_reference(base, params, requests)
+    forced = dataclasses.replace(base, falcon_mode="strassen")
+    counts, plain_forced = {}, None
+    for name, cfg, quantize in (("forced_fp", forced, False), ("forced_int8", forced, True),
+                                ("auto_fp", base, False)):
+        runs = {g: engine_run(name, cfg, params, requests, g, quantize)
+                for g in (True, False)}
+        graph, eager = runs[True], runs[False]
+        same = all(g[0] == e[0] for g, e in zip(graph["outputs"], eager["outputs"]))
+        diff = max(err(torch.as_tensor(np.stack(g[1])), torch.as_tensor(np.stack(e[1])))[1]
+                   for g, e in zip(graph["outputs"], eager["outputs"]))
+        emit("serve_engine_check", config=name, identical_tokens=same,
+             max_logit_err=diff, tol=TOL[torch.bfloat16]["fused"],
+             launches_equal=graph["state"] == eager["state"],
+             decode_speedup=eager["summary"]["t_decode"] / graph["summary"]["t_decode"])
+        if not same or not diff <= TOL[torch.bfloat16]["fused"]:
+            raise AssertionError(f"serve_engine/{name}: graphs and eager steps differ "
+                                 f"(identical tokens {same}, logit error {diff})")
+        if graph["state"] != eager["state"]:
+            raise AssertionError(f"serve_engine/{name}: launches differ: graphs "
+                                 f"{dict(graph['state'])}, eager {dict(eager['state'])}")
+        want = () if cfg.falcon_mode == "auto" else ENGINE_FP_KERNELS + (
+            ("group_combine_quant", "fused_gemm_combine_h_quant") if quantize else ())
+        if min((graph["counts"][k] for k in want), default=1) <= 0:
+            raise AssertionError(f"serve_engine/{name}: a kernel of the path never launched: "
+                                 f"{graph['counts']}")
+        quality(f"serve_engine/{name}", graph["outputs"], fp_ref, base.vocab_size)
+        counts[name] = graph["counts"]
+        if name == "forced_fp":
+            plain_forced = graph["outputs"]
+        del runs, graph, eager
+    spec = engine_run("forced_fp_spec", forced, params, requests, True, passes=2,
+                      **ENGINE_SPEC)
+    s = spec["summary"]
+    if s["prefix_hits"] != ENGINE_REQUESTS or not s["acceptance_rate"] > 0:
+        raise AssertionError(f"serve_engine/forced_fp_spec: {s['prefix_hits']} prefix hits, "
+                             f"acceptance rate {s['acceptance_rate']}")
+    quality("serve_engine/forced_fp_spec", spec["outputs"], plain_forced * 2, base.vocab_size)
+    del params, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what the phase leaves allocated (a cuBLAS workspace per stream it ran
+    # on stays for the life of the process)
+    emit("serve_engine_memory", allocated_before=before,
+         allocated_after=torch.cuda.memory_allocated())
+    return counts
 
 
 def phase_decisions() -> None:
@@ -1084,7 +1402,7 @@ def phase_serve_tuned(fp_auto: dict, plans: str) -> dict:
     if res["n_precombined"] != len(planned):
         raise AssertionError(f"serve_tuned: {res['n_precombined']} leaves precombined, "
                              f"the pricing names {planned}")
-    worst = quality("serve_tuned", res, fp_auto, cfg.vocab_size)
+    worst = quality("serve_tuned", per_request(res), per_request(fp_auto), cfg.vocab_size)
     if sum(counts.values()) == 0 and worst != 0.0:
         raise AssertionError(f"serve_tuned: no kernel ran, yet the logits differ from "
                              f"the fp auto run by {worst}")
@@ -1111,23 +1429,33 @@ def main() -> None:
                            "group_combine_quant": [
                                k for k in build.ptxas_report("quant_combine")
                                if "group_combine_quant" in k["kernel"]]})
-    phase_kernels()
-    phase_quant_kernels()
-    phase_tiled_kernels()
-    phase_ops()
-    times = phase_times()
-    phase_parity()
-    counts, fp_forced = phase_serve()
+    phases = {}
+
+    def run(phase, *args):
+        """``phase(*args)``, its seconds kept for the ``total`` line."""
+        t = time.perf_counter()
+        out = phase(*args)
+        phases[phase.__name__] = time.perf_counter() - t
+        return out
+
+    run(phase_kernels)
+    run(phase_quant_kernels)
+    run(phase_tiled_kernels)
+    run(phase_ops)
+    times = run(phase_times)
+    run(phase_parity)
+    counts, fp_forced = run(phase_serve)
     # each path's kernels count launches from its own run
-    quant_counts, fp_auto = phase_serve_quant()
+    quant_counts, fp_auto = run(phase_serve_quant)
     counts.update({k: v for k, v in quant_counts.items() if k.endswith("_quant")})
-    phase_serve_quant_forced(fp_forced)
-    phase_decisions()
-    tune_counts, plans = phase_tune()
+    run(phase_serve_quant_forced, fp_forced)
+    run(phase_serve_engine)
+    run(phase_decisions)
+    tune_counts, plans = run(phase_tune)
     counts["tiled_matmul"] = tune_counts["tiled_matmul"]
-    phase_decisions_tuned()
-    phase_serve_tuned(fp_auto, plans)
-    emit("total", seconds=time.perf_counter() - t0)
+    run(phase_decisions_tuned)
+    run(phase_serve_tuned, fp_auto, plans)
+    emit("total", seconds=time.perf_counter() - t0, phases=phases)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": counts[k], "max_abs_err": times[k]["max_abs_err"],

@@ -15,6 +15,9 @@
   and under ``FalconConfig.quantize`` its int8 B̃q with block scales;
   ``dense``/``dot_general``/``matmul`` accept it, and
   :func:`precombine_params` lifts a whole param tree.
+* **Bucket warmup** — :func:`warm_buckets` pre-plans a model's whole
+  contraction inventory (``core.workloads``) at every serving bucket, so
+  the continuous-batching engine's steps are plan-cache hits.
 
 ``repro_torch.api`` re-exports this surface.
 """
@@ -27,13 +30,13 @@ import math
 
 import torch
 
-from . import algorithms, backends
+from . import algorithms, backends, workloads
 from .falcon_gemm import FalconConfig, _pad2, plan, plan_batched, precombine_weights
 from .lcma import LCMA
 
 __all__ = ["use", "current_config", "active_config", "config_scope",
            "matmul", "dense", "dot_general", "einsum", "grouped_matmul",
-           "PlannedWeight", "plan_weight", "precombine_params"]
+           "PlannedWeight", "plan_weight", "precombine_params", "warm_buckets"]
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +224,102 @@ def precombine_params(params, cfg: FalconConfig | None = None,
 
 def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
+
+
+def _warm_contraction(c, cfg: FalconConfig, dtype: str, pre_algos: dict,
+                      pre_algos_grouped: dict) -> int:
+    """Plan one resolved registry contraction (+ its precombined variant)."""
+    n = 0
+    if c.group == 1:
+        plan(c.m, c.k, c.n, cfg, dtype)
+        n += 1
+        if c.weight_static:
+            d_pre = plan(c.m, c.k, c.n, cfg, dtype, precombined_b=True)
+            if d_pre.use_lcma:
+                pre_algos.setdefault((c.k, c.n), set()).add(d_pre.algo.name)
+            n += 1
+    else:
+        plan_batched(c.group, c.m, c.k, c.n, cfg, dtype, shared_b=c.shared_b)
+        n += 1
+        if c.weight_static:
+            d_pre = plan_batched(c.group, c.m, c.k, c.n, cfg, dtype, precombined_b=True,
+                                 shared_b=c.shared_b)
+            if d_pre.use_lcma:
+                pre_algos_grouped.setdefault((c.group, c.k, c.n), set()).add(d_pre.algo.name)
+            n += 1
+    return n
+
+
+def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = None,
+                 kv_len: int | None = None, spec_gamma: int | None = None) -> int:
+    """Pre-plan the registry contraction set of ``arch`` at every bucket.
+
+    The continuous-batching scheduler only ever launches bucket shapes, so
+    running the Decision Module once per bucket x registry contraction —
+    both the plain and the precombined-B variants for static-weight
+    contractions — makes serve-time dispatch pure plan-cache hits. Returns
+    the number of ``plan()``/``plan_batched()`` calls made.
+
+    ``buckets`` entries are either an ``int`` — a flat activation-row count:
+    warms the dense projections at that M — or a ``(batch, seq)`` call
+    context: resolves the whole inventory including the attention einsums
+    (``seq == 1`` with ``kv_len`` set is a decode step against a
+    length-``kv_len`` cache). ``spec_gamma`` (with ``kv_len``) also warms,
+    at every decode bucket ``(b, 1)``, the ``(b, γ+1)`` verify forward (lm
+    head on every row) and the ``(b, 2)`` draft catch-up forward. The
+    reference's ``train`` and ``mesh_shape`` arguments come with the
+    training and multi-device slices (ROADMAP Queue 1 items 5 and 6).
+    """
+    cfg = _resolve(cfg)
+    dtype = dtype or str(getattr(arch, "dtype", "bfloat16"))
+    flat = sorted({int(b) for b in buckets if not isinstance(b, tuple)})
+    pairs = sorted({(int(b), int(s)) for b, s in
+                    (b for b in buckets if isinstance(b, tuple))})
+    pre_algos: dict[tuple[int, int], set[str]] = {}
+    pre_algos_grouped: dict[tuple[int, int, int], set[str]] = {}
+    contractions: list = []
+    for M in flat:
+        contractions += [c for c in workloads.resolve_contractions(arch, 1, M)
+                         if c.kind == "dense"]
+    for b, s in pairs:
+        decode = kv_len is not None and s == 1
+        contractions += workloads.resolve_contractions(arch, b, s, kv_len=kv_len,
+                                                       decode=decode)
+        if spec_gamma and decode:
+            contractions += workloads.resolve_contractions(
+                arch, b, spec_gamma + 1, kv_len=kv_len, spec_verify=True)
+            contractions += workloads.resolve_contractions(arch, b, 2, kv_len=kv_len)
+    # static-weight contractions first, so a shape shared between a weight
+    # contraction and an activation one keeps its precombined variant
+    contractions.sort(key=lambda c: not c.weight_static)
+    n = 0
+    seen: set[str] = set()
+    for c in contractions:
+        if c.key_shape() not in seen:
+            seen.add(c.key_shape())
+            n += _warm_contraction(c, cfg, dtype, pre_algos, pre_algos_grouped)
+    # The PlannedWeight apply re-decides at the actual M with the candidates
+    # restricted to the weight's own scheme: a differently keyed plan (the
+    # candidate set is part of the key). Pre-plan those restricted variants
+    # for every scheme a bucket's precombined decision picked.
+    if cfg.mode == "auto":
+        planned: set[str] = set()
+        for c in contractions:
+            if not c.weight_static or c.key_shape() in planned:
+                continue
+            planned.add(c.key_shape())
+            if c.group == 1:
+                for a in sorted(pre_algos.get((c.k, c.n), ())):
+                    plan(c.m, c.k, c.n, dataclasses.replace(cfg, candidates=(a,)), dtype,
+                         precombined_b=True)
+                    n += 1
+            else:
+                for a in sorted(pre_algos_grouped.get((c.group, c.k, c.n), ())):
+                    plan_batched(c.group, c.m, c.k, c.n,
+                                 dataclasses.replace(cfg, candidates=(a,)), dtype,
+                                 precombined_b=True, shared_b=c.shared_b)
+                    n += 1
+    return n
 
 
 def _apply_planned(x: torch.Tensor, pw: PlannedWeight,

@@ -2,9 +2,14 @@
 
 Every planned contraction of a dense-family :class:`ModelConfig` (attention
 projections, the attention einsums, the swiglu MLP, the padded lm head) is
-listed once here as a symbolic :class:`ContractionSpec`. The tune CLI warms
-the plan cache over :func:`warm_shapes`: the dense projection pairs of a
-workload swept over ``WARM_TOKENS``, plus square operators.
+listed once here as a symbolic :class:`ContractionSpec`, and resolved to
+concrete plan shapes per (batch, seq) call context by
+:func:`resolve_contractions`, which ``core.engine.warm_buckets`` (and so
+``ServeEngine.warm``) consumes. The tune CLI warms the plan cache over
+:func:`warm_shapes`: the dense projection pairs of a workload swept over
+``WARM_TOKENS``, plus square operators. The reference's per-shard symbols
+(``mesh_shape``) come with the multi-device slice (ROADMAP Queue 1 item 6),
+its backward contractions (``train``) with the training slice (item 5).
 
 The paper's three LLM serving workloads (§IV-B: DeepSeek-R1, Qwen3.5,
 HunyuanVideo projections) are registry entries too, addressable by name,
@@ -16,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 
 __all__ = [
-    "ContractionSpec", "Contraction", "contraction_set",
+    "ContractionSpec", "Contraction", "contraction_set", "resolve_contractions",
     "dense_projection_shapes", "paper_workloads", "paper_projection_shapes",
     "warm_shapes", "shape_token", "WARM_TOKENS", "WARM_SQUARE",
 ]
@@ -37,6 +42,12 @@ _PAPER_PROJECTIONS = {
 # pre-warm the plan cache for serving.
 WARM_TOKENS = [128, 512, 2048, 8192]
 WARM_SQUARE = [512, 1024, 2048, 4096, 8192, 16384]
+
+# The flash-attention query chunk (models.layers.flash_attention): no-cache
+# attention over sequences longer than this runs in 512-query chunks.
+_FLASH_Q_CHUNK = 512
+# lm-head cross-entropy chunk cap of the reference's training loss.
+_XENT_CHUNK = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +160,66 @@ def contraction_set(arch, *, quantize: bool = False) -> list[ContractionSpec]:
     if quantize:
         specs = [s for s in specs if s.weight_static and s.kind == "dense"]
     return specs
+
+
+def _shape_env(cfg, batch: int, seq: int, *, kv_len=None, decode=False,
+               spec_verify=False) -> dict:
+    """Symbol values for one (batch, seq) call context.
+
+    ``kv_len`` set => serving against a KV cache of that length (attention
+    keys span the cache, the lm head sees one row per sequence);
+    ``decode=True`` => a single-token step (seq is the number of new tokens,
+    normally 1). ``spec_verify=True`` => a speculative verify step: seq is
+    γ+1 draft-scoring rows and the lm head runs on every one of them
+    (``logit_tokens = batch * seq`` instead of ``batch``).
+    """
+    env: dict = {"one": 1, "tokens": batch * seq, "batch": batch, "seq": seq}
+    if decode:
+        env["attn_q"], env["attn_kv"] = 1, (kv_len or seq)
+    elif kv_len is not None:
+        env["attn_q"], env["attn_kv"] = seq, kv_len
+    else:
+        flash = seq > _FLASH_Q_CHUNK and seq % _FLASH_Q_CHUNK == 0
+        env["attn_q"] = _FLASH_Q_CHUNK if flash else seq
+        env["attn_kv"] = seq
+    env["attn_groups"] = batch * cfg.num_heads
+    env["head_dim"] = cfg.resolved_head_dim
+    if kv_len is not None or decode:
+        env["logit_tokens"] = batch * seq if spec_verify else batch
+    else:
+        cx = min(_XENT_CHUNK, seq)
+        while cx > 1 and seq % cx:
+            cx -= 1
+        env["logit_tokens"] = batch * cx
+    return env
+
+
+def resolve_contractions(arch, batch: int, seq: int, *, kv_len=None, decode: bool = False,
+                         spec_verify: bool = False) -> list[Contraction]:
+    """Concrete contraction inventory for one (batch, seq) call context.
+
+    Returns deduplicated :class:`Contraction` entries whose ``key_shape()``
+    tokens are exactly what ``core.plan_cache`` keys embed. ``kv_len``,
+    ``decode`` and ``spec_verify`` are as in :func:`_shape_env`.
+    """
+    paper = isinstance(arch, str) and arch in _PAPER_PROJECTIONS
+    specs = contraction_set(arch)
+    env = {"tokens": batch * seq} if paper else _shape_env(
+        _resolve_arch(arch), batch, seq, kv_len=kv_len, decode=decode,
+        spec_verify=spec_verify)
+
+    def val(x):
+        return env[x] if isinstance(x, str) else x
+
+    out: list[Contraction] = []
+    seen: set = set()
+    for s in specs:
+        c = Contraction(s.kind, s.role, val(s.m), val(s.k), val(s.n), group=val(s.group),
+                        shared_b=s.shared_b, weight_static=s.weight_static)
+        if (c.key_shape(), c.kind) not in seen:
+            seen.add((c.key_shape(), c.kind))
+            out.append(c)
+    return out
 
 
 def dense_projection_shapes(arch) -> list[tuple[int, int]]:

@@ -1,5 +1,8 @@
 """The hand-written CUDA kernels of the LCMA pipeline, the plain tiled GEMM,
 and their wrappers."""
+from collections import Counter
+from collections.abc import Mapping
+
 from .fused_gemm import batched_fused_gemm_combine_h, fused_gemm_combine_h, tiled_matmul
 from .group_combine import batched_group_combine, group_combine
 from .ops import (falcon_grouped_matmul, falcon_grouped_matmul_precombined,
@@ -25,10 +28,38 @@ def launch_counts() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+_SUBCOUNTS = {"tiled_matmul": lambda: tiled_matmul.routes,
+              "group_combine_quant": lambda: group_combine_quant.routes,
+              "group_combine": lambda: group_combine.shapes}
+
+
+def launch_state() -> Counter:
+    """Every launch counter in one Counter: each kernel's launches under its
+    name, and under ``(name, route or input shape)`` the tiled GEMM's and
+    the quantizing Combine A's launches by route and Group Combine's by
+    input shape. ``launch_state() - before`` is what ran since ``before``."""
+    state = Counter(launch_counts())
+    for name, sub in _SUBCOUNTS.items():
+        state.update({(name, k): n for k, n in sub().items()})
+    return state
+
+
+def add_launches(delta: Mapping, sign: int = 1) -> None:
+    """Add ``sign`` times ``delta`` (a :func:`launch_state` difference) to
+    the counters: what a CUDA graph replay launched without the wrappers."""
+    by_name = {k.__name__: k for k in KERNELS}
+    for key, n in delta.items():
+        if isinstance(key, str):
+            by_name[key].launches += sign * n
+        else:
+            name, sub = key
+            _SUBCOUNTS[name]()[sub] += sign * n
+
+
 __all__ = ["group_combine", "batched_group_combine", "fused_gemm_combine_h",
            "batched_fused_gemm_combine_h", "falcon_matmul",
            "falcon_matmul_precombined", "falcon_grouped_matmul",
            "falcon_grouped_matmul_precombined", "falcon_matmul_quant",
            "group_combine_quant", "fused_gemm_combine_h_quant",
            "quantize_b_blockwise", "tiled_matmul", "matmul", "KERNELS",
-           "reset_launch_counts", "launch_counts"]
+           "reset_launch_counts", "launch_counts", "launch_state", "add_launches"]

@@ -1,15 +1,29 @@
-"""One-shot serving: batched prefill, then greedy decode in lockstep.
+"""Serving launcher: a thin CLI over the serving engines.
+
+Two modes share the FalconGEMM serving stack (context-scoped config, offline
+Combine B via ``PlannedWeight``, persistent plan cache):
+
+* ``--continuous``: the continuous-batching
+  :class:`repro_torch.serve.ServeEngine`. ``--requests N`` synthetic
+  requests with ragged prompt lengths are admitted through bucketed prefill
+  micro-batches and decoded with per-slot positions; the engine pre-plans
+  the whole bucket grid and, on the card, captures each bucket's step as a
+  CUDA graph (``--no-warm`` opts out of warming, ``--no-cuda-graphs`` runs
+  the steps eagerly), then prints the ``ServeStats`` surface (tokens/s,
+  bucket hit rate, plan-cache hit rate, padding waste).
+* default: one-shot batched prefill + greedy decode in lockstep
+  (:func:`run_oneshot`).
 
     python -m repro_torch.launch.serve --arch granite_3_2b --full [--quant]
-        [--plan-cache PATH]
+        [--plan-cache PATH] [--continuous --requests 32 [--speculate 2]
+        [--prefix-cache] [--prefill-chunk 16] [--no-cuda-graphs]]
 
 runs on the card (``--device cuda``, the default) or, with ``--device cpu``,
 through the kernels' plain versions. Static weights are lifted to
 PlannedWeights (offline Combine B) where the Decision Module picks an LCMA;
 ``--quant`` puts the int8 tier into its search and bakes int8 B̃q into the
 PlannedWeights. ``--plan-cache`` loads a plan cache warmed by
-``repro_torch.tools.tune`` before serving and flushes it after. The
-continuous-batching engine comes with a later slice.
+``repro_torch.tools.tune`` before serving and flushes it after.
 """
 from __future__ import annotations
 
@@ -27,6 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan_cache
 from repro_torch.core.engine import PlannedWeight, active_config
 from repro_torch.models import model as M
+from repro_torch.serve import ServeEngine, StepLoop
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 __all__ = ["run_oneshot", "main"]
@@ -140,17 +155,62 @@ def main(argv=None) -> None:
     ap.add_argument("--quant", action="store_true",
                     help="serve with the int8-quantized decision tier: the "
                          "Decision Module prices quantized execution next to "
-                         "fp, and planned weights carry offline-quantized "
-                         "B̃q + scales")
+                         "fp, planned weights carry offline-quantized "
+                         "B̃q + scales, and warm() pre-plans the quantized "
+                         "buckets (--continuous)")
     ap.add_argument("--plan-cache", default=None, metavar="PATH",
                     help="persistent Decision plan cache (JSON, written by "
                          "repro_torch.tools.tune); loaded before serving and "
                          "flushed back on exit")
+    # continuous-batching engine
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve --requests jobs through the continuous-"
+                         "batching engine instead of one lockstep batch")
+    ap.add_argument("--requests", type=int, default=32,
+                    help="number of synthetic requests (--continuous)")
+    ap.add_argument("--max-slots", type=int, default=8,
+                    help="concurrent decode slots (--continuous)")
+    ap.add_argument("--min-prompt-len", type=int, default=4,
+                    help="ragged prompt lower bound (--continuous)")
+    ap.add_argument("--warm", action="store_true", default=True,
+                    help="pre-plan the bucket grid and prepare (on the card: "
+                         "capture) every step before serving (--continuous)")
+    ap.add_argument("--no-warm", dest="warm", action="store_false")
+    ap.add_argument("--no-cuda-graphs", dest="cuda_graphs", action="store_false",
+                    help="run each bucket's step eagerly instead of replaying "
+                         "its captured CUDA graph (--continuous)")
+    ap.add_argument("--speculate", type=int, default=0, metavar="GAMMA",
+                    help="speculative decoding: a self-draft proposes GAMMA "
+                         "tokens per round, one (batch, GAMMA+1) verify "
+                         "forward accepts greedily: token-exact (--continuous)")
+    ap.add_argument("--draft-layers", type=int, default=None, metavar="N",
+                    help="slice the draft to the target's first N layers "
+                         "(default: all layers = identity draft)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix-KV cache: repeated or extended "
+                         "prompts skip prefilling the shared prefix "
+                         "(--continuous)")
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="S",
+                    help="split long prompts into S-token prefill chunks "
+                         "(S must be a prefill bucket) interleaved with "
+                         "decode (--continuous)")
+    ap.add_argument("--stream", action="store_true",
+                    help="print the first request's tokens as they are "
+                         "emitted (--continuous)")
     args = ap.parse_args(argv)
     if args.plan_cache:
         cache = plan_cache.configure(path=args.plan_cache)
         print(f"plan cache: {len(cache)} plans loaded from {args.plan_cache}")
     cfg = get_config(args.arch) if args.full else smoke_config(args.arch)
+    if args.continuous:
+        _run_continuous(cfg, args)
+    else:
+        _print_oneshot(cfg, args)
+    if args.plan_cache:
+        plan_cache.flush()
+
+
+def _print_oneshot(cfg: ModelConfig, args) -> None:
     res = run_oneshot(cfg, batch=args.batch, prompt_len=args.prompt_len,
                       gen=args.gen, seed=args.seed, device=args.device,
                       precombine=args.precombine, quantize=args.quant)
@@ -164,8 +224,64 @@ def main(argv=None) -> None:
     st = plan_cache.stats()
     print(f"plan cache: {st.hits} hits / {st.misses} misses "
           f"({st.hit_rate:.0%} hit rate, {len(plan_cache.default_cache())} plans)")
-    if args.plan_cache:
-        plan_cache.flush()
+
+
+def _run_continuous(cfg: ModelConfig, args) -> None:
+    engine = ServeEngine(
+        cfg, max_slots=args.max_slots, max_prompt_len=args.prompt_len,
+        max_new_tokens=args.gen, precombine=args.precombine, seed=args.seed,
+        quantize=args.quant, speculate=args.speculate,
+        draft_keep_layers=args.draft_layers, prefix_cache=args.prefix_cache,
+        prefill_chunk=args.prefill_chunk, device=args.device,
+        cuda_graphs=args.cuda_graphs)
+    print(f"engine: {args.max_slots} slots, cache len {engine.max_len}, "
+          f"{engine.n_precombined} weight tensor(s) precombined"
+          f"{' (int8-quantized tier on)' if args.quant else ''}, buckets "
+          f"seq={list(engine.policy.prefill_seq)} "
+          f"prefill_batch={list(engine.policy.prefill_batch)} "
+          f"decode_batch={list(engine.policy.decode_batch)}")
+    if args.warm:
+        w = engine.warm()
+        print(f"warmup: {w['plans']} Decision plans, {w['shapes']} step "
+              f"shapes prepared in {w['seconds']:.1f}s ({w['plan_seconds']:.1f}s "
+              f"planning, {w['capture_seconds']:.1f}s warm-up runs and captures; "
+              f"{w['graphs']} CUDA graphs)")
+    rng = np.random.default_rng(args.seed)
+    lo = min(args.min_prompt_len, args.prompt_len)
+    for i in range(args.requests):
+        plen = int(rng.integers(lo, args.prompt_len + 1))
+        engine.submit(
+            rng.integers(0, cfg.vocab_size, plen),
+            max_new_tokens=int(rng.integers(1, args.gen + 1)),
+            on_token=((lambda r, t: print(f"  rid={r.rid} token {t}"))
+                      if args.stream and i == 0 else None))
+    t0 = time.perf_counter()
+    done = StepLoop(engine).run_until_idle()
+    wall = time.perf_counter() - t0
+    s = engine.summary()
+    print(f"served {len(done)}/{args.requests} requests in {wall:.2f}s: "
+          f"{s['prompt_tokens']} prompt + {s['generated_tokens']} generated "
+          f"tokens ({s['tokens_per_s']:.1f} tok/s real, "
+          f"{s['decode_tokens_per_s']:.1f} decode tok/s)")
+    print(f"steps: {s['prefill_steps']} prefill + {s['decode_steps']} decode "
+          f"+ {s['verify_steps']} verify | "
+          f"bucket hit rate {s['bucket_hit_rate']:.1%} | "
+          f"padding waste {s['padding_waste']:.1%}")
+    if args.speculate:
+        print(f"speculation: gamma={args.speculate}, acceptance rate "
+              f"{s['acceptance_rate']:.1%} "
+              f"({s['accepted_tokens']}/{s['drafted_tokens']} drafts kept)")
+    if args.prefix_cache and s.get("prefix_cache"):
+        p = s["prefix_cache"]
+        print(f"prefix cache: {p['hits']} hits / {p['misses']} misses, "
+              f"{s['prefix_tokens_reused']} prompt tokens reused, "
+              f"{p['entries']} entries ({p['evictions']} evicted)")
+    pc = s["plan_cache"]
+    print(f"plan cache: {pc['hits']} hits / {pc['misses']} misses "
+          f"({pc['hit_rate']:.0%} hit rate, {pc['entries']} plans)")
+    if done:
+        sample = done[0]
+        print(f"sample (rid={sample.rid}): {sample.generated[:16]}")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,11 @@
-"""Step functions of the serve path: prefill and decode (inference only).
+"""Step functions of the serve path (inference only): one-shot prefill and
+decode, and the continuous-batching engine's bucketed prefill, chunk
+prefill and speculative verify.
 
-The planned backward and the training steps come with the training slice.
+Each step writes its cache in place. The engine's steps take per-row
+tensor offsets (``start``, ``index`` as (B,) tensors) and never a host
+int, so that on the card a step can be captured as a CUDA graph. The
+planned backward and the training steps come with the training slice.
 """
 from __future__ import annotations
 
@@ -9,7 +14,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 
-__all__ = ["make_prefill_step", "make_decode_step"]
+__all__ = ["make_prefill_step", "make_serve_prefill_step", "make_chunk_prefill_step",
+           "make_decode_step", "make_verify_step"]
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
@@ -25,6 +31,57 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
     return prefill_step
 
 
+def _last_logits(params, cfg: ModelConfig, hidden, last_index):
+    """Logits (B, 1, V) of each row's position ``last_index`` (B,): the LM
+    head runs on those rows only, so the padded tail never reaches it."""
+    h_last = torch.take_along_dim(hidden, last_index[:, None, None].long(), dim=1)
+    return M.compute_logits(params, cfg, h_last)
+
+
+def make_serve_prefill_step(cfg: ModelConfig, max_len: int):
+    """Prefill for bucketed serving: right-padded prompts, per-row last index.
+
+    ``last_index`` (B,) selects each request's true final prompt position
+    before the LM head. A dense decoder needs no length mask: K/V written
+    at pad positions lie above each row's length and are overwritten before
+    decode validity admits them. Returns (logits (B, 1, V), cache) with the
+    cache sized to ``max_len``.
+    """
+
+    @torch.inference_mode()
+    def prefill_step(params, tokens, last_index):
+        cache = M.init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+        hidden, cache = M.forward(params, cfg, tokens, cache=cache, cache_index=0,
+                                  logits_mode="none")
+        return _last_logits(params, cfg, hidden, last_index), cache
+
+    return prefill_step
+
+
+def make_chunk_prefill_step(cfg: ModelConfig):
+    """One prefill *chunk* against existing slot-cache rows.
+
+    A chunk resumes at per-row offset ``start`` (B,) in ``cache`` rows
+    gathered from the engine's slot cache: positions ``[start, start+S)``
+    are written this chunk, and attention validity admits exactly ``kpos <
+    start + S`` (earlier chunks plus this one; stale K/V of a slot's
+    previous occupant above that is masked until overwritten). ``start > 0``
+    on a fresh request also covers prefix-cache reuse: the snapshot was
+    copied into the slot first and only the suffix runs. Intermediate
+    chunks are full buckets (``last_index = S-1``); the final chunk is
+    right-padded and ``last_index`` picks each row's true last position for
+    the LM head. Returns (logits (B, 1, V), cache rows).
+    """
+
+    @torch.inference_mode()
+    def chunk_step(params, cache, tokens, start, last_index):
+        hidden, cache = M.forward(params, cfg, tokens, cache=cache, cache_index=start,
+                                  logits_mode="none")
+        return _last_logits(params, cfg, hidden, last_index), cache
+
+    return chunk_step
+
+
 def make_decode_step(cfg: ModelConfig):
     """One-token decode against a KV cache at position ``index`` (an int, or
     a (B,) tensor of per-row positions). The cache is updated in place."""
@@ -35,3 +92,23 @@ def make_decode_step(cfg: ModelConfig):
                          logits_mode="last")
 
     return decode_step
+
+
+def make_verify_step(cfg: ModelConfig):
+    """Speculative verify: score γ+1 tokens in one forward, logits per row.
+
+    ``tokens`` (B, γ+1) is ``[t_last, d_1 .. d_γ]`` per row, decoded against
+    the KV cache at per-row ``index``. Causal masking makes row j's logits
+    the sequential next-token distribution after ``t_last, d_1..d_j``, so
+    the greedy accept rule reproduces non-speculative greedy decoding token
+    for token. Returns (logits (B, γ+1, V), cache rows); rejected draft
+    positions stay in the cache and are overwritten before validity admits
+    them.
+    """
+
+    @torch.inference_mode()
+    def verify_step(params, cache, tokens, index):
+        return M.forward(params, cfg, tokens, cache=cache, cache_index=index,
+                         logits_mode="all")
+
+    return verify_step

@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -73,6 +74,32 @@ def test_launcher_quant_runs_on_cpu_when_asked():
                   r"int8", out.stdout)
     assert n and int(n.group(2)) == int(n.group(1)) > 0, out.stdout
     assert "sample:" in out.stdout
+
+
+def test_launcher_continuous_runs_on_cpu_when_asked():
+    """``--continuous`` on the CPU: 8 ragged requests through the engine,
+    every step a warmed bucket (the steps run eagerly: graphs are the
+    card's), with the reference launcher's summary lines."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "granite_3_2b",
+         "--device", "cpu", "--continuous", "--requests", "8"],
+        capture_output=True, text=True, env=ENV, timeout=300)
+    assert out.returncode == 0, out.stderr
+    for line in ("engine: 8 slots", "warmup:", "served 8/8 requests", "bucket hit rate 100.0%",
+                 "plan cache:", "sample (rid="):
+        assert line in out.stdout, out.stdout
+    assert "0 CUDA graphs" in out.stdout
+
+
+def test_continuous_launcher_without_device_cpu_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works here")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "granite_3_2b",
+         "--continuous", "--requests", "2"], capture_output=True, text=True, env=ENV,
+        timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
 
 
 def test_launcher_without_device_cpu_needs_a_card():
@@ -318,3 +345,101 @@ def test_cuda_batched_group_combine_at_attention(dtype, cuda_device):
         got = K.batched_group_combine(inp, tl.U)
         assert got.shape == want.shape and got.dtype == dtype
         assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def _engine_run(cfg, quantize: bool, cuda_graphs: bool):
+    """Warm a card engine, set the launch counts to 0, serve 6 ragged
+    requests; returns (requests, launch counts, summary)."""
+    from repro_torch.serve import ServeEngine
+    engine = ServeEngine(cfg, max_slots=4, max_prompt_len=16, max_new_tokens=4, seed=0,
+                         quantize=quantize, record_logits=True, cuda_graphs=cuda_graphs)
+    engine.warm()
+    K.reset_launch_counts()
+    rng = np.random.default_rng(7)
+    reqs = [engine.submit(rng.integers(0, cfg.vocab_size, n), max_new_tokens=4)
+            for n in (3, 8, 11, 16, 5, 9)]
+    engine.run()
+    return reqs, K.launch_state(), engine.summary()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True], ids=["fp", "int8"])
+def test_cuda_engine_graphs_match_eager(quantize, cuda_device):
+    """Forced strassen on the card: each bucket's step replayed as a CUDA
+    graph gives the eager steps' tokens and logits (the same kernels on the
+    same inputs: f32, bit-equal expected) and, through the counts each graph
+    recorded at capture, the same kernel launches by kernel, route and
+    shape."""
+    import dataclasses
+    from repro_torch.configs import lcma_smoke_config
+    cfg = dataclasses.replace(lcma_smoke_config("granite_3_2b"), falcon_mode="strassen")
+    greqs, gcounts, gsum = _engine_run(cfg, quantize, cuda_graphs=True)
+    ereqs, ecounts, esum = _engine_run(cfg, quantize, cuda_graphs=False)
+    assert gsum["cuda_graphs"] and gsum["graphs"] == gsum["warmed_shapes"] == 9
+    assert not esum["cuda_graphs"] and esum["graphs"] == 0
+    assert gsum["bucket_misses"] == esum["bucket_misses"] == 0
+    for g, e in zip(greqs, ereqs):
+        assert g.generated == e.generated
+        for gl, el in zip(g.logits, e.logits):
+            np.testing.assert_allclose(gl, el, rtol=1e-5, atol=1e-5)
+    assert +gcounts == +ecounts
+    names = ("group_combine_quant", "fused_gemm_combine_h_quant") if quantize else \
+        ("group_combine", "batched_group_combine", "fused_gemm_combine_h",
+         "batched_fused_gemm_combine_h")
+    assert all(gcounts[n] > 0 for n in names), gcounts
+
+
+@pytest.mark.cuda
+def test_cuda_capture_runs_without_garbage_collection(cuda_device):
+    """An engine dropped in a reference cycle keeps its CUDA graphs until
+    the garbage collector runs, and destroying a graph while another is
+    being captured makes that capture fail: so the collector is off during
+    a capture (and only there), and a step's warm-up run is not captured."""
+    import gc
+    from repro_torch.serve import StepGraphs
+    seen = []
+    base = torch.zeros(4, device=cuda_device)
+
+    def fn(tokens):
+        seen.append((torch.cuda.is_current_stream_capturing(), gc.isenabled()))
+        return base + tokens
+
+    collecting = gc.isenabled()
+    step = StepGraphs(cuda_device).get(("t",), lambda: (fn, {"tokens": (4,)}, {}))
+    assert seen == [(False, collecting), (True, False)] and gc.isenabled() == collecting
+    step.load(tokens=np.arange(4))
+    assert step().tolist() == [0.0, 1.0, 2.0, 3.0] and len(seen) == 2
+
+
+CAPTURE_SYNC = """
+import torch
+from repro_torch.configs import smoke_config
+from repro_torch.models import model as M
+from repro_torch.serve import StepGraphs
+from repro_torch.train.steps import make_decode_step
+cfg = smoke_config("granite_3_2b")
+params = M.init_params(cfg, 0, "cuda")
+cache = M.init_cache(cfg, 2, 16, device="cuda")
+decode = make_decode_step(cfg)
+at = torch.tensor(3, device="cuda")        # a 0-d card tensor: int() reads it back
+graphs = StepGraphs("cuda")
+try:
+    graphs.get(("decode", 2), lambda: (lambda tokens: decode(params, cache, tokens, at),
+                                       {"tokens": (2, 1)}, {}))
+except RuntimeError as e:
+    print("raised:", type(e).__name__, str(e).splitlines()[0])
+else:
+    print("captured")
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_graph_capture_raises_on_a_sync(cuda_device):
+    """A step that reads a card value back to the host inside its capture
+    (``int(cache_index)`` of a 0-d CUDA tensor) makes the capture raise; it
+    does not fall back to eager. In a process of its own: the failed capture
+    leaves that process's CUDA state behind."""
+    out = subprocess.run([sys.executable, "-c", CAPTURE_SYNC], capture_output=True,
+                         text=True, env=ENV, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("raised:"), out.stdout
