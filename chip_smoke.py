@@ -34,7 +34,17 @@ decides on the
 h100_sxm profile; then the calibration path: ``repro_torch.tools.tune``
 measures the card (through the tiled GEMM), the data-sheet and calibrated
 decisions side by side, and granite served in auto mode under the calibrated
-profile with the warmed plan cache, held to the fp auto run.
+profile with the warmed plan cache, held to the fp auto run. Then the
+reference's other dense archs at full width (mistral_nemo_12b,
+starcoder2_15b, gemma3_27b): each leaf auto mode plans at a 2048-row
+prefill timed alone on torch.matmul and the "cuda" and generated "torch"
+planned paths, each held to the plain version, beside its predicted
+speedup; each arch served one-shot at that prefill, auto against gemm
+(starcoder2 also on "torch"), depth cut where weights and B̃ exceed the
+card, held to gemm prefix-matched and teacher-forced; each arch's
+ServeEngine at published depth, graphs against eager. Offline Combine B
+of those leaves (one launch over all served layers) is held to its plain
+version layer by layer among the kernel cases.
 Any failure raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
@@ -61,7 +71,7 @@ import torch  # noqa: E402
 import repro_torch.api as falcon  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import algorithms as alg, plan_cache  # noqa: E402
+from repro_torch.core import algorithms as alg, codegen, plan_cache, workloads  # noqa: E402
 from repro_torch.core.hardware import H100_SXM  # noqa: E402
 from repro_torch.core.lcma import LCMA  # noqa: E402
 from repro_torch.kernels import build, ops, ref, tuning  # noqa: E402
@@ -306,6 +316,19 @@ def phase_kernels() -> None:
                         raise AssertionError(f"{name}/{l.name}/{dtype}: error {e} > {tol}")
                     worst[name] = max(worst.get(name, 0.0), e)
                 seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+    # Offline Combine B of the new archs' served leaves: one launch over the
+    # whole stack of layers (bf16, the planned scheme)
+    name, tol = "batched_group_combine", TOL[torch.bfloat16]["combine"]
+    for scheme, G, K, N in stacked_weight_cases():
+        t0 = time.perf_counter()
+        a, e, shape = check_stacked_combine(alg.get(scheme), G, K, N, gen)
+        n += 1
+        emit("kernel_case", kernel=name, scheme=scheme, dtype=str(torch.bfloat16),
+             shape=shape, max_abs_err=a, err=e, tol=tol, stacked_weight=[G, K, N])
+        if not e <= tol:
+            raise AssertionError(f"{name}/{scheme}/stack {(G, K, N)}: error {e} > {tol}")
+        worst[name] = max(worst.get(name, 0.0), e)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
     emit("kernels", cases=n, worst_err=worst, seconds=seconds)
 
 
@@ -868,23 +891,26 @@ def phase_parity() -> None:
 BATCH, PROMPT, GEN = 4, 64, 16
 
 
-def serve(phase: str, cfg, params, quantize: bool = False) -> tuple[dict, dict]:
+def serve(phase: str, cfg, params, quantize: bool = False, batch: int = BATCH,
+          prompt: int = PROMPT, gen: int = GEN, **extra) -> tuple[dict, dict]:
     """One full-width one-shot serve through ``run_oneshot``, the launch
     counts set to 0 just before it and read just after. Emits the phase's
-    line, checks the tokens and logits, returns (result, launch counts)."""
+    line (with ``extra``'s fields), checks the tokens and logits, returns
+    (result, launch counts)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    res = run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, device=DEV,
+    res = run_oneshot(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0, device=DEV,
                       params=params, quantize=quantize)
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     logits = torch.stack(res["logits"])
     finite = bool(torch.isfinite(logits[..., :cfg.vocab_size]).all().item())
     tok = res["tokens"]
-    emit(phase, arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
-         mode=cfg.falcon_mode, quantize=quantize, batch=BATCH, prompt_len=PROMPT,
-         new_tokens=GEN, n_precombined=res["n_precombined"], quantized=res["quantized"],
+    emit(phase, **extra, arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         mode=cfg.falcon_mode, backend=cfg.falcon_backend, quantize=quantize, batch=batch,
+         prompt_len=prompt, new_tokens=gen, n_precombined=res["n_precombined"],
+         quantized=res["quantized"],
          **res["timings"], max_memory_allocated=peak, launches=counts,
          launches_by_phase=res["launches"],
          group_combine_by_shape={"x".join(map(str, k)): v
@@ -892,7 +918,7 @@ def serve(phase: str, cfg, params, quantize: bool = False) -> tuple[dict, dict]:
          logits_finite=finite, sample=tok[0].tolist())
     if not finite or logits.shape[-1] != M.padded_vocab(cfg):
         raise AssertionError(f"{phase}: logits not finite or of the wrong width")
-    if tok.shape != (BATCH, GEN) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
+    if tok.shape != (batch, gen) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
         raise AssertionError(f"{phase}: tokens out of range: {tok}")
     return res, counts
 
@@ -1108,13 +1134,14 @@ def oneshot_reference(cfg, params, requests) -> list:
 
 
 def engine_run(name: str, cfg, params, requests, cuda_graphs: bool, quantize: bool = False,
-               passes: int = 1, **kw) -> dict:
+               passes: int = 1, profile: bool = True, **kw) -> dict:
     """One ServeEngine at full width: warm (planning, then each bucket's
     warm-up run and capture), the launch counts set to 0, the requests
-    served ``passes`` times, the counts read; then 8 requests profiled over
-    4 decode steps (:func:`profile_engine`). Emits the ``serve_engine`` and
-    ``profile_engine`` lines; returns the outputs (tokens, logits per step,
-    per request and pass), the launch counts and the summary."""
+    served ``passes`` times, the counts read; then (``profile``) 8 requests
+    profiled over 4 decode steps (:func:`profile_engine`). Emits the
+    ``serve_engine`` and ``profile_engine`` lines; returns the outputs
+    (tokens, logits per step, per request and pass), the launch counts and
+    the summary."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine = ServeEngine(cfg, params, device=DEV, seed=0, quantize=quantize,
@@ -1156,7 +1183,8 @@ def engine_run(name: str, cfg, params, requests, cuda_graphs: bool, quantize: bo
                              f"{s['requests_finished']}/{len(reqs)} requests finished")
     if engine.graphs.enabled != cuda_graphs or (cuda_graphs and warm["graphs"] == 0):
         raise AssertionError(f"serve_engine/{name}: graphs {warm['graphs']}, asked {cuda_graphs}")
-    profile_engine(name, engine, requests)
+    if profile:
+        profile_engine(name, engine, requests)
     del engine, reqs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1281,21 +1309,435 @@ def phase_serve_engine() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The reference's other dense architectures: decisions, one-shot serving at
+# a prefill of 2048 rows, the engine, and the leaves auto mode prices to win
+# ---------------------------------------------------------------------------
+
+ARCHS = ("granite_3_2b", "mistral_nemo_12b", "starcoder2_15b", "gemma3_27b")
+NEW_ARCHS = ARCHS[1:]
+DECISION_M = (4, 256, 2048, 8192)
+# One-shot prefill of M = 2048 rows: 4 requests x 512 tokens, or 1 x 2048 for
+# gemma3, whose 1024-token window then masks its local layers.
+ARCH_SERVE = {"mistral_nemo_12b": (4, 512), "starcoder2_15b": (4, 512),
+              "gemma3_27b": (1, 2048)}
+ARCH_GEN = 8
+LEAF_M = 2048
+# The bf16 weights plus the B̃ of every leaf planned at the prefill M must
+# fit in this many bytes; the rest of the card's 80 GB holds activations,
+# the KV cache, cuBLAS's workspaces and the allocator's slack.
+WEIGHT_BUDGET = 68e9
+
+
+def arch_leaves(arch, lm_head: bool = False) -> dict[str, tuple[int, int]]:
+    """(K, N) of each projection ``arch`` (an arch id or a config) plans:
+    its static-weight dense contractions, by parameter path, from the
+    config's contraction set; with ``lm_head``, the tied LM head's too (a
+    runtime product)."""
+    out = {}
+    for s in workloads.contraction_set(arch):
+        if s.kind != "dense" or (s.role == "lm_head" and not lm_head):
+            continue
+        grp, name = s.role.split(".") if "." in s.role else ("", s.role)
+        path = {"attn": f"layers/attn/{name}", "mlp": f"layers/mlp/mlp_{name}"}.get(grp, name)
+        out[path] = (s.k, s.n)
+    return out
+
+
+def describe(d) -> str:
+    """A decision as the decision lines print it."""
+    return f"{d.algo.name}/{d.precision} ({d.speedup:.3f}x)" if d.use_lcma else "gemm"
+
+
 def phase_decisions() -> None:
-    shapes = {"w_q/w_o": (2048, 2048), "w_k/w_v": (2048, 512), "mlp_gate/up": (2048, 8192),
-              "mlp_down": (8192, 2048), "lm_head": (2048, 49408)}
-    cfg = falcon.FalconConfig()                      # auto mode on h100_sxm
-    for quantize in (False, True):
-        c = dataclasses.replace(cfg, quantize=quantize)
-        out = {}
-        for M_ in (4, 256, 4096):
-            for name, (K, N) in shapes.items():
-                for pre in (False, True):
-                    d = falcon.plan(M_, K, N, c, "bfloat16", precombined_b=pre)
-                    key = f"M={M_} {name}{' precombined' if pre else ''}"
-                    out[key] = (f"{d.algo.name}/{d.precision} ({d.speedup:.3f}x)"
-                                if d.use_lcma else "gemm")
-        emit("decisions", hardware=cfg.hardware, quantize=quantize, decisions=out)
+    """What auto mode decides on the h100_sxm profile for every leaf of the
+    four archs and their LM heads, at M = 4, 256, 2048 and 8192, with and
+    without offline Combine B, fp and with the int8 tier."""
+    cfg = falcon.FalconConfig()
+    for arch in ARCHS:
+        for quantize in (False, True):
+            c = dataclasses.replace(cfg, quantize=quantize)
+            out = {}
+            for M_ in DECISION_M:
+                for name, (K, N) in arch_leaves(arch, lm_head=True).items():
+                    for pre in (False, True):
+                        d = falcon.plan(M_, K, N, c, "bfloat16", precombined_b=pre)
+                        out[f"M={M_} {name}{' precombined' if pre else ''}"] = describe(d)
+            emit("decisions", arch=arch, hardware=cfg.hardware, quantize=quantize,
+                 decisions=out)
+
+
+def planned_leaves(cfg, M_: int) -> dict[str, tuple[int, int, object]]:
+    """The leaves auto mode plans an LCMA for at ``M_`` rows under ``cfg``'s
+    own policy (h100_sxm, offline Combine B, its backend's pricing): path ->
+    (K, N, decision)."""
+    fcfg = M.falcon_config_for(cfg)
+    out = {}
+    for path, (K, N) in arch_leaves(cfg).items():
+        d = falcon.plan(M_, K, N, fcfg, cfg.dtype, precombined_b=True)
+        if d.use_lcma:
+            out[path] = (K, N, d)
+    return out
+
+
+def weight_bytes(cfg, M_: int) -> tuple[int, int, int]:
+    """(bytes outside the layers, weight bytes per layer, B̃ bytes per
+    layer): bf16 weights, and the B̃ auto mode keeps beside each leaf it
+    plans at ``M_`` rows (:func:`planned_leaves`)."""
+    it = 2
+    raw = 2 * cfg.d_model * it                                  # ln1, ln2
+    raw += sum(K * N * it for K, N in arch_leaves(cfg).values())
+    bt = sum(d.algo.R * cdiv(K, d.algo.k) * cdiv(N, d.algo.n) * it
+             for K, N, d in planned_leaves(cfg, M_).values())
+    fixed = (M.padded_vocab(cfg) + 1) * cfg.d_model * it  # embedding, final norm
+    return fixed, raw, bt
+
+
+def fit_depth(cfg, M_: int) -> int:
+    """The published depth, or the most layers whose weights and B̃ fit in
+    WEIGHT_BUDGET bytes, in whole periods of the layer pattern (gemma3: 5
+    local, 1 global), so each kind of layer keeps its published share."""
+    fixed, raw, bt = weight_bytes(cfg, M_)
+    layers = min(cfg.num_layers, int((WEIGHT_BUDGET - fixed) // (raw + bt)))
+    if layers < cfg.num_layers and cfg.global_every:
+        layers -= layers % cfg.global_every
+    if layers < max(cfg.global_every, 1):
+        raise AssertionError(f"{cfg.name}: {layers} layers fit in {WEIGHT_BUDGET} bytes, "
+                             f"less than one period of its layer pattern")
+    return layers
+
+
+def arch_served(arch: str) -> tuple[object, list[tuple[str, object]]]:
+    """``arch`` as phase serve_archs serves it: the config at its fitted
+    depth, and its runs as (name, config): gemm, auto, and for starcoder2
+    auto on the generated "torch" backend."""
+    full = get_config(arch)
+    batch, prompt = ARCH_SERVE[arch]
+    base = dataclasses.replace(full, num_layers=fit_depth(full, batch * prompt))
+    runs = [("gemm", dataclasses.replace(base, falcon_mode="gemm")), ("auto", base)]
+    if arch == "starcoder2_15b":
+        runs.append(("auto_torch", dataclasses.replace(base, falcon_backend="torch")))
+    return base, runs
+
+
+def stacked_weight_cases() -> list[tuple[str, int, int, int]]:
+    """(scheme, layers, K, N) of each stacked leaf phase serve_archs
+    combines offline: precombine_params runs batched_group_combine once over
+    all the served layers of every leaf a run plans."""
+    out = set()
+    for arch in NEW_ARCHS:
+        base, runs = arch_served(arch)
+        batch, prompt = ARCH_SERVE[arch]
+        for _, cfg in runs:
+            for K, N, d in planned_leaves(cfg, batch * prompt).values():
+                out.add((d.algo.name, base.num_layers, K, N))
+    return sorted(out)
+
+
+def check_stacked_combine(l: LCMA, G: int, K: int, N: int, gen) -> tuple[float, float, list]:
+    """batched_group_combine with ``l.V`` over a bf16 stack of G weights
+    (G, K, N), a shape the served model gives it, held to the plain version
+    one layer at a time (the whole stack's plain version, in f32, would not
+    fit beside it). Returns (max abs error, error as :func:`err`, shape)."""
+    x = torch.empty(G, l.k * cdiv(K, l.k), l.n * cdiv(N, l.n), dtype=torch.bfloat16,
+                    device=DEV)
+    for g in range(G):
+        x[g] = randn(*x.shape[1:], gen=gen)
+    got = kernels.batched_group_combine(x, l.V)
+    torch.cuda.synchronize()
+    d = scale = 0.0
+    for g in range(G):
+        want = ref.group_combine_ref(ref.split_blocks(x[g], l.k, l.n), l.V)
+        if got[g].shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"batched_group_combine/{l.name}: {got.shape} {got.dtype} "
+                                 f"vs plain {want.shape} {want.dtype} per layer")
+        d = max(d, (got[g].float() - want.float()).abs().max().item())
+        scale = max(scale, want.float().abs().max().item())
+        del want
+    shape = list(got.shape)
+    del x, got
+    free_memory()
+    return d, d / max(1.0, scale), shape
+
+
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def forced_logits(cfg, params, batch: int, prompt: int, tokens: torch.Tensor) -> list:
+    """``cfg``'s one-shot serve of :func:`serve`'s prompts (``run_oneshot``'s
+    steps and draw, seed 0) with every decode step fed the next token of
+    ``tokens`` (batch, gen) instead of its own: the last-position logits of
+    the prefill and of each decode step, each (batch, Vp) on the host."""
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt)), device=DEV)
+    prefill = make_prefill_step(cfg, max_len=prompt + tokens.shape[1])
+    decode = make_decode_step(cfg)
+    with falcon.use(M.falcon_config_for(cfg)), torch.inference_mode():
+        p, _ = falcon.precombine_params(params, m_hint=batch * prompt)
+        logits, cache = prefill(p, prompts)
+        out = [logits[:, -1].float().cpu()]
+        for i in range(tokens.shape[1] - 1):
+            logits, _ = decode(p, cache, tokens[:, i:i + 1].to(DEV), prompt + i)
+            out.append(logits[:, -1].float().cpu())
+    return out
+
+
+def forced_err(forced: list, fp: dict, vocab: int) -> float:
+    """The largest logit error of a teacher-forced run against the fp run
+    whose tokens it was fed, over every step of every request, relative to
+    that request's largest fp logit."""
+    worst = 0.0
+    for b in range(fp["tokens"].shape[0]):
+        f = torch.stack([lg[b, :vocab].float().cpu() for lg in fp["logits"]])
+        q = torch.stack([lg[b, :vocab] for lg in forced])
+        worst = max(worst, ((q - f).abs().max() / f.abs().max()).item())
+    return worst
+
+
+def phase_serve_archs() -> None:
+    """Each new arch at full width, bf16, random weights from seed 0, served
+    one-shot (4 x 512 tokens, gemma3 1 x 2048: a prefill of 2048 rows, then
+    8 greedy tokens): auto mode on h100_sxm with backend "cuda" (the leaves
+    it plans at M = 2048 precombined, the hand-written kernels at prefill),
+    its fp reference with every product on torch.matmul (``gemm``), and for
+    starcoder2 the auto run on the generated "torch" backend (priced as it
+    runs, H in memory). Depth: the published one where weights and B̃ fit,
+    else the most that fit (the ``reduced`` field). Each auto run is held to
+    the gemm run within QUALITY_TOL twice: prefix-matched (:func:`quality`)
+    and teacher-forced on the gemm run's tokens, which compares every step
+    of every request. Each measured serve follows a 2-token warm-up serve
+    of the same configuration."""
+    for arch in NEW_ARCHS:
+        full = get_config(arch)
+        batch, prompt = ARCH_SERVE[arch]
+        base, run_cfgs = arch_served(arch)
+        layers = base.num_layers
+        fixed, raw, bt = weight_bytes(base, batch * prompt)
+        reduced = ({"num_layers": [full.num_layers, layers]} if layers < full.num_layers
+                   else None)
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        params = M.init_params(base, 0, DEV)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        emit("serve_archs_weights", arch=arch, reduced=reduced, layers=layers,
+             weight_bytes=held, predicted_weight_bytes=fixed + raw * layers,
+             predicted_planned_b_bytes=bt * layers, budget=WEIGHT_BUDGET,
+             init_transient_bytes=torch.cuda.max_memory_allocated() - before - held,
+             planned={path: describe(d) for path, (_, _, d)
+                      in planned_leaves(base, batch * prompt).items()})
+        common = dict(batch=batch, prompt=prompt, gen=ARCH_GEN, reduced=reduced)
+        runs = {}
+        for name, cfg in run_cfgs:
+            planned = {path: describe(d) for path, (_, _, d)
+                       in planned_leaves(cfg, batch * prompt).items()}
+            # a warm-up serve first: a model's first calls at new shapes pay
+            # for the library's kernel choice and the plan cache's misses
+            run_oneshot(cfg, batch=batch, prompt_len=prompt, gen=2, seed=0, device=DEV,
+                        params=params)
+            free_memory()
+            res, counts = serve("serve_archs", cfg, params, config=name, planned=planned,
+                                **common)
+            runs[name] = res
+            served = res["launches"]["prefill"], res["launches"]["decode"]
+            if name == "gemm" and (res["n_precombined"] or sum(counts.values())):
+                raise AssertionError(f"serve_archs/{arch}/gemm: precombined "
+                                     f"{res['n_precombined']}, launches {counts}")
+            if name != "gemm" and res["n_precombined"] != len(planned):
+                raise AssertionError(f"serve_archs/{arch}/{name}: {res['n_precombined']} "
+                                     f"leaves precombined, the pricing names {planned}")
+            if name == "auto" and planned and min(served[0][k] for k in (
+                    "group_combine", "fused_gemm_combine_h")) <= 0:
+                raise AssertionError(f"serve_archs/{arch}/auto: the prefill launched "
+                                     f"{served[0]}")
+            if name == "auto_torch" and sum(v for p in served for v in p.values()):
+                raise AssertionError(f"serve_archs/{arch}/auto_torch: the generated "
+                                     f"backend launched kernels {served}")
+            if name != "gemm":
+                err_ = quality(f"serve_archs/{arch}/{name}", per_request(res),
+                               per_request(runs["gemm"]), base.vocab_size)
+                free_memory()
+                forced = forced_err(forced_logits(cfg, params, batch, prompt,
+                                                  runs["gemm"]["tokens"]),
+                                    runs["gemm"], base.vocab_size)
+                emit("serve_archs_forced", arch=arch, config=name,
+                     steps_compared=batch * ARCH_GEN, rel_logit_err=forced, tol=QUALITY_TOL)
+                if not forced <= QUALITY_TOL:
+                    raise AssertionError(f"serve_archs/{arch}/{name}: teacher-forced logit "
+                                         f"error against gemm {forced} > {QUALITY_TOL}")
+                emit("serve_archs_vs_gemm", arch=arch, config=name, rel_logit_err=err_,
+                     forced_rel_logit_err=forced, tol=QUALITY_TOL,
+                     prefill_ms=res["timings"]["prefill_ms"],
+                     gemm_prefill_ms=runs["gemm"]["timings"]["prefill_ms"],
+                     prefill_speedup=runs["gemm"]["timings"]["prefill_ms"]
+                     / res["timings"]["prefill_ms"],
+                     decode_ms_per_step=res["timings"]["decode_ms_per_step"],
+                     gemm_decode_ms_per_step=runs["gemm"]["timings"]["decode_ms_per_step"],
+                     planned=planned, reduced=reduced)
+            del res
+            free_memory()
+        del params, runs
+        free_memory()
+
+
+def phase_serve_engine_archs() -> None:
+    """One ServeEngine per new arch at its published depth, auto mode: the
+    16 requests of phase serve_engine, every bucket's step a CUDA graph, and
+    the same engine eager; identical tokens, logits within the bf16 TOL,
+    equal launch counts, no plan-cache miss after warm (both checked in
+    :func:`engine_run`). The buckets' M is at most 8 x 64 = 512 rows, where
+    auto mode plans every leaf on GEMM: no B̃ is held."""
+    for arch in NEW_ARCHS:
+        cfg = get_config(arch)
+        free_memory()
+        params = M.init_params(cfg, 0, DEV)
+        requests = engine_requests(cfg.vocab_size)
+        runs = {g: engine_run(f"{arch}/auto_fp", cfg, params, requests, g, profile=g)
+                for g in (True, False)}
+        graph, eager = runs[True], runs[False]
+        same = all(g[0] == e[0] for g, e in zip(graph["outputs"], eager["outputs"]))
+        diff = max(err(torch.as_tensor(np.stack(g[1])), torch.as_tensor(np.stack(e[1])))[1]
+                   for g, e in zip(graph["outputs"], eager["outputs"]))
+        emit("serve_engine_check", config=f"{arch}/auto_fp", identical_tokens=same,
+             max_logit_err=diff, tol=TOL[torch.bfloat16]["fused"],
+             launches_equal=graph["state"] == eager["state"],
+             n_precombined=graph["summary"]["precombined_weights"],
+             decode_speedup=eager["summary"]["t_decode"] / graph["summary"]["t_decode"])
+        if not same or not diff <= TOL[torch.bfloat16]["fused"] \
+                or graph["state"] != eager["state"]:
+            raise AssertionError(f"serve_engine/{arch}: graphs and eager steps differ "
+                                 f"(identical tokens {same}, logit error {diff}, launches "
+                                 f"{dict(graph['state'])} vs {dict(eager['state'])})")
+        if graph["summary"]["precombined_weights"]:
+            raise AssertionError(f"serve_engine/{arch}: {graph['summary']['precombined_weights']}"
+                                 f" leaves planned at the buckets' M")
+        del params, runs, graph, eager
+        free_memory()
+
+
+def seq_combine_ref(parts: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
+    """The generated code's Group Combine as plain PyTorch: parts (..., d1,
+    d2, X, Y) -> (..., R, X, Y), each rank's terms added one at a time in
+    the parts' dtype, block (i, l) in row-major order, a coefficient of
+    magnitude above 1 applied as its own product first (so in bf16 every
+    partial sum rounds, where ``ref.group_combine_ref`` rounds once)."""
+    out = []
+    for r in range(coeff.shape[0]):
+        acc = None
+        for i in range(coeff.shape[1]):
+            for j in range(coeff.shape[2]):
+                c = int(coeff[r, i, j])
+                if c == 0:
+                    continue
+                t = parts[..., i, j, :, :] if abs(c) == 1 else abs(c) * parts[..., i, j, :, :]
+                acc = (t if c > 0 else -t) if acc is None else (acc + t if c > 0 else acc - t)
+        out.append(torch.zeros_like(parts[..., 0, 0, :, :]) if acc is None else acc)
+    return torch.stack(out, dim=-3)
+
+
+def lcma_plain(a: torch.Tensor, bt: torch.Tensor, l: LCMA, N: int,
+               combine=ref.group_combine_ref) -> torch.Tensor:
+    """The plain version of the planned path: Combine A (``combine``), the
+    product with B̃ and Combine H in f32, one rounding each, reassembled to
+    (M, N)."""
+    at = combine(ref.split_blocks(a, l.m, l.k), l.U)
+    cp = ref.fused_gemm_combine_h_ref(at, bt, l.W)
+    return cp.transpose(-3, -2).reshape(a.shape[0], -1)[:, :N]
+
+
+def phase_leaf_lcma() -> None:
+    """Every leaf shape auto mode prices an fp LCMA to win at M = 2048 rows
+    (h100_sxm, offline Combine B), bf16: torch.matmul, the "cuda" planned
+    path (Group Combine A, then the fused GEMM + Combine H against B̃) and
+    the "torch" planned path (the generated combines around one batched
+    product, H in f32), each held to its plain version (the "fused" TOL)
+    built from a plain B̃ and a plain Combine A: one rounding for "cuda",
+    one per added term for "torch" (:func:`seq_combine_ref`, to which the
+    generated Combine A is also held at the "combine" TOL), and timed
+    (:func:`time_ms`), with each stage of both paths; B̃ (Combine B, the
+    kernel) is held to its plain version at the "combine" TOL, and every
+    path's error against the f32 product is printed. Beside each measured
+    ratio to torch.matmul, the Decision Module's predicted speedup: fused
+    (the "cuda" backend's price, the one auto mode took) and unfused (the
+    "torch" backend's: H written in f32 and read back)."""
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    bf = torch.bfloat16
+    fcfg = falcon.FalconConfig(use_plan_cache=False)
+    tcfg = dataclasses.replace(fcfg, backend="torch")
+    torch_backend = falcon.get_backend("torch")
+    shapes = {}
+    for arch in ARCHS:
+        for path, (K, N) in arch_leaves(arch).items():
+            d = falcon.plan(LEAF_M, K, N, fcfg, "bfloat16", precombined_b=True)
+            if d.use_lcma:
+                shapes.setdefault((K, N, d.algo.name), []).append(f"{arch}/{path}")
+    if not shapes:
+        raise AssertionError("leaf_lcma: auto mode plans no leaf at M = 2048")
+    for (K, N, scheme), users in sorted(shapes.items()):
+        l = alg.get(scheme)
+        a = randn(LEAF_M, K, dtype=bf, gen=gen)
+        w = (randn(K, N, gen=gen) / K ** 0.5).to(bf)
+        bt = falcon.precombine_weights(w, l)
+        bt_plain = ref.group_combine_ref(ref.split_blocks(w, l.k, l.n), l.V)
+        errs = {"combine_b": {"vs_plain": err(bt, bt_plain)[1]}}
+        if not errs["combine_b"]["vs_plain"] <= TOL[bf]["combine"]:
+            raise AssertionError(f"leaf_lcma {(K, N)} {scheme}: B̃ error "
+                                 f"{errs['combine_b']['vs_plain']} > {TOL[bf]['combine']}")
+        at = kernels.group_combine(a, l.U)
+        g = codegen.generate(l, codegen.CodegenOptions(precombined_b=True))
+        at_t = g.combine_a(a)
+        h = g.stages["gemm"](at_t, bt)
+        paths = {"matmul": lambda: torch.matmul(a, w),
+                 "cuda": lambda: ops.falcon_matmul_precombined(a, bt, l, N),
+                 "torch": lambda: torch_backend.apply_precombined(a, bt, l, N, tcfg)}
+        stages = {"cuda/combine_a": lambda: kernels.group_combine(a, l.U),
+                  "cuda/fused_gemm_combine_h": lambda: kernels.fused_gemm_combine_h(
+                      at, bt, l.W),
+                  "torch/combine_a": lambda: g.combine_a(a),
+                  "torch/gemm": lambda: g.stages["gemm"](at_t, bt),
+                  # the same product with a bf16 result: what keeping H in
+                  # f32 costs
+                  "torch/gemm_bf16_out": lambda: torch.bmm(at_t, bt),
+                  "torch/combine_h": lambda: g.stages["combine_h"](h, bf)}
+        plain = {"cuda": lcma_plain(a, bt_plain, l, N),
+                 "torch": lcma_plain(a, bt_plain, l, N, seq_combine_ref),
+                 "matmul": ref.tiled_matmul_ref(a, w)}
+        exact = a.float() @ w.float()
+        parts = ref.split_blocks(a, l.m, l.k)
+        errs["torch/combine_a"] = {"vs_plain": err(at_t, seq_combine_ref(parts, l.U))[1],
+                                   "vs_one_rounding": err(at_t, ref.group_combine_ref(
+                                       parts, l.U))[1]}
+        if not errs["torch/combine_a"]["vs_plain"] <= TOL[bf]["combine"]:
+            raise AssertionError(f"leaf_lcma {(K, N)} {scheme}: generated Combine A error "
+                                 f"{errs['torch/combine_a']['vs_plain']} > {TOL[bf]['combine']}")
+        for name, fn in paths.items():
+            got = fn()
+            torch.cuda.synchronize()
+            errs[name] = {"vs_plain": err(got, plain[name])[1], "vs_f32": err(got, exact)[1]}
+            if not errs[name]["vs_plain"] <= TOL[bf]["fused"]:
+                raise AssertionError(f"leaf_lcma {(LEAF_M, K, N)} {scheme} {name}: error "
+                                     f"{errs[name]['vs_plain']} > {TOL[bf]['fused']}")
+            del got
+        del plain, exact, bt_plain, parts
+        ms = {name: time_ms(fn) for name, fn in {**paths, **stages}.items()}
+        d = falcon.plan(LEAF_M, K, N, fcfg, "bfloat16", precombined_b=True)
+        du = falcon.plan(LEAF_M, K, N, tcfg, "bfloat16", precombined_b=True)
+        est_u = next(e for e in du.estimates if e.lcma.name == scheme)
+        bms, by = bound_ms(2.0 * LEAF_M * K * N, (LEAF_M * K + K * N + LEAF_M * N) * 2,
+                           H100_SXM.flops_for("bfloat16"))
+        X, Y, Z = cdiv(LEAF_M, l.m), cdiv(K, l.k), cdiv(N, l.n)
+        emit("leaf_lcma", M=LEAF_M, K=K, N=N, scheme=scheme, users=users,
+             predicted_speedup={"fused": d.speedup, "unfused": du.gemm_seconds / est_u.time},
+             measured_speedup={p: ms["matmul"]["ms"] / ms[p]["ms"] for p in ("cuda", "torch")},
+             ms={p: t["ms"] for p, t in ms.items()}, source={p: t["source"] for p, t in ms.items()},
+             matmul_bound_ms=bms, matmul_bound_by=by, errors=errs, tol=TOL[bf]["fused"],
+             fused_plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, l.m, l.n)),
+             timing=ms)
+        del a, w, bt, at, at_t, h
+        free_memory()
 
 
 # ---------------------------------------------------------------------------
@@ -1309,13 +1751,6 @@ TUNE_ARGV = ["--hardware", "h100_sxm", "--backend", "cuda", "--dtype", "bfloat16
              "--quant", "--warm-workload", "granite_3_2b",
              *(a for mkn in PROBES for a in ("--shape", ",".join(map(str, mkn)))),
              "--out", TUNE_OUT]
-# granite_3_2b's planned leaves as (K, N): d 2048, 32 x 64 query and 8 x 64
-# key/value heads, d_ff 8192
-LEAVES = {"w_q": (2048, 2048), "w_k": (2048, 512), "w_v": (2048, 512),
-          "w_o": (2048, 2048), "mlp_gate": (2048, 8192), "mlp_up": (2048, 8192),
-          "mlp_down": (8192, 2048)}
-
-
 def phase_tune() -> tuple[dict, str]:
     """``python -m repro_torch.tools.tune`` in this process (so the serve
     below resolves the very profile it registers): the probes time the tiled
@@ -1356,26 +1791,28 @@ def phase_tune() -> tuple[dict, str]:
 
 
 def phase_decisions_tuned() -> None:
-    """Each granite leaf (precombined, as a PlannedWeight is priced) at the
-    prefill and decode M, fp and int8 tiers, on the data sheet and on the
-    calibrated profile side by side: the scheme, precision and predicted
-    speedup taken, or for GEMM the best candidate's predicted speedup."""
-    out = {}
-    for quantize in (False, True):
-        for M_ in (256, 4):
-            for leaf, (K, N) in LEAVES.items():
-                row = {}
-                for hw in ("h100_sxm", TUNED):
-                    c = falcon.FalconConfig(hardware=hw, quantize=quantize,
-                                            use_plan_cache=False)
-                    d = falcon.plan(M_, K, N, c, "bfloat16", precombined_b=True)
-                    best = min(d.estimates, key=lambda e: e.time, default=None)
-                    row[hw] = (f"{d.algo.name}/{d.precision} ({d.speedup:.3f}x)" if d.use_lcma
-                               else f"gemm (best {best.lcma.name}/{best.precision} "
-                                    f"{d.gemm_seconds / best.time:.3f}x)" if best
-                               else "gemm (Eq. 8: memory-bound)")
-                out[f"{'int8 tier' if quantize else 'fp'} M={M_} {leaf}"] = row
-    emit("decisions_tuned", decisions=out)
+    """Each planned leaf of the four archs (precombined, as a PlannedWeight
+    is priced) at M = 4, 256, 2048 and 8192, fp and int8 tiers, on the data
+    sheet and on the calibrated profile side by side: the scheme, precision
+    and predicted speedup taken, or for GEMM the best candidate's predicted
+    speedup. One line per arch."""
+    for arch in ARCHS:
+        out = {}
+        for quantize in (False, True):
+            for M_ in DECISION_M:
+                for leaf, (K, N) in arch_leaves(arch).items():
+                    row = {}
+                    for hw in ("h100_sxm", TUNED):
+                        c = falcon.FalconConfig(hardware=hw, quantize=quantize,
+                                                use_plan_cache=False)
+                        d = falcon.plan(M_, K, N, c, "bfloat16", precombined_b=True)
+                        best = min(d.estimates, key=lambda e: e.time, default=None)
+                        row[hw] = (describe(d) if d.use_lcma
+                                   else f"gemm (best {best.lcma.name}/{best.precision} "
+                                        f"{d.gemm_seconds / best.time:.3f}x)" if best
+                                   else "gemm (Eq. 8: memory-bound)")
+                    out[f"{'int8 tier' if quantize else 'fp'} M={M_} {leaf}"] = row
+        emit("decisions_tuned", arch=arch, decisions=out)
 
 
 def phase_serve_tuned(fp_auto: dict, plans: str) -> dict:
@@ -1455,6 +1892,9 @@ def main() -> None:
     counts["tiled_matmul"] = tune_counts["tiled_matmul"]
     run(phase_decisions_tuned)
     run(phase_serve_tuned, fp_auto, plans)
+    run(phase_leaf_lcma)
+    run(phase_serve_archs)
+    run(phase_serve_engine_archs)
     emit("total", seconds=time.perf_counter() - t0, phases=phases)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],

@@ -31,7 +31,9 @@ class ModelConfig:
     # FalconGEMM integration
     use_falcon: bool = True
     falcon_mode: str = "auto"       # "auto" | "gemm" | scheme name
-    falcon_backend: str = "cuda"
+    falcon_backend: str = "cuda"    # the reference's default is "jnp"
+    # long-context applicability (a sub-quadratic attention path exists)
+    supports_long_context: bool = False
 
     @property
     def resolved_head_dim(self) -> int:

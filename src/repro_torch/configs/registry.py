@@ -6,8 +6,9 @@ import importlib
 
 from .base import ModelConfig
 
-# Only what the port runs; the reference zoo lists every family it serves.
-ARCH_IDS = ["granite_3_2b"]
+# Only what the port runs (the dense family); the reference zoo lists every
+# family it serves.
+ARCH_IDS = ["gemma3_27b", "granite_3_2b", "starcoder2_15b", "mistral_nemo_12b"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}
 

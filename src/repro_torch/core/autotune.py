@@ -7,13 +7,18 @@ measures the factors the model uses, on a few probe shapes, and fits a
 calibrated :class:`HardwareProfile` that ``decision.decide`` takes in place
 of the static one:
 
-  * ``flops_mul`` — GEMM throughput, from timing ``kernels.ops.matmul``
-    (the hand-written tiled GEMM) on the full probe;
+  * ``flops_mul`` — GEMM throughput, from timing the backend's GEMM on the
+    full probe: ``kernels.ops.matmul`` (the hand-written tiled GEMM) on
+    ``"cuda"``, ``torch.matmul`` on ``"torch"``;
   * ``beta`` — memory bandwidth, from timing a real Group Combine A (the
     memory-bound LCMA stage), not a synthetic stream;
   * ``flops_add`` — elementwise throughput at that bandwidth;
-  * ``lcma_gemm_efficiency`` — the fused R-batched LCMA GEMM + Combine H
-    stage relative to one big GEMM;
+  * ``lcma_gemm_efficiency`` — the R-batched LCMA GEMM stage relative to
+    one big GEMM: the fused kernel (GEMM + Combine H) on ``"cuda"``, the
+    generated code's batched product on ``"torch"``;
+  * on ``"torch"``, the grouped stage (``group_size`` groups of R products
+    as one batched GEMM), checked against the eff_B law the grouped
+    decisions assume (``decision.estimate_grouped``);
   * with ``quant=True``: ``flops_int8`` (``torch._int_mm``, the int8 product
     the reference leaves to XLA) into ``dtype_flops["int8"]``, and the
     quantizing Combine A's bandwidth ``beta_quant`` (metadata only).
@@ -32,13 +37,14 @@ cache.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import statistics
 import time
 from typing import Callable, Sequence
 
 import torch
 
-from . import algorithms
+from . import algorithms, codegen
 from . import decision as dec
 from .hardware import HardwareProfile, get_profile, register_profile, save_profile
 from .lcma import LCMA
@@ -46,15 +52,21 @@ from .lcma import LCMA
 __all__ = ["ProbeMeasurement", "CalibrationReport", "autotune", "calibrate",
            "default_probe_shapes", "best_of_timer"]
 
+log = logging.getLogger(__name__)
+
 # The served model's products on one H100: mlp_up and mlp_down of granite at
 # the prefill M of 4 x 64 rows, and one large square operator. Smaller probes
 # would time the launch, not the kernels.
 _PROBE_SHAPES = [(256, 2048, 8192), (256, 8192, 2048), (4096, 4096, 4096)]
 
 
+BACKENDS = ("cuda", "torch")
+
+
 def _check_backend(backend: str) -> None:
-    if backend != "cuda":
-        raise ValueError(f"unknown autotune backend {backend!r} (the port has 'cuda')")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown autotune backend {backend!r} (the port has "
+                         f"{' and '.join(map(repr, BACKENDS))})")
 
 
 def default_probe_shapes(backend: str = "cuda") -> list[tuple[int, int, int]]:
@@ -93,13 +105,19 @@ class ProbeMeasurement:
     K: int
     N: int
     dtype: str
-    t_gemm: float                # the tiled GEMM on the full problem
+    t_gemm: float                # the backend's GEMM on the full problem
     t_combine_a: float           # Group Combine A of the probe scheme
-    t_batched: float             # fused R-batched LCMA GEMM + Combine H
+    t_batched: float             # the R-batched LCMA GEMM stage
     t_pipeline: float | None     # full LCMA pipeline (validation; may be skipped)
     flops_mul_est: float
     beta_est: float
     eff_est: float
+    # (G*R)-batched grouped GEMM stage vs one big GEMM: validates the eff_B
+    # law of ``decision.estimate_grouped``; None where the grouped probe is
+    # skipped (group_size <= 1, or the "cuda" backend, whose grouped kernel
+    # adds a grid dimension, not a bigger batched product)
+    eff_grouped_est: float | None = None
+    group_size: int = 1
     # int8 probes (``quant=True``): the int8 GEMM on the full problem and the
     # quantizing Combine A. None when the quant probe was skipped.
     t_gemm_int8: float | None = None
@@ -122,6 +140,10 @@ class CalibrationReport:
     # per-probe relative error of the calibrated model's predicted LCMA
     # pipeline time vs the measured pipeline (empty when validation skipped)
     model_rel_err: list[float]
+    # measured (G*R)-batched grouped-stage efficiency (median over probes)
+    # vs the eff_B law's prediction; None when the grouped probe was skipped
+    eff_grouped: float | None = None
+    eff_grouped_predicted: float | None = None
     # medians of the int8 probes (``quant=True``); flops_int8 is what lands
     # in the profile's dtype_flops["int8"], beta_quant rides in metadata
     flops_int8: float | None = None
@@ -137,6 +159,8 @@ class CalibrationReport:
             "scheme": self.scheme,
             "probes": [p.as_dict() for p in self.probes],
             "model_rel_err": self.model_rel_err,
+            "eff_grouped": self.eff_grouped,
+            "eff_grouped_predicted": self.eff_grouped_predicted,
             "flops_int8": self.flops_int8,
             "beta_quant": self.beta_quant,
         }
@@ -158,9 +182,9 @@ def _int8_operands(M: int, K: int, N: int, device: torch.device):
     return a8, b8
 
 
-def _measure_probe(M: int, K: int, N: int, l: LCMA, dtype: str, timer: Callable,
-                   validate: bool, quant: bool, device: torch.device
-                   ) -> ProbeMeasurement:
+def _measure_probe(M: int, K: int, N: int, l: LCMA, backend: str, dtype: str,
+                   timer: Callable, validate: bool, quant: bool, device: torch.device,
+                   group_size: int = 1) -> ProbeMeasurement:
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_gemm import fused_gemm_combine_h
     from repro_torch.kernels.group_combine import group_combine
@@ -177,17 +201,38 @@ def _measure_probe(M: int, K: int, N: int, l: LCMA, dtype: str, timer: Callable,
     Mp, Kp = ap.shape
     X, Ks, Z = Mp // l.m, Kp // l.k, bp.shape[1] // l.n
 
-    t_gemm = timer(ops.matmul, a, b)
-    t_comb = timer(lambda x: group_combine(x, l.U), ap)
-    at = group_combine(ap, l.U)
-    bt = group_combine(bp, l.V)
-    t_bat = timer(lambda x, y: fused_gemm_combine_h(x, y, l.W, out_dtype=tdt), at, bt)
-    t_pipe = timer(lambda x, y: ops.falcon_matmul(x, y, l), a, b) if validate else None
+    if backend == "cuda":
+        t_gemm = timer(ops.matmul, a, b)
+        t_comb = timer(lambda x: group_combine(x, l.U), ap)
+        at = group_combine(ap, l.U)
+        bt = group_combine(bp, l.V)
+        t_bat = timer(lambda x, y: fused_gemm_combine_h(x, y, l.W, out_dtype=tdt), at, bt)
+        t_pipe = timer(lambda x, y: ops.falcon_matmul(x, y, l), a, b) if validate else None
+    else:
+        # the generated code's own stages: Combine A, and the batched
+        # product with H in f32, as the pipeline runs them
+        gen = codegen.generate(l)
+        gemm = gen.stages["gemm"]
+        t_gemm = timer(torch.matmul, a, b)
+        t_comb = timer(gen.combine_a, ap)
+        at = torch.ones((l.R, X, Ks), dtype=tdt, device=device)
+        bt = torch.ones((l.R, Ks, Z), dtype=tdt, device=device)
+        t_bat = timer(gemm, at, bt)
+        t_pipe = timer(gen.fn, ap, bp) if validate else None
 
     flops_mul = 2.0 * M * N * K / t_gemm
     beta = _combine_bytes(l, Mp, Kp, itemsize) / t_comb
     batched_flops = 2.0 * l.R * X * Ks * Z / t_bat
     eff = min(batched_flops / flops_mul, 1.0)
+    eff_grouped = None
+    if group_size > 1 and backend == "torch":
+        # the group-parallel lowering: G groups of R products as ONE
+        # (G*R)-batched GEMM, against the big GEMM
+        G = int(group_size)
+        ag = torch.ones((G * l.R, X, Ks), dtype=tdt, device=device)
+        bg = torch.ones((G * l.R, Ks, Z), dtype=tdt, device=device)
+        t_grp = timer(gemm, ag, bg)
+        eff_grouped = min(2.0 * G * l.R * X * Ks * Z / t_grp / flops_mul, 1.0)
     t_g8 = t_qc = flops_int8 = beta_quant = None
     if quant:
         # FLOPS_int8: the int8 GEMM (int32 sums) on the full problem, the
@@ -201,8 +246,8 @@ def _measure_probe(M: int, K: int, N: int, l: LCMA, dtype: str, timer: Callable,
         qbytes = Mp * Kp * itemsize + l.R * X * Ks + l.R * X * (Ks // by) * 4
         beta_quant = qbytes / t_qc
     return ProbeMeasurement(M, K, N, dtype, t_gemm, t_comb, t_bat, t_pipe,
-                            flops_mul, beta, eff,
-                            t_gemm_int8=t_g8, t_quant_combine=t_qc,
+                            flops_mul, beta, eff, eff_grouped_est=eff_grouped,
+                            group_size=int(group_size), t_gemm_int8=t_g8, t_quant_combine=t_qc,
                             flops_int8_est=flops_int8, beta_quant_est=beta_quant)
 
 
@@ -211,13 +256,17 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
              dtype: str = "float32", scheme: str = "strassen",
              reps: int = 3, warmup: int = 1,
              timer: Callable | None = None, name: str | None = None,
-             validate: bool = True, quant: bool = False,
+             validate: bool = True, group_size: int = 4, quant: bool = False,
              device="cuda") -> CalibrationReport:
     """Measure the backend on probe shapes and fit a calibrated profile.
 
     Returns a :class:`CalibrationReport`; ``report.profile`` is registered
     with ``hardware`` so ``FalconConfig(hardware=report.profile.name)`` and
     ``decide(..., hw=report.profile.name)`` resolve it at once.
+
+    ``backend`` is ``"cuda"`` (the hand-written kernels) or ``"torch"`` (the
+    generated code around ``torch.matmul``/batched products); on
+    ``"torch"`` the grouped stage of ``group_size`` groups is probed too.
 
     ``quant=True`` also measures the int8 stage — the int8 GEMM and the
     quantizing Combine A — and persists the measured FLOPS_int8 as the
@@ -235,7 +284,8 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
     l = algorithms.get(scheme)
 
     with torch.inference_mode():
-        probes = [_measure_probe(M, K, N, l, dtype, timer, validate, quant, device)
+        probes = [_measure_probe(M, K, N, l, backend, dtype, timer, validate, quant,
+                                 device, group_size=group_size)
                   for (M, K, N) in shapes]
 
     flops_mul = statistics.median(p.flops_mul_est for p in probes)
@@ -268,10 +318,25 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
         pred = dec.lcma_time(l, p.M, p.N, p.K, prof, dtype=dtype)
         rel_err.append(abs(pred - p.t_pipeline) / p.t_pipeline)
 
+    # The grouped decisions' eff_B = G*eff/(G*eff + 1 - eff) should track
+    # the measured (G*R)-batched efficiency; a large gap is worth a warning.
+    eff_grouped = eff_grouped_pred = None
+    grouped = [p for p in probes if p.eff_grouped_est is not None]
+    if grouped:
+        eff_grouped = statistics.median(p.eff_grouped_est for p in grouped)
+        G = grouped[0].group_size
+        eff_grouped_pred = G * eff / (G * eff + 1.0 - eff)
+        if abs(eff_grouped - eff_grouped_pred) > 0.25:
+            log.warning("autotune: grouped GEMM stage measured %.2f efficiency vs "
+                        "eff_B model prediction %.2f (G=%d, eff=%.2f) - grouped "
+                        "decisions may be mispriced on this backend",
+                        eff_grouped, eff_grouped_pred, G, eff)
+
     return CalibrationReport(base=base_prof.name, backend=backend, dtype=dtype,
                              scheme=scheme, probes=probes, profile=prof,
-                             model_rel_err=rel_err, flops_int8=flops_int8,
-                             beta_quant=beta_quant)
+                             model_rel_err=rel_err, eff_grouped=eff_grouped,
+                             eff_grouped_predicted=eff_grouped_pred,
+                             flops_int8=flops_int8, beta_quant=beta_quant)
 
 
 def calibrate(path: str | None = None, block_plan_shapes: bool = True,

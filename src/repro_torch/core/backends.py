@@ -11,13 +11,22 @@ a **backend** decides *how* the chosen LCMA executes:
 
 The built-in ``"cuda"`` backend is the hand-written kernel pipeline
 (``kernels.ops``). Its wrappers run the plain versions on CPU tensors, so
-the same backend serves the tests.
+the same backend serves the tests. The built-in ``"torch"`` backend is the
+Deployment Module's generated code (``core.codegen``): literal-coefficient
+combines around one batched library GEMM, the counterpart of the
+reference's ``"jnp"``; its H reaches memory, so it is priced unfused
+(``Backend.fused``). Its int8 tier is the CUDA one, as the reference's
+``"jnp"`` uses the Pallas int8 kernels.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 from typing import Callable
+
+from . import codegen
+from .falcon_gemm import (_check_precombined, _pad2, grouped_matmul_generated,
+                          grouped_matmul_with_precombined)
 
 __all__ = ["Backend", "register_backend", "get_backend", "unregister_backend",
            "available_backends"]
@@ -50,6 +59,10 @@ class Backend:
     apply_grouped: ApplyGroupedFn
     apply_grouped_precombined: ApplyGroupedPrecombinedFn
     apply_quant: ApplyQuantFn | None = None
+    # True: H stays on chip (the fused GEMM + Combine H); False: the product
+    # writes H to memory in f32 and Combine H reads it back. The Decision
+    # Module prices the pipeline the backend runs (``FalconConfig.fused``).
+    fused: bool = True
     description: str = ""
 
 
@@ -139,6 +152,28 @@ def _cuda_apply_quant(a2, bq, b_scales, l, n_logical, cfg):
     from repro_torch.kernels import ops
     return ops.falcon_matmul_quant(a2, bq, b_scales, l, n_logical)
 
+
+def _torch_apply(a2, b, l, cfg):
+    M, N = a2.shape[0], b.shape[1]
+    gen = codegen.generate(l)
+    return gen.fn(_pad2(a2, l.m, l.k), _pad2(b, l.k, l.n))[:M, :N]
+
+
+def _torch_apply_precombined(a2, bt, l, n_logical, cfg):
+    ap = _pad2(a2, l.m, l.k)
+    _check_precombined(ap, bt, l, a2.shape[1], "matmul_with_precombined")
+    gen = codegen.generate(l, codegen.CodegenOptions(precombined_b=True))
+    return gen.fn(ap, bt)[:a2.shape[0], :n_logical]
+
+
+_REGISTRY["torch"] = Backend(
+    "torch", _torch_apply,
+    apply_precombined=_torch_apply_precombined,
+    apply_grouped=grouped_matmul_generated,
+    apply_grouped_precombined=grouped_matmul_with_precombined,
+    apply_quant=_cuda_apply_quant, fused=False,
+    description="generated PyTorch combines around one batched GEMM, H in f32 "
+                "in memory (int8 tier: the CUDA kernels)")
 
 _REGISTRY["cuda"] = Backend(
     "cuda", _cuda_apply,

@@ -11,9 +11,13 @@ analysis:
   GEMM stage:      flops = 2RMNK/(mkn),               bytes = R(MK/mk + NK/nk + MN/mn)
   Combine H:       flops = (|W|0 - mn) * (M/m)(N/n),  bytes = MN (1 + R/(mn))
 
-The port prices only the pipeline it runs, the fused GEMM+Combine-H of
-Algorithm 2: H never reaches HBM, the fused stage writes C once (MN) and the
-R/mn overhead term vanishes (Eq. 9 -> 10).
+With the fused GEMM+Combine-H of Algorithm 2 (``fused=True``, the
+pipeline the ``"cuda"`` kernels run), H never reaches HBM: the fused stage
+writes C once (MN) and the R/mn overhead term vanishes (Eq. 9 -> 10).
+``fused=False`` prices the pipeline of the generated ``"torch"`` backend:
+the GEMM stage writes H and Combine H reads it back, in f32 (the
+accumulator, ``H_BYTES``), where the reference prices H in the operand
+dtype. ``FalconConfig.fused`` says which one a backend runs.
 
 Each stage's time is ``max(compute_time, memory_time)`` — the roofline model
 of compute/memory pipeline overlap *within* a stage; stages are serialized
@@ -190,8 +194,13 @@ def eq8_is_memory_bound(M: int, N: int, K: int, hw: HardwareProfile | str,
     return ai <= hw.flops_for(dtype) / hw.beta
 
 
+# Bytes per element of a materialized H (fused=False): the f32 accumulator
+# the generated backend's product writes.
+H_BYTES = 4
+
+
 def estimate(l: LCMA, M: int, N: int, K: int, hw: HardwareProfile | str,
-             dtype: str = "bfloat16",
+             dtype: str = "bfloat16", fused: bool = True,
              precombined_b: bool = False) -> LCMAEstimate:
     """Per-stage cost of one LCMA application (Table II + fused correction)."""
     hw = _resolve_hw(hw)
@@ -210,9 +219,15 @@ def estimate(l: LCMA, M: int, N: int, K: int, hw: HardwareProfile | str,
     stage("combine_a", (l.nnz_u - R) * Ms * Ks, (Mp * Kp + R * Ms * Ks) * by, Fa)
     if not precombined_b:
         stage("combine_b", (l.nnz_v - R) * Ks * Ns, (Kp * Np + R * Ks * Ns) * by, Fa)
-    # Fused GEMM + Combine H: H stays on-chip; write C exactly once.
-    stage("gemm+combine_h", 2.0 * R * Ms * Ns * Ks,
-          (R * (Ms * Ks + Ks * Ns) + Mp * Np) * by, Fx)
+    gemm_flops = 2.0 * R * Ms * Ns * Ks
+    if fused:
+        # Fused GEMM + Combine H: H stays on-chip; write C exactly once.
+        stage("gemm+combine_h", gemm_flops, (R * (Ms * Ks + Ks * Ns) + Mp * Np) * by, Fx)
+    else:
+        # H written by the product and read back by Combine H, in f32.
+        stage("gemm", gemm_flops, R * (Ms * Ks + Ks * Ns) * by + R * Ms * Ns * H_BYTES, Fx)
+        stage("combine_h", (l.nnz_w - m * n) * Ms * Ns,
+              Mp * Np * by + R * Ms * Ns * H_BYTES, Fa)
     return LCMAEstimate(l, tuple(stages), (Mp, Np, Kp))
 
 
@@ -350,7 +365,7 @@ def estimate_grouped_quant(l: LCMA, B: int, M: int, N: int, K: int,
 
 
 def decide(M: int, N: int, K: int, hw: HardwareProfile | str, dtype: str = "bfloat16",
-           candidates: list[LCMA] | None = None,
+           candidates: list[LCMA] | None = None, fused: bool = True,
            precombined_b: bool = False,
            min_speedup: float = 1.0,
            accuracy_budget: float | None = None,
@@ -385,7 +400,8 @@ def decide(M: int, N: int, K: int, hw: HardwareProfile | str, dtype: str = "bflo
             return Decision(M, N, K, dtype, None, t_gemm, None, ())
         ests: tuple[LCMAEstimate, ...] = ()
     else:
-        ests = tuple(estimate(l, M, N, K, hw, dtype, precombined_b=precombined_b)
+        ests = tuple(estimate(l, M, N, K, hw, dtype, fused=fused,
+                              precombined_b=precombined_b)
                      for l in candidates)
     if quantize:
         ests += tuple(estimate_quant(l, M, N, K, hw, dtype, precombined_b=precombined_b)
@@ -439,7 +455,7 @@ def batched_is_memory_bound(B: int, M: int, N: int, K: int,
 
 def estimate_grouped(l: LCMA, B: int, M: int, N: int, K: int,
                      hw: HardwareProfile | str, dtype: str = "bfloat16",
-                     precombined_b: bool = False,
+                     fused: bool = True, precombined_b: bool = False,
                      shared_b: bool = False) -> LCMAEstimate:
     """Per-stage cost of one grouped LCMA application (Table II, amortized).
 
@@ -480,14 +496,21 @@ def estimate_grouped(l: LCMA, B: int, M: int, N: int, K: int,
     if not precombined_b:
         stage("combine_b", (l.nnz_v - R) * Ks * Ns * nb,
               (Kp * Np + R * Ks * Ns) * nb * by, Fa)
-    stage("gemm+combine_h", 2.0 * R * Ms * Ns * Ks * B,
-          (B * R * Ms * Ks + nb * R * Ks * Ns + B * Mp * Np) * by, Fx)
+    gemm_flops = 2.0 * R * Ms * Ns * Ks * B
+    if fused:
+        stage("gemm+combine_h", gemm_flops,
+              (B * R * Ms * Ks + nb * R * Ks * Ns + B * Mp * Np) * by, Fx)
+    else:
+        stage("gemm", gemm_flops,
+              (B * R * Ms * Ks + nb * R * Ks * Ns) * by + B * R * Ms * Ns * H_BYTES, Fx)
+        stage("combine_h", (l.nnz_w - m * n) * Ms * Ns * B,
+              (Mp * Np * by + R * Ms * Ns * H_BYTES) * B, Fa)
     return LCMAEstimate(l, tuple(stages), (Mp, Np, Kp))
 
 
 def decide_batched(B: int, M: int, N: int, K: int, hw: HardwareProfile | str,
                    dtype: str = "bfloat16",
-                   candidates: list[LCMA] | None = None,
+                   candidates: list[LCMA] | None = None, fused: bool = True,
                    precombined_b: bool = False, shared_b: bool = False,
                    min_speedup: float = 1.0,
                    accuracy_budget: float | None = None,
@@ -512,7 +535,7 @@ def decide_batched(B: int, M: int, N: int, K: int, hw: HardwareProfile | str,
                                    B=B, shared_b=shared_b)
         ests: tuple[LCMAEstimate, ...] = ()
     else:
-        ests = tuple(estimate_grouped(l, B, M, N, K, hw, dtype,
+        ests = tuple(estimate_grouped(l, B, M, N, K, hw, dtype, fused=fused,
                                       precombined_b=precombined_b, shared_b=shared_b)
                      for l in candidates)
     if quantize:

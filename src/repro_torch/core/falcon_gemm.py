@@ -3,10 +3,12 @@
 ``plan(M, K, N, cfg)`` runs the Decision Module for one contraction shape:
 whether an LCMA beats standard GEMM on the target hardware and which one.
 The engine (``core.engine``) then runs the chosen scheme through the
-configured backend (``core.backends``) or falls back to ``torch.matmul``.
-Static weights can be pre-combined offline (``precombine_weights`` /
-``PlannedWeight``), removing the Combine-B stage from serving entirely
-(paper §IV-C "offline Combine B").
+configured backend (``core.backends``: the hand-written kernels of
+``"cuda"``, or the generated combines of ``"torch"``) or falls back to
+``torch.matmul``. Static weights can be pre-combined offline
+(``precombine_weights`` / ``PlannedWeight``), removing the Combine-B stage
+from serving entirely (paper §IV-C "offline Combine B"); one B̃ serves on
+either backend.
 """
 from __future__ import annotations
 
@@ -18,14 +20,15 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from . import algorithms, decision as dec, plan_cache
+from . import algorithms, codegen, decision as dec, plan_cache
 from .hardware import HardwareProfile, get_profile
 from .lcma import LCMA
 
 log = logging.getLogger(__name__)
 
 __all__ = ["FalconConfig", "plan", "plan_batched", "precombine_weights",
-           "matmul_with_precombined"]
+           "matmul_with_precombined", "grouped_matmul_generated",
+           "grouped_matmul_with_precombined"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +55,14 @@ class FalconConfig:
     shards: tuple[int, int, int] = (1, 1, 1)
     # Memoize auto-mode Decisions in the process plan cache.
     use_plan_cache: bool = True
+
+    @property
+    def fused(self) -> bool:
+        """Whether the backend keeps H on chip (the fused GEMM + Combine H of
+        the "cuda" kernels) or writes it to memory in f32 (the generated
+        "torch" backend): the Decision Module prices what the backend runs."""
+        from .backends import get_backend
+        return get_backend(self.backend).fused
 
     @property
     def profile(self) -> HardwareProfile:
@@ -116,7 +127,7 @@ def plan(M: int, K: int, N: int, cfg: FalconConfig, dtype: str = "bfloat16",
         return dec.Decision(Ml, Nl, Kl, dtype, None, t, None, ())
     if cfg.mode != "auto":
         l = algorithms.get(cfg.mode)
-        est = dec.estimate(l, Ml, Nl, Kl, cfg.profile, dtype,
+        est = dec.estimate(l, Ml, Nl, Kl, cfg.profile, dtype, fused=cfg.fused,
                            precombined_b=precombined_b)
         return dec.Decision(Ml, Nl, Kl, dtype, l,
                             dec.gemm_time(Ml, Nl, Kl, cfg.profile, dtype),
@@ -125,7 +136,7 @@ def plan(M: int, K: int, N: int, cfg: FalconConfig, dtype: str = "bfloat16",
     if cfg.use_plan_cache:
         cache = plan_cache.default_cache()
         key = plan_cache.plan_key(
-            Ml, Kl, Nl, cfg.profile, dtype,
+            Ml, Kl, Nl, cfg.profile, dtype, fused=cfg.fused,
             precombined_b=precombined_b, mode=cfg.mode,
             candidates=cfg.candidates, max_grid=cfg.max_grid,
             min_speedup=cfg.min_speedup,
@@ -134,7 +145,7 @@ def plan(M: int, K: int, N: int, cfg: FalconConfig, dtype: str = "bfloat16",
         if hit is not None:
             return hit
     d = dec.decide(Ml, Nl, Kl, cfg.profile, dtype,
-                   candidates=cfg.candidate_schemes(),
+                   candidates=cfg.candidate_schemes(), fused=cfg.fused,
                    precombined_b=precombined_b, min_speedup=cfg.min_speedup,
                    accuracy_budget=cfg.accuracy_budget, quantize=cfg.quantize)
     if cache is not None:
@@ -165,7 +176,8 @@ def plan_batched(B: int, M: int, K: int, N: int, cfg: FalconConfig,
     if cfg.mode != "auto":
         l = algorithms.get(cfg.mode)
         est = dec.estimate_grouped(l, B, Ml, Nl, Kl, cfg.profile, dtype,
-                                   precombined_b=precombined_b, shared_b=shared_b)
+                                   fused=cfg.fused, precombined_b=precombined_b,
+                                   shared_b=shared_b)
         return dec.GroupedDecision(
             Ml, Nl, Kl, dtype, l,
             dec.gemm_time_batched(B, Ml, Nl, Kl, cfg.profile, dtype,
@@ -175,7 +187,7 @@ def plan_batched(B: int, M: int, K: int, N: int, cfg: FalconConfig,
     if cfg.use_plan_cache:
         cache = plan_cache.default_cache()
         key = plan_cache.plan_key(
-            Ml, Kl, Nl, cfg.profile, dtype,
+            Ml, Kl, Nl, cfg.profile, dtype, fused=cfg.fused,
             precombined_b=precombined_b, mode=cfg.mode,
             candidates=cfg.candidates, max_grid=cfg.max_grid,
             min_speedup=cfg.min_speedup, batch=B, shared_b=shared_b,
@@ -184,7 +196,7 @@ def plan_batched(B: int, M: int, K: int, N: int, cfg: FalconConfig,
         if isinstance(hit, dec.GroupedDecision):
             return hit
     d = dec.decide_batched(B, Ml, Nl, Kl, cfg.profile, dtype,
-                           candidates=cfg.candidate_schemes(),
+                           candidates=cfg.candidate_schemes(), fused=cfg.fused,
                            precombined_b=precombined_b, shared_b=shared_b,
                            min_speedup=cfg.min_speedup,
                            accuracy_budget=cfg.accuracy_budget,
@@ -238,3 +250,69 @@ def matmul_with_precombined(a: torch.Tensor, bt: torch.Tensor, l: LCMA,
     *lead, M, K = a.shape
     c = falcon_matmul_precombined(a.reshape(-1, K), bt, l, n_logical)
     return c.reshape(*lead, M, n_logical)
+
+
+def _check_precombined(ap: torch.Tensor, bt: torch.Tensor, l: LCMA, K: int,
+                       what: str) -> None:
+    """B̃'s reduction blocks must be those of the padded activation."""
+    if ap.shape[-1] // l.k != bt.shape[-2]:
+        raise ValueError(
+            f"{what}: activation K={K} (padded {ap.shape[-1]}, grid k={l.k}) "
+            f"does not match precombined B̃ {tuple(bt.shape)} for scheme "
+            f"{l.name} {l.key}")
+
+
+def _grouped_h(at: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """The G*R intermediate products of a grouped LCMA as ONE batched GEMM,
+    H in f32: ``at`` (G, R, X, Y) against ``bt`` (R, Y, Z) shared by the
+    group (the group folded into the rows of each rank's product) or
+    (G, R, Y, Z) per group. Returns (G, R, X, Z)."""
+    G, R, X, Y = at.shape
+    if bt.ndim == 3:
+        h = codegen.product(at.transpose(0, 1).reshape(R, G * X, Y), bt, torch.float32)
+        return h.view(R, G, X, -1).transpose(0, 1)
+    if bt.shape[0] != G:
+        raise ValueError(f"grouped LCMA: group sizes differ: {tuple(at.shape)} vs "
+                         f"B̃ {tuple(bt.shape)}")
+    h = codegen.product(at.reshape(G * R, X, Y), bt.reshape(G * R, Y, -1), torch.float32)
+    return h.view(G, R, X, -1)
+
+
+def grouped_matmul_generated(a3: torch.Tensor, b: torch.Tensor, l: LCMA,
+                             cfg: FalconConfig | None = None) -> torch.Tensor:
+    """Grouped LCMA via the generated combines (the ``"torch"`` backend).
+
+    a3 (G, M, K) x b [(K, N) shared | (G, K, N) per-group] -> (G, M, N).
+    The group-parallel lowering: per-group Combine A (one generated combine
+    over the group), Combine B hoisted ONCE when ``b`` is shared, and the
+    G*R intermediate products as one batched GEMM (never G fragmented
+    launches), then per-group Combine H from the f32 accumulator.
+    """
+    G, M, K = a3.shape
+    gen = codegen.generate(l)
+    at = gen.combine_a(_pad3(a3, l.m, l.k))                 # (G, R, X, Ks)
+    if b.ndim == 2:
+        N = b.shape[1]
+        bt = gen.combine_b(_pad2(b, l.k, l.n))              # hoisted: once
+    else:
+        N = b.shape[2]
+        bt = gen.combine_b(_pad3(b, l.k, l.n))              # (G, R, Ks, Ns)
+    c = gen.stages["combine_h"](_grouped_h(at, bt), a3.dtype)
+    return c[:, :M, :N]
+
+
+def grouped_matmul_with_precombined(a3: torch.Tensor, bt: torch.Tensor, l: LCMA,
+                                    n_logical: int,
+                                    cfg: FalconConfig | None = None) -> torch.Tensor:
+    """Grouped serving-path matmul against precombined B̃ (generated combines).
+
+    ``bt`` is (R, K/k, N/n), one shared weight, or (G, R, K/k, N/n) for
+    stacked per-group weights. Combine B never runs.
+    """
+    G, M, K = a3.shape
+    gen = codegen.generate(l)
+    ap = _pad3(a3, l.m, l.k)
+    _check_precombined(ap, bt, l, K, "grouped_matmul_with_precombined")
+    at = gen.combine_a(ap)
+    c = gen.stages["combine_h"](_grouped_h(at, bt.to(at.dtype)), a3.dtype)
+    return c[:, :M, :n_logical]

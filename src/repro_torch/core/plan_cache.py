@@ -88,7 +88,7 @@ def _profile_fingerprint(hw: HardwareProfile) -> str:
 
 
 def plan_key(M: int, K: int, N: int, hw: HardwareProfile, dtype: str, *,
-             precombined_b: bool = False,
+             fused: bool = True, precombined_b: bool = False,
              mode: str = "auto", candidates: tuple[str, ...] | None = None,
              max_grid: int = 5, min_speedup: float = 1.0,
              batch: int = 1, shared_b: bool = False,
@@ -107,7 +107,8 @@ def plan_key(M: int, K: int, N: int, hw: HardwareProfile, dtype: str, *,
 
     ``quantize`` appends a ``quant=1`` token only when the int8 tier was in
     the candidate search (the same conditional-token rule: fp-only keys keep
-    their format).
+    their format), and ``fused=False`` (a backend whose H reaches memory,
+    ``FalconConfig.fused``) a ``fused=0`` one.
     """
     cands = ",".join(candidates) if candidates is not None else f"grid<={max_grid}"
     shape = f"{M}x{K}x{N}" if batch == 1 else \
@@ -121,6 +122,8 @@ def plan_key(M: int, K: int, N: int, hw: HardwareProfile, dtype: str, *,
         parts.append(f"ab={accuracy_budget:g}")
     if quantize:
         parts.append("quant=1")
+    if not fused:
+        parts.append("fused=0")
     return "|".join(parts)
 
 

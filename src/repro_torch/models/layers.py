@@ -21,11 +21,27 @@ from repro_torch.core import engine
 # ---------------------------------------------------------------------------
 
 
+def normal_init(gen: torch.Generator, shape: tuple[int, ...], scale, dtype,
+                device, rows: int = 1) -> torch.Tensor:
+    """``scale(x)`` of standard normal ``x`` of ``shape``, in ``dtype``:
+    drawn in float32 ``rows`` leading indices at a time into a preallocated
+    tensor, so the float32 draw of a whole stacked leaf (or embedding) never
+    exists."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(0, shape[0], rows):
+        part = out[i:i + rows]
+        part.copy_(scale(torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                                     device=device)))
+    return out
+
+
 def dense_init(gen: torch.Generator, shape: tuple[int, ...], dtype,
                device) -> torch.Tensor:
-    """Normal(0, 1/d_in) weights of ``shape`` = (..., d_in, d_out)."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w / math.sqrt(shape[-2])).to(dtype)
+    """Normal(0, 1/d_in) weights of ``shape`` = (..., d_in, d_out); a stacked
+    leaf (L, d_in, d_out) is drawn one layer slice at a time."""
+    root = math.sqrt(shape[-2])
+    return normal_init(gen, shape, lambda w: w / root, dtype, device,
+                       rows=shape[0] if len(shape) == 2 else 1)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -36,9 +36,16 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // 256) * 256
 
 
+# Embedding rows drawn per float32 block of ``init_params``.
+_EMBED_ROWS = 8192
+
+
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     """Random weights at the config's widths, made on ``device`` from a
-    seeded generator (not the reference's numbers: the RNGs differ)."""
+    seeded generator (not the reference's numbers: the RNGs differ). Each
+    leaf is allocated in the config's dtype and drawn in float32 pieces of
+    at most one layer slice (the embedding: ``_EMBED_ROWS`` rows), so the
+    largest transient is one slice, not a whole stacked leaf."""
     _check_family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, cfg.dtype)
@@ -61,7 +68,9 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
                          "mlp_up": dense(Lc, d, cfg.d_ff),
                          "mlp_down": dense(Lc, cfg.d_ff, d)}
     params = {
-        "embed": (torch.randn((Vp, d), generator=gen, device=device) * 0.02).to(dt),
+        # in blocks of rows: gemma3's f32 embedding alone would be 5.6 GB
+        "embed": L.normal_init(gen, (Vp, d), lambda w: w * 0.02, dt, device,
+                               rows=_EMBED_ROWS),
         "layers": layers,
         "final_norm": ones(d),
     }

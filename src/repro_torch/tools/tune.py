@@ -7,9 +7,10 @@ does three things:
   1. runs the empirical autotuner (``core.autotune``) on the card (or, with
      ``--device cpu``, through the kernels' plain versions) — times the
      tiled GEMM, Group Combine A and the fused R-batched LCMA GEMM stage on
-     a probe grid and fits effective ``(FLOPS_x, FLOPS_+, beta,
-     lcma_gemm_efficiency)``; ``--quant`` adds the int8 GEMM and the
-     quantizing Combine A;
+     a probe grid (``--backend torch``: ``torch.matmul``, the generated
+     Combine A and batched product, and the grouped stage) and fits
+     effective ``(FLOPS_x, FLOPS_+, beta, lcma_gemm_efficiency)``;
+     ``--quant`` adds the int8 GEMM and the quantizing Combine A;
   2. writes the calibrated :class:`HardwareProfile` as JSON (default:
      ``~/.cache/falcon_gemm/profiles/<name>.json``, override with
      ``FALCON_PROFILE_DIR`` or ``--out``) with the probe measurements and
@@ -44,7 +45,10 @@ def main(argv: list[str] | None = None) -> int:
         description="Empirical autotune + plan-cache warmup for FalconGEMM.")
     ap.add_argument("--hardware", default="h100_sxm",
                     help="base profile name to calibrate (default: h100_sxm)")
-    ap.add_argument("--backend", default="cuda", choices=["cuda"])
+    ap.add_argument("--backend", default="cuda", choices=["cuda", "torch"],
+                    help="cuda: the hand-written kernels; torch: the generated "
+                         "code around torch.matmul (also probes the grouped "
+                         "stage)")
     ap.add_argument("--device", default="cuda",
                     help="where the probes run (default: cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -115,6 +119,9 @@ def main(argv: list[str] | None = None) -> int:
               f"{tera(base.flops_for('int8'))} {tera(report.flops_int8)}")
         print(f"  {'beta_quant (bytes/s)':24s} {'':>10s} "
               f"{tera(report.beta_quant)}")
+    if report.eff_grouped is not None:
+        print(f"  grouped GEMM stage eff: measured {report.eff_grouped:.3f} "
+              f"vs eff_B model {report.eff_grouped_predicted:.3f}")
     if report.max_rel_err is not None:
         print(f"  model-vs-measured pipeline rel.err: "
               f"max {report.max_rel_err:.1%} over {len(report.model_rel_err)} probes")

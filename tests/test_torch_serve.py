@@ -390,6 +390,37 @@ def test_cuda_engine_graphs_match_eager(quantize, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_generated_backend_matches_the_cpu(dtype, cuda_device, rng):
+    """The generated "torch" backend on the card: a bf16 product keeps H in
+    f32 (``torch.bmm(..., out_dtype=torch.float32)``; the CPU multiplies the
+    upcast operands), and dense, grouped and precombined calls give the
+    CPU's results within one rounding of the output (f32: the product's
+    sums in another order)."""
+    import repro_torch.api as tfalcon
+    from repro_torch.core import codegen
+    at = torch.tensor(rng.standard_normal((7, 24, 40)), dtype=dtype)
+    bt = torch.tensor(rng.standard_normal((7, 40, 16)), dtype=dtype)
+    h = codegen.product(at.to(cuda_device), bt.to(cuda_device), torch.float32)
+    assert h.dtype == torch.float32
+    torch.testing.assert_close(h.cpu(), at.float() @ bt.float(), atol=1e-4, rtol=1e-5)
+    a = torch.tensor(rng.standard_normal((3, 26, 46)), dtype=dtype)
+    w = torch.tensor(rng.standard_normal((46, 34)), dtype=dtype)
+    tol = dict(atol=1e-4, rtol=1e-5) if dtype == torch.float32 else dict(atol=6e-2, rtol=2e-2)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        with tfalcon.use(tfalcon.FalconConfig(backend="torch", mode="laderman")):
+            pw = tfalcon.plan_weight(w.to(dev))
+            out[str(dev)] = [tfalcon.matmul(a[0].to(dev), w.to(dev)),
+                             tfalcon.grouped_matmul(a.to(dev), w.to(dev)),
+                             tfalcon.dense(a.to(dev), pw),
+                             tfalcon.grouped_matmul(a.to(dev), pw)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+@pytest.mark.cuda
 def test_cuda_capture_runs_without_garbage_collection(cuda_device):
     """An engine dropped in a reference cycle keeps its CUDA graphs until
     the garbage collector runs, and destroying a graph while another is
