@@ -44,13 +44,23 @@ speedup; each arch served one-shot at that prefill, auto against gemm
 card, held to gemm prefix-matched and teacher-forced; each arch's
 ServeEngine at published depth, graphs against eager. Offline Combine B
 of those leaves (one launch over all served layers) is held to its plain
-version layer by layer among the kernel cases.
+version layer by layer among the kernel cases. Last, the MoE family at
+published width: the expert FFN's calls of #2 (Combine B of whole expert
+stacks, Combine A of the activations) and #4 (the grouped product against
+per-expert B̃) at dbrx_132b's and kimi_k2_1t's shapes among the kernel
+cases and timed beside torch.einsum and torch.bmm; one full-width MoE
+layer of each (2048 tokens) in gemm mode and forced strassen, held to its
+plain versions and to strassen's static error bound; dbrx served one-shot
+(4 x 512 tokens) gemm, auto and forced, at the depth whose weights and B̃
+fit (9 of 40 layers), held to gemm prefix-matched and teacher-forced; and
+dbrx's ServeEngine at that depth, auto and forced, graphs against eager.
 Any failure raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -291,10 +301,29 @@ def kernel_cases(l, dtype, gen):
     }
 
 
+# (kernel, input shape) of every launch of #1-#4 that phase_kernels held to
+# its plain version (``kernels.launch_state``'s keys): the MoE phases fail on
+# a launch at any other shape
+CHECKED: set = set()
+COVERED = ("group_combine", "batched_group_combine", "fused_gemm_combine_h",
+           "batched_fused_gemm_combine_h")
+
+
+def check_covered(phase: str, state) -> None:
+    """Fail unless every launch of #1-#4 in ``state`` (a
+    ``kernels.launch_state``) was at a shape phase_kernels checked."""
+    miss = sorted(str(k) for k, n in state.items()
+                  if isinstance(k, tuple) and k[0] in COVERED and n > 0 and k not in CHECKED)
+    if miss:
+        raise AssertionError(f"{phase}: launches at shapes no kernel case held to its plain "
+                             f"version: {miss}")
+
+
 def phase_kernels() -> None:
     gen = torch.Generator(device=DEV).manual_seed(1)
     worst, seconds = {}, {}
     n = 0
+    kernels.reset_launch_counts()
     for l in schemes():
         for dtype in (torch.float32, torch.bfloat16):
             for name, fns in kernel_cases(l, dtype, gen).items():
@@ -329,6 +358,22 @@ def phase_kernels() -> None:
             raise AssertionError(f"{name}/{scheme}/stack {(G, K, N)}: error {e} > {tol}")
         worst[name] = max(worst.get(name, 0.0), e)
         seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+    # The MoE archs' calls at full width (bf16): the expert FFN's Combine B
+    # of whole expert stacks, Combine A of the activations and the grouped
+    # product against per-expert B̃; dbrx's projections, LM head and
+    # attention at every call context
+    for name, scheme, fields, check in moe_kernel_cases():
+        tol = TOL[torch.bfloat16]["fused" if "fused" in name else "combine"]
+        t0 = time.perf_counter()
+        a, e, shape = check(gen)
+        n += 1
+        emit("kernel_case", kernel=name, scheme=scheme, dtype=str(torch.bfloat16),
+             shape=shape, max_abs_err=a, err=e, tol=tol, moe=fields)
+        if not e <= tol:
+            raise AssertionError(f"{name}/{scheme}/moe {fields}: error {e} > {tol}")
+        worst[name] = max(worst.get(name, 0.0), e)
+        seconds[name + "@moe"] = seconds.get(name + "@moe", 0.0) + time.perf_counter() - t0
+    CHECKED.update(k for k in kernels.launch_state() if isinstance(k, tuple))
     emit("kernels", cases=n, worst_err=worst, seconds=seconds)
 
 
@@ -640,28 +685,30 @@ def events_ms(fn, warmup=WARMUP, launches=LAUNCHES, runs=RUNS) -> tuple[float, f
     return statistics.median(dev), statistics.median(host)
 
 
-def profiler_ms(fn) -> float | None:
+def profiler_ms(fn, launches=LAUNCHES) -> float | None:
     """Device ms per call from torch.profiler: the device time of every
-    kernel LAUNCHES calls ran, over LAUNCHES (None if it saw no device time)."""
+    kernel ``launches`` calls ran, over ``launches`` (None if it saw no
+    device time)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(LAUNCHES):
+        for _ in range(launches):
             fn()
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
              if str(e.device_type).endswith("CUDA"))
-    return us / 1e3 / LAUNCHES if us > 0 else None
+    return us / 1e3 / launches if us > 0 else None
 
 
-def time_ms(fn) -> dict:
+def time_ms(fn, launches=LAUNCHES) -> dict:
     """Time per call of ``fn`` (its operands built beforehand). ``ms`` is the
-    events' time over back-to-back launches, unless the host's time per call
-    exceeds the device's: then the queue ran dry between launches, the events
-    measured the host, and ``ms`` is the profiler's device time. ``source``
-    says which."""
-    ev, host = events_ms(fn)
-    dev = profiler_ms(fn)
+    events' time over ``launches`` back-to-back launches, unless the host's
+    time per call exceeds the device's: then the queue ran dry between
+    launches, the events measured the host, and ``ms`` is the profiler's
+    device time. ``source`` says which. Calls of many ms take fewer
+    launches."""
+    ev, host = events_ms(fn, launches=launches)
+    dev = profiler_ms(fn, launches)
     host_bound = dev is not None and host > dev
     return {"ms": dev if host_bound else ev, "source": "profiler" if host_bound else "events",
             "events_ms": ev, "host_ms": host, "profiler_ms": dev}
@@ -706,7 +753,8 @@ def phase_times() -> dict:
     fa = H100_SXM.flops_for("float32")         # combines run on the CUDA cores
     out = {}
 
-    def record(name, kfn, pfn, flops, nbytes, peak, logical, library="matmul", plan=None):
+    def record(name, kfn, pfn, flops, nbytes, peak, logical, library="matmul", plan=None,
+               launches=LAUNCHES):
         """Time kernel ``name`` (``name@<tag>`` for a second call shape)
         after checking it once more against its plain version. The library
         yardstick is bf16 ``torch.matmul`` of the logical shape for a
@@ -716,7 +764,8 @@ def phase_times() -> dict:
         timed alike.
         ``plan``: the kernel's plan for this call as a dict (the tile, ring
         stages and splits of a product kernel; the Group Combine's vector
-        width, block and rows), printed on the line."""
+        width, block and rows), printed on the line. ``launches``: back-to-back
+        calls per timed run (fewer for calls of many ms)."""
         kernel = name.split("@")[0]
         got = kfn()
         torch.cuda.synchronize()
@@ -735,13 +784,14 @@ def phase_times() -> dict:
             _, lib_err = err(library(), pfn())      # the same function, checked
             if not lib_err <= tol:
                 raise AssertionError(f"time/{name}: library error {lib_err} > {tol}")
-        k, plain = time_ms(kfn), time_ms(pfn)
+        k, plain = time_ms(kfn, launches), time_ms(pfn, launches)
         Mq, Kq, Nq, G = logical
         xa = randn(G, Mq, Kq, dtype=bf, gen=gen) if G > 1 else randn(Mq, Kq, dtype=bf, gen=gen)
         xb = randn(G, Kq, Nq, dtype=bf, gen=gen) if G > 1 else randn(Kq, Nq, dtype=bf, gen=gen)
-        matmul = time_ms(lambda: torch.matmul(xa, xb))
+        matmul = time_ms(lambda: torch.matmul(xa, xb), launches)
+        del xa, xb
         if callable(library):
-            lib = time_ms(library)
+            lib = time_ms(library, launches)
         else:
             lib = matmul if library == "matmul" else None
         bms, by = bound_ms(flops, nbytes, peak)
@@ -857,6 +907,39 @@ def phase_times() -> dict:
                (M_ * K + K * N + M_ * N) * it, fx, (M_, K, N, 1),
                plan={"route": "wgmma", **tuning.plan_tiled_wgmma(M_, K, N).as_dict()})
         del a, b
+    # The MoE expert FFN (dbrx, forced strassen): Combine B of the gate/up
+    # expert stack (16, 6144, 10752), which runs at every call, and Combine A
+    # of its activations at the prefill's capacity C = 768 (#2); the grouped
+    # fused GEMM against the per-expert B̃ at C = 768 and at decode, C = 8
+    # (#4), with torch.bmm of the same R*G products as its library call.
+    cfg = get_config("dbrx_132b")
+    E, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+    for tag, (rows, cols), coeff, nnz, C in (("@moe_b", (d, ff), l.V, l.nnz_v, 768),
+                                              ("@moe_a", (768, d), l.U, l.nnz_u, 768)):
+        x3 = randn(E, rows, cols, dtype=bf, gen=gen)
+        X, Y = rows // 2, cols // 2
+        record("batched_group_combine" + tag, lambda: kernels.batched_group_combine(x3, coeff),
+               lambda: ref.group_combine_ref(ref.split_blocks(x3, 2, 2), coeff),
+               E * 2.0 * nnz * X * Y, E * (4 + l.R) * X * Y * it, fa, (C, d, ff, E),
+               library=combine_library(x3, coeff), plan=launch_plan(x3, coeff).as_dict(),
+               launches=5)
+        del x3
+        free_memory()
+    for tag, C in (("@moe", 768), ("@moe_decode", 8)):
+        X, Y, Z = C // 2, d // 2, ff // 2
+        at4 = randn(E, l.R, X, Y, dtype=bf, gen=gen)
+        bt4 = torch.empty(E, l.R, Y, Z, dtype=bf, device=DEV)
+        for g in range(E):
+            bt4[g] = randn(l.R, Y, Z, dtype=bf, gen=gen)
+        record("batched_fused_gemm_combine_h" + tag,
+               lambda: kernels.batched_fused_gemm_combine_h(at4, bt4, l.W),
+               lambda: ref.fused_gemm_combine_h_ref(at4, bt4, l.W),
+               E * 2.0 * l.R * X * Y * Z, E * (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
+               (C, d, ff, E),
+               library=lambda: torch.bmm(at4.view(E * l.R, X, Y), bt4.view(E * l.R, Y, Z)),
+               plan=fused_plan(tuning.plan_fused_tc(E, X, Y, Z, l.R, 2, 2)), launches=5)
+        del at4, bt4
+        free_memory()
     torch.cuda.empty_cache()
     return out
 
@@ -892,15 +975,15 @@ BATCH, PROMPT, GEN = 4, 64, 16
 
 
 def serve(phase: str, cfg, params, quantize: bool = False, batch: int = BATCH,
-          prompt: int = PROMPT, gen: int = GEN, **extra) -> tuple[dict, dict]:
-    """One full-width one-shot serve through ``run_oneshot``, the launch
-    counts set to 0 just before it and read just after. Emits the phase's
-    line (with ``extra``'s fields), checks the tokens and logits, returns
-    (result, launch counts)."""
+          prompt: int = PROMPT, gen: int = GEN, seed: int = 0, **extra) -> tuple[dict, dict]:
+    """One full-width one-shot serve through ``run_oneshot`` (prompts drawn
+    from ``seed``), the launch counts set to 0 just before it and read just
+    after. Emits the phase's line (with ``extra``'s fields), checks the
+    tokens and logits, returns (result, launch counts)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    res = run_oneshot(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=0, device=DEV,
+    res = run_oneshot(cfg, batch=batch, prompt_len=prompt, gen=gen, seed=seed, device=DEV,
                       params=params, quantize=quantize)
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -915,6 +998,8 @@ def serve(phase: str, cfg, params, quantize: bool = False, batch: int = BATCH,
          launches_by_phase=res["launches"],
          group_combine_by_shape={"x".join(map(str, k)): v
                                  for k, v in kernels.group_combine.shapes.items()},
+         batched_group_combine_by_shape={"x".join(map(str, k)): v for k, v in
+                                         kernels.batched_group_combine.shapes.items()},
          logits_finite=finite, sample=tok[0].tolist())
     if not finite or logits.shape[-1] != M.padded_vocab(cfg):
         raise AssertionError(f"{phase}: logits not finite or of the wrong width")
@@ -946,7 +1031,19 @@ def quality(phase: str, q: list, fp: list, vocab: int) -> float:
     given as (tokens, logits per step) per request: the largest logit error
     over the steps each request's tokens still agree (prefix-matched, as
     tests/test_quant_serve.py), relative to that request's largest fp
-    logit. Returns it."""
+    logit (:func:`logit_error`), held to QUALITY_TOL. Returns it."""
+    worst, compared, agreement = logit_error(q, fp, vocab)
+    emit("quality", of=phase, steps_compared=compared, rel_logit_err=worst,
+         tol=QUALITY_TOL, token_agreement=agreement)
+    if compared < len(q) or not worst <= QUALITY_TOL:
+        raise AssertionError(f"{phase}: logit error against fp {worst} over {compared} "
+                             f"steps (tolerance {QUALITY_TOL})")
+    return worst
+
+
+def logit_error(q: list, fp: list, vocab: int) -> tuple[float, int, float]:
+    """(largest prefix-matched relative logit error, steps compared, share
+    of equal tokens) of ``q`` against ``fp``, as :func:`quality` reads them."""
     row = lambda x: torch.as_tensor(x)[:vocab].float().cpu()  # noqa: E731
     worst, compared, same, total = 0.0, 0, 0, 0
     for (q_tok, q_lg), (f_tok, f_lg) in zip(q, fp, strict=True):
@@ -960,12 +1057,7 @@ def quality(phase: str, q: list, fp: list, vocab: int) -> float:
             d = (row(q_lg[t]) - row(f_lg[t])).abs().max().item()
             worst = max(worst, d / max(scale, 1e-30))
             compared += 1
-    emit("quality", of=phase, steps_compared=compared, rel_logit_err=worst,
-         tol=QUALITY_TOL, token_agreement=same / total)
-    if compared < len(q) or not worst <= QUALITY_TOL:
-        raise AssertionError(f"{phase}: logit error against fp {worst} over {compared} "
-                             f"steps (tolerance {QUALITY_TOL})")
-    return worst
+    return worst, compared, same / total
 
 
 def phase_serve() -> tuple[dict, dict]:
@@ -1351,10 +1443,11 @@ def describe(d) -> str:
 
 def phase_decisions() -> None:
     """What auto mode decides on the h100_sxm profile for every leaf of the
-    four archs and their LM heads, at M = 4, 256, 2048 and 8192, with and
-    without offline Combine B, fp and with the int8 tier."""
+    four dense archs and the two MoE archs and their LM heads, and the MoE
+    archs' grouped expert projections, at M = 4, 256, 2048 and 8192, with
+    and without offline Combine B, fp and with the int8 tier."""
     cfg = falcon.FalconConfig()
-    for arch in ARCHS:
+    for arch in ARCHS + MOE_ARCHS:
         for quantize in (False, True):
             c = dataclasses.replace(cfg, quantize=quantize)
             out = {}
@@ -1363,6 +1456,14 @@ def phase_decisions() -> None:
                     for pre in (False, True):
                         d = falcon.plan(M_, K, N, c, "bfloat16", precombined_b=pre)
                         out[f"M={M_} {name}{' precombined' if pre else ''}"] = describe(d)
+                # the expert FFN: one grouped decision per projection shape at
+                # the capacity the layer serves M_ rows with (the runtime
+                # path, Combine B priced; precombined: a planned 3-D stack)
+                for E, C, K, N in workloads.grouped_moe_shapes(arch, M_):
+                    for pre in (False, True):
+                        d = falcon.plan_batched(E, C, K, N, c, "bfloat16", precombined_b=pre)
+                        out[f"M={M_} experts g{E}x{C}x{K}x{N}"
+                            f"{' precombined' if pre else ''}"] = describe(d)
             emit("decisions", arch=arch, hardware=cfg.hardware, quantize=quantize,
                  decisions=out)
 
@@ -1421,9 +1522,11 @@ def arch_served(arch: str) -> tuple[object, list[tuple[str, object]]]:
 
 
 def stacked_weight_cases() -> list[tuple[str, int, int, int]]:
-    """(scheme, layers, K, N) of each stacked leaf phase serve_archs
-    combines offline: precombine_params runs batched_group_combine once over
-    all the served layers of every leaf a run plans."""
+    """(scheme, layers, K, N) of each stacked leaf phases serve_archs,
+    serve_moe and serve_engine_moe combine offline: precombine_params runs
+    batched_group_combine once over all the served layers of every leaf a
+    run plans (dbrx: auto's leaves, and forced strassen's w_q..w_o; its 4-D
+    expert stacks stay raw)."""
     out = set()
     for arch in NEW_ARCHS:
         base, runs = arch_served(arch)
@@ -1431,6 +1534,10 @@ def stacked_weight_cases() -> list[tuple[str, int, int, int]]:
         for _, cfg in runs:
             for K, N, d in planned_leaves(cfg, batch * prompt).values():
                 out.add((d.algo.name, base.num_layers, K, N))
+    base, _, _ = moe_served()
+    out |= {("strassen", base.num_layers, K, N) for K, N in arch_leaves(base).values()}
+    out |= {(d.algo.name, base.num_layers, K, N)
+            for K, N, d in planned_leaves(base, MOE_SERVE[0] * MOE_SERVE[1]).values()}
     return sorted(out)
 
 
@@ -1465,12 +1572,13 @@ def free_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def forced_logits(cfg, params, batch: int, prompt: int, tokens: torch.Tensor) -> list:
+def forced_logits(cfg, params, batch: int, prompt: int, tokens: torch.Tensor,
+                  seed: int = 0) -> list:
     """``cfg``'s one-shot serve of :func:`serve`'s prompts (``run_oneshot``'s
-    steps and draw, seed 0) with every decode step fed the next token of
-    ``tokens`` (batch, gen) instead of its own: the last-position logits of
-    the prefill and of each decode step, each (batch, Vp) on the host."""
-    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+    steps and draw from ``seed``) with every decode step fed the next token
+    of ``tokens`` (batch, gen) instead of its own: the last-position logits
+    of the prefill and of each decode step, each (batch, Vp) on the host."""
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, prompt)), device=DEV)
     prefill = make_prefill_step(cfg, max_len=prompt + tokens.shape[1])
     decode = make_decode_step(cfg)
@@ -1649,14 +1757,15 @@ def lcma_plain(a: torch.Tensor, bt: torch.Tensor, l: LCMA, N: int,
 
 
 def phase_leaf_lcma() -> None:
-    """Every leaf shape auto mode prices an fp LCMA to win at M = 2048 rows
-    (h100_sxm, offline Combine B), bf16: torch.matmul, the "cuda" planned
-    path (Group Combine A, then the fused GEMM + Combine H against B̃) and
-    the "torch" planned path (the generated combines around one batched
-    product, H in f32), each held to its plain version (the "fused" TOL)
-    built from a plain B̃ and a plain Combine A: one rounding for "cuda",
-    one per added term for "torch" (:func:`seq_combine_ref`, to which the
-    generated Combine A is also held at the "combine" TOL), and timed
+    """Every leaf shape of the dense and the MoE archs that auto mode prices
+    an fp LCMA to win at M = 2048 rows (h100_sxm, offline Combine B), bf16:
+    torch.matmul, the "cuda" planned path (Group Combine A, then the fused
+    GEMM + Combine H against B̃) and the "torch" planned path (the
+    generated combines around one batched product, H in f32), each held to
+    its plain version (the "fused" TOL) built from a plain B̃ and a plain
+    Combine A: one rounding for "cuda", one per added term for "torch"
+    (:func:`seq_combine_ref`, to which the generated Combine A is also
+    held at the "combine" TOL), and timed
     (:func:`time_ms`), with each stage of both paths; B̃ (Combine B, the
     kernel) is held to its plain version at the "combine" TOL, and every
     path's error against the f32 product is printed. Beside each measured
@@ -1669,7 +1778,7 @@ def phase_leaf_lcma() -> None:
     tcfg = dataclasses.replace(fcfg, backend="torch")
     torch_backend = falcon.get_backend("torch")
     shapes = {}
-    for arch in ARCHS:
+    for arch in ARCHS + MOE_ARCHS:
         for path, (K, N) in arch_leaves(arch).items():
             d = falcon.plan(LEAF_M, K, N, fcfg, "bfloat16", precombined_b=True)
             if d.use_lcma:
@@ -1722,7 +1831,8 @@ def phase_leaf_lcma() -> None:
                                      f"{errs[name]['vs_plain']} > {TOL[bf]['fused']}")
             del got
         del plain, exact, bt_plain, parts
-        ms = {name: time_ms(fn) for name, fn in {**paths, **stages}.items()}
+        # calls of 0.1-6 ms: 10 back-to-back launches a timed run
+        ms = {name: time_ms(fn, launches=10) for name, fn in {**paths, **stages}.items()}
         d = falcon.plan(LEAF_M, K, N, fcfg, "bfloat16", precombined_b=True)
         du = falcon.plan(LEAF_M, K, N, tcfg, "bfloat16", precombined_b=True)
         est_u = next(e for e in du.estimates if e.lcma.name == scheme)
@@ -1738,6 +1848,587 @@ def phase_leaf_lcma() -> None:
              timing=ms)
         del a, w, bt, at, at_t, h
         free_memory()
+
+
+# ---------------------------------------------------------------------------
+# The MoE family at full width: the grouped expert FFN (#2 and #4 over
+# per-expert weights), one layer of dbrx_132b and of kimi_k2_1t, dbrx served
+# one-shot and through the engine
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("dbrx_132b", "kimi_k2_1t")
+MOE_SERVE = (4, 512)            # dbrx one-shot: a prefill of 2048 rows
+MOE_GEN = 8
+MOE_LAYER_T = 2048              # tokens of one moe_layer call (C = 768 dbrx, 54 kimi)
+# |C - plain| / max|plain| of a whole planned path, as phase leaf_lcma holds it
+LEAF_TOL = 0.01
+# A bf16 MoE layer against its f32 plain version, or two bf16 runs of it
+# against each other, normalized as TOL: eight bf16 unit roundoffs (2**-8
+# each) of the largest output. A token's path rounds at g and u, silu(g),
+# their product, the down projection and the gate-weighted term, then at
+# each of its k running sums (4 dbrx, 8 kimi), where one kernel against its
+# plain version rounds once (TOL).
+LAYER_TOL = 8 * 2.0 ** -8
+
+
+def moe_capacities(cfg) -> list[int]:
+    """dbrx's capacities on the main paths: the one-shot prefill (4 x 512
+    rows), its decode (4 rows) and every step of the engine's buckets."""
+    rows = {MOE_SERVE[0] * MOE_SERVE[1], MOE_SERVE[0]} | {b * s for b, s in engine_steps(False)}
+    return sorted({workloads.layer_capacity(cfg, T) for T in rows})
+
+
+def moe_contexts() -> list[tuple[int, int, int, bool]]:
+    """(batch, tokens per row, cache length, decode) of every call dbrx's
+    main paths make: the one-shot's prefill (4 x 512) and decode steps
+    against its 520-key cache, every prefill and decode bucket of the
+    engine against the slot cache."""
+    b, s = MOE_SERVE
+    keys = engine_keys(False)
+    pol = engine_policy(False)
+    return ([(b, s, s + MOE_GEN, False), (b, 1, s + MOE_GEN, True)]
+            + [(rows, n, keys, False) for rows, n in pol.prefill_shapes()]
+            + [(rows, 1, keys, True) for rows in pol.decode_batch])
+
+
+def check_grouped_fused(l: LCMA, G: int, X: int, Y: int, Z: int, gen,
+                        chunk: int = 16) -> tuple[float, float, list]:
+    """batched_fused_gemm_combine_h over G groups, each its own B̃ (the
+    expert FFN's per-expert weights), bf16, filled one group at a time (the
+    float32 draw of a whole stack would not fit beside it) and held to the
+    plain version ``chunk`` groups at a time. Returns (max abs error, error
+    as :func:`err`, output shape)."""
+    bf = torch.bfloat16
+    at = torch.empty(G, l.R, X, Y, dtype=bf, device=DEV)
+    bt = torch.empty(G, l.R, Y, Z, dtype=bf, device=DEV)
+    for g in range(G):
+        at[g] = randn(l.R, X, Y, dtype=bf, gen=gen)
+        bt[g] = randn(l.R, Y, Z, dtype=bf, gen=gen)
+    got = kernels.batched_fused_gemm_combine_h(at, bt, l.W)
+    torch.cuda.synchronize()
+    d = scale = 0.0
+    for g0 in range(0, G, chunk):
+        want = ref.fused_gemm_combine_h_ref(at[g0:g0 + chunk], bt[g0:g0 + chunk], l.W)
+        if got[g0:g0 + chunk].shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"batched_fused_gemm_combine_h/{l.name}: {got.shape} "
+                                 f"{got.dtype} vs plain {want.shape} {want.dtype}")
+        d = max(d, (got[g0:g0 + chunk].float() - want.float()).abs().max().item())
+        scale = max(scale, want.float().abs().max().item())
+        del want
+    shape = list(got.shape)
+    del at, bt, got
+    free_memory()
+    return d, d / max(1.0, scale), shape
+
+
+def checked(make):
+    """A check (gen -> (max abs error, error as :func:`err`, shape)) of the
+    (kernel call, plain call) pair ``make(gen)`` returns."""
+    def check(gen):
+        kfn, pfn = make(gen)
+        got = kfn()
+        torch.cuda.synchronize()
+        want = pfn()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{got.shape} {got.dtype} vs plain {want.shape} {want.dtype}")
+        a, e = err(got, want)
+        return a, e, list(got.shape)
+    return check
+
+
+def moe_kernel_cases() -> list[tuple[str, str, dict, object]]:
+    """(kernel, scheme, shape fields, check) of every call the MoE archs'
+    main paths make of #1-#4, bf16, each padded shape once.
+
+    The expert FFN under forced strassen: Combine B of the whole expert
+    stacks, Combine A of the activations (E, C, K) and the grouped fused
+    product against per-expert B̃, for dbrx at each capacity of the main
+    paths (C = 8, 160 and 768 among them), for kimi at phase moe_layer's
+    C = 54 (G = 384). dbrx's other products at every call context
+    (:func:`moe_contexts`, shapes from ``workloads.resolve_contractions``):
+    under forced strassen Combine A and the fused product of each
+    projection and of the LM head, the LM head's runtime Combine B, and
+    both einsums of attention over b x 48 groups (#2, #4 per group); auto's
+    planned leaves at the 2048-row prefill (s444 on w_q and w_o) through
+    Combine A and the fused product. The offline Combine B of the served
+    attention stacks is :func:`stacked_weight_cases`'. Each check returns
+    (max abs error, error as :func:`err`, shape)."""
+    l = alg.get("strassen")
+    bf = torch.bfloat16
+    out = []
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        E, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+        for K, N in ((d, ff), (ff, d)):
+            out.append(("batched_group_combine", l.name, {"arch": arch, "stack": [E, K, N]},
+                        functools.partial(check_stacked_combine, l, E, K, N)))
+        caps = moe_capacities(cfg) if arch == "dbrx_132b" else [
+            workloads.layer_capacity(cfg, MOE_LAYER_T)]
+        for X in sorted({cdiv(C, l.m) for C in caps}):
+            for K, N in ((d, ff), (ff, d)):
+                out.append(("batched_group_combine", l.name,
+                            {"arch": arch, "activations": [E, 2 * X, K]},
+                            checked(functools.partial(combine_case, l, bf, (2 * X, K), "U",
+                                                      groups=E))))
+                out.append(("batched_fused_gemm_combine_h", l.name,
+                            {"arch": arch, "per_group_bt": [E, l.R, K // 2, N // 2], "X": X},
+                            functools.partial(check_grouped_fused, l, E, X, K // 2, N // 2)))
+    cfg = get_config("dbrx_132b")
+    g = lambda l, M_, K, N: (cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n))  # noqa: E731
+    dense, attn = set(), set()
+    for batch, seq, kv, decode in moe_contexts():
+        for c in workloads.resolve_contractions(cfg, batch, seq, kv_len=kv, decode=decode):
+            if c.kind == "dense":
+                dense.add((c.role == "lm_head", c.m, c.k, c.n))
+            elif c.kind == "attention":
+                attn.add((c.group, c.m, c.k, c.n))
+    planned = [(MOE_SERVE[0] * MOE_SERVE[1], K, N, dd.algo)
+               for K, N, dd in planned_leaves(cfg, MOE_SERVE[0] * MOE_SERVE[1]).values()]
+    products = [(l, M_, K, N) for _, M_, K, N in dense] + [(a, M_, K, N) for M_, K, N, a in planned]
+    seen = set()
+    for s, M_, K, N in sorted(products, key=lambda p: (p[0].name, p[1:])):
+        X, Y, Z = g(s, M_, K, N)
+        for name, key, make in (
+                ("group_combine", (s.name, X, Y),
+                 functools.partial(combine_case, s, bf, (X * s.m, Y * s.k), "U")),
+                ("fused_gemm_combine_h", (s.name, X, Y, Z),
+                 functools.partial(fused_case, s, bf, X, Y, Z))):
+            if (name, key) not in seen:
+                seen.add((name, key))
+                out.append((name, s.name, {"arch": cfg.name, "product": [M_, K, N]},
+                            checked(make)))
+    for K, N in sorted({(K, N) for lm, _, K, N in dense if lm}):
+        out.append(("group_combine", l.name, {"arch": cfg.name, "lm_head_b": [K, N]},
+                    checked(functools.partial(combine_case, l, bf, (K, N), "V"))))
+    for G, M_, K, N in sorted(attn):
+        X, Y, Z = g(l, M_, K, N)
+        for name, key, make in (
+                ("batched_group_combine", ("U", G, X, Y),
+                 functools.partial(combine_case, l, bf, (X * l.m, Y * l.k), "U", groups=G)),
+                ("batched_group_combine", ("V", G, Y, Z),
+                 functools.partial(combine_case, l, bf, (Y * l.k, Z * l.n), "V", groups=G)),
+                ("batched_fused_gemm_combine_h", (G, X, Y, Z),
+                 functools.partial(fused_case, l, bf, X, Y, Z, groups=G))):
+            if (name, key) not in seen:
+                seen.add((name, key))
+                out.append((name, l.name, {"arch": cfg.name, "attention": [G, M_, K, N]},
+                            checked(make)))
+    return out
+
+
+def moe_fit_depth(cfg, M_: int) -> tuple[int, dict]:
+    """dbrx's depth on one card: the most layers whose bf16 weights, the
+    most B̃ any of its runs keeps resident (auto's planned leaves at ``M_``
+    rows, or forced strassen's four attention leaves) and the largest
+    transient B̃ (one expert projection's per-expert Combine B, or the tied
+    LM head's runtime Combine B, under forced strassen) fit in
+    WEIGHT_BUDGET bytes. Returns (layers, the byte counts)."""
+    it, l = 2, alg.get("strassen")
+    attn = arch_leaves(cfg)
+    E, d, ff, Vp = cfg.num_experts, cfg.d_model, cfg.d_ff, M.padded_vocab(cfg)
+    raw = 2 * d * it + d * E * it + 3 * E * d * ff * it \
+        + sum(K * N * it for K, N in attn.values())
+    forced_bt = lambda K, N: l.R * cdiv(K, l.k) * cdiv(N, l.n) * it  # noqa: E731
+    resident = max(sum(forced_bt(K, N) for K, N in attn.values()),
+                   sum(dd.algo.R * cdiv(K, dd.algo.k) * cdiv(N, dd.algo.n) * it
+                       for K, N, dd in planned_leaves(cfg, M_).values()))
+    transient = max(E * forced_bt(d, ff), forced_bt(d, Vp))
+    fixed = (Vp + 1) * d * it
+    layers = min(cfg.num_layers, int((WEIGHT_BUDGET - fixed - transient) // (raw + resident)))
+    if layers < 1:
+        raise AssertionError(f"{cfg.name}: no layer fits in {WEIGHT_BUDGET} bytes")
+    return layers, {"fixed": fixed, "per_layer_weights": raw, "per_layer_resident_bt": resident,
+                    "transient_bt": transient, "budget": WEIGHT_BUDGET}
+
+
+def moe_served() -> tuple[object, dict, dict | None]:
+    """dbrx at its fitted depth (bf16, published widths): the config, the
+    byte counts and the ``reduced`` field."""
+    full = get_config("dbrx_132b")
+    layers, sizes = moe_fit_depth(full, MOE_SERVE[0] * MOE_SERVE[1])
+    reduced = {"num_layers": [full.num_layers, layers]} if layers < full.num_layers else None
+    return dataclasses.replace(full, num_layers=layers), sizes, reduced
+
+
+def expert_launches(state, cfg) -> dict[str, int]:
+    """The launches of #2 and #4 in ``state`` (a :func:`kernels.launch_state`,
+    counted by shape) that the expert FFN made under forced strassen: Combine
+    B of the (E, d, d_ff) and (E, d_ff, d) stacks, Combine A of the (E, C, d)
+    and (E, C, d_ff) activations and the grouped product against per-expert
+    B̃, at every capacity C of the main paths (:func:`moe_capacities`)."""
+    l = alg.get("strassen")
+    E, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+    caps = [l.m * cdiv(C, l.m) for C in moe_capacities(cfg)]
+    combine = {(E, d, ff), (E, ff, d)} | {(E, C, K) for C in caps for K in (d, ff)}
+    fused = {((E, l.R, C // l.m, K // l.k), (E, l.R, K // l.k, N // l.n))
+             for C in caps for K, N in ((d, ff), (ff, d))}
+    return {"batched_group_combine": sum(
+                n for key, n in state.items()
+                if isinstance(key, tuple) and key[0] == "batched_group_combine"
+                and key[1] in combine),
+            "batched_fused_gemm_combine_h": sum(
+                n for key, n in state.items()
+                if isinstance(key, tuple) and key[0] == "batched_fused_gemm_combine_h"
+                and key[1] in fused)}
+
+
+def moe_layer_run(cfg, p, x, mode: str) -> dict:
+    """``moe_apply`` on one full-width layer under ``mode`` (gemm or forced
+    strassen), bf16: its output, the routes the router chose (recorded
+    from ``_route``), each grouped projection's operands and product
+    (recorded from ``engine.grouped_matmul``), the kernels' launches (and
+    their ``launch_state``), the peak bytes, and the device time per call
+    (:func:`time_ms`)."""
+    from repro_torch.core import engine as core_engine
+    from repro_torch.models import moe as MOE
+    C = workloads.layer_capacity(cfg, x.shape[0] * x.shape[1])
+    seen = {"calls": []}
+    route, grouped = MOE._route, core_engine.grouped_matmul
+
+    def rec_route(*a):
+        out = route(*a)
+        seen["idx"] = out[2]
+        return out
+
+    def rec_grouped(a3, b, cfg_=None):
+        y = grouped(a3, b, cfg_)
+        seen["calls"].append((a3, b, y))
+        return y
+
+    fn = lambda: MOE.moe_apply(p, x, cfg.experts_per_token, cfg.capacity_factor,  # noqa: E731
+                               deterministic_capacity=C)
+    with falcon.use(falcon.FalconConfig(mode=mode)), torch.inference_mode():
+        free_memory()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        MOE._route, core_engine.grouped_matmul = rec_route, rec_grouped
+        try:
+            y, _ = fn()
+            torch.cuda.synchronize()
+        finally:
+            MOE._route, core_engine.grouped_matmul = route, grouped
+        counts, state = kernels.launch_counts(), kernels.launch_state()
+        peak = torch.cuda.max_memory_allocated() - base
+        t = time_ms(fn, launches=3)
+    return {"y": y, "idx": seen["idx"], "calls": seen["calls"], "C": C, "counts": counts,
+            "state": state, "peak": peak, "time": t}
+
+
+def phase_moe_layer() -> None:
+    """One full-width MoE layer of dbrx (T = 2048 tokens, C = 768) and of
+    kimi (T = 2048, C = 54), random bf16 weights and input from seed 0, in
+    gemm mode and in forced strassen: device ms per call, launches of #2
+    and #4, peak bytes. The router's routes must be bit-equal between the
+    modes (a plain f32 product). Each layer is held to plain versions
+    (``models.moe_ref``): the gemm run within LAYER_TOL of
+    ``loop_moe_apply`` in f32 (a dispatch of its own: each expert's pairs
+    found one expert at a time, at E = 384 for kimi), the forced run within
+    LAYER_TOL of the gemm run and, for dbrx, within LEAF_TOL of the plain
+    LCMA pipeline (the kernels' plain versions, each stage rounded as the
+    kernels round it; kimi's would need a second 19.7 GB B̃ beside its 33.8
+    GB of experts). Each forced projection's error against the GEMM of its
+    own operands is printed beside strassen's static error bound, a reading
+    only. Every launch must be at a shape phase_kernels checked."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.moe_ref import eager_moe_apply, lcma_expert_ffn, loop_moe_apply
+    l = alg.get("strassen")
+    bound = l.stability.error_bound("bfloat16")
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        free_memory()
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        p = MOE.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, torch.bfloat16, DEV)
+        x = randn(4, MOE_LAYER_T // 4, cfg.d_model, dtype=torch.bfloat16, gen=gen)
+        runs = {mode: moe_layer_run(cfg, p, x, mode) for mode in ("gemm", "strassen")}
+        gemm, forced = runs["gemm"], runs["strassen"]
+        for mode, r in runs.items():
+            check_covered(f"moe_layer/{arch}/{mode}", r["state"])
+        same_routes = torch.equal(gemm["idx"], forced["idx"])
+        # each forced projection against the GEMM of its own operands
+        proj = []
+        for a3, b, y in forced["calls"]:
+            want = torch.matmul(a3, b)
+            lim = bound * a3.float().abs().max().item() * b.float().abs().max().item() \
+                * a3.shape[-1] + 2.0 ** -8 * want.float().abs().max().item()
+            proj.append({"shape": [*a3.shape, b.shape[-1]],
+                         "max_abs_err": (y.float() - want.float()).abs().max().item(),
+                         "static_bound": lim})
+            del want
+        forced["calls"] = gemm["calls"] = None
+        with torch.inference_mode():
+            exact, idx, dropped = loop_moe_apply(p, x, cfg.experts_per_token, forced["C"])
+        same_routes = same_routes and torch.equal(idx, gemm["idx"])
+        layer = {"vs_gemm": err(forced["y"], gemm["y"]), "gemm_vs_exact": err(gemm["y"], exact),
+                 "forced_vs_exact": err(forced["y"], exact)}
+        tol = {"vs_gemm": LAYER_TOL, "gemm_vs_exact": LAYER_TOL}
+        del exact
+        if arch == "dbrx_132b":
+            with torch.inference_mode():
+                plain, _, _ = eager_moe_apply(p, x, cfg.experts_per_token, forced["C"],
+                                              ffn=lcma_expert_ffn(l))
+            layer["forced_vs_plain"] = err(forced["y"], plain)
+            tol["forced_vs_plain"] = LEAF_TOL
+            del plain
+        for mode, r in runs.items():
+            emit("moe_layer", arch=arch, mode=mode, tokens=MOE_LAYER_T, capacity=r["C"],
+                 experts=cfg.num_experts, top_k=cfg.experts_per_token, d_model=cfg.d_model,
+                 d_ff=cfg.d_ff, dropped_pairs=dropped, ms=r["time"]["ms"],
+                 source=r["time"]["source"], timing=r["time"], launches=r["counts"],
+                 peak_bytes=r["peak"])
+        emit("moe_layer_check", arch=arch, routes_bit_equal=same_routes, projections=proj,
+             layer_errors=layer, tol=tol, forced_speedup=gemm["time"]["ms"] / forced["time"]["ms"])
+        if not same_routes:
+            raise AssertionError(f"moe_layer/{arch}: the routes differ between the modes")
+        if len(proj) != 3 or any(not layer[k][1] <= t for k, t in tol.items()):
+            raise AssertionError(f"moe_layer/{arch}: layer errors {layer}, tolerances {tol}, "
+                                 f"{len(proj)} forced projections")
+        want = {"batched_group_combine": 6, "batched_fused_gemm_combine_h": 3}
+        if {k: forced["counts"][k] for k in want} != want or sum(gemm["counts"].values()):
+            raise AssertionError(f"moe_layer/{arch}: forced launched {forced['counts']}, "
+                                 f"gemm {gemm['counts']}")
+        del p, x, runs, gemm, forced
+        free_memory()
+
+
+@contextlib.contextmanager
+def route_tape(replay: list | None = None):
+    """Inside, every call of ``models.moe._route`` appends what it computed,
+    (probs, gate values, expert_idx), to the yielded list; with ``replay``
+    (another run's list, call for call) each call returns replay's entry
+    instead, so the run dispatches on that run's routes and gate values."""
+    from repro_torch.models import moe as MOE
+    route, tape = MOE._route, []
+
+    def taped(*args):
+        tape.append(route(*args))
+        return tape[-1] if replay is None else replay[len(tape) - 1]
+
+    MOE._route = taped
+    try:
+        yield tape
+    finally:
+        MOE._route = route
+
+
+def kept_pairs(idx: np.ndarray, C: int, E: int) -> np.ndarray:
+    """(T, E) bool: token t's pair routed to expert e was kept, its rank
+    among e's pairs in token-major order below the capacity C."""
+    flat = idx.reshape(-1)
+    oh = flat[:, None] == np.arange(E)
+    rank = (np.cumsum(oh, 0) - oh)[np.arange(flat.size), flat]
+    kept = np.zeros((idx.shape[0], E), bool)
+    kept[np.repeat(np.arange(idx.shape[0]), idx.shape[1]), flat] = rank < C
+    return kept
+
+
+def route_changes(tape: list, gemm_tape: list, cfg) -> list[dict]:
+    """Per layer, summed over a teacher-forced run's calls (the prefill, then
+    each decode step) against the gemm run's, call for call: the tokens
+    whose set of experts changed, the (token, choice) pairs dropped for
+    capacity in each run, and the (token, expert) pairs kept in one run
+    and not in the other."""
+    if len(tape) != len(gemm_tape):
+        raise AssertionError(f"route_changes: {len(tape)} router calls vs {len(gemm_tape)}")
+    out = [dict.fromkeys(("routes_changed", "dropped", "gemm_dropped", "kept_differ",
+                          "pairs"), 0) for _ in range(cfg.num_layers)]
+    for i, ((_, _, a), (_, _, b)) in enumerate(zip(tape, gemm_tape)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        C = workloads.layer_capacity(cfg, a.shape[0])
+        ka, kb = kept_pairs(a, C, cfg.num_experts), kept_pairs(b, C, cfg.num_experts)
+        o = out[i % cfg.num_layers]
+        o["routes_changed"] += int((np.sort(a, 1) != np.sort(b, 1)).any(1).sum())
+        o["dropped"] += int(a.size - ka.sum())
+        o["gemm_dropped"] += int(b.size - kb.sum())
+        o["kept_differ"] += int((ka != kb).sum())
+        o["pairs"] += int(a.size)
+    return out
+
+
+def moe_teacher_forced(seed: int, base, params, gemm: dict, gate_own: bool) -> None:
+    """dbrx's auto and forced runs teacher-forced on the gemm run's tokens
+    (prompts from ``seed``), each twice: on their own routes, and on the
+    gemm run's routes and gate values (:func:`route_tape`), so that the
+    second error is the LCMA's rounding alone, with no route flipped by it.
+    Emits per layer how many routes and capacity drops differ from gemm's;
+    holds the error on gemm's routes within QUALITY_TOL and, with
+    ``gate_own``, the error on the run's own routes too."""
+    batch, prompt = MOE_SERVE
+    tf = functools.partial(forced_logits, params=params, batch=batch, prompt=prompt,
+                           tokens=gemm["tokens"], seed=seed)
+    with route_tape() as gemm_tape:
+        gemm_tf = tf(dataclasses.replace(base, falcon_mode="gemm"))
+    for name, mode in (("auto", "auto"), ("forced", "strassen")):
+        cfg = dataclasses.replace(base, falcon_mode=mode)
+        free_memory()
+        kernels.reset_launch_counts()
+        with route_tape() as tape:
+            own = forced_err(tf(cfg), gemm, base.vocab_size)
+        check_covered(f"serve_moe/{name}/teacher-forced", kernels.launch_state())
+        changes = route_changes(tape, gemm_tape, base)
+        del tape
+        free_memory()
+        with route_tape(replay=gemm_tape):
+            pinned = forced_err(tf(cfg), gemm, base.vocab_size)
+        emit("serve_moe_routes", seed=seed, config=name, forced_rel_logit_err=own,
+             pinned_routes_rel_logit_err=pinned, tol=QUALITY_TOL, own_routes_gated=gate_own,
+             gemm_teacher_forced_vs_served=forced_err(gemm_tf, gemm, base.vocab_size),
+             routes_changed=sum(c["routes_changed"] for c in changes),
+             kept_differ=sum(c["kept_differ"] for c in changes),
+             dropped=sum(c["dropped"] for c in changes),
+             gemm_dropped=sum(c["gemm_dropped"] for c in changes), per_layer=changes)
+        if not (pinned <= QUALITY_TOL and (own <= QUALITY_TOL or not gate_own)):
+            raise AssertionError(f"serve_moe/seed {seed}/{name}: teacher-forced logit error "
+                                 f"against gemm {own}, on gemm's routes {pinned} "
+                                 f"(tolerance {QUALITY_TOL})")
+    del gemm_tape, gemm_tf
+    free_memory()
+
+
+def phase_serve_moe() -> dict:
+    """dbrx at published width, depth cut to what fits (:func:`moe_fit_depth`),
+    bf16, random weights from seed 0, served one-shot (4 x 512 prompt
+    tokens, 8 new) three ways, each after a 2-token warm-up serve: ``gemm``
+    (every product on torch.matmul, the reference), ``auto`` (h100_sxm: the
+    leaves it prices to an LCMA at M = 2048 precombined, s444 on w_q and
+    w_o; the experts' runtime path on GEMM) and ``forced``
+    (strassen everywhere: the experts through Combine A and B (#2) and the
+    grouped fused GEMM against per-expert B̃ (#4) at every call). Each
+    non-gemm run is held to gemm within QUALITY_TOL, prefix-matched, and
+    teacher-forced on its own routes and on gemm's (:func:`moe_teacher_forced`,
+    with the routes that differ counted per layer); the forced run's expert
+    launches must be exactly 2 x #2 and 1 x #4 per projection, layer and
+    step, auto's none, and every launch at a shape phase_kernels checked.
+    gemm and forced are then profiled over prefill and one decode step
+    (``profile_moe``). Then the weights and prompts drawn from seed 1: gemm
+    served, auto and forced teacher-forced on it, held within QUALITY_TOL
+    on gemm's routes; on their own routes the error is a reading (at seed
+    1 forced strassen's flipped routes take it past 0.15). Returns the
+    forced run's launch counts."""
+    base, sizes, reduced = moe_served()
+    batch, prompt = MOE_SERVE
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    params = M.init_params(base, 0, DEV)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    emit("serve_moe_weights", arch=base.name, layers=base.num_layers, reduced=reduced,
+         weight_bytes=held, init_transient_bytes=torch.cuda.max_memory_allocated() - before - held,
+         predicted=sizes,
+         planned={path: describe(d) for path, (_, _, d)
+                  in planned_leaves(base, batch * prompt).items()})
+    Lc = base.num_layers
+    runs, counts = {}, {}
+    for name, mode in (("gemm", "gemm"), ("auto", "auto"), ("forced", "strassen")):
+        cfg = dataclasses.replace(base, falcon_mode=mode)
+        planned = {path: describe(d) for path, (_, _, d)
+                   in planned_leaves(cfg, batch * prompt).items()}
+        run_oneshot(cfg, batch=batch, prompt_len=prompt, gen=2, seed=0, device=DEV,
+                    params=params)
+        free_memory()
+        res, counts[name] = serve("serve_moe", cfg, params, batch=batch, prompt=prompt,
+                                  gen=MOE_GEN, config=name, planned=planned, reduced=reduced)
+        state = kernels.launch_state()
+        check_covered(f"serve_moe/{name}", state)
+        experts = expert_launches(state, base)
+        runs[name] = res
+        want = {"batched_group_combine": 6 * Lc * MOE_GEN,
+                "batched_fused_gemm_combine_h": 3 * Lc * MOE_GEN} if name == "forced" else \
+            dict.fromkeys(experts, 0)
+        emit("serve_moe_experts", config=name, expert_launches=experts, expected=want)
+        if experts != want:
+            raise AssertionError(f"serve_moe/{name}: expert-path launches {experts}, "
+                                 f"expected {want}")
+        if res["n_precombined"] != len(planned):
+            raise AssertionError(f"serve_moe/{name}: {res['n_precombined']} leaves "
+                                 f"precombined, the pricing names {planned}")
+        if name != "gemm":
+            err_ = quality(f"serve_moe/{name}", per_request(res), per_request(runs["gemm"]),
+                           base.vocab_size)
+            emit("serve_moe_vs_gemm", config=name, rel_logit_err=err_, tol=QUALITY_TOL,
+                 prefill_ms=res["timings"]["prefill_ms"],
+                 gemm_prefill_ms=runs["gemm"]["timings"]["prefill_ms"],
+                 prefill_speedup=runs["gemm"]["timings"]["prefill_ms"]
+                 / res["timings"]["prefill_ms"],
+                 decode_ms_per_step=res["timings"]["decode_ms_per_step"],
+                 gemm_decode_ms_per_step=runs["gemm"]["timings"]["decode_ms_per_step"],
+                 reduced=reduced)
+        if name != "auto":
+            # where the time goes: prefill and one decode step under the
+            # profiler, on weights precombined beforehand
+            with falcon.use(M.falcon_config_for(cfg)), torch.inference_mode():
+                planned_params, _ = falcon.precombine_params(params, m_hint=batch * prompt)
+            _, prof = profiled(functools.partial(
+                run_oneshot, cfg, batch=batch, prompt_len=prompt, gen=2, seed=0, device=DEV,
+                params=planned_params, precombine=False))
+            emit("profile_moe", config=name, window="prefill + 1 decode step (profiler on)",
+                 **prof)
+            del planned_params
+        free_memory()
+    moe_teacher_forced(0, base, params, runs["gemm"], gate_own=True)
+    del params, runs
+    free_memory()
+    params = M.init_params(base, 1, DEV)
+    gemm, _ = serve("serve_moe", dataclasses.replace(base, falcon_mode="gemm"), params,
+                    batch=batch, prompt=prompt, gen=MOE_GEN, seed=1, config="gemm",
+                    weights_seed=1, reduced=reduced)
+    moe_teacher_forced(1, base, params, gemm, gate_own=False)
+    del params, gemm
+    free_memory()
+    return counts["forced"]
+
+
+def phase_serve_engine_moe() -> None:
+    """The continuous-batching ServeEngine on dbrx at the depth that fits
+    (published width, bf16, seed 0), the 16 requests of phase serve_engine
+    over 8 slots: auto mode (every product on GEMM at the buckets' M <=
+    512) and forced strassen (the experts' Combine B at every step, inside
+    each step's graph), each with every bucket's step a CUDA graph and
+    eagerly: identical tokens, logits within the bf16 TOL, equal launch
+    counts, no plan-cache miss after warm (:func:`engine_run`), every launch
+    at a shape phase_kernels checked. Forced against auto, prefix-matched,
+    is reported (:func:`logit_error`): a
+    route flipped by the LCMA's rounding changes which tokens a bucket's
+    capacity drops, so it is read, not gated."""
+    base, _, reduced = moe_served()
+    free_memory()
+    params = M.init_params(base, 0, DEV)
+    requests = engine_requests(base.vocab_size)
+    graphs = {}
+    for name, mode in (("auto", "auto"), ("forced", "strassen")):
+        cfg = dataclasses.replace(base, falcon_mode=mode)
+        runs = {g: engine_run(f"dbrx_132b/{name}", cfg, params, requests, g, profile=g)
+                for g in (True, False)}
+        graph, eager = runs[True], runs[False]
+        check_covered(f"serve_engine/dbrx_132b/{name}", eager["state"])
+        same = all(g[0] == e[0] for g, e in zip(graph["outputs"], eager["outputs"]))
+        diff = max(err(torch.as_tensor(np.stack(g[1])), torch.as_tensor(np.stack(e[1])))[1]
+                   for g, e in zip(graph["outputs"], eager["outputs"]))
+        experts = expert_launches(graph["state"], base)
+        emit("serve_engine_check", config=f"dbrx_132b/{name}", identical_tokens=same,
+             max_logit_err=diff, tol=TOL[torch.bfloat16]["fused"],
+             launches_equal=graph["state"] == eager["state"], reduced=reduced,
+             layers=base.num_layers, expert_launches=experts,
+             n_precombined=graph["summary"]["precombined_weights"],
+             decode_speedup=eager["summary"]["t_decode"] / graph["summary"]["t_decode"])
+        if not same or not diff <= TOL[torch.bfloat16]["fused"] \
+                or graph["state"] != eager["state"]:
+            raise AssertionError(f"serve_engine/dbrx_132b/{name}: graphs and eager differ "
+                                 f"(identical tokens {same}, logit error {diff}, launches "
+                                 f"{dict(graph['state'])} vs {dict(eager['state'])})")
+        if (name == "forced") != (min(experts.values()) > 0) or \
+                (name == "auto") != (max(experts.values()) == 0):
+            raise AssertionError(f"serve_engine/dbrx_132b/{name}: expert-path launches "
+                                 f"{experts}")
+        graphs[name] = graph["outputs"]
+        del runs, graph, eager
+        free_memory()
+    worst, compared, agreement = logit_error(graphs["forced"], graphs["auto"], base.vocab_size)
+    emit("serve_engine_moe_vs_auto", rel_logit_err=worst, steps_compared=compared,
+         token_agreement=agreement)
+    del params, graphs
+    free_memory()
 
 
 # ---------------------------------------------------------------------------
@@ -1895,13 +2586,24 @@ def main() -> None:
     run(phase_leaf_lcma)
     run(phase_serve_archs)
     run(phase_serve_engine_archs)
+    run(phase_moe_layer)
+    moe_counts = run(phase_serve_moe)
+    run(phase_serve_engine_moe)
     emit("total", seconds=time.perf_counter() - t0, phases=phases)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": counts[k], "max_abs_err": times[k]["max_abs_err"],
          "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],
          "bound_ms": times[k]["bound_ms"], "bound_by": times[k]["bound_by"],
-         "library_ms": times[k]["library_ms"]} for k in SOURCES]}))
+         "library_ms": times[k]["library_ms"]} for k in SOURCES] + [
+        # the expert FFN's calls (dbrx, forced strassen), launches from serve_moe
+        {"name": k, "route": "cuda", "source": SOURCES[k.split("@")[0]],
+         "replaces": REPLACES[k.split("@")[0]], "launches": moe_counts[k.split("@")[0]],
+         "max_abs_err": times[k]["max_abs_err"], "ms": times[k]["ms"],
+         "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
+         "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"]}
+        for k in ("batched_group_combine@moe_b", "batched_group_combine@moe_a",
+                  "batched_fused_gemm_combine_h@moe", "batched_fused_gemm_combine_h@moe_decode")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Model configuration dataclass (the fields the dense decoder reads)."""
+"""Model configuration dataclass (the fields the decoder reads)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +9,7 @@ __all__ = ["ModelConfig"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # the port runs "dense" only
+    family: str                     # the port runs "dense" and "moe"
     num_layers: int
     d_model: int
     num_heads: int
@@ -22,6 +22,10 @@ class ModelConfig:
     sliding_window: int = 0         # 0 => full attention
     global_every: int = 0           # one global layer every N (rest local)
     rope_theta: float = 1e4
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
     # numerics
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6

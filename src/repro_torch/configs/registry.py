@@ -6,9 +6,10 @@ import importlib
 
 from .base import ModelConfig
 
-# Only what the port runs (the dense family); the reference zoo lists every
-# family it serves.
-ARCH_IDS = ["gemma3_27b", "granite_3_2b", "starcoder2_15b", "mistral_nemo_12b"]
+# Only what the port runs (the dense and MoE families); the reference zoo
+# lists every family it serves.
+ARCH_IDS = ["gemma3_27b", "granite_3_2b", "starcoder2_15b", "mistral_nemo_12b",
+            "kimi_k2_1t", "dbrx_132b"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}
 
@@ -43,6 +44,8 @@ def smoke_config(arch: str) -> ModelConfig:
         vocab_size=256,
         sliding_window=min(full.sliding_window, 32) if full.sliding_window else 0,
         global_every=full.global_every and 2,
+        num_experts=min(full.num_experts, 4) or 0,
+        experts_per_token=min(full.experts_per_token, 2) or 0,
         dtype="float32",
         falcon_mode=full.falcon_mode,
     )

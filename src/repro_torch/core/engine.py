@@ -132,13 +132,19 @@ class PlannedWeight:
 
 
 def plan_weight(w: torch.Tensor, cfg: FalconConfig | None = None,
-                m_hint: int = 1024, keep_weight: bool = True) -> PlannedWeight:
+                m_hint: int = 1024, keep_weight: bool = True,
+                grouped: bool = False) -> PlannedWeight:
     """Plan a static weight for serving: pick an LCMA and precombine B̃.
 
     The Decision Module is consulted with ``precombined_b=True`` at an
     activation-rows hint ``m_hint`` (use the serving prefill M). Weights of
     rank 3 are treated as stacked (leading layer dim) and combined per
-    slice, in one grouped launch. Under ``cfg.quantize`` (on a backend with
+    slice, in one grouped launch. ``grouped=True`` marks a rank-3 stack
+    whose slices run together as one grouped contraction (MoE experts
+    through ``grouped_matmul``): it is judged by ``plan_batched`` on the
+    grouped problem, ``m_hint`` rows split evenly over the G slices (at
+    least 8 each), as ``_apply_planned_grouped`` re-prices it when serving.
+    Under ``cfg.quantize`` (on a backend with
     an int8 path) the int8 B̃q and its scales are baked too, whichever tier
     won at ``m_hint``: the serve-time re-decision picks fp or int8 at the
     actual M, so both must be available.
@@ -152,7 +158,11 @@ def plan_weight(w: torch.Tensor, cfg: FalconConfig | None = None,
                              n=int(w.shape[-1]))
     K, N = int(w.shape[-2]), int(w.shape[-1])
     dtype = str(w.dtype).removeprefix("torch.")
-    d = plan(m_hint, K, N, cfg, dtype, precombined_b=True)
+    if grouped and w.ndim == 3:
+        G = int(w.shape[0])
+        d = plan_batched(G, max(m_hint // G, 8), K, N, cfg, dtype, precombined_b=True)
+    else:
+        d = plan(m_hint, K, N, cfg, dtype, precombined_b=True)
     if not d.use_lcma:
         return PlannedWeight(w=w, bt=None, algo=None, k=K, n=N)
     l = d.algo
@@ -186,11 +196,19 @@ def _quantize_weight(w: torch.Tensor, l: LCMA, by: int | None = None):
     return (bq, scales) if w.ndim == 3 else (bq[0], scales[0])
 
 
-# The dense decoder's projections (the reference's list less its MoE and
-# SSM leaves, which the port does not run).
+# The decoder's projections (the reference's list less its SSM leaves, which
+# the port does not run yet). MoE expert stacks lift to stacked
+# PlannedWeights, applied per expert by the grouped dispatch; a whole
+# model's experts are 4-D (layer, expert, K, N) and stay raw, as in the
+# reference, since only rank 2 and 3 leaves are planned.
 _DEFAULT_PRECOMBINE_PATTERNS = (
     "w_q", "w_k", "w_v", "w_o", "mlp_gate", "mlp_up", "mlp_down", "lm_head",
+    "moe_gate", "moe_up", "moe_down",
 )
+
+# Stacks matching these run as ONE grouped contraction (not per slice), so
+# plan_weight judges them with the grouped decision (plan_batched).
+_GROUPED_PRECOMBINE_PATTERNS = ("moe_gate", "moe_up", "moe_down")
 
 
 def precombine_params(params, cfg: FalconConfig | None = None,
@@ -213,7 +231,10 @@ def precombine_params(params, cfg: FalconConfig | None = None,
         if not isinstance(node, torch.Tensor) or node.ndim not in (2, 3) \
                 or not any(pat in path for pat in patterns):
             return node
-        pw = plan_weight(node, cfg, m_hint=m_hint, keep_weight=keep_weight)
+        grouped = node.ndim == 3 and any(pat in path for pat in
+                                         _GROUPED_PRECOMBINE_PATTERNS)
+        pw = plan_weight(node, cfg, m_hint=m_hint, keep_weight=keep_weight,
+                         grouped=grouped)
         if pw.precombined:
             n_planned += 1
             return pw
@@ -261,7 +282,8 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
     the number of ``plan()``/``plan_batched()`` calls made.
 
     ``buckets`` entries are either an ``int`` — a flat activation-row count:
-    warms the dense projections at that M — or a ``(batch, seq)`` call
+    warms the dense projections and the grouped MoE expert shapes at that M
+    — or a ``(batch, seq)`` call
     context: resolves the whole inventory including the attention einsums
     (``seq == 1`` with ``kv_len`` set is a decode step against a
     length-``kv_len`` cache). ``spec_gamma`` (with ``kv_len``) also warms,
@@ -280,7 +302,7 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
     contractions: list = []
     for M in flat:
         contractions += [c for c in workloads.resolve_contractions(arch, 1, M)
-                         if c.kind == "dense"]
+                         if c.kind in ("dense", "grouped_moe")]
     for b, s in pairs:
         decode = kv_len is not None and s == 1
         contractions += workloads.resolve_contractions(arch, b, s, kv_len=kv_len,

@@ -1,15 +1,19 @@
 """Workload registry: one config -> its contraction set -> the warm grid.
 
-Every planned contraction of a dense-family :class:`ModelConfig` (attention
-projections, the attention einsums, the swiglu MLP, the padded lm head) is
-listed once here as a symbolic :class:`ContractionSpec`, and resolved to
-concrete plan shapes per (batch, seq) call context by
-:func:`resolve_contractions`, which ``core.engine.warm_buckets`` (and so
-``ServeEngine.warm``) consumes. The tune CLI warms the plan cache over
-:func:`warm_shapes`: the dense projection pairs of a workload swept over
-``WARM_TOKENS``, plus square operators. The reference's per-shard symbols
+Every planned contraction of a dense- or MoE-family :class:`ModelConfig`
+(attention projections, the attention einsums, the swiglu MLP or, for MoE,
+the grouped expert FFN, the padded lm head) is listed once here as a
+symbolic :class:`ContractionSpec`, and resolved to concrete plan shapes per
+(batch, seq) call context by :func:`resolve_contractions`, which
+``core.engine.warm_buckets`` (and so ``ServeEngine.warm``) consumes. The
+tune CLI warms the plan cache over :func:`warm_shapes`: the dense
+projection pairs of a workload swept over ``WARM_TOKENS``, plus square
+operators. The MoE expert capacity has its one definition here
+(:func:`moe_capacity`): the grouped plan keys embed it, so the layer and
+the resolver must agree. The reference's per-shard symbols
 (``mesh_shape``) come with the multi-device slice (ROADMAP Queue 1 item 6),
-its backward contractions (``train``) with the training slice (item 5).
+its backward contractions (``train``) with the training slice (item 5),
+its SSD specs with the SSM family (item 4).
 
 The paper's three LLM serving workloads (§IV-B: DeepSeek-R1, Qwen3.5,
 HunyuanVideo projections) are registry entries too, addressable by name,
@@ -19,11 +23,13 @@ same form.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 __all__ = [
     "ContractionSpec", "Contraction", "contraction_set", "resolve_contractions",
-    "dense_projection_shapes", "paper_workloads", "paper_projection_shapes",
-    "warm_shapes", "shape_token", "WARM_TOKENS", "WARM_SQUARE",
+    "dense_projection_shapes", "grouped_moe_shapes", "paper_workloads",
+    "paper_projection_shapes", "warm_shapes", "shape_token", "moe_capacity",
+    "layer_capacity", "WARM_TOKENS", "WARM_SQUARE",
 ]
 
 # Paper §IV-B LLM projection (K, N) pairs. Data only — addressed through
@@ -57,10 +63,12 @@ class ContractionSpec:
     Dims are ints (from the config) or symbol strings bound per call:
     ``tokens`` (batch * sequence, the projection rows), ``logit_tokens``
     (lm-head rows), ``attn_q`` / ``attn_kv`` / ``head_dim`` (attention
-    einsums), and the group ``attn_groups`` (batch * heads).
+    einsums), ``capacity`` (the per-expert MoE capacity C,
+    :func:`moe_capacity`), and the groups ``attn_groups`` (batch * heads)
+    and ``experts`` (E).
     """
-    kind: str              # dense | attention
-    role: str              # e.g. "attn.w_q", "mlp.down"
+    kind: str              # dense | grouped_moe | attention
+    role: str              # e.g. "attn.w_q", "mlp.down", "moe.gate"
     m: int | str
     k: int | str
     n: int | str
@@ -94,6 +102,23 @@ class Contraction:
         return f"g{self.group}x{self.m}x{self.k}x{self.n}|sb={int(self.shared_b)}"
 
 
+def moe_capacity(tokens: int, top_k: int, num_experts: int,
+                 capacity_factor: float, shard_round: bool = False) -> int:
+    """Per-expert token capacity ``C = max(ceil(T·k/E·cf), 8)``.
+
+    The one definition of MoE capacity, shared by ``models.moe.moe_apply``,
+    the layer stack (``models.model``, which passes ``shard_round=True`` to
+    round capacities above 256 up to a multiple of 256, as the reference's
+    shardable layer does) and the registry resolver here (warm-bucket
+    pre-planning), both through :func:`layer_capacity`. The grouped
+    plan-cache keys embed C, so these sites must agree bit for bit.
+    """
+    c = max(math.ceil(tokens * top_k / num_experts * capacity_factor), 8)
+    if shard_round and c > 256:
+        c = -(-c // 256) * 256
+    return c
+
+
 def _resolve_arch(arch):
     """str -> ModelConfig via the configs registry; pass configs through."""
     if isinstance(arch, str):
@@ -118,10 +143,13 @@ def _paper_specs(workload: str) -> list[ContractionSpec]:
 
 
 def _model_specs(cfg) -> list[ContractionSpec]:
-    """Forward contraction specs of one dense-family ModelConfig."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: the port's registry lists the "
-                                  f"dense family only (got {cfg.family!r})")
+    """Forward contraction specs of one dense- or MoE-family ModelConfig:
+    MoE replaces the dense MLP by the grouped expert FFN (its router is a
+    plain f32 matmul, not planned)."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: the port's registry lists the dense and MoE families "
+            f"(got {cfg.family!r}; SSD and hybrid come next, ROADMAP Queue 1 item 4)")
     d, heads, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
     kv = cfg.num_kv_heads or heads
     specs = [
@@ -136,10 +164,16 @@ def _model_specs(cfg) -> list[ContractionSpec]:
         ContractionSpec("attention", "attn.av", "attn_q", "attn_kv", "head_dim",
                         group="attn_groups", weight_static=False),
     ]
-    if cfg.mlp_type == "swiglu":
-        specs.append(ContractionSpec("dense", "mlp.gate", "tokens", d, cfg.d_ff))
-    specs += [ContractionSpec("dense", "mlp.up", "tokens", d, cfg.d_ff),
-              ContractionSpec("dense", "mlp.down", "tokens", cfg.d_ff, d)]
+    if cfg.family == "moe":
+        specs += [ContractionSpec("grouped_moe", f"moe.{role}", "capacity", k, n,
+                                  group="experts")
+                  for role, k, n in (("gate", d, cfg.d_ff), ("up", d, cfg.d_ff),
+                                     ("down", cfg.d_ff, d))]
+    else:
+        if cfg.mlp_type == "swiglu":
+            specs.append(ContractionSpec("dense", "mlp.gate", "tokens", d, cfg.d_ff))
+        specs += [ContractionSpec("dense", "mlp.up", "tokens", d, cfg.d_ff),
+                  ContractionSpec("dense", "mlp.down", "tokens", cfg.d_ff, d)]
     vp = -(-cfg.vocab_size // 256) * 256   # padded vocab (models.model.padded_vocab)
     specs.append(ContractionSpec("dense", "lm_head", "logit_tokens", d, vp))
     return specs
@@ -151,14 +185,15 @@ def contraction_set(arch, *, quantize: bool = False) -> list[ContractionSpec]:
     ``arch`` is a :class:`ModelConfig`, a registry arch id
     (``"granite_3_2b"``) or a paper workload name (``"deepseek_r1"``).
     ``quantize=True`` keeps the contractions the int8 tier can serve (a
-    static-weight B operand).
+    static-weight B operand: the dense projections and the expert FFN).
     """
     if isinstance(arch, str) and arch in _PAPER_PROJECTIONS:
         specs = _paper_specs(arch)
     else:
         specs = _model_specs(_resolve_arch(arch))
     if quantize:
-        specs = [s for s in specs if s.weight_static and s.kind == "dense"]
+        specs = [s for s in specs
+                 if s.weight_static and s.kind in ("dense", "grouped_moe")]
     return specs
 
 
@@ -191,7 +226,18 @@ def _shape_env(cfg, batch: int, seq: int, *, kv_len=None, decode=False,
         while cx > 1 and seq % cx:
             cx -= 1
         env["logit_tokens"] = batch * cx
+    if getattr(cfg, "num_experts", 0):
+        env["capacity"] = layer_capacity(cfg, batch * seq)
+        env["experts"] = cfg.num_experts
     return env
+
+
+def layer_capacity(cfg, tokens: int) -> int:
+    """The capacity an MoE config's layer stack serves ``tokens`` rows with
+    (:func:`moe_capacity`, shard-rounded): ``models.model``, the resolver
+    here and the tools that size a layer's expert calls all read it."""
+    return moe_capacity(tokens, cfg.experts_per_token or 1, cfg.num_experts,
+                        cfg.capacity_factor, shard_round=True)
 
 
 def resolve_contractions(arch, batch: int, seq: int, *, kv_len=None, decode: bool = False,
@@ -228,6 +274,22 @@ def dense_projection_shapes(arch) -> list[tuple[int, int]]:
     for s in contraction_set(arch):
         if s.kind == "dense" and (s.k, s.n) not in out:
             out.append((s.k, s.n))
+    return out
+
+
+def grouped_moe_shapes(arch, m_tokens: int) -> list[tuple[int, int, int, int]]:
+    """Grouped MoE expert shapes ``(E, C, K, N)`` at ``m_tokens`` rows,
+    deduplicated, C as the layer stack serves it (shard-rounded: the
+    grouped plan-cache keys embed C). One device: no mesh scaling."""
+    cfg = _resolve_arch(arch)
+    if not cfg.num_experts:
+        return []
+    C = layer_capacity(cfg, max(m_tokens, 1))
+    out: list[tuple[int, int, int, int]] = []
+    for s in contraction_set(cfg):
+        shape = (cfg.num_experts, C, s.k, s.n)
+        if s.kind == "grouped_moe" and shape not in out:
+            out.append(shape)
     return out
 
 

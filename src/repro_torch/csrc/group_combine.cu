@@ -70,7 +70,7 @@ group_combine_kernel(const T* __restrict__ in, T* __restrict__ out,
     for (int j = 0; j < 4; ++j)
       if (p0 + j < np) {
         const int i = (p0 + j) / d2, l = (p0 + j) % d2;
-        v[j] = P::load(src + (long long)(i * X + x) * ld + (long long)l * Y);
+        v[j] = P::load(src + ((long long)i * X + x) * ld + (long long)l * Y);
       }
   };
   // PREFETCH: the first row's first loads are in flight while the table is staged.

@@ -22,6 +22,9 @@ def reset_launch_counts() -> None:
     tiled_matmul.routes = dict.fromkeys(tiled_matmul.routes, 0)
     group_combine_quant.routes = dict.fromkeys(group_combine_quant.routes, 0)
     group_combine.shapes.clear()
+    batched_group_combine.shapes.clear()
+    fused_gemm_combine_h.shapes.clear()
+    batched_fused_gemm_combine_h.shapes.clear()
 
 
 def launch_counts() -> dict[str, int]:
@@ -30,14 +33,18 @@ def launch_counts() -> dict[str, int]:
 
 _SUBCOUNTS = {"tiled_matmul": lambda: tiled_matmul.routes,
               "group_combine_quant": lambda: group_combine_quant.routes,
-              "group_combine": lambda: group_combine.shapes}
+              "group_combine": lambda: group_combine.shapes,
+              "batched_group_combine": lambda: batched_group_combine.shapes,
+              "fused_gemm_combine_h": lambda: fused_gemm_combine_h.shapes,
+              "batched_fused_gemm_combine_h": lambda: batched_fused_gemm_combine_h.shapes}
 
 
 def launch_state() -> Counter:
     """Every launch counter in one Counter: each kernel's launches under its
     name, and under ``(name, route or input shape)`` the tiled GEMM's and
-    the quantizing Combine A's launches by route and Group Combine's by
-    input shape. ``launch_state() - before`` is what ran since ``before``."""
+    the quantizing Combine A's launches by route, Group Combine's (2-D and
+    batched) by input shape and the fused kernel's (2-D and batched) by its
+    operands' shapes. ``launch_state() - before`` is what ran since ``before``."""
     state = Counter(launch_counts())
     for name, sub in _SUBCOUNTS.items():
         state.update({(name, k): n for k, n in sub().items()})

@@ -30,6 +30,8 @@ A tensor on the CPU takes the plain version (``ref.fused_gemm_combine_h_ref``,
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
@@ -104,6 +106,7 @@ def fused_gemm_combine_h(at: torch.Tensor, bt: torch.Tensor, w: np.ndarray,
         return ref.fused_gemm_combine_h_ref(at, bt, w, out_dtype)
     out = _launch(at[None], bt, w, out_dtype)[0]
     fused_gemm_combine_h.launches += 1
+    fused_gemm_combine_h.shapes[(tuple(at.shape), tuple(bt.shape))] += 1
     return out
 
 
@@ -123,6 +126,7 @@ def batched_fused_gemm_combine_h(at: torch.Tensor, bt: torch.Tensor,
         return ref.fused_gemm_combine_h_ref(at, bt_b, w, out_dtype)
     out = _launch(at, bt, w, out_dtype)
     batched_fused_gemm_combine_h.launches += 1
+    batched_fused_gemm_combine_h.shapes[(tuple(at.shape), tuple(bt.shape))] += 1
     return out
 
 
@@ -173,5 +177,8 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
 # with splits > 1 also launches the reduce pass, which is not counted.
 fused_gemm_combine_h.launches = 0
 batched_fused_gemm_combine_h.launches = 0
+# the same launches by operand shapes (at, bt): a per-group B̃ is 4-D
+fused_gemm_combine_h.shapes = Counter()
+batched_fused_gemm_combine_h.shapes = Counter()
 tiled_matmul.launches = 0
 tiled_matmul.routes = {"wgmma": 0, "simt": 0}   # the same launches, by route

@@ -123,9 +123,11 @@ def batched_group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
         return ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff)
     out = _launch(x, coeff, R, d1, d2, X, Y)
     batched_group_combine.launches += 1
+    batched_group_combine.shapes[tuple(x.shape)] += 1
     return out
 
 
 group_combine.launches = 0          # kernel launches, counted by the wrapper
 group_combine.shapes = Counter()    # the same launches by input shape
 batched_group_combine.launches = 0
+batched_group_combine.shapes = Counter()

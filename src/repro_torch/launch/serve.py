@@ -15,7 +15,7 @@ Combine B via ``PlannedWeight``, persistent plan cache):
   (:func:`run_oneshot`).
 
     python -m repro_torch.launch.serve --arch granite_3_2b --full [--quant]
-        [--plan-cache PATH] [--continuous --requests 32 [--speculate 2]
+        [--plan-cache PATH] [--layers N] [--continuous --requests 32 [--speculate 2]
         [--prefix-cache] [--prefill-chunk 16] [--no-cuda-graphs]]
 
 runs on the card (``--device cuda``, the default) or, with ``--device cpu``,
@@ -149,6 +149,9 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: a reduced smoke config)")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="cut the depth to N layers (dbrx_132b and kimi_k2_1t do "
+                         "not fit one card at their published depth)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--no-precombine", dest="precombine", action="store_false")
@@ -202,6 +205,8 @@ def main(argv=None) -> None:
         cache = plan_cache.configure(path=args.plan_cache)
         print(f"plan cache: {len(cache)} plans loaded from {args.plan_cache}")
     cfg = get_config(args.arch) if args.full else smoke_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.continuous:
         _run_continuous(cfg, args)
     else:

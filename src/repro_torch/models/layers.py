@@ -26,10 +26,13 @@ def normal_init(gen: torch.Generator, shape: tuple[int, ...], scale, dtype,
     """``scale(x)`` of standard normal ``x`` of ``shape``, in ``dtype``:
     drawn in float32 ``rows`` leading indices at a time into a preallocated
     tensor, so the float32 draw of a whole stacked leaf (or embedding) never
-    exists."""
+    exists. A 4-D leaf (layers, experts, d_in, d_out) is drawn one (layer,
+    expert) slice at a time: one layer of kimi_k2_1t's expert stack would
+    be a 22.5 GB float32 transient, one expert is 58.7 MB."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    for i in range(0, shape[0], rows):
-        part = out[i:i + rows]
+    parts = (out[i, j] for i in range(shape[0]) for j in range(shape[1])) \
+        if len(shape) == 4 else (out[i:i + rows] for i in range(0, shape[0], rows))
+    for part in parts:
         part.copy_(scale(torch.randn(part.shape, generator=gen, dtype=torch.float32,
                                      device=device)))
     return out
@@ -38,7 +41,8 @@ def normal_init(gen: torch.Generator, shape: tuple[int, ...], scale, dtype,
 def dense_init(gen: torch.Generator, shape: tuple[int, ...], dtype,
                device) -> torch.Tensor:
     """Normal(0, 1/d_in) weights of ``shape`` = (..., d_in, d_out); a stacked
-    leaf (L, d_in, d_out) is drawn one layer slice at a time."""
+    leaf (L, d_in, d_out) is drawn one layer slice at a time, a stack of
+    experts (L, E, d_in, d_out) one expert at a time."""
     root = math.sqrt(shape[-2])
     return normal_init(gen, shape, lambda w: w / root, dtype, device,
                        rows=shape[0] if len(shape) == 2 else 1)

@@ -1,10 +1,12 @@
-"""Decoder LM, dense family (granite): init, KV cache, forward, logits.
+"""Decoder LM, dense and MoE families: init, KV cache, forward, logits.
 
 Params are a nested dict of tensors with the reference's layout: ``embed``
 (Vp, d), ``layers`` holding every per-layer leaf stacked on a leading layer
-dim, ``final_norm``. The layer stack is a Python loop over slices of it. All
-projections, the tied LM head and the attention contractions are
-FalconGEMM-dispatched.
+dim (an MoE layer's ``moe`` group in place of ``mlp``: the router (L, d, E)
+and the expert stacks (L, E, K, N)), ``final_norm``. The layer stack is a
+Python loop over slices of it. All projections, the expert FFN, the tied LM
+head and the attention contractions are FalconGEMM-dispatched; the MoE
+router is a plain f32 product, as in the reference.
 """
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine
 from repro_torch.core.falcon_gemm import FalconConfig
+from repro_torch.core.workloads import layer_capacity
 from . import layers as L
+from . import moe as MOE
 
 __all__ = ["init_params", "forward", "init_cache", "falcon_config_for",
            "compute_logits", "padded_vocab", "layer_params"]
@@ -26,9 +30,9 @@ def falcon_config_for(cfg: ModelConfig) -> FalconConfig:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: the port runs the dense family "
-                                  f"only (got family={cfg.family!r})")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: the port runs the dense and MoE "
+                                  f"families (got family={cfg.family!r})")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -45,7 +49,8 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     seeded generator (not the reference's numbers: the RNGs differ). Each
     leaf is allocated in the config's dtype and drawn in float32 pieces of
     at most one layer slice (the embedding: ``_EMBED_ROWS`` rows), so the
-    largest transient is one slice, not a whole stacked leaf."""
+    largest transient is one slice, not a whole stacked leaf (an expert
+    stack: one expert of one layer)."""
     _check_family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, cfg.dtype)
@@ -60,7 +65,10 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
                  "w_v": dense(Lc, d, Hkv * hd), "w_o": dense(Lc, H * hd, d)},
         "ln2": ones(Lc, d),
     }
-    if cfg.mlp_type == "gelu":
+    if cfg.family == "moe":
+        layers["moe"] = MOE.moe_init(gen, d, cfg.d_ff, cfg.num_experts, dt, device,
+                                     lead=(Lc,))
+    elif cfg.mlp_type == "gelu":
         layers["mlp"] = {"mlp_up": dense(Lc, d, cfg.d_ff),
                          "mlp_down": dense(Lc, cfg.d_ff, d)}
     else:
@@ -104,6 +112,14 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
                         cache=cache_layer, cache_index=cache_index)
     x = x + y
     h2 = h if cfg.parallel_block else L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        # the shard-rounded capacity of the layer's B*S tokens, as the
+        # reference's layer stack serves it (the grouped plan keys embed C);
+        # the load-balancing loss is dropped until training is ported
+        cap = layer_capacity(cfg, h2.shape[0] * h2.shape[1])
+        y2, _aux = MOE.moe_apply(lp["moe"], h2, cfg.experts_per_token, cfg.capacity_factor,
+                                 deterministic_capacity=cap)
+        return x + y2
     return x + L.mlp_apply(lp["mlp"], h2)
 
 

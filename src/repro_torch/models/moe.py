@@ -1,0 +1,142 @@
+"""Mixture-of-Experts layer: top-k routing, capacity dispatch, grouped experts.
+
+Per-expert projections run as **grouped batched FalconGEMM**
+(``engine.grouped_matmul``): the E experts' capacity-C token blocks are one
+planned grouped contraction. The Decision Module prices the whole
+``E x (C, K) @ (K, N)`` group (``plan_batched``, one plan-cache key per
+projection shape) and the backend runs the R*E intermediate products as one
+grouped launch: on the ``"cuda"`` backend, Group Combine A of the
+activations and Combine B of the expert stack (``batched_group_combine``),
+then the grouped fused GEMM + Combine H against the per-expert B̃
+(``batched_fused_gemm_combine_h``). A single layer's expert stacks may be
+lifted to stacked :class:`~repro_torch.core.engine.PlannedWeight`\\ s
+(``precombine_params``), which skips Combine B; a whole model's 4-D stacks
+stay raw, as the reference leaves them.
+
+The dispatch is the reference's token-drop (Switch-style) capacity scheme,
+built from fixed-shape operations only (comparisons, ``cumsum``,
+``index_put_(..., accumulate=True)`` into the ``(E, C, d)`` buffer, gathers
+back), so a serving step that runs it still captures as one CUDA graph:
+nothing reads the card back.
+
+The reference's expert-parallel path (``_moe_shardmap``: experts sharded
+over a mesh's "model" axis) comes with the multi-device slice (ROADMAP
+Queue 1 item 6); on one device ``moe_apply`` takes the dense path.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import engine
+from repro_torch.core.workloads import moe_capacity
+from .layers import dense_init
+
+__all__ = ["moe_init", "moe_apply"]
+
+
+def moe_init(gen: torch.Generator, d: int, d_ff: int, num_experts: int, dtype,
+             device, lead: tuple[int, ...] = ()) -> dict:
+    """Router (d, E) and expert stacks (E, d, d_ff), (E, d_ff, d), each
+    Normal(0, 1/d_in), with the leading dims ``lead`` (the layer stack)."""
+    return {
+        "router": dense_init(gen, (*lead, d, num_experts), dtype, device),
+        "moe_gate": dense_init(gen, (*lead, num_experts, d, d_ff), dtype, device),
+        "moe_up": dense_init(gen, (*lead, num_experts, d, d_ff), dtype, device),
+        "moe_down": dense_init(gen, (*lead, num_experts, d_ff, d), dtype, device),
+    }
+
+
+def _expert_ffn(p_gate, p_up, p_down, xb: torch.Tensor) -> torch.Tensor:
+    """xb: (E, C, d) -> (E, C, d). Grouped per-expert SwiGLU: each projection
+    is ONE planned grouped contraction over all E experts (raw (E, K, N)
+    stacks or stacked PlannedWeights)."""
+    g = engine.grouped_matmul(xb, p_gate)
+    u = engine.grouped_matmul(xb, p_up)
+    return engine.grouped_matmul(F.silu(g) * u, p_down)
+
+
+def _route(xt: torch.Tensor, router_logits: torch.Tensor, top_k: int):
+    """(probs (T, E), renormalized gate values (T, k), expert indices (T, k))."""
+    probs = torch.softmax(router_logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_vals, expert_idx
+
+
+def _aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor, E: int) -> torch.Tensor:
+    """Switch load-balancing loss: E * sum(mean prob * top-1 share) (f32)."""
+    me = probs.mean(dim=0)
+    top1 = expert_idx[:, 0, None] == torch.arange(E, device=probs.device)
+    ce = top1.to(torch.float32).mean(dim=0)
+    return E * torch.sum(me * ce)
+
+
+def _dispatch_compute_combine(xt, probs, gate_vals, expert_idx, C: int, p_gate, p_up,
+                              p_down, E_local: int, e_offset: int, ffn=_expert_ffn):
+    """Token-local dispatch into (E_local, C, d), FFN, weighted combine.
+
+    Experts ``[e_offset, e_offset + E_local)`` are this call's; a token's
+    slot in its expert is its rank among the (token, choice) pairs routed
+    there, in token-major order, and pairs past capacity C are dropped (they
+    add zeros at slot C-1, as in the reference). A per-choice loop (k is
+    small), so no (T*k, d) replication of the tokens is materialized.
+    ``ffn`` is the expert FFN (the plain per-expert loop of
+    ``models.moe_ref`` in its tests).
+    """
+    T, d = xt.shape
+    top_k = expert_idx.shape[1]
+    e_rel = expert_idx - e_offset
+    local = (e_rel >= 0) & (e_rel < E_local)
+    e_rel = e_rel.clamp(0, E_local - 1)
+    experts = torch.arange(E_local, device=xt.device)
+    oh = ((e_rel[..., None] == experts) & local[..., None]).to(torch.int64)
+    flat = oh.reshape(T * top_k, E_local)
+    pos_all = torch.cumsum(flat, dim=0) - flat
+    pos = (pos_all * flat).sum(-1).reshape(T, top_k)
+    keep = local & (pos < C)
+    # each (token, choice) pair's row in the flattened (E_local * C, d) buffer
+    rows = e_rel * C + torch.where(keep, pos, C - 1)
+
+    buf = torch.zeros((E_local * C, d), dtype=xt.dtype, device=xt.device)
+    for s in range(top_k):
+        w = keep[:, s].to(xt.dtype)[:, None]
+        buf.index_put_((rows[:, s],), xt * w, accumulate=True)
+
+    yb = ffn(p_gate, p_up, p_down, buf.view(E_local, C, d)).reshape(E_local * C, d)
+
+    y = torch.zeros_like(xt)
+    for s in range(top_k):
+        contrib = yb[rows[:, s]]
+        w = (gate_vals[:, s] * keep[:, s].to(gate_vals.dtype)).to(xt.dtype)
+        y = y + contrib * w[:, None]
+    return y
+
+
+def _moe_dense(p: dict, x: torch.Tensor, top_k: int, C: int):
+    B, S, d = x.shape
+    E = p["router"].shape[-1]
+    xt = x.reshape(B * S, d)
+    logits = xt.float() @ p["router"].float()       # the router: plain f32, unplanned
+    probs, gate_vals, expert_idx = _route(xt, logits, top_k)
+    y = _dispatch_compute_combine(xt, probs, gate_vals, expert_idx, C, p["moe_gate"],
+                                  p["moe_up"], p["moe_down"], E_local=E, e_offset=0)
+    return y.reshape(B, S, d), _aux_loss(probs, expert_idx, E)
+
+
+def moe_apply(p: dict, x: torch.Tensor, top_k: int, capacity_factor: float,
+              deterministic_capacity: int | None = None):
+    """x: (B, S, d) -> (y, aux_loss). Token-drop capacity MoE (Switch-style).
+
+    ``p``: ``router`` (d, E) and the stacks ``moe_gate``/``moe_up`` (E, d,
+    d_ff), ``moe_down`` (E, d_ff, d), raw or PlannedWeights. C is
+    ``deterministic_capacity`` where given (the layer stack passes the
+    shard-rounded capacity), else :func:`moe_capacity` of the B*S tokens.
+    One device: the dense path (the reference's expert-parallel
+    ``shard_map`` path comes with the multi-device slice). Dispatch policy
+    comes from the context config.
+    """
+    B, S, _ = x.shape
+    E = p["router"].shape[-1]
+    C = deterministic_capacity or moe_capacity(B * S, top_k, E, capacity_factor)
+    return _moe_dense(p, x, top_k, C)

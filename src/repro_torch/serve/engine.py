@@ -73,7 +73,7 @@ __all__ = ["ServeEngine", "StepLoop"]
 
 
 class ServeEngine:
-    """Continuous-batching serve engine for one dense decoder.
+    """Continuous-batching serve engine for one dense or MoE decoder.
 
     ``submit`` is thread-safe (any frontend thread); ``step``/``run`` are the
     single consumer. Non-token frontends are rejected: the bucket grid
@@ -125,6 +125,11 @@ class ServeEngine:
         self.gamma = int(speculate)
         if self.gamma < 0:
             raise ValueError(f"speculate must be >= 0, got {speculate}")
+        if self.gamma and model_cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"speculate requires a rollback-free cache; family="
+                f"{model_cfg.family!r} carries recurrent state that cannot "
+                "un-advance past rejected draft tokens")
         self.max_prompt_len = max_prompt_len
         self.prefill_chunk = prefill_chunk
         # with chunking, the bucket grid tops out at the chunk size: longer

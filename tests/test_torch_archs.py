@@ -51,7 +51,8 @@ CASES = [(a, m, "cuda") for a in NEW_ARCHS for m in ("strassen", "auto", "gemm")
 
 def test_registry_lists_the_dense_archs():
     assert sorted(treg.list_archs()) == sorted(
-        ["granite_3_2b", "mistral_nemo_12b", "starcoder2_15b", "gemma3_27b"])
+        ["granite_3_2b", "mistral_nemo_12b", "starcoder2_15b", "gemma3_27b",
+         "dbrx_132b", "kimi_k2_1t"])
     assert set(treg.list_archs()) <= set(jreg.list_archs())
     assert treg.get_config("gemma3-27b") is treg.get_config("gemma3_27b")
     with pytest.raises(KeyError, match="the port runs"):

@@ -4,6 +4,7 @@ The port imports torch and numpy and nothing of JAX or of the reference
 package; its entry points run on the card unless the caller asks for the
 CPU, and on a machine without a card they fail instead of falling back.
 """
+import dataclasses
 import os
 import re
 import shutil
@@ -89,6 +90,28 @@ def test_launcher_continuous_runs_on_cpu_when_asked():
                  "plan cache:", "sample (rid="):
         assert line in out.stdout, out.stdout
     assert "0 CUDA graphs" in out.stdout
+
+
+def test_launcher_layers_cuts_only_the_depth(monkeypatch, capsys):
+    """``--layers N`` serves the arch's config with N layers and every other
+    field as it was (here dbrx's smoke config on the CPU)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+
+    served = []
+
+    def recording(cfg, **kw):
+        served.append(cfg)
+        return run(cfg, **kw)
+
+    run = serve.run_oneshot
+    monkeypatch.setattr(serve, "run_oneshot", recording)
+    serve.main(["--arch", "dbrx_132b", "--layers", "1", "--device", "cpu", "--batch", "1",
+                "--prompt-len", "8", "--gen", "2"])
+    want = smoke_config("dbrx_132b")
+    assert want.num_layers > 1
+    assert served == [dataclasses.replace(want, num_layers=1)]
+    assert "sample:" in capsys.readouterr().out
 
 
 def test_continuous_launcher_without_device_cpu_needs_a_card():
@@ -474,3 +497,54 @@ def test_cuda_graph_capture_raises_on_a_sync(cuda_device):
                          text=True, env=ENV, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("raised:"), out.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_grouped_expert_ffn_matches_plain_version(dtype, cuda_device, rng):
+    """One small MoE layer (8 experts, top-2, d 64, d_ff 128, 48 tokens) in
+    forced strassen on the card: each of the three expert projections
+    launches Group Combine over the activations and over the expert stack
+    (#2) and the grouped fused GEMM + Combine H with per-expert B̃ (#4), and
+    the layer gives the CPU's result through the kernels' plain versions
+    (f32: the same sums in another order; bf16: the reference's bf16
+    bounds)."""
+    import repro_torch.api as tfalcon
+    from repro_torch.models import moe
+    d, ff, E, k = 64, 128, 8, 2
+    p = moe.moe_init(torch.Generator().manual_seed(0), d, ff, E, dtype, "cpu")
+    x = torch.tensor(rng.standard_normal((2, 24, d)), dtype=dtype)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        K.reset_launch_counts()
+        with tfalcon.use(tfalcon.FalconConfig(mode="strassen")), torch.inference_mode():
+            y, aux = moe.moe_apply({n: w.to(dev) for n, w in p.items()}, x.to(dev), k, 1.25)
+        out[str(dev)] = (y.cpu(), aux.cpu(), K.launch_counts())
+    (y, aux, counts), (y0, aux0, counts0) = out["cuda"], out["cpu"]
+    assert counts["batched_group_combine"] == 6 and counts["batched_fused_gemm_combine_h"] == 3
+    assert sum(counts0.values()) == 0
+    tol = dict(atol=1e-4, rtol=1e-5) if dtype == torch.float32 else dict(atol=6e-2, rtol=2e-2)
+    assert y.dtype == dtype and y.shape == y0.shape
+    torch.testing.assert_close(y, y0, **tol)
+    torch.testing.assert_close(aux, aux0, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_engine_graphs_match_eager(cuda_device):
+    """dbrx's smoke config in forced strassen on the card: the MoE dispatch
+    (comparisons, cumsum, index_put_ with accumulate, gathers) captures with
+    each bucket's step, and the graphs give the eager steps' tokens, logits
+    and launches, the grouped expert kernels among them."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    cfg = dataclasses.replace(smoke_config("dbrx_132b"), falcon_mode="strassen")
+    greqs, gcounts, gsum = _engine_run(cfg, False, cuda_graphs=True)
+    ereqs, ecounts, esum = _engine_run(cfg, False, cuda_graphs=False)
+    assert gsum["cuda_graphs"] and gsum["graphs"] == gsum["warmed_shapes"] > 0
+    assert gsum["bucket_misses"] == esum["bucket_misses"] == 0
+    for g, e in zip(greqs, ereqs):
+        assert g.generated == e.generated
+        for gl, el in zip(g.logits, e.logits):
+            np.testing.assert_allclose(gl, el, rtol=1e-5, atol=1e-5)
+    assert +gcounts == +ecounts
+    assert gcounts["batched_group_combine"] > 0 and gcounts["batched_fused_gemm_combine_h"] > 0

@@ -10,7 +10,10 @@ Then both engines serve the same 8 ragged requests on the same weights
 ``pallas_interpret``, the port through its kernels' plain versions): tokens
 equal, logits within 1e-4 in f32 (as ``tests/test_torch_model.py``), and
 the ``summary()`` counts equal. Serving after ``warm()`` adds no plan-cache
-miss.
+miss. The MoE family likewise: ``smoke_config("dbrx_132b")`` (4 experts,
+top-2; the reference on its ``"jnp"`` backend) token-exact with and
+without speculation, its warm plans the reference's, and warm covering
+every key a serve run touches, the grouped expert FFN's among them.
 """
 import dataclasses
 import random
@@ -24,7 +27,7 @@ import pytest
 import repro.serve as jserve
 import repro_torch.api as tfalcon
 import repro_torch.serve as tserve
-from repro.configs.registry import lcma_smoke_config as j_lcma
+from repro.configs.registry import lcma_smoke_config as j_lcma, smoke_config as j_smoke
 from repro.core import engine as jengine, hardware as jhw, plan_cache as jcache
 from repro.core import workloads as jworkloads
 from repro.core.falcon_gemm import FalconConfig as JConfig
@@ -392,3 +395,136 @@ def test_engine_validates_like_the_reference():
         tserve.ServeEngine(types.SimpleNamespace(frontend="vision_patches"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tserve.prefix_cache.check_kv_cache({"k": None, "state": None})
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: dbrx's smoke config in both engines
+# ---------------------------------------------------------------------------
+
+MOE_KW = dict(max_slots=2, max_prompt_len=16, max_new_tokens=4, record_logits=True)
+
+
+def _moe_configs(mode: str):
+    return (dataclasses.replace(j_smoke("dbrx_132b"), falcon_mode=mode, falcon_backend="jnp"),
+            dataclasses.replace(t_smoke("dbrx_132b"), falcon_mode=mode))
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    jcfg, _ = _moe_configs("strassen")
+    return jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0)))
+
+
+@pytest.fixture(scope="module")
+def moe_engines(moe_weights):
+    """Both engines serving the 8 ragged requests on dbrx's smoke config in
+    forced strassen (the attention leaves precombined, the experts through
+    the grouped LCMA at each bucket's capacity)."""
+    jcfg, tcfg = _moe_configs("strassen")
+    reqs = _requests(jcfg.vocab_size)
+    jcache.reset()
+    jeng = jserve.ServeEngine(jcfg, jax.tree.map(jax.numpy.asarray, moe_weights), **MOE_KW)
+    jwarm, jout = _serve(jeng, reqs)
+    tcache.reset()
+    teng = tserve.ServeEngine(tcfg, params_from_numpy(moe_weights, tcfg, device="cpu"),
+                              device="cpu", **MOE_KW)
+    twarm, tout = _serve(teng, reqs)
+    return (jeng, jwarm, jout), (teng, twarm, tout)
+
+
+def test_moe_engine_tokens_and_logits_match_reference(moe_engines):
+    (jeng, jwarm, jout), (teng, twarm, tout) = moe_engines
+    for j, t in zip(jout, tout):
+        assert t.done and t.generated == j.generated, (t.rid, t.generated, j.generated)
+        for step, (got, want) in enumerate(zip(t.logits, j.logits)):
+            np.testing.assert_allclose(got, want, err_msg=f"request {t.rid} step {step}",
+                                       **TOL)
+    js, ts = jeng.summary(), teng.summary()
+    assert {k: ts[k] for k in COUNTS} == {k: js[k] for k in COUNTS}
+    assert (twarm["plans"], twarm["shapes"]) == (jwarm["plans"], jwarm["shapes"])
+    assert ts["precombined_weights"] == 4 and ts["bucket_misses"] == 0
+
+
+@pytest.mark.parametrize("case", ["grid", "grid_spec"])
+def test_moe_warm_buckets_makes_the_reference_plans(case, parity_profile):
+    """dbrx's smoke config on a profile where LCMAs win: the grouped expert
+    contractions at each bucket's capacity (plain and precombined) and the
+    restricted re-decisions, key for key the reference's."""
+    buckets = [(b, s) for b in (1, 2) for s in (8, 16)] + [(1, 1), (2, 1)]
+    kw = dict(kv_len=32, spec_gamma=2 if case == "grid_spec" else None)
+    jcfg, tcfg = _moe_configs("auto")
+    jn = jengine.warm_buckets(JConfig(hardware=PROFILE["name"], candidates=CANDIDATES),
+                              jcfg, buckets, dtype="float32", **kw)
+    tn = tengine.warm_buckets(TConfig(hardware=PROFILE["name"], candidates=CANDIDATES),
+                              tcfg, buckets, dtype="float32", **kw)
+    assert tn == jn > 0
+    keys = lambda c: sorted("|".join(p for p in k.split("|")[1:]  # noqa: E731
+                                     if not p.startswith("fused="))
+                            for k in c.default_cache().keys())
+    assert keys(tcache) == keys(jcache)
+    assert any("|g4x" in k for k in tcache.default_cache().keys())
+
+
+def test_moe_warm_covers_every_serve_plan_key():
+    """32 ragged requests on dbrx's smoke config in auto mode (the data
+    sheet) touch only plan-cache keys ``warm()`` made: the grouped expert
+    FFN's at every bucket's capacity among them (reference
+    ``tests/test_serve_engine.py::test_warm_covers_all_serve_plan_keys``)."""
+    _, cfg = _moe_configs("auto")
+    tcache.reset()
+    try:
+        engine = tserve.ServeEngine(cfg, max_slots=4, max_prompt_len=16, max_new_tokens=4,
+                                    device="cpu", seed=0)
+        engine.warm()
+        keys_warm = set(tcache.default_cache().keys())
+        misses = tcache.stats().misses
+        rng = np.random.default_rng(0)
+        for plen in rng.integers(2, 16, size=32):
+            engine.submit(list(rng.integers(0, cfg.vocab_size, int(plen))), max_new_tokens=4)
+        assert len(engine.run()) == 32
+        assert set(tcache.default_cache().keys()) == keys_warm
+        assert tcache.stats().misses == misses
+        assert any("|g4x" in k for k in keys_warm)
+    finally:
+        tcache.reset()
+
+
+def test_moe_speculative_shrunk_draft_token_exact(moe_weights):
+    """A 1-layer sliced draft of dbrx's smoke config mispredicts freely;
+    greedy verify/rollback emits exactly the plain engine's tokens, which
+    are the reference's, with the reference's acceptance counts (reference
+    ``tests/test_serve_spec.py::test_speculative_shrunk_draft_token_exact``)."""
+    jcfg, tcfg = _moe_configs("strassen")
+    rng = np.random.default_rng(11)
+    prompts = [list(rng.integers(0, tcfg.vocab_size, n)) for n in (6, 13, 4)]
+    kw = dict(max_slots=2, max_prompt_len=16, max_new_tokens=6)
+    spec = dict(speculate=2, draft_keep_layers=1)
+    out = {}
+    for name, extra in (("plain", {}), ("spec", spec)):
+        tcache.reset()
+        teng = tserve.ServeEngine(tcfg, params_from_numpy(moe_weights, tcfg, device="cpu"),
+                                  device="cpu", seed=0, **kw, **extra)
+        teng.warm()
+        treqs = [teng.submit(p, max_new_tokens=6) for p in prompts]
+        teng.run()
+        jcache.reset()
+        jeng = jserve.ServeEngine(jcfg, jax.tree.map(jax.numpy.asarray, moe_weights),
+                                  **kw, **extra)
+        jeng.warm()
+        jreqs = [jeng.submit(p, max_new_tokens=6) for p in prompts]
+        jeng.run()
+        out[name] = (teng, [r.generated for r in treqs], jeng, [list(r.generated) for r in jreqs])
+    assert out["spec"][1] == out["plain"][1] == out["plain"][3] == out["spec"][3]
+    teng, jeng = out["spec"][0], out["spec"][2]
+    assert teng.draft.keep_layers == 1 < tcfg.num_layers
+    assert 0 < teng.stats.accepted_tokens < teng.stats.drafted_tokens
+    assert (teng.stats.accepted_tokens, teng.stats.drafted_tokens) == \
+        (jeng.stats.accepted_tokens, jeng.stats.drafted_tokens)
+
+
+def test_speculation_is_for_the_rollback_free_families():
+    """As in the reference, speculation needs a cache without recurrent
+    state: the dense and MoE families take it, any other is refused."""
+    cfg = dataclasses.replace(t_smoke("granite_3_2b"), family="ssm")
+    with pytest.raises(ValueError, match="specul"):
+        tserve.ServeEngine(cfg, device="cpu", speculate=2)
