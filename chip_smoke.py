@@ -54,7 +54,17 @@ plain versions and to strassen's static error bound; dbrx served one-shot
 (4 x 512 tokens) gemm, auto and forced, at the depth whose weights and B̃
 fit (9 of 40 layers), held to gemm prefix-matched and teacher-forced; and
 dbrx's ServeEngine at that depth, auto and forced, graphs against eager.
-Any failure raises, so the exit code is non-zero and the final
+Then the SSM and hybrid families at published width and depth
+(mamba2_370m, hymba_1_5b): every call of #1-#4 their phases make among
+the kernel cases (the SSD scan's and decode step's grouped contractions in
+float32, hymba's attention in bf16), the scan's scores contraction timed
+beside torch.bmm; one SSD mixer of each (4 x 2048 tokens) in gemm mode and
+forced strassen, held to the plain float32 scan, its four contractions
+timed on torch.matmul and on #2/#4 beside the chunk loop; each arch served
+one-shot (4 x 2048 tokens, 16 new) gemm, auto and forced, held to gemm
+prefix-matched and teacher-forced; and each arch's ServeEngine, auto and
+forced, graphs against eager, then with 16-token chunks and with prefix
+snapshots. Any failure raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
 """
@@ -66,6 +76,7 @@ import functools
 import gc
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -210,10 +221,10 @@ ENGINE = dict(max_slots=8, max_prompt_len=64, max_new_tokens=16)
 ENGINE_SPEC = dict(speculate=2, prefix_cache=True, prefill_chunk=16)
 
 
-def engine_policy(spec: bool) -> BucketPolicy:
-    """The bucket grid ServeEngine builds for ENGINE (and ENGINE_SPEC):
-    with chunks, prefill buckets top out at the chunk."""
-    seq = min(ENGINE["max_prompt_len"], ENGINE_SPEC["prefill_chunk"] if spec else 1 << 30)
+def engine_policy(chunked: bool) -> BucketPolicy:
+    """The bucket grid ServeEngine builds for ENGINE (and with ENGINE_SPEC's
+    chunks): with chunks, prefill buckets top out at the chunk."""
+    seq = min(ENGINE["max_prompt_len"], ENGINE_SPEC["prefill_chunk"] if chunked else 1 << 30)
     return BucketPolicy.build(seq, ENGINE["max_slots"])
 
 
@@ -373,6 +384,19 @@ def phase_kernels() -> None:
             raise AssertionError(f"{name}/{scheme}/moe {fields}: error {e} > {tol}")
         worst[name] = max(worst.get(name, 0.0), e)
         seconds[name + "@moe"] = seconds.get(name + "@moe", 0.0) + time.perf_counter() - t0
+    # The SSM and hybrid archs' calls at full width: the SSD contractions in
+    # float32, hymba's attention and every projection in bf16
+    for name, scheme, dtype, fields, check in ssm_kernel_cases():
+        tol = TOL[dtype]["fused" if "fused" in name else "combine"]
+        t0 = time.perf_counter()
+        a, e, shape = check(gen)
+        n += 1
+        emit("kernel_case", kernel=name, scheme=scheme, dtype=str(dtype), shape=shape,
+             max_abs_err=a, err=e, tol=tol, ssm=fields)
+        if not e <= tol:
+            raise AssertionError(f"{name}/{scheme}/ssm {fields}: error {e} > {tol}")
+        worst[name] = max(worst.get(name, 0.0), e)
+        seconds[name + "@ssm"] = seconds.get(name + "@ssm", 0.0) + time.perf_counter() - t0
     CHECKED.update(k for k in kernels.launch_state() if isinstance(k, tuple))
     emit("kernels", cases=n, worst_err=worst, seconds=seconds)
 
@@ -754,7 +778,7 @@ def phase_times() -> dict:
     out = {}
 
     def record(name, kfn, pfn, flops, nbytes, peak, logical, library="matmul", plan=None,
-               launches=LAUNCHES):
+               launches=LAUNCHES, dtype=bf):
         """Time kernel ``name`` (``name@<tag>`` for a second call shape)
         after checking it once more against its plain version. The library
         yardstick is bf16 ``torch.matmul`` of the logical shape for a
@@ -765,7 +789,8 @@ def phase_times() -> dict:
         ``plan``: the kernel's plan for this call as a dict (the tile, ring
         stages and splits of a product kernel; the Group Combine's vector
         width, block and rows), printed on the line. ``launches``: back-to-back
-        calls per timed run (fewer for calls of many ms)."""
+        calls per timed run (fewer for calls of many ms). ``dtype``: the
+        operands' (the tolerance's and the yardstick's)."""
         kernel = name.split("@")[0]
         got = kfn()
         torch.cuda.synchronize()
@@ -775,7 +800,7 @@ def phase_times() -> dict:
         else:
             a, e = err(got, pfn())
             tol = (QUANT_TOL[bf] if kernel.endswith("_quant")
-                   else TOL[bf]["combine" if kernel.endswith("group_combine") else "fused"])
+                   else TOL[dtype]["combine" if kernel.endswith("group_combine") else "fused"])
             if not e <= tol:
                 raise AssertionError(f"time/{name}: error {e} > {tol}")
         del got
@@ -786,8 +811,8 @@ def phase_times() -> dict:
                 raise AssertionError(f"time/{name}: library error {lib_err} > {tol}")
         k, plain = time_ms(kfn, launches), time_ms(pfn, launches)
         Mq, Kq, Nq, G = logical
-        xa = randn(G, Mq, Kq, dtype=bf, gen=gen) if G > 1 else randn(Mq, Kq, dtype=bf, gen=gen)
-        xb = randn(G, Kq, Nq, dtype=bf, gen=gen) if G > 1 else randn(Kq, Nq, dtype=bf, gen=gen)
+        xa = randn(G, Mq, Kq, dtype=dtype, gen=gen) if G > 1 else randn(Mq, Kq, dtype=dtype, gen=gen)
+        xb = randn(G, Kq, Nq, dtype=dtype, gen=gen) if G > 1 else randn(Kq, Nq, dtype=dtype, gen=gen)
         matmul = time_ms(lambda: torch.matmul(xa, xb), launches)
         del xa, xb
         if callable(library):
@@ -940,6 +965,34 @@ def phase_times() -> dict:
                plan=fused_plan(tuning.plan_fused_tc(E, X, Y, Z, l.R, 2, 2)), launches=5)
         del at4, bt4
         free_memory()
+    # The SSD scan's scores contraction (mamba2, 4 x 2048 tokens: G = 4 x 8
+    # chunks x 32 heads = 1,024 groups of (256, 128) @ (128, 256), forced
+    # strassen, float32, the SIMT route): Combine A of C (#2) and the
+    # grouped product against per-group B̃ (#4), with torch.bmm of the same
+    # 7,168 products as its library call
+    f32, it32 = torch.float32, 4
+    cfg = get_config("mamba2_370m")
+    c, N = cfg.ssm_chunk, cfg.ssm_state
+    G = SSM_SERVE[0] * cdiv(SSM_SERVE[1], c) * cfg.ssm_heads
+    x3 = randn(G, c, N, dtype=f32, gen=gen)
+    X, Y, Z = c // 2, N // 2, c // 2
+    record("batched_group_combine@ssd", lambda: kernels.batched_group_combine(x3, l.U),
+           lambda: ref.group_combine_ref(ref.split_blocks(x3, 2, 2), l.U),
+           G * 2.0 * l.nnz_u * X * Y, G * (4 + l.R) * X * Y * it32, fa, (c, N, c, G),
+           library=combine_library(x3, l.U), plan=launch_plan(x3, l.U).as_dict(), dtype=f32)
+    del x3
+    at4 = randn(G, l.R, X, Y, dtype=f32, gen=gen)
+    bt4 = randn(G, l.R, Y, Z, dtype=f32, gen=gen)
+    bx, bz, bk = tuning.plan_fused_gemm_blocks(X, 2, 2)
+    record("batched_fused_gemm_combine_h@ssd",
+           lambda: kernels.batched_fused_gemm_combine_h(at4, bt4, l.W),
+           lambda: ref.fused_gemm_combine_h_ref(at4, bt4, l.W),
+           G * 2.0 * l.R * X * Y * Z, G * (l.R * (X * Y + Y * Z) + 4 * X * Z) * it32, fa,
+           (c, N, c, G),
+           library=lambda: torch.bmm(at4.view(G * l.R, X, Y), bt4.view(G * l.R, Y, Z)),
+           plan={"route": "simt", "bx": bx, "bz": bz, "bk": bk}, dtype=f32, launches=10)
+    del at4, bt4
+    free_memory()
     torch.cuda.empty_cache()
     return out
 
@@ -1206,8 +1259,9 @@ def engine_requests(vocab: int) -> list[tuple[np.ndarray, int]]:
 
 def oneshot_reference(cfg, params, requests) -> list:
     """Each request served alone through the one-shot steps (those of
-    ``run_oneshot``), fp, auto mode on h100_sxm (every product on
-    torch.matmul): (tokens, logits per step) per request."""
+    ``run_oneshot``), fp, in ``cfg``'s mode (granite's auto on h100_sxm
+    puts every product on torch.matmul): (tokens, logits per step) per
+    request."""
     prefill = make_prefill_step(cfg, ENGINE["max_prompt_len"] + ENGINE["max_new_tokens"])
     decode = make_decode_step(cfg)
     out = []
@@ -1238,11 +1292,11 @@ def engine_run(name: str, cfg, params, requests, cuda_graphs: bool, quantize: bo
     torch.cuda.reset_peak_memory_stats()
     engine = ServeEngine(cfg, params, device=DEV, seed=0, quantize=quantize,
                          cuda_graphs=cuda_graphs, record_logits=True, **ENGINE, **kw)
-    spec = bool(kw.get("speculate"))
-    if engine.policy != engine_policy(spec) or engine.max_len != engine_keys(spec):
+    spec, chunked = bool(kw.get("speculate")), bool(kw.get("prefill_chunk"))
+    if engine.policy != engine_policy(chunked) or engine.max_len != engine_keys(spec):
         raise AssertionError(f"serve_engine/{name}: buckets {engine.policy}, cache "
-                             f"{engine.max_len}; the kernel cases took {engine_policy(spec)}, "
-                             f"{engine_keys(spec)}")
+                             f"{engine.max_len}; the kernel cases took "
+                             f"{engine_policy(chunked)}, {engine_keys(spec)}")
     warm = engine.warm()
     misses = plan_cache.stats().misses
     kernels.reset_launch_counts()
@@ -1255,7 +1309,10 @@ def engine_run(name: str, cfg, params, requests, cuda_graphs: bool, quantize: bo
     s = engine.summary()
     steps = s["decode_steps"] + s["verify_steps"]
     out = {"outputs": [(r.generated, r.logits) for r in reqs], "state": state, "summary": s,
-           "counts": kernels.launch_counts()}
+           "counts": kernels.launch_counts(),
+           # the real slots' recurrent state (SSM and hybrid) as the requests left it
+           "slot_state": engine.cache["state"][:, :engine.max_slots].clone()
+           if "state" in engine.cache else None}
     emit("serve_engine", config=name, arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
          mode=cfg.falcon_mode, quantize=quantize, cuda_graphs=s["cuda_graphs"], **kw,
          requests=len(reqs), warm=warm, n_precombined=s["precombined_weights"],
@@ -1431,7 +1488,8 @@ def arch_leaves(arch, lm_head: bool = False) -> dict[str, tuple[int, int]]:
         if s.kind != "dense" or (s.role == "lm_head" and not lm_head):
             continue
         grp, name = s.role.split(".") if "." in s.role else ("", s.role)
-        path = {"attn": f"layers/attn/{name}", "mlp": f"layers/mlp/mlp_{name}"}.get(grp, name)
+        path = {"attn": f"layers/attn/{name}", "mlp": f"layers/mlp/mlp_{name}",
+                "ssm": f"layers/ssm/ssm_{name.removesuffix('_proj')}"}.get(grp, name)
         out[path] = (s.k, s.n)
     return out
 
@@ -1541,15 +1599,16 @@ def stacked_weight_cases() -> list[tuple[str, int, int, int]]:
     return sorted(out)
 
 
-def check_stacked_combine(l: LCMA, G: int, K: int, N: int, gen) -> tuple[float, float, list]:
-    """batched_group_combine with ``l.V`` over a bf16 stack of G weights
-    (G, K, N), a shape the served model gives it, held to the plain version
-    one layer at a time (the whole stack's plain version, in f32, would not
-    fit beside it). Returns (max abs error, error as :func:`err`, shape)."""
-    x = torch.empty(G, l.k * cdiv(K, l.k), l.n * cdiv(N, l.n), dtype=torch.bfloat16,
-                    device=DEV)
+def check_stacked_combine(l: LCMA, G: int, K: int, N: int, gen,
+                          dtype=torch.bfloat16) -> tuple[float, float, list]:
+    """batched_group_combine with ``l.V`` over a stack of G weights (G, K, N)
+    in ``dtype``, a shape the served model gives it, held to the plain
+    version one layer at a time (the whole stack's plain version, in f32,
+    would not fit beside it). Returns (max abs error, error as :func:`err`,
+    shape)."""
+    x = torch.empty(G, l.k * cdiv(K, l.k), l.n * cdiv(N, l.n), dtype=dtype, device=DEV)
     for g in range(G):
-        x[g] = randn(*x.shape[1:], gen=gen)
+        x[g] = randn(*x.shape[1:], dtype=dtype, gen=gen)
     got = kernels.batched_group_combine(x, l.V)
     torch.cuda.synchronize()
     d = scale = 0.0
@@ -2432,6 +2491,548 @@ def phase_serve_engine_moe() -> None:
 
 
 # ---------------------------------------------------------------------------
+# The SSM and hybrid families at published width and depth: the SSD mixer
+# alone, one-shot serving, the engine
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2_370m", "hymba_1_5b")
+SSM_SERVE = (4, 2048)           # one-shot: 4 x 2048 prompt tokens, 8 chunks of 256
+SSM_GEN = 16
+SSD_ROLES = ("ssd.scores", "ssd.y_diag", "ssd.states", "ssd.y_off")
+# The dtype in which the SSM phases hold two served runs to one another
+# within QUALITY_TOL. Both stacks, at the reference's random init and
+# published depth, amplify a rounding difference from layer to layer, so
+# two bf16 runs that round differently (gemm and strassen, bucketed and one
+# request at a time, chunked and whole) can disagree past QUALITY_TOL while
+# each is right: mamba2's gemm run on bf16 weights disagrees with the gemm
+# run on the same weights in float32 by about 1, hymba's forced strassen
+# bf16 run with gemm by about the limit (phase serve_ssm prints both,
+# ``serve_ssm_sensitivity`` and ``serve_ssm_vs_gemm``). In float32 the
+# same amplification leaves such runs well within it, so each comparison
+# is held in float32 and printed in bf16.
+SSM_HELD = "float32"
+
+
+# models.layers.flash_attention's query chunk: a prefill of more queries
+# runs its attention 512 queries at a time
+FLASH_Q = 512
+
+
+def as_dtype(tree, dtype: str):
+    """The parameter tree with every leaf in ``dtype`` (a copy)."""
+    return {k: as_dtype(v, dtype) if isinstance(v, dict) else v.to(getattr(torch, dtype))
+            for k, v in tree.items()}
+
+
+def ssm_contexts() -> list[tuple[int, int, int, bool, int]]:
+    """(batch, tokens per row, cache length, decode, m_hint) of every call
+    the SSM phases make: the one-shot's prefill (4 x 2048; phase
+    ssd_layer's mixer takes the same shapes) and decode steps against its
+    2064-key cache (2050 keys: the warm-up and profiled serves, 2 new
+    tokens), and every prefill and decode bucket of the engine, with and
+    without 16-token prefill chunks, against the slot cache. ``m_hint`` is
+    the rows each run prices its offline Combine B at."""
+    b, s = SSM_SERVE
+    out = {(b, n, s + gen, n == 1, b * s) for n in (s, 1) for gen in (SSM_GEN, 2)}
+    keys = engine_keys(False)
+    for chunked in (False, True):
+        pol = engine_policy(chunked)
+        hint = pol.prefill_batch[-1] * pol.prefill_seq[-1]
+        out |= {(rows, n, keys, False, hint) for rows, n in pol.prefill_shapes()}
+        out |= {(rows, 1, keys, True, hint) for rows in pol.decode_batch}
+    return sorted(out)
+
+
+def ssm_launches(cfg, mode: str) -> set[tuple]:
+    """Every product of ``cfg``'s SSM phases that runs an LCMA under
+    ``mode`` ("auto" on h100_sxm, or a forced scheme), decided as
+    ``core.engine`` dispatches it: a grouped contraction (attention, the
+    SSD scan and decode step) by plan_batched in the dtype it runs in (the
+    SSD ones float32); the tied LM head by plan, its Combine B at every
+    call; a static leaf planned at its run's m_hint, then re-decided at the
+    call's rows restricted to its scheme; forced, phase ssd_layer's raw
+    projections with their Combine B. Keys: ("grouped", scheme, dtype,
+    G, M, K, N), ("dense", scheme, dtype, M, K, N, runtime Combine B) and
+    ("stack", scheme, dtype, layers, K, N), a leaf's offline Combine B."""
+    fcfg = falcon.FalconConfig(mode=mode)
+    out = set()
+    for batch, seq, kv, decode, hint in ssm_contexts():
+        for c in workloads.resolve_contractions(cfg, batch, seq, kv_len=kv, decode=decode):
+            dtype = "float32" if c.kind in workloads.F32_KINDS else cfg.dtype
+            if c.group > 1:
+                m = c.m
+                if c.kind == "attention" and not decode and seq > FLASH_Q:
+                    m = FLASH_Q
+                d = falcon.plan_batched(c.group, m, c.k, c.n, fcfg, dtype, shared_b=c.shared_b)
+                if d.use_lcma:
+                    out.add(("grouped", d.algo.name, dtype, c.group, m, c.k, c.n))
+            elif c.role == "lm_head":
+                d = falcon.plan(c.m, c.k, c.n, fcfg, dtype)
+                if d.use_lcma:
+                    out.add(("dense", d.algo.name, dtype, c.m, c.k, c.n, True))
+            else:
+                d = falcon.plan(hint, c.k, c.n, fcfg, dtype, precombined_b=True)
+                if not d.use_lcma:
+                    continue
+                out.add(("stack", d.algo.name, dtype, cfg.num_layers, c.k, c.n))
+                if mode != d.algo.name and not falcon.plan(
+                        c.m, c.k, c.n, dataclasses.replace(fcfg, mode="auto",
+                                                           candidates=(d.algo.name,)),
+                        dtype, precombined_b=True).use_lcma:
+                    continue
+                out.add(("dense", d.algo.name, dtype, c.m, c.k, c.n, False))
+    if mode != "auto" and cfg.dtype == "bfloat16":
+        # phase ssd_layer's mixer holds its projections raw: Combine B at each call
+        for c in workloads.contraction_set(cfg):
+            if c.role.startswith("ssm."):
+                out.add(("dense", mode, cfg.dtype, math.prod(SSM_SERVE), c.k, c.n, True))
+    return out
+
+
+def ssm_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
+    """(kernel, scheme, dtype, shape fields, check) of every call of #1-#4
+    the SSM phases make, auto mode and forced strassen, both archs in bf16
+    and in SSM_HELD (:func:`ssm_launches`), each padded shape and dtype
+    once: the SSD contractions' Combine A and B (#2) and grouped product
+    (#4) in float32 at the served groups (B x n_chunks x H at a prefill,
+    B x H at a decode step, the state update's K = 1 padded to 2), hymba's
+    attention, Combine A (#1) and the fused product (#3) of each planned
+    projection, the tied LM head's Combine B at every call, and each
+    planned leaf's offline Combine B over its layer stack. Each check
+    returns (max abs error, error as :func:`err`, shape)."""
+    out, seen = [], set()
+
+    def add(name, key, l, dt, fields, check):
+        if (name, key) not in seen:
+            seen.add((name, key))
+            out.append((name, l.name, dt, fields, check))
+
+    for arch in SSM_ARCHS:
+        keys = set()
+        for dtype in ("bfloat16", SSM_HELD):
+            cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+            keys |= ssm_launches(cfg, "auto") | ssm_launches(cfg, "strassen")
+        for key in sorted(keys, key=str):
+            kind, scheme = key[:2]
+            l = alg.get(scheme)
+            fields = {"arch": arch, kind: list(key[2:])}
+            dt = getattr(torch, key[2])
+            if kind == "stack":
+                G, K, N = key[3:]
+                add("batched_group_combine", key, l, dt, fields,
+                    functools.partial(check_stacked_combine, l, G, K, N, dtype=dt))
+                continue
+            if kind == "grouped":
+                G, M_, K, N = key[3:]
+                X, Y, Z = cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n)
+                for name, sub, make in (
+                        ("batched_group_combine", ("U", G, X, Y),
+                         functools.partial(combine_case, l, dt, (M_, K), "U", groups=G)),
+                        ("batched_group_combine", ("V", G, Y, Z),
+                         functools.partial(combine_case, l, dt, (K, N), "V", groups=G)),
+                        ("batched_fused_gemm_combine_h", (G, X, Y, Z),
+                         functools.partial(fused_case, l, dt, X, Y, Z, groups=G))):
+                    add(name, (scheme, key[2], *sub), l, dt, fields, checked(make))
+                continue
+            M_, K, N, runtime_b = key[3:]
+            X, Y, Z = cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n)
+            add("group_combine", (scheme, key[2], "U", X, Y), l, dt, fields,
+                checked(functools.partial(combine_case, l, dt, (M_, K), "U")))
+            if runtime_b:
+                add("group_combine", (scheme, key[2], "V", Y, Z), l, dt, fields,
+                    checked(functools.partial(combine_case, l, dt, (K, N), "V")))
+            add("fused_gemm_combine_h", (scheme, key[2], X, Y, Z), l, dt, fields,
+                checked(functools.partial(fused_case, l, dt, X, Y, Z)))
+    return out
+
+
+def ssd_decisions(cfg) -> dict[str, str]:
+    """What auto mode decides on h100_sxm for each SSD contraction of
+    ``cfg`` (float32, as they run) at the one-shot's prefill and decode
+    and at the engine's largest prefill and decode buckets."""
+    fcfg = falcon.FalconConfig()
+    out = {}
+    b, s = SSM_SERVE
+    pol = engine_policy(False)
+    for batch, seq, decode in ((b, s, False), (b, 1, True),
+                               (*pol.prefill_shapes()[-1], False), (pol.decode_batch[-1], 1, True)):
+        for c in workloads.resolve_contractions(cfg, batch, seq, kv_len=s + SSM_GEN,
+                                                decode=decode):
+            if c.kind in workloads.F32_KINDS:
+                d = falcon.plan_batched(c.group, c.m, c.k, c.n, fcfg, "float32")
+                out[f"{batch}x{seq} {c.role} {c.key_shape()}"] = describe(d)
+    return out
+
+
+def phase_ssd_layer() -> None:
+    """One full-width SSD mixer of each arch (random bf16 weights and input
+    from seed 0; 4 x 2048 tokens, 8 chunks of 256) in gemm mode and in
+    forced strassen: device ms per call, launches, peak bytes. The gemm
+    run's output and final state are held within LAYER_TOL of the plain
+    float32 scan (``models.ssd_ref.plain_ssd_apply``: every operand taken
+    to float32, ``torch.einsum``), the forced run's within LAYER_TOL of the
+    gemm run's. Then the four scan contractions on the operands the gemm
+    run gave them, each timed (CUDA events) through ``engine.einsum`` in
+    gemm mode (``torch.matmul`` of the grouped operands, float32 with TF32
+    off, with the permutes) and in forced strassen (Combine A and B on #2,
+    the product on #4, with the permutes), beside each one's bound and the
+    chunk loop (``ssd.carry_states``, one ``addcmul`` per chunk); and what
+    auto mode decides for every SSD contraction on h100_sxm. Every launch
+    is at a shape phase_kernels checked."""
+    from repro_torch.core import engine as core_engine
+    from repro_torch.models import ssd as SSD
+    from repro_torch.models.ssd_ref import plain_ssd_apply
+    b, s = SSM_SERVE
+    fa = H100_SXM.flops_for("float32")
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        free_memory()
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        p = SSD.ssd_init(gen, cfg.d_model, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim,
+                         cfg.ssm_groups, torch.bfloat16, DEV)
+        x = randn(b, s, cfg.d_model, dtype=torch.bfloat16, gen=gen)
+        fn = lambda: SSD.ssd_apply(p, x, cfg)  # noqa: E731
+        runs = {}
+        for mode in ("gemm", "strassen"):
+            with falcon.use(falcon.FalconConfig(mode=mode)), torch.inference_mode():
+                free_memory()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                y, st = fn()
+                torch.cuda.synchronize()
+                counts, state = kernels.launch_counts(), kernels.launch_state()
+                peak = torch.cuda.max_memory_allocated() - base
+                t = time_ms(fn, launches=3)
+            check_covered(f"ssd_layer/{arch}/{mode}", state)
+            runs[mode] = {"y": y, "state": st, "counts": counts, "peak": peak, "time": t}
+        gemm, forced = runs["gemm"], runs["strassen"]
+        with torch.inference_mode():
+            y_ref, s_ref = plain_ssd_apply(p, x, cfg)
+        errors = {"gemm_vs_plain": err(gemm["y"], y_ref),
+                  "forced_vs_gemm": err(forced["y"], gemm["y"]),
+                  "state_gemm_vs_plain": err(gemm["state"], s_ref),
+                  "state_forced_vs_gemm": err(forced["state"], gemm["state"])}
+        del y_ref, s_ref
+        for mode, r in runs.items():
+            emit("ssd_layer", arch=arch, mode=mode, tokens=b * s, chunk=cfg.ssm_chunk,
+                 heads=cfg.ssm_heads, groups=cfg.ssm_groups, state=cfg.ssm_state,
+                 ms=r["time"]["ms"], source=r["time"]["source"], timing=r["time"],
+                 launches=r["counts"], peak_bytes=r["peak"])
+        emit("ssd_layer_check", arch=arch, errors=errors, tol=LAYER_TOL,
+             forced_speedup=gemm["time"]["ms"] / forced["time"]["ms"])
+        if any(not e[1] <= LAYER_TOL for e in errors.values()):
+            raise AssertionError(f"ssd_layer/{arch}: errors {errors} past {LAYER_TOL}")
+        want = {"batched_group_combine": 8, "batched_fused_gemm_combine_h": 4}
+        if {k: forced["counts"][k] for k in want} != want or sum(gemm["counts"].values()):
+            raise AssertionError(f"ssd_layer/{arch}: forced launched {forced['counts']}, "
+                                 f"gemm {gemm['counts']}")
+        del runs, gemm, forced
+        # the scan's four contractions and its chunk loop, on the operands
+        # of one gemm-mode call
+        calls, carried = [], []
+        einsum, carry = core_engine.einsum, SSD.carry_states
+
+        def rec_einsum(sub, *ops, cfg=None):
+            calls.append((sub, ops))
+            return einsum(sub, *ops, cfg=cfg)
+
+        def rec_carry(*a):
+            carried.append(a)
+            return carry(*a)
+
+        with falcon.use(falcon.FalconConfig(mode="gemm")), torch.inference_mode():
+            core_engine.einsum, SSD.carry_states = rec_einsum, rec_carry
+            try:
+                fn()
+            finally:
+                core_engine.einsum, SSD.carry_states = einsum, carry
+        if len(calls) != len(SSD_ROLES) or len(carried) != 1:
+            raise AssertionError(f"ssd_layer/{arch}: {len(calls)} contractions, "
+                                 f"{len(carried)} chunk loops")
+        rows = {}
+        for role, (sub, (a, bb)) in zip(SSD_ROLES, calls):
+            c = next(c for c in workloads.resolve_contractions(cfg, b, s) if c.role == role)
+            line = {"subscripts": sub, "groups": c.group, "mkn": [c.m, c.k, c.n],
+                    "gflop": 2.0 * c.group * c.m * c.k * c.n / 1e9}
+            line["bound_ms"], line["bound_by"] = bound_ms(
+                2.0 * c.group * c.m * c.k * c.n,
+                4.0 * c.group * (c.m * c.k + c.k * c.n + c.m * c.n), fa)
+            for mode in ("gemm", "strassen"):
+                with falcon.use(falcon.FalconConfig(mode=mode)), torch.inference_mode():
+                    t = time_ms(lambda: einsum(sub, a, bb), launches=10)
+                line[f"{mode}_ms"], line[f"{mode}_source"] = t["ms"], t["source"]
+            rows[role] = line
+        with torch.inference_mode():
+            t = time_ms(lambda: carry(*carried[0]), launches=10)
+        total = {mode: sum(r[f"{mode}_ms"] for r in rows.values()) for mode in ("gemm", "strassen")}
+        emit("ssd_contractions", arch=arch, contractions=rows, chunk_loop_ms=t["ms"],
+             chunk_loop_source=t["source"], chunks=cdiv(s, cfg.ssm_chunk),
+             scan_gemm_ms=total["gemm"], scan_strassen_ms=total["strassen"],
+             scan_bound_ms=sum(r["bound_ms"] for r in rows.values()))
+        emit("ssd_decisions", arch=arch, hardware=falcon.FalconConfig().hardware,
+             decisions=ssd_decisions(cfg))
+        del calls, carried, p, x
+        free_memory()
+
+
+def phase_serve_ssm() -> dict:
+    """Each SSM and hybrid arch at published width and depth, random
+    weights from seed 0, served one-shot (4 x 2048 prompt tokens, 16 new)
+    three ways, each after a 2-token warm-up serve: ``gemm`` (every product
+    on torch.matmul, the reference), ``auto`` (h100_sxm: the leaves it
+    prices to an LCMA at M = 8192 precombined; the f32 SSD contractions
+    priced at their groups) and ``forced`` (strassen everywhere: the
+    projections on #1/#3, the SSD contractions and hymba's attention on
+    #2/#4). First in bf16, the published dtype, with the times: each
+    non-gemm run compared with gemm, prefix-matched and teacher-forced on
+    gemm's tokens (printed: SSM_HELD); the forced run must have launched
+    each of #1-#4; gemm and forced profiled over prefill and one decode
+    step (``profile_ssm``). ``serve_ssm_sensitivity``: gemm on the same
+    weights in float32, teacher-forced on the bf16 gemm run's tokens,
+    against it: what bf16 rounding alone moves the logits by. Then the
+    three again on the weights in SSM_HELD (float32), auto and forced held
+    to gemm within QUALITY_TOL, prefix-matched and teacher-forced. Every
+    launch is at a shape phase_kernels checked. Returns the bf16 forced
+    mamba2 run's launches of #1-#4 at prefill and decode (#2 and #4's are
+    all SSD contractions)."""
+    b, s = SSM_SERVE
+    ssd_counts = {}
+    modes = (("gemm", "gemm"), ("auto", "auto"), ("forced", "strassen"))
+    for arch in SSM_ARCHS:
+        base = get_config(arch)
+        vocab = base.vocab_size
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        params = M.init_params(base, 0, DEV)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        emit("serve_ssm_weights", arch=arch, layers=base.num_layers, weight_bytes=held,
+             init_transient_bytes=torch.cuda.max_memory_allocated() - before - held)
+        runs = {}
+        for name, mode in modes:
+            cfg = dataclasses.replace(base, falcon_mode=mode)
+            res = ssm_serve(arch, name, cfg, params)
+            runs[name] = res
+            if name == "forced":
+                path = {k: res["launches"]["prefill"][k] + res["launches"]["decode"][k]
+                        for k in COVERED}
+                if min(path.values()) <= 0:
+                    raise AssertionError(f"serve_ssm/{arch}/forced: a kernel of the path "
+                                         f"never launched: {path}")
+                if arch == "mamba2_370m":
+                    ssd_counts = path
+            if name != "gemm":
+                ssm_vs_gemm(arch, name, cfg, params, res, runs["gemm"], gated=False)
+            if name != "auto":
+                kernels.reset_launch_counts()
+                with falcon.use(M.falcon_config_for(cfg)), torch.inference_mode():
+                    planned_params, _ = falcon.precombine_params(params, m_hint=b * s)
+                _, prof = profiled(functools.partial(
+                    run_oneshot, cfg, batch=b, prompt_len=s, gen=2, seed=0, device=DEV,
+                    params=planned_params, precombine=False))
+                check_covered(f"serve_ssm/{arch}/{name}/profile", kernels.launch_state())
+                emit("profile_ssm", arch=arch, config=name,
+                     window="prefill + 1 decode step (profiler on)", **prof)
+                del planned_params
+            free_memory()
+        held_params = as_dtype(params, SSM_HELD)
+        gemm_held = dataclasses.replace(base, dtype=SSM_HELD, falcon_mode="gemm")
+        sens = forced_err(forced_logits(gemm_held, held_params, b, s, runs["gemm"]["tokens"]),
+                          runs["gemm"], vocab)
+        emit("serve_ssm_sensitivity", arch=arch, bf16_vs_f32_rel_logit_err=sens,
+             tol=QUALITY_TOL)
+        del params, runs
+        free_memory()
+        runs = {}
+        for name, mode in modes:
+            cfg = dataclasses.replace(gemm_held, falcon_mode=mode)
+            runs[name] = ssm_serve(arch, f"{name}_{SSM_HELD}", cfg, held_params)
+            if name != "gemm":
+                ssm_vs_gemm(arch, f"{name}_{SSM_HELD}", cfg, held_params, runs[name],
+                            runs["gemm"], gated=True)
+            free_memory()
+        del held_params, runs
+        free_memory()
+    return ssd_counts
+
+
+def ssm_serve(arch: str, name: str, cfg, params) -> dict:
+    """One measured one-shot serve of phase serve_ssm (4 x 2048 tokens, 16
+    new) after a 2-token warm-up serve, each launch at a checked shape;
+    a gemm run launches no kernel. Returns :func:`serve`'s result."""
+    b, s = SSM_SERVE
+    planned = {path: describe(d) for path, (_, _, d) in planned_leaves(cfg, b * s).items()}
+    kernels.reset_launch_counts()
+    run_oneshot(cfg, batch=b, prompt_len=s, gen=2, seed=0, device=DEV, params=params)
+    check_covered(f"serve_ssm/{arch}/{name}/warm-up", kernels.launch_state())
+    free_memory()
+    res, counts = serve("serve_ssm", cfg, params, batch=b, prompt=s, gen=SSM_GEN,
+                        config=name, planned=planned)
+    check_covered(f"serve_ssm/{arch}/{name}", kernels.launch_state())
+    if cfg.falcon_mode == "gemm" and (res["n_precombined"] or sum(counts.values())):
+        raise AssertionError(f"serve_ssm/{arch}/{name}: precombined {res['n_precombined']}, "
+                             f"launches {counts}")
+    if cfg.falcon_mode != "gemm" and res["n_precombined"] != len(planned):
+        raise AssertionError(f"serve_ssm/{arch}/{name}: {res['n_precombined']} leaves "
+                             f"precombined, the pricing names {planned}")
+    return res
+
+
+def ssm_vs_gemm(arch: str, name: str, cfg, params, res: dict, gemm: dict, gated: bool):
+    """A serve_ssm run against the gemm run of its dtype: the prefix-matched
+    logit error (:func:`logit_error`) and the teacher-forced one on gemm's
+    tokens (:func:`forced_logits`), each held within QUALITY_TOL when
+    ``gated``, else printed."""
+    b, s = SSM_SERVE
+    vocab = cfg.vocab_size
+    worst, compared, agreement = logit_error(per_request(res), per_request(gemm), vocab)
+    free_memory()
+    kernels.reset_launch_counts()
+    forced = forced_err(forced_logits(cfg, params, b, s, gemm["tokens"]), gemm, vocab)
+    check_covered(f"serve_ssm/{arch}/{name}/teacher_forced", kernels.launch_state())
+    emit("serve_ssm_vs_gemm", arch=arch, config=name, dtype=cfg.dtype, rel_logit_err=worst,
+         steps_compared=compared, token_agreement=agreement, forced_rel_logit_err=forced,
+         tol=QUALITY_TOL, gated=gated, prefill_ms=res["timings"]["prefill_ms"],
+         gemm_prefill_ms=gemm["timings"]["prefill_ms"],
+         prefill_speedup=gemm["timings"]["prefill_ms"] / res["timings"]["prefill_ms"],
+         decode_ms_per_step=res["timings"]["decode_ms_per_step"],
+         gemm_decode_ms_per_step=gemm["timings"]["decode_ms_per_step"])
+    if gated and (compared < b or not worst <= QUALITY_TOL or not forced <= QUALITY_TOL):
+        raise AssertionError(f"serve_ssm/{arch}/{name}: logit error against gemm {worst} "
+                             f"prefix-matched over {compared} steps, {forced} teacher-forced "
+                             f"(tolerance {QUALITY_TOL})")
+
+
+def prefix_run(name: str, cfg, params, requests) -> dict:
+    """The engine with the prefix cache: each request's prompt less its
+    last two tokens served first (one token each), then every whole prompt,
+    which must hit the snapshot of its head (state-bearing snapshots are
+    keyed at the whole prompt they prefilled, so a prompt hits only the
+    prompts it extends) and reuse all of it. Returns the outputs of the
+    whole prompts, as :func:`engine_run`'s."""
+    engine = ServeEngine(cfg, params, device=DEV, seed=0, record_logits=True,
+                         prefix_cache=True, **ENGINE)
+    engine.warm()
+    misses = plan_cache.stats().misses
+    kernels.reset_launch_counts()
+    for p, _ in requests:
+        engine.submit(p[:-2], max_new_tokens=1)
+    engine.run()
+    hits, reused = engine.stats.prefix_hits, engine.stats.prefix_tokens_reused
+    reqs = [engine.submit(p, max_new_tokens=n) for p, n in requests]
+    engine.run()
+    state = kernels.launch_state()
+    hits, reused = engine.stats.prefix_hits - hits, engine.stats.prefix_tokens_reused - reused
+    want = sum(len(p) - 2 for p, _ in requests)
+    plan_misses = plan_cache.stats().misses - misses
+    emit("serve_engine_prefix", config=name, requests=len(reqs), prefix_hits=hits,
+         prefix_tokens_reused=reused, expected_tokens_reused=want,
+         plan_misses_after_warm=plan_misses, sample=reqs[0].generated)
+    check_covered(f"serve_engine/{name}", state)
+    if hits != len(requests) or reused != want or plan_misses:
+        raise AssertionError(f"serve_engine/{name}: {hits} prefix hits reusing {reused} "
+                             f"tokens (expected {len(requests)}, {want}), {plan_misses} plan "
+                             "misses after warm")
+    out = {"outputs": [(r.generated, r.logits) for r in reqs]}
+    del engine, reqs
+    free_memory()
+    return out
+
+
+def phase_serve_engine_ssm() -> None:
+    """The continuous-batching ServeEngine on each SSM and hybrid arch at
+    published width and depth (seed 0), the 16 requests of phase
+    serve_engine over 8 slots. In bf16, the published dtype: auto mode and
+    forced strassen, each with every bucket's step a CUDA graph and
+    eagerly: identical tokens, logits within the bf16 TOL, the real slots'
+    recurrent state bit-equal, equal launch counts, no plan-cache miss after
+    warm (:func:`engine_run`); each compared with the same requests served
+    one at a time through the one-shot steps with every product on
+    torch.matmul (:func:`oneshot_reference` in gemm mode, the fp
+    reference), prefix-matched, printed (SSM_HELD). Then on the weights in
+    SSM_HELD (float32), graphs on: auto and forced, each held to that
+    dtype's one-shot within QUALITY_TOL, prefix-matched, and auto with
+    16-token chunked prefill (the recurrent state carried from chunk to
+    chunk through the slot cache) and with the prefix cache
+    (:func:`prefix_run`), each held to the plain auto engine within
+    QUALITY_TOL. Whether every token is equal is printed for each pair.
+    Every launch is at a shape phase_kernels checked."""
+    for arch in SSM_ARCHS:
+        base = get_config(arch)
+        vocab = base.vocab_size
+        free_memory()
+        params = M.init_params(base, 0, DEV)
+        requests = engine_requests(vocab)
+        one = oneshot_reference(dataclasses.replace(base, falcon_mode="gemm"), params, requests)
+        for name, mode in (("auto", "auto"), ("forced", "strassen")):
+            cfg = dataclasses.replace(base, falcon_mode=mode)
+            runs = {g: engine_run(f"{arch}/{name}", cfg, params, requests, g, profile=g)
+                    for g in (True, False)}
+            graph, eager = runs[True], runs[False]
+            check_covered(f"serve_engine/{arch}/{name}", eager["state"])
+            same = all(g[0] == e[0] for g, e in zip(graph["outputs"], eager["outputs"]))
+            diff = max(err(torch.as_tensor(np.stack(g[1])), torch.as_tensor(np.stack(e[1])))[1]
+                       for g, e in zip(graph["outputs"], eager["outputs"]))
+            same_state = torch.equal(graph["slot_state"], eager["slot_state"])
+            emit("serve_engine_check", config=f"{arch}/{name}", identical_tokens=same,
+                 max_logit_err=diff, tol=TOL[torch.bfloat16]["fused"],
+                 slot_state_bit_equal=same_state,
+                 launches_equal=graph["state"] == eager["state"], layers=cfg.num_layers,
+                 n_precombined=graph["summary"]["precombined_weights"],
+                 decode_speedup=eager["summary"]["t_decode"] / graph["summary"]["t_decode"])
+            if not same or not same_state or not diff <= TOL[torch.bfloat16]["fused"] \
+                    or graph["state"] != eager["state"]:
+                raise AssertionError(f"serve_engine/{arch}/{name}: graphs and eager differ "
+                                     f"(identical tokens {same}, slot state bit-equal "
+                                     f"{same_state}, logit error {diff}, launches "
+                                     f"{dict(graph['state'])} vs {dict(eager['state'])})")
+            if name == "forced" and min(graph["counts"][k] for k in COVERED) <= 0:
+                raise AssertionError(f"serve_engine/{arch}/forced: a kernel of the path never "
+                                     f"launched: {graph['counts']}")
+            engine_vs(f"serve_engine/{arch}/{name}/oneshot", graph["outputs"], one, vocab,
+                      gated=False)
+            del runs, graph, eager
+            free_memory()
+        held = dataclasses.replace(base, dtype=SSM_HELD)
+        p = as_dtype(params, SSM_HELD)
+        del params, one
+        one = oneshot_reference(dataclasses.replace(held, falcon_mode="gemm"), p, requests)
+        plain = None
+        for name, mode in (("auto", "auto"), ("forced", "strassen")):
+            tag = f"{arch}/{name}_{SSM_HELD}"
+            run_ = engine_run(tag, dataclasses.replace(held, falcon_mode=mode), p, requests,
+                              True, profile=False)
+            check_covered(f"serve_engine/{tag}", run_["state"])
+            engine_vs(f"serve_engine/{tag}/oneshot", run_["outputs"], one, vocab, gated=True)
+            plain = plain or run_["outputs"]
+            del run_
+        chunked = engine_run(f"{arch}/auto_{SSM_HELD}_chunked", held, p, requests, True,
+                             profile=False, prefill_chunk=ENGINE_SPEC["prefill_chunk"])
+        check_covered(f"serve_engine/{arch}/auto_{SSM_HELD}_chunked", chunked["state"])
+        prefix = prefix_run(f"{arch}/auto_{SSM_HELD}_prefix", held, p, requests)
+        for tag, run_ in (("chunked", chunked), ("prefix", prefix)):
+            engine_vs(f"serve_engine/{arch}/auto_{SSM_HELD}_{tag}", run_["outputs"], plain,
+                      vocab, gated=True)
+        del p, chunked, prefix, plain, one
+        free_memory()
+
+
+def engine_vs(what: str, got: list, want: list, vocab: int, gated: bool) -> None:
+    """Engine outputs against another run's, each (tokens, logits per step)
+    per request: whether every token is equal, and the prefix-matched logit
+    error (:func:`logit_error`), held within QUALITY_TOL when ``gated``."""
+    worst, compared, agreement = logit_error(got, want, vocab)
+    emit("serve_engine_ssm_vs", of=what, identical_tokens=all(
+        a[0] == b[0] for a, b in zip(got, want)), token_agreement=agreement,
+         rel_logit_err=worst, steps_compared=compared, tol=QUALITY_TOL, gated=gated)
+    if gated and (compared < len(got) or not worst <= QUALITY_TOL):
+        raise AssertionError(f"{what}: logit error {worst} over {compared} steps "
+                             f"(tolerance {QUALITY_TOL})")
+
+
+# ---------------------------------------------------------------------------
 # The calibration path: tune CLI -> calibrated profile + warmed plan cache ->
 # serving under it
 # ---------------------------------------------------------------------------
@@ -2589,6 +3190,9 @@ def main() -> None:
     run(phase_moe_layer)
     moe_counts = run(phase_serve_moe)
     run(phase_serve_engine_moe)
+    run(phase_ssd_layer)
+    ssd_counts = run(phase_serve_ssm)
+    run(phase_serve_engine_ssm)
     emit("total", seconds=time.perf_counter() - t0, phases=phases)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
@@ -2603,7 +3207,15 @@ def main() -> None:
          "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
          "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"]}
         for k in ("batched_group_combine@moe_b", "batched_group_combine@moe_a",
-                  "batched_fused_gemm_combine_h@moe", "batched_fused_gemm_combine_h@moe_decode")]}))
+                  "batched_fused_gemm_combine_h@moe", "batched_fused_gemm_combine_h@moe_decode")] + [
+        # the SSD scan's contractions (mamba2, forced strassen, f32), launches
+        # from serve_ssm
+        {"name": k, "route": "cuda", "source": SOURCES[k.split("@")[0]],
+         "replaces": REPLACES[k.split("@")[0]], "launches": ssd_counts[k.split("@")[0]],
+         "max_abs_err": times[k]["max_abs_err"], "ms": times[k]["ms"],
+         "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
+         "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"]}
+        for k in ("batched_group_combine@ssd", "batched_fused_gemm_combine_h@ssd")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,17 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "FAMILIES"]
+
+# The model families the port runs; the reference's audio and vision
+# frontends (families "audio", "vlm") are still to come.
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # the port runs "dense" and "moe"
+    family: str                     # the port runs dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -26,6 +30,12 @@ class ModelConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     capacity_factor: float = 1.25
+    # SSM (mamba2 / hymba)
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_chunk: int = 256
     # numerics
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
@@ -44,6 +54,10 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
 
     def layer_windows(self) -> list[int]:
         """Per-layer sliding window (0 = global/full attention)."""

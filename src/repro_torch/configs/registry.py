@@ -6,10 +6,10 @@ import importlib
 
 from .base import ModelConfig
 
-# Only what the port runs (the dense and MoE families); the reference zoo
-# lists every family it serves.
-ARCH_IDS = ["gemma3_27b", "granite_3_2b", "starcoder2_15b", "mistral_nemo_12b",
-            "kimi_k2_1t", "dbrx_132b"]
+# Only what the port runs (the dense, MoE, SSM and hybrid families); the
+# reference zoo also lists the audio and vision frontends.
+ARCH_IDS = ["hymba_1_5b", "gemma3_27b", "granite_3_2b", "starcoder2_15b",
+            "mistral_nemo_12b", "kimi_k2_1t", "dbrx_132b", "mamba2_370m"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}
 
@@ -46,6 +46,13 @@ def smoke_config(arch: str) -> ModelConfig:
         global_every=full.global_every and 2,
         num_experts=min(full.num_experts, 4) or 0,
         experts_per_token=min(full.experts_per_token, 2) or 0,
+        # 8-token chunks: a smoke prompt spans several; one group divides
+        # any head count
+        ssm_state=min(full.ssm_state, 16) or 0,
+        ssm_heads=min(full.ssm_heads, 4) or 0,
+        ssm_head_dim=16 if full.ssm_heads else 64,
+        ssm_groups=1,
+        ssm_chunk=8,
         dtype="float32",
         falcon_mode=full.falcon_mode,
     )

@@ -196,14 +196,13 @@ def _quantize_weight(w: torch.Tensor, l: LCMA, by: int | None = None):
     return (bq, scales) if w.ndim == 3 else (bq[0], scales[0])
 
 
-# The decoder's projections (the reference's list less its SSM leaves, which
-# the port does not run yet). MoE expert stacks lift to stacked
+# The decoder's projections, the reference's list. MoE expert stacks lift to stacked
 # PlannedWeights, applied per expert by the grouped dispatch; a whole
 # model's experts are 4-D (layer, expert, K, N) and stay raw, as in the
 # reference, since only rank 2 and 3 leaves are planned.
 _DEFAULT_PRECOMBINE_PATTERNS = (
     "w_q", "w_k", "w_v", "w_o", "mlp_gate", "mlp_up", "mlp_down", "lm_head",
-    "moe_gate", "moe_up", "moe_down",
+    "ssm_in", "ssm_out", "moe_gate", "moe_up", "moe_down",
 )
 
 # Stacks matching these run as ONE grouped contraction (not per slice), so
@@ -285,8 +284,11 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
     warms the dense projections and the grouped MoE expert shapes at that M
     — or a ``(batch, seq)`` call
     context: resolves the whole inventory including the attention einsums
+    and the SSD scan (or, at a decode step, recurrence) contractions
     (``seq == 1`` with ``kv_len`` set is a decode step against a
-    length-``kv_len`` cache). ``spec_gamma`` (with ``kv_len``) also warms,
+    length-``kv_len`` cache). The SSD ones are planned in float32, the
+    dtype they run in (the reference plans them in ``dtype``, which misses
+    them when the model is bf16). ``spec_gamma`` (with ``kv_len``) also warms,
     at every decode bucket ``(b, 1)``, the ``(b, γ+1)`` verify forward (lm
     head on every row) and the ``(b, 2)`` draft catch-up forward. The
     reference's ``train`` and ``mesh_shape`` arguments come with the
@@ -319,7 +321,9 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
     for c in contractions:
         if c.key_shape() not in seen:
             seen.add(c.key_shape())
-            n += _warm_contraction(c, cfg, dtype, pre_algos, pre_algos_grouped)
+            # the SSD contractions run in float32 whatever the model's dtype
+            cdt = "float32" if c.kind in workloads.F32_KINDS else dtype
+            n += _warm_contraction(c, cfg, cdt, pre_algos, pre_algos_grouped)
     # The PlannedWeight apply re-decides at the actual M with the candidates
     # restricted to the weight's own scheme: a differently keyed plan (the
     # candidate set is part of the key). Pre-plan those restricted variants

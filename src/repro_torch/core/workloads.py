@@ -1,19 +1,21 @@
 """Workload registry: one config -> its contraction set -> the warm grid.
 
-Every planned contraction of a dense- or MoE-family :class:`ModelConfig`
-(attention projections, the attention einsums, the swiglu MLP or, for MoE,
-the grouped expert FFN, the padded lm head) is listed once here as a
-symbolic :class:`ContractionSpec`, and resolved to concrete plan shapes per
-(batch, seq) call context by :func:`resolve_contractions`, which
+Every planned contraction of a :class:`ModelConfig` (attention projections,
+the attention einsums, the swiglu MLP or, for MoE, the grouped expert FFN,
+the SSD mixer's projections and its chunked-scan and decode contractions,
+the padded lm head) is listed once here as a symbolic
+:class:`ContractionSpec`, and resolved to concrete plan shapes per (batch,
+seq) call context by :func:`resolve_contractions`, which
 ``core.engine.warm_buckets`` (and so ``ServeEngine.warm``) consumes. The
-tune CLI warms the plan cache over :func:`warm_shapes`: the dense
-projection pairs of a workload swept over ``WARM_TOKENS``, plus square
-operators. The MoE expert capacity has its one definition here
+hybrid family emits its attention and its SSD specs both;
+``ContractionSpec.layers`` can pin a spec to some layers of a heterogeneous
+stack. The tune CLI warms the plan cache over :func:`warm_shapes`: the
+dense projection pairs of a workload swept over ``WARM_TOKENS``, plus
+square operators. The MoE expert capacity has its one definition here
 (:func:`moe_capacity`): the grouped plan keys embed it, so the layer and
 the resolver must agree. The reference's per-shard symbols
 (``mesh_shape``) come with the multi-device slice (ROADMAP Queue 1 item 6),
-its backward contractions (``train``) with the training slice (item 5),
-its SSD specs with the SSM family (item 4).
+its backward contractions (``train``) with the training slice (item 5).
 
 The paper's three LLM serving workloads (§IV-B: DeepSeek-R1, Qwen3.5,
 HunyuanVideo projections) are registry entries too, addressable by name,
@@ -25,11 +27,13 @@ from __future__ import annotations
 import dataclasses
 import math
 
+from repro_torch.configs.base import FAMILIES
+
 __all__ = [
     "ContractionSpec", "Contraction", "contraction_set", "resolve_contractions",
     "dense_projection_shapes", "grouped_moe_shapes", "paper_workloads",
     "paper_projection_shapes", "warm_shapes", "shape_token", "moe_capacity",
-    "layer_capacity", "WARM_TOKENS", "WARM_SQUARE",
+    "layer_capacity", "WARM_TOKENS", "WARM_SQUARE", "F32_KINDS",
 ]
 
 # Paper §IV-B LLM projection (K, N) pairs. Data only — addressed through
@@ -54,6 +58,10 @@ WARM_SQUARE = [512, 1024, 2048, 4096, 8192, 16384]
 _FLASH_Q_CHUNK = 512
 # lm-head cross-entropy chunk cap of the reference's training loss.
 _XENT_CHUNK = 512
+# Contraction kinds that run in float32 whatever the model's dtype: the SSD
+# scan and decode step cast their operands up (``models.ssd``), so their
+# plans are keyed on float32.
+F32_KINDS = ("ssd_scan", "ssd_decode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,11 +72,14 @@ class ContractionSpec:
     ``tokens`` (batch * sequence, the projection rows), ``logit_tokens``
     (lm-head rows), ``attn_q`` / ``attn_kv`` / ``head_dim`` (attention
     einsums), ``capacity`` (the per-expert MoE capacity C,
-    :func:`moe_capacity`), and the groups ``attn_groups`` (batch * heads)
-    and ``experts`` (E).
+    :func:`moe_capacity`), ``ssd_chunk`` / ``ssd_state`` / ``ssd_head_dim``
+    (the SSD scan), ``one`` (a literal 1: the SSD decode readout's rows),
+    and the groups ``attn_groups`` (batch * heads), ``experts`` (E),
+    ``ssd_groups`` (batch * n_chunks * SSD heads) and ``ssd_decode_groups``
+    (batch * SSD heads).
     """
-    kind: str              # dense | grouped_moe | attention
-    role: str              # e.g. "attn.w_q", "mlp.down", "moe.gate"
+    kind: str              # dense | grouped_moe | attention | ssd_scan | ssd_decode
+    role: str              # e.g. "attn.w_q", "moe.down", "ssd.scores"
     m: int | str
     k: int | str
     n: int | str
@@ -77,6 +88,9 @@ class ContractionSpec:
     # B operand is a static model weight => precombinable offline
     # (falcon.precombine_params) and eligible for the int8 quant tier.
     weight_static: bool = True
+    # () => every layer with this block type; a tuple => those layer indices
+    # only (a heterogeneous stack)
+    layers: tuple[int, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,37 +157,68 @@ def _paper_specs(workload: str) -> list[ContractionSpec]:
 
 
 def _model_specs(cfg) -> list[ContractionSpec]:
-    """Forward contraction specs of one dense- or MoE-family ModelConfig:
-    MoE replaces the dense MLP by the grouped expert FFN (its router is a
-    plain f32 matmul, not planned)."""
-    if cfg.family not in ("dense", "moe"):
+    """Forward contraction specs of one ModelConfig, block by block as
+    ``models.model._layer`` dispatches them: attention for every family but
+    the pure SSM one, MoE's grouped expert FFN in place of the dense MLP
+    (its router is a plain f32 matmul, not planned), no MLP for the pure
+    SSM family, the SSD block for the SSM and hybrid ones."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the port's registry lists the dense and MoE families "
-            f"(got {cfg.family!r}; SSD and hybrid come next, ROADMAP Queue 1 item 4)")
-    d, heads, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
-    kv = cfg.num_kv_heads or heads
-    specs = [
-        ContractionSpec("dense", "attn.w_q", "tokens", d, heads * hd),
-        ContractionSpec("dense", "attn.w_k", "tokens", d, kv * hd),
-        ContractionSpec("dense", "attn.w_v", "tokens", d, kv * hd),
-        ContractionSpec("dense", "attn.w_o", "tokens", heads * hd, d),
-        # QK^T and AV einsums: grouped over B*H heads (GQA K/V are repeated
-        # up to H before the einsum), activation x activation.
-        ContractionSpec("attention", "attn.qk", "attn_q", "head_dim", "attn_kv",
-                        group="attn_groups", weight_static=False),
-        ContractionSpec("attention", "attn.av", "attn_q", "attn_kv", "head_dim",
-                        group="attn_groups", weight_static=False),
-    ]
-    if cfg.family == "moe":
+            f"{cfg.name}: the port's registry lists the dense, MoE, SSM and hybrid "
+            f"families (got {cfg.family!r}; the audio and vision frontends come next, "
+            "ROADMAP Queue 1 item 4)")
+    d, fam = cfg.d_model, cfg.family
+    specs: list[ContractionSpec] = []
+    heads = cfg.num_heads
+    if heads and fam != "ssm":
+        hd = cfg.resolved_head_dim
+        kv = cfg.num_kv_heads or heads
+        specs += [
+            ContractionSpec("dense", "attn.w_q", "tokens", d, heads * hd),
+            ContractionSpec("dense", "attn.w_k", "tokens", d, kv * hd),
+            ContractionSpec("dense", "attn.w_v", "tokens", d, kv * hd),
+            ContractionSpec("dense", "attn.w_o", "tokens", heads * hd, d),
+            # QK^T and AV einsums: grouped over B*H heads (GQA K/V are
+            # repeated up to H before the einsum), activation x activation.
+            ContractionSpec("attention", "attn.qk", "attn_q", "head_dim", "attn_kv",
+                            group="attn_groups", weight_static=False),
+            ContractionSpec("attention", "attn.av", "attn_q", "attn_kv", "head_dim",
+                            group="attn_groups", weight_static=False),
+        ]
+    ff = cfg.d_ff
+    if ff and fam not in ("ssm", "moe"):
+        if cfg.mlp_type == "swiglu":
+            specs.append(ContractionSpec("dense", "mlp.gate", "tokens", d, ff))
+        specs += [ContractionSpec("dense", "mlp.up", "tokens", d, ff),
+                  ContractionSpec("dense", "mlp.down", "tokens", ff, d)]
+    if fam == "moe":
         specs += [ContractionSpec("grouped_moe", f"moe.{role}", "capacity", k, n,
                                   group="experts")
-                  for role, k, n in (("gate", d, cfg.d_ff), ("up", d, cfg.d_ff),
-                                     ("down", cfg.d_ff, d))]
-    else:
-        if cfg.mlp_type == "swiglu":
-            specs.append(ContractionSpec("dense", "mlp.gate", "tokens", d, cfg.d_ff))
-        specs += [ContractionSpec("dense", "mlp.up", "tokens", d, cfg.d_ff),
-                  ContractionSpec("dense", "mlp.down", "tokens", cfg.d_ff, d)]
+                  for role, k, n in (("gate", d, ff), ("up", d, ff), ("down", ff, d))]
+    if cfg.ssm_heads and fam in ("ssm", "hybrid"):
+        d_inner = cfg.ssm_heads * cfg.ssm_head_dim
+        d_in_proj = 2 * d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+        act = dict(weight_static=False)
+        specs += [
+            ContractionSpec("dense", "ssm.in_proj", "tokens", d, d_in_proj),
+            ContractionSpec("dense", "ssm.out_proj", "tokens", d_inner, d),
+            # chunked-scan contractions (models.ssd.ssd_scan), grouped over
+            # B * n_chunks * H; the decays are folded into the operands
+            # elementwise, so each einsum is one 2-operand grouped product
+            ContractionSpec("ssd_scan", "ssd.scores", "ssd_chunk", "ssd_state", "ssd_chunk",
+                            group="ssd_groups", **act),
+            ContractionSpec("ssd_scan", "ssd.y_diag", "ssd_chunk", "ssd_chunk",
+                            "ssd_head_dim", group="ssd_groups", **act),
+            ContractionSpec("ssd_scan", "ssd.states", "ssd_state", "ssd_chunk",
+                            "ssd_head_dim", group="ssd_groups", **act),
+            ContractionSpec("ssd_scan", "ssd.y_off", "ssd_chunk", "ssd_state",
+                            "ssd_head_dim", group="ssd_groups", **act),
+            # the single-token recurrence (models.ssd.ssd_decode_step)
+            ContractionSpec("ssd_decode", "ssd.state_update", "ssd_state", "one",
+                            "ssd_head_dim", group="ssd_decode_groups", **act),
+            ContractionSpec("ssd_decode", "ssd.readout", "one", "ssd_state",
+                            "ssd_head_dim", group="ssd_decode_groups", **act),
+        ]
     vp = -(-cfg.vocab_size // 256) * 256   # padded vocab (models.model.padded_vocab)
     specs.append(ContractionSpec("dense", "lm_head", "logit_tokens", d, vp))
     return specs
@@ -229,6 +274,11 @@ def _shape_env(cfg, batch: int, seq: int, *, kv_len=None, decode=False,
     if getattr(cfg, "num_experts", 0):
         env["capacity"] = layer_capacity(cfg, batch * seq)
         env["experts"] = cfg.num_experts
+    if getattr(cfg, "ssm_heads", 0):
+        n_chunks = max(1, -(-seq // cfg.ssm_chunk))
+        env.update(ssd_chunk=cfg.ssm_chunk, ssd_state=cfg.ssm_state,
+                   ssd_head_dim=cfg.ssm_head_dim, ssd_groups=batch * n_chunks * cfg.ssm_heads,
+                   ssd_decode_groups=batch * cfg.ssm_heads)
     return env
 
 
@@ -246,7 +296,9 @@ def resolve_contractions(arch, batch: int, seq: int, *, kv_len=None, decode: boo
 
     Returns deduplicated :class:`Contraction` entries whose ``key_shape()``
     tokens are exactly what ``core.plan_cache`` keys embed. ``kv_len``,
-    ``decode`` and ``spec_verify`` are as in :func:`_shape_env`.
+    ``decode`` and ``spec_verify`` are as in :func:`_shape_env`; a decode
+    context keeps the SSD recurrence and drops the scan, any other keeps
+    the scan and drops the recurrence.
     """
     paper = isinstance(arch, str) and arch in _PAPER_PROJECTIONS
     specs = contraction_set(arch)
@@ -260,6 +312,8 @@ def resolve_contractions(arch, batch: int, seq: int, *, kv_len=None, decode: boo
     out: list[Contraction] = []
     seen: set = set()
     for s in specs:
+        if s.kind == ("ssd_scan" if decode else "ssd_decode"):
+            continue
         c = Contraction(s.kind, s.role, val(s.m), val(s.k), val(s.n), group=val(s.group),
                         shared_b=s.shared_b, weight_static=s.weight_static)
         if (c.key_shape(), c.kind) not in seen:

@@ -1,23 +1,29 @@
-"""Decoder LM, dense and MoE families: init, KV cache, forward, logits.
+"""Decoder LM, dense, MoE, SSM and hybrid families: init, cache, forward,
+logits.
 
 Params are a nested dict of tensors with the reference's layout: ``embed``
 (Vp, d), ``layers`` holding every per-layer leaf stacked on a leading layer
 dim (an MoE layer's ``moe`` group in place of ``mlp``: the router (L, d, E)
-and the expert stacks (L, E, K, N)), ``final_norm``. The layer stack is a
-Python loop over slices of it. All projections, the expert FFN, the tied LM
-head and the attention contractions are FalconGEMM-dispatched; the MoE
-router is a plain f32 product, as in the reference.
+and the expert stacks (L, E, K, N); an SSM layer's ``ssm`` group in place of
+attention and MLP; a hybrid layer's ``ssm`` group and its two branch norms
+beside attention), ``final_norm``. The layer stack is a Python loop over
+slices of it. All projections, the expert FFN, the tied LM head, the
+attention contractions and the SSD scan's contractions are
+FalconGEMM-dispatched; the MoE router is a plain f32 product, as in the
+reference. The cache holds attention K/V and, for the SSM and hybrid
+families, the recurrent ``state``; every entry is written in place.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FAMILIES, ModelConfig
 from repro_torch.core import engine
 from repro_torch.core.falcon_gemm import FalconConfig
 from repro_torch.core.workloads import layer_capacity
 from . import layers as L
 from . import moe as MOE
+from . import ssd as SSD
 
 __all__ = ["init_params", "forward", "init_cache", "falcon_config_for",
            "compute_logits", "padded_vocab", "layer_params"]
@@ -30,9 +36,11 @@ def falcon_config_for(cfg: ModelConfig) -> FalconConfig:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: the port runs the dense and MoE "
-                                  f"families (got family={cfg.family!r})")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the dense, MoE, SSM and hybrid families (got "
+            f"family={cfg.family!r}; the audio and vision frontends come next, ROADMAP "
+            "Queue 1 item 4)")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -50,7 +58,8 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     leaf is allocated in the config's dtype and drawn in float32 pieces of
     at most one layer slice (the embedding: ``_EMBED_ROWS`` rows), so the
     largest transient is one slice, not a whole stacked leaf (an expert
-    stack: one expert of one layer)."""
+    stack: one expert of one layer). The SSD leaves ``ssm_A``, ``ssm_D`` and
+    ``ssm_dt_bias`` are float32, as in the reference."""
     _check_family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, cfg.dtype)
@@ -59,22 +68,27 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     Vp = padded_vocab(cfg)
     ones = lambda *s: torch.ones(s, dtype=dt, device=device)  # noqa: E731
     dense = lambda *s: L.dense_init(gen, s, dt, device)        # noqa: E731
-    layers = {
-        "ln1": ones(Lc, d),
-        "attn": {"w_q": dense(Lc, d, H * hd), "w_k": dense(Lc, d, Hkv * hd),
-                 "w_v": dense(Lc, d, Hkv * hd), "w_o": dense(Lc, H * hd, d)},
-        "ln2": ones(Lc, d),
-    }
-    if cfg.family == "moe":
-        layers["moe"] = MOE.moe_init(gen, d, cfg.d_ff, cfg.num_experts, dt, device,
-                                     lead=(Lc,))
-    elif cfg.mlp_type == "gelu":
-        layers["mlp"] = {"mlp_up": dense(Lc, d, cfg.d_ff),
-                         "mlp_down": dense(Lc, cfg.d_ff, d)}
+    ssm = lambda: SSD.ssd_init(gen, d, cfg.ssm_state, cfg.ssm_heads,  # noqa: E731
+                               cfg.ssm_head_dim, cfg.ssm_groups, dt, device, lead=(Lc,))
+    layers = {"ln1": ones(Lc, d)}
+    if cfg.family == "ssm":                 # attention-free and MLP-free
+        layers["ssm"] = ssm()
     else:
-        layers["mlp"] = {"mlp_gate": dense(Lc, d, cfg.d_ff),
-                         "mlp_up": dense(Lc, d, cfg.d_ff),
-                         "mlp_down": dense(Lc, cfg.d_ff, d)}
+        layers["attn"] = {"w_q": dense(Lc, d, H * hd), "w_k": dense(Lc, d, Hkv * hd),
+                          "w_v": dense(Lc, d, Hkv * hd), "w_o": dense(Lc, H * hd, d)}
+        if cfg.family == "hybrid":
+            layers.update(ssm=ssm(), attn_norm=ones(Lc, d), ssm_norm=ones(Lc, d))
+        layers["ln2"] = ones(Lc, d)
+        if cfg.family == "moe":
+            layers["moe"] = MOE.moe_init(gen, d, cfg.d_ff, cfg.num_experts, dt, device,
+                                         lead=(Lc,))
+        elif cfg.mlp_type == "gelu":
+            layers["mlp"] = {"mlp_up": dense(Lc, d, cfg.d_ff),
+                             "mlp_down": dense(Lc, cfg.d_ff, d)}
+        else:
+            layers["mlp"] = {"mlp_gate": dense(Lc, d, cfg.d_ff),
+                             "mlp_up": dense(Lc, d, cfg.d_ff),
+                             "mlp_down": dense(Lc, cfg.d_ff, d)}
     params = {
         # in blocks of rows: gemma3's f32 embedding alone would be 5.6 GB
         "embed": L.normal_init(gen, (Vp, d), lambda w: w * 0.02, dt, device,
@@ -96,20 +110,50 @@ def layer_params(stacked, i: int):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                dtype=None) -> dict:
+    """Zeroed cache: attention K/V (L, B, max_len, Hkv, hd) for every family
+    with attention, the recurrent SSD ``state`` (L, B, H, N, P) for the SSM
+    and hybrid ones."""
     dt = getattr(torch, dtype or cfg.dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    cache = {}
+    if cfg.family != "ssm":
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        cache["state"] = torch.zeros((cfg.num_layers, batch, cfg.ssm_heads, cfg.ssm_state,
+                                      cfg.ssm_head_dim), dtype=dt, device=device)
+    return cache
+
+
+def _ssd(lp, h, cfg: ModelConfig, cache_layer, length_mask):
+    """The layer's SSD mixer; with a cache its state is read and written in
+    place. It runs the recurrence only for a single-token step: a
+    multi-token call with a cache runs the chunked scan from the cached
+    state and stores the final one."""
+    st = None if cache_layer is None else cache_layer["state"]
+    decode = cache_layer is not None and h.shape[1] == 1
+    y, new_state = SSD.ssd_apply(lp["ssm"], h, cfg, state=st, decode=decode,
+                                 length_mask=length_mask)
+    if st is not None:
+        st.copy_(new_state)
+    return y
 
 
 def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
-           cache_index=None):
+           cache_index=None, length_mask=None):
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        return x + _ssd(lp, h, cfg, cache_layer, length_mask)
     dims = L.AttnDims(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.resolved_head_dim)
-    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     y, _ = L.attn_apply(lp["attn"], h, dims, positions, cfg.rope_theta, window,
                         cache=cache_layer, cache_index=cache_index)
+    if cfg.family == "hybrid":
+        # parallel attention and SSD branches on ln1(x), their norms averaged
+        ys = _ssd(lp, h, cfg, cache_layer, length_mask)
+        y = 0.5 * (L.rmsnorm(y, lp["attn_norm"], cfg.norm_eps)
+                   + L.rmsnorm(ys, lp["ssm_norm"], cfg.norm_eps))
     x = x + y
     h2 = h if cfg.parallel_block else L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
@@ -124,13 +168,15 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
 
 
 def forward(params, cfg: ModelConfig, tokens, *, cache=None, cache_index=None,
-            logits_mode: str = "none"):
+            logits_mode: str = "none", length_mask=None):
     """Run the decoder stack on ``tokens`` (B, S).
 
     logits_mode: "none" (return hidden), "last" (logits of the final
-    position), "all". With a ``cache`` the new K/V are written into it in
-    place at ``cache_index``. Returns (out, cache). FalconGEMM policy is the
-    ambient config, else this model's ``falcon_config_for``.
+    position), "all". With a ``cache`` the new K/V (and SSD state) are
+    written into it in place at ``cache_index``. ``length_mask`` (B, S): 1
+    on real positions, 0 on right pad; it makes a bucketed (right-padded)
+    prefill exact for the recurrent state. Returns (out, cache). FalconGEMM
+    policy is the ambient config, else this model's ``falcon_config_for``.
     """
     _check_family(cfg)
     with engine.config_scope(lambda: falcon_config_for(cfg)):
@@ -144,9 +190,10 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, cache_index=None,
         else:
             positions = (int(cache_index) + steps).expand(B, S)
         for i, window in enumerate(cfg.layer_windows()):
-            cl = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
+            cl = None if cache is None else {name: c[i] for name, c in cache.items()}
             x = _layer(x, layer_params(params["layers"], i), window, cfg,
-                       positions, cache_layer=cl, cache_index=cache_index)
+                       positions, cache_layer=cl, cache_index=cache_index,
+                       length_mask=length_mask)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         if logits_mode == "none":
             return x, cache

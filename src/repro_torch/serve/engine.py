@@ -36,11 +36,15 @@ Correctness of padding: pad rows and positions never leak. Right-padded
 prefill writes pad K/V above each request's true length, but decode validity
 masks ``kpos < pos + S`` and each write covers its positions before they
 first become visible; the same argument covers rejected speculative drafts
-and chunk boundaries. Pad *rows* of a micro-batch gather the last real
-slot's rows, as the reference's do, and are scattered into one spare slot
-past ``max_slots``, so the gather, the forward and the scatter all keep the
-bucket's shape inside a graph and no pad row writes a real slot. The
-output is token-exact against the reference's engine
+and chunk boundaries. SSM/hybrid recurrent state is exact because the
+prefill steps zero dt on pad positions (a length mask), so the state
+ignores the padded tail; speculation is refused for those families, since
+the state cannot roll back past a rejected draft. Pad *rows* of a
+micro-batch gather the last real slot's rows, as the reference's do, and
+are scattered into one spare slot past ``max_slots``, so the gather, the
+forward and the scatter all keep the bucket's shape inside a graph and no
+pad row writes a real slot (the spare slot's state takes the pad rows'
+state too). The output is token-exact against the reference's engine
 (``tests/test_torch_serve_engine.py``, ``tests/test_torch_serve_spec.py``).
 """
 from __future__ import annotations
@@ -62,7 +66,7 @@ from repro_torch.models import model as M
 from repro_torch.train.steps import make_chunk_prefill_step, make_decode_step, make_verify_step
 
 from .buckets import BucketPolicy, next_pow2
-from .prefix_cache import RadixPrefixCache, check_kv_cache
+from .prefix_cache import RadixPrefixCache, check_kv_cache, snapshot_len, snapshot_rows
 from .request import Request, RequestQueue
 from .scheduler import DecodeWork, PrefillWork, Scheduler
 from .speculative import DraftModel, SelfDraft
@@ -73,7 +77,8 @@ __all__ = ["ServeEngine", "StepLoop"]
 
 
 class ServeEngine:
-    """Continuous-batching serve engine for one dense or MoE decoder.
+    """Continuous-batching serve engine for one dense, MoE, SSM or hybrid
+    decoder.
 
     ``submit`` is thread-safe (any frontend thread); ``step``/``run`` are the
     single consumer. Non-token frontends are rejected: the bucket grid
@@ -243,7 +248,9 @@ class ServeEngine:
         """Pin the longest cached prefix of ``prompt[:-1]`` for this request.
 
         The last prompt token is always excluded so at least one suffix token
-        prefills: the request's first logits are always freshly computed.
+        prefills: the request's first logits are always freshly computed,
+        and an SSM/hybrid snapshot (state valid only at its exact length) is
+        only ever resumed at exactly that length.
         """
         if self.prefix is None:
             return
@@ -409,22 +416,28 @@ class ServeEngine:
         entry = req.prefix_entry
         n = len(entry.tokens)
         for name, c in check_kv_cache(self.cache).items():
-            c[:, slot, :n].copy_(entry.payload[name])
+            snapshot_rows(name, c, slot, n).copy_(entry.payload[name])
         if self.draft is not None:
             self.draft.load(slot, entry.payload["draft"], n)
         self.prefix.release(entry)
         req.prefix_entry = None
 
     def _insert_prefix(self, req: Request, slot: int) -> None:
-        """Snapshot the freshly prefilled prompt KV under its token key.
+        """Snapshot the freshly prefilled prompt KV (and state) under its
+        token key.
 
-        Attention K/V slices to any length, so the entry is keyed at
+        Attention K/V slices to any length, so a K/V-only entry is keyed at
         ``prompt[:-1]``: the longest key :meth:`_lookup_prefix` can ever
         match (it always leaves one suffix token to prefill), which makes an
-        identical resubmission a full hit. Snapshots stay on the device.
+        identical resubmission a full hit. A recurrent ``state`` snapshot is
+        valid only at its exact length, so a state-bearing entry is keyed at
+        the whole prompt and serves only prompts that extend it
+        (``prefix_cache.snapshot_len``). Snapshots stay on the device.
         """
-        n = req.prompt_len - 1
-        payload = {name: c[:, slot, :n].clone()
+        n = snapshot_len(self.cache, req.prompt_len)
+        if n < 1:
+            return
+        payload = {name: snapshot_rows(name, c, slot, n).clone()
                    for name, c in check_kv_cache(self.cache).items()}
         if self.draft is not None:
             payload["draft"] = self.draft.snapshot(slot, n)

@@ -15,11 +15,13 @@ scheduled request depends on cannot vanish between admission and prefill
 (property-tested in ``tests/test_torch_serve_spec.py``).
 
 Payloads are opaque to the cache. The engine stores attention K/V rows
-sliced to the prefix length, and the draft model's KV when speculation is
-on. It looks up ``prompt[:-1]``, so at least one suffix token always
-prefills and the last-token logits are always recomputed. (Recurrent
-SSM/hybrid state, valid only at exactly its inserted length, comes with
-the port's SSM family.)
+sliced to the prefix length, the recurrent SSM/hybrid state whole, and the
+draft model's KV when speculation is on. It looks up ``prompt[:-1]``, so at
+least one suffix token always prefills and the last-token logits are always
+recomputed. K/V slices to any length, so a K/V-only snapshot is keyed at
+``prompt[:-1]`` and an identical resubmission hits it; a state snapshot is
+valid only at exactly its length, so a state-bearing one is keyed at the
+full prompt and serves the prompts that extend it (:func:`snapshot_len`).
 """
 from __future__ import annotations
 
@@ -27,18 +29,39 @@ import itertools
 import threading
 from typing import Any
 
-__all__ = ["PrefixEntry", "RadixPrefixCache", "check_kv_cache"]
+__all__ = ["PrefixEntry", "RadixPrefixCache", "check_kv_cache", "snapshot_len",
+           "snapshot_rows"]
+
+# Cache entries a prefix snapshot takes: attention K/V (L, B, S, Hkv, hd),
+# sliced to the prefix length, and the recurrent SSD state (L, B, H, N, P),
+# which has no sequence axis and is taken whole.
+KV_ENTRIES = ("k", "v")
+STATE_ENTRY = "state"
 
 
 def check_kv_cache(cache: dict) -> dict:
-    """``cache`` itself, if every entry is attention K/V (sliceable to any
-    prefix length). A recurrent ``state`` entry, whose snapshot is valid
-    only at its exact length, is the SSM family's, which the port does not
-    serve yet (ROADMAP Queue 1 item 4)."""
-    if "state" in cache:
-        raise NotImplementedError("prefix snapshots of recurrent SSM state come with "
-                                  "the SSM family (ROADMAP Queue 1 item 4)")
+    """``cache`` itself, if a prefix snapshot knows every entry of it
+    (attention K/V and the recurrent ``state``); a ValueError otherwise."""
+    unknown = sorted(set(cache) - {*KV_ENTRIES, STATE_ENTRY})
+    if unknown:
+        raise ValueError(f"prefix snapshots take {KV_ENTRIES} and {STATE_ENTRY!r}; "
+                         f"the cache also holds {unknown}")
     return cache
+
+
+def snapshot_len(cache: dict, prompt_len: int) -> int:
+    """The key length of a finished prefill's snapshot: the whole prompt
+    when the cache holds recurrent state (valid only at its exact length),
+    else ``prompt_len - 1``, the longest key a lookup of ``prompt[:-1]`` can
+    match."""
+    return prompt_len if STATE_ENTRY in cache else prompt_len - 1
+
+
+def snapshot_rows(name: str, entry, slot: int, n: int):
+    """The view of cache ``entry`` (named ``name``) that a snapshot of
+    ``slot``'s first ``n`` positions takes: K/V sliced to ``n`` positions,
+    the state whole."""
+    return entry[:, slot] if name == STATE_ENTRY else entry[:, slot, :n]
 
 
 class PrefixEntry:

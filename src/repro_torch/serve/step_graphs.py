@@ -186,9 +186,10 @@ def slot_index(slots, batch: int, spare: int) -> tuple[np.ndarray, np.ndarray]:
 
 def rows_step(step_fn, params, cache: dict):
     """A bucket step over slot-cache rows: gather the micro-batch's rows
-    (``gidx``), run ``step_fn(params, rows, tokens, index, [last])`` on
-    them (it writes the rows in place), scatter the rows back (``sidx``).
-    Returns (greedy tokens, logits)."""
+    (``gidx``) of every cache entry (K/V, and the SSD state of the SSM and
+    hybrid families), run ``step_fn(params, rows, tokens, index, [last])``
+    on them (it writes the rows in place), scatter the rows back (``sidx``;
+    pad rows into the spare slot). Returns (greedy tokens, logits)."""
 
     def run(tokens, index, gidx, sidx, last=None):
         rows = {name: c.index_select(1, gidx) for name, c in cache.items()}

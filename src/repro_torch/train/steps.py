@@ -31,6 +31,13 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
     return prefill_step
 
 
+def _length_mask(tokens, last_index):
+    """(B, S) float mask: 1 up to each row's ``last_index``, 0 on the right
+    pad (the SSD mixer zeroes dt there, so the recurrent state is exact)."""
+    steps = torch.arange(tokens.shape[1], device=tokens.device)
+    return (steps[None, :] <= last_index[:, None]).float()
+
+
 def _last_logits(params, cfg: ModelConfig, hidden, last_index):
     """Logits (B, 1, V) of each row's position ``last_index`` (B,): the LM
     head runs on those rows only, so the padded tail never reaches it."""
@@ -42,17 +49,19 @@ def make_serve_prefill_step(cfg: ModelConfig, max_len: int):
     """Prefill for bucketed serving: right-padded prompts, per-row last index.
 
     ``last_index`` (B,) selects each request's true final prompt position
-    before the LM head. A dense decoder needs no length mask: K/V written
-    at pad positions lie above each row's length and are overwritten before
-    decode validity admits them. Returns (logits (B, 1, V), cache) with the
-    cache sized to ``max_len``.
+    before the LM head. K/V written at pad positions lie above each row's
+    length and are overwritten before decode validity admits them; a
+    per-row length mask from ``last_index`` makes the SSM/hybrid recurrent
+    state exact under the right padding (dt = 0 on pad positions). Returns
+    (logits (B, 1, V), cache) with the cache sized to ``max_len``.
     """
 
     @torch.inference_mode()
     def prefill_step(params, tokens, last_index):
         cache = M.init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
         hidden, cache = M.forward(params, cfg, tokens, cache=cache, cache_index=0,
-                                  logits_mode="none")
+                                  logits_mode="none",
+                                  length_mask=_length_mask(tokens, last_index))
         return _last_logits(params, cfg, hidden, last_index), cache
 
     return prefill_step
@@ -65,18 +74,26 @@ def make_chunk_prefill_step(cfg: ModelConfig):
     gathered from the engine's slot cache: positions ``[start, start+S)``
     are written this chunk, and attention validity admits exactly ``kpos <
     start + S`` (earlier chunks plus this one; stale K/V of a slot's
-    previous occupant above that is masked until overwritten). ``start > 0``
-    on a fresh request also covers prefix-cache reuse: the snapshot was
-    copied into the slot first and only the suffix runs. Intermediate
-    chunks are full buckets (``last_index = S-1``); the final chunk is
-    right-padded and ``last_index`` picks each row's true last position for
-    the LM head. Returns (logits (B, 1, V), cache rows).
+    previous occupant above that is masked until overwritten). SSM/hybrid
+    recurrent state carries from chunk to chunk through the cache; it is
+    zeroed here, in place, for first-chunk rows (``start == 0``), since a
+    reused slot may still hold its previous occupant's state, and the
+    length mask keeps the right pad out of it. ``start > 0`` on a fresh
+    request also covers prefix-cache reuse: the snapshot was copied into
+    the slot first and only the suffix runs. Intermediate chunks are full
+    buckets (``last_index = S-1``); the final chunk is right-padded and
+    ``last_index`` picks each row's true last position for the LM head.
+    Returns (logits (B, 1, V), cache rows).
     """
 
     @torch.inference_mode()
     def chunk_step(params, cache, tokens, start, last_index):
+        if "state" in cache:
+            st = cache["state"]
+            st.mul_((start > 0).to(st.dtype).view((1, -1) + (1,) * (st.ndim - 2)))
         hidden, cache = M.forward(params, cfg, tokens, cache=cache, cache_index=start,
-                                  logits_mode="none")
+                                  logits_mode="none",
+                                  length_mask=_length_mask(tokens, last_index))
         return _last_logits(params, cfg, hidden, last_index), cache
 
     return chunk_step

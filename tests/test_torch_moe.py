@@ -486,10 +486,11 @@ def test_eager_expert_ffn_is_the_per_expert_product():
 
 
 def test_family_gate():
-    """The port's model and registry take the dense and MoE families; the
-    next ones raise, naming the queue item that brings them."""
-    ssm = dataclasses.replace(treg.smoke_config("granite_3_2b"), family="ssm", name="x")
-    with pytest.raises(NotImplementedError, match="dense and MoE"):
-        TM.init_params(ssm, 0, device="cpu")
+    """The port's model and registry take the dense, MoE, SSM and hybrid
+    families; the next one still missing (the vision frontend's) raises,
+    naming the queue item that brings it."""
+    vlm = dataclasses.replace(treg.smoke_config("granite_3_2b"), family="vlm", name="x")
+    with pytest.raises(NotImplementedError, match="dense, MoE, SSM and hybrid"):
+        TM.init_params(vlm, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        twl.contraction_set(ssm)
+        twl.contraction_set(vlm)

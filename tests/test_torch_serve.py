@@ -548,3 +548,59 @@ def test_cuda_moe_engine_graphs_match_eager(cuda_device):
             np.testing.assert_allclose(gl, el, rtol=1e-5, atol=1e-5)
     assert +gcounts == +ecounts
     assert gcounts["batched_group_combine"] > 0 and gcounts["batched_fused_gemm_combine_h"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_matches_plain_version(cuda_device, rng):
+    """The SSD scan in forced strassen on the card: its four float32
+    grouped contractions through Combine A and B (#2) and the grouped fused
+    product on the SIMT route (#4), a ragged tail and an init state, against
+    the plain einsum scan (the reference test's atol 2e-3, rtol 1e-3); the
+    decode step's two contractions likewise."""
+    import repro_torch.api as tfalcon
+    from repro_torch.models import ssd
+    from repro_torch.models.ssd_ref import einsum_ssd_scan
+    B, L, H, P, G, N = 2, 45, 4, 16, 2, 16
+    args = [torch.tensor(a, dtype=torch.float32) for a in (
+        rng.standard_normal((B, L, H, P)), np.abs(rng.standard_normal((B, L, H))) * 0.1,
+        np.abs(rng.standard_normal(H)) * 0.5, rng.standard_normal((B, L, G, N)),
+        rng.standard_normal((B, L, G, N)))]
+    s0 = torch.tensor(rng.standard_normal((B, H, N, P)), dtype=torch.float32)
+    K.reset_launch_counts()
+    with tfalcon.use(tfalcon.FalconConfig(mode="strassen")), torch.inference_mode():
+        y, s = ssd.ssd_scan(*(a.to(cuda_device) for a in args), 16,
+                            init_state=s0.to(cuda_device))
+        yd, sd = ssd.ssd_decode_step(*(a[:, :1].to(cuda_device) if a.ndim > 1
+                                       else a.to(cuda_device) for a in args),
+                                     s0.to(cuda_device))
+    counts = K.launch_counts()
+    assert counts["batched_group_combine"] == 12 and counts["batched_fused_gemm_combine_h"] == 6
+    y0, s0_ = einsum_ssd_scan(*args, 16, init_state=s0)
+    torch.testing.assert_close(y.cpu(), y0, atol=2e-3, rtol=1e-3)
+    torch.testing.assert_close(s.cpu(), s0_, atol=2e-3, rtol=1e-3)
+    with tfalcon.use(tfalcon.FalconConfig(mode="gemm")):
+        yd0, sd0 = ssd.ssd_decode_step(*(a[:, :1] if a.ndim > 1 else a for a in args), s0)
+    torch.testing.assert_close(yd.cpu(), yd0, atol=2e-3, rtol=1e-3)
+    torch.testing.assert_close(sd.cpu(), sd0, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2_370m", "hymba_1_5b"])
+def test_cuda_ssm_engine_graphs_match_eager(arch, cuda_device):
+    """The SSM and hybrid smoke configs in forced strassen on the card: the
+    chunk loop, the first-chunk state zeroing and the state's scatter into
+    the spare slot capture with each bucket's step, and the graphs give the
+    eager steps' tokens, logits and launches."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    cfg = dataclasses.replace(smoke_config(arch), falcon_mode="strassen")
+    greqs, gcounts, gsum = _engine_run(cfg, False, cuda_graphs=True)
+    ereqs, ecounts, esum = _engine_run(cfg, False, cuda_graphs=False)
+    assert gsum["cuda_graphs"] and gsum["graphs"] == gsum["warmed_shapes"] > 0
+    assert gsum["bucket_misses"] == esum["bucket_misses"] == 0
+    for g, e in zip(greqs, ereqs):
+        assert g.generated == e.generated
+        for gl, el in zip(g.logits, e.logits):
+            np.testing.assert_allclose(gl, el, rtol=1e-5, atol=1e-5)
+    assert +gcounts == +ecounts
+    assert gcounts["batched_group_combine"] > 0 and gcounts["batched_fused_gemm_combine_h"] > 0

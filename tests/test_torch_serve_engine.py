@@ -393,8 +393,11 @@ def test_engine_validates_like_the_reference():
         tserve.ServeEngine(cfg, device="cpu", mesh_shape={"data": 1, "model": 2})
     with pytest.raises(NotImplementedError, match="frontend"):
         tserve.ServeEngine(types.SimpleNamespace(frontend="vision_patches"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tserve.prefix_cache.check_kv_cache({"k": None, "state": None})
+    # prefix snapshots take K/V and the recurrent SSM state, nothing else
+    cache = {"k": None, "v": None, "state": None}
+    assert tserve.prefix_cache.check_kv_cache(cache) is cache
+    with pytest.raises(ValueError, match="also holds"):
+        tserve.prefix_cache.check_kv_cache({"k": None, "conv": None})
 
 
 # ---------------------------------------------------------------------------
