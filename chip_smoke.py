@@ -64,7 +64,21 @@ timed on torch.matmul and on #2/#4 beside the chunk loop; each arch served
 one-shot (4 x 2048 tokens, 16 new) gemm, auto and forced, held to gemm
 prefix-matched and teacher-forced; and each arch's ServeEngine, auto and
 forced, graphs against eager, then with 16-token chunks and with prefix
-snapshots. Any failure raises, so the exit code is non-zero and the final
+snapshots. Every comparison of one engine run with another (graphs
+against eager, speculation, chunked or prefix-cached prefill against whole
+prompts, and the SSM archs' float32 runs) is made at the model's first 8
+layers (gemma3: 6), while the graphed runs serve at published depth: what
+those comparisons hold does not depend on depth.
+Last, the audio and vlm frontends at full width and published depth:
+musicgen_large (4 x 512 tokens of 4 codebooks, 16 new) in gemm, auto,
+forced strassen (#1/#3 on every projection and each codebook's head, #2/#4
+on attention) and forced strassen with the int8 tier (#6/#7, the
+codebook-stacked B̃q), and pixtral_12b (4 x (1,024 image patches + 512
+tokens), 8 new) in gemm and auto, every call among the kernel cases, each
+run held to gemm prefix-matched and teacher-forced; then musicgen, cut to 4
+layers, served forced, checkpointed, restored to the card and served again
+to the same tokens and logits, and a corrupted payload refused. Any failure
+raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
 """
@@ -78,6 +92,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -99,7 +114,9 @@ from repro_torch.kernels import build, ops, ref, tuning  # noqa: E402
 from repro_torch.kernels.group_combine import launch_plan  # noqa: E402
 from repro_torch.kernels.quant_combine import launch_plan as quant_plan  # noqa: E402
 from repro_torch.kernels.quant_combine import scale_block  # noqa: E402
-from repro_torch.launch.serve import run_oneshot  # noqa: E402
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.core.decision import effective_tflops, predicted_effective_tflops  # noqa: E402
+from repro_torch.launch.serve import oneshot_inputs, run_oneshot  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve.buckets import BucketPolicy, next_pow2  # noqa: E402
@@ -312,17 +329,19 @@ def kernel_cases(l, dtype, gen):
     }
 
 
-# (kernel, input shape) of every launch of #1-#4 that phase_kernels held to
-# its plain version (``kernels.launch_state``'s keys): the MoE phases fail on
-# a launch at any other shape
+# (kernel, input shape) of every launch of #1-#4, #6 and #7 that phases
+# kernels and quant_kernels held to its plain version
+# (``kernels.launch_state``'s keys): the MoE, SSM and frontend phases fail
+# on a launch at any other shape
 CHECKED: set = set()
 COVERED = ("group_combine", "batched_group_combine", "fused_gemm_combine_h",
-           "batched_fused_gemm_combine_h")
+           "batched_fused_gemm_combine_h", "group_combine_quant/shape",
+           "fused_gemm_combine_h_quant")
 
 
 def check_covered(phase: str, state) -> None:
-    """Fail unless every launch of #1-#4 in ``state`` (a
-    ``kernels.launch_state``) was at a shape phase_kernels checked."""
+    """Fail unless every launch of #1-#4, #6 and #7 in ``state`` (a
+    ``kernels.launch_state``) was at a shape the kernel phases checked."""
     miss = sorted(str(k) for k, n in state.items()
                   if isinstance(k, tuple) and k[0] in COVERED and n > 0 and k not in CHECKED)
     if miss:
@@ -397,6 +416,20 @@ def phase_kernels() -> None:
             raise AssertionError(f"{name}/{scheme}/ssm {fields}: error {e} > {tol}")
         worst[name] = max(worst.get(name, 0.0), e)
         seconds[name + "@ssm"] = seconds.get(name + "@ssm", 0.0) + time.perf_counter() - t0
+    # The frontend archs' calls at full width (bf16): musicgen's projections,
+    # codebook heads and attention, pixtral's planned leaves at its prefill
+    for name, scheme, dtype, fields, check in fe_kernel_cases():
+        tol = TOL[dtype]["fused" if "fused" in name else "combine"]
+        t0 = time.perf_counter()
+        a, e, shape = check(gen)
+        n += 1
+        emit("kernel_case", kernel=name, scheme=scheme, dtype=str(dtype), shape=shape,
+             max_abs_err=a, err=e, tol=tol, frontend=fields)
+        if not e <= tol:
+            raise AssertionError(f"{name}/{scheme}/frontend {fields}: error {e} > {tol}")
+        worst[name] = max(worst.get(name, 0.0), e)
+        seconds[name + "@frontend"] = (seconds.get(name + "@frontend", 0.0)
+                                       + time.perf_counter() - t0)
     CHECKED.update(k for k in kernels.launch_state() if isinstance(k, tuple))
     emit("kernels", cases=n, worst_err=worst, seconds=seconds)
 
@@ -535,11 +568,51 @@ def phase_quant_kernels() -> None:
                                          f"{(X, Y, Z, by)}: error {e} > {tol}")
                 wf = worst["fused_gemm_combine_h_quant"]
                 wf[str(dtype)] = max(wf.get(str(dtype), 0.0), e)
+    # musicgen's forced --quant leaves and codebook heads
+    fe = check_fe_quant(gen)
+    n += 2 * len(fe)
+    CHECKED.update(k for k in kernels.launch_state() if isinstance(k, tuple))
     if len(routes) != 4:
         raise AssertionError(f"group_combine_quant: routes by dtype {routes}, expected both "
                              f"routes in both dtypes")
-    emit("quant_kernels", cases=n, worst=worst,
+    emit("quant_kernels", cases=n, worst=worst, frontend_tiles=fe,
          group_combine_quant_routes={f"{r}/{d}": c for (r, d), c in routes.items()})
+
+
+def check_fe_quant(gen) -> list[tuple[int, int, int]]:
+    """Both int8 kernels at every tile (X, Y, Z) musicgen's forced --quant
+    run gives them (bf16, strassen: each leaf and codebook head at prefill
+    and decode), the K-block as its offline B̃q sets it; the quantizing
+    Combine A bit-equal on its vector route. Returns the tiles."""
+    l = alg.get("strassen")
+    fe = sorted({(cdiv(M_, l.m), cdiv(K, l.k), cdiv(N, l.n)) for arch in FE_ARCHS
+                 for kind, scheme, _, M_, K, N in (k for k in fe_launches(arch)
+                                                    if k[0] == "quant")
+                 if scheme == l.name})
+    if not fe:
+        raise AssertionError("quant_kernels: musicgen's --quant run plans no int8 leaf")
+    for X, Y, Z in fe:
+        by = scale_block(Y)
+        kfn, pfn, route = quant_combine_case(l, torch.bfloat16, X, Y, by, gen)
+        got = kfn()
+        torch.cuda.synchronize()
+        dq, flips, ds = check_quant_combine(f"group_combine_quant/frontend/{(X, Y)}", got,
+                                            pfn(), QUANT_EXACT)
+        emit("kernel_case", kernel="group_combine_quant", scheme=l.name,
+             dtype=str(torch.bfloat16), X=X, Y=Y, by=by, route=route, max_dq=dq, flips=flips,
+             scale_err=ds, tol=[QUANT_EXACT["dq"], QUANT_EXACT["scale"]], frontend=True)
+        kfn, pfn = fused_quant_case(l, X, Y, Z, by, torch.bfloat16, gen)
+        got = kfn()
+        torch.cuda.synchronize()
+        a, e = err(got, pfn())
+        emit("kernel_case", kernel="fused_gemm_combine_h_quant", scheme=l.name,
+             dtype=str(torch.bfloat16), X=X, Y=Y, Z=Z, by=by, max_abs_err=a, err=e,
+             tol=QUANT_TOL[torch.bfloat16], frontend=True)
+        if not e <= QUANT_TOL[torch.bfloat16]:
+            raise AssertionError(f"fused_gemm_combine_h_quant/frontend {(X, Y, Z, by)}: "
+                                 f"error {e} > {QUANT_TOL[torch.bfloat16]}")
+        del got
+    return fe
 
 
 # The tiled GEMM's cases (M, K, N): ragged, K unaligned for 16-byte loads in
@@ -909,6 +982,42 @@ def phase_times() -> dict:
                library=lambda: torch._int_mm(a8, b8),
                plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2, by=by)))
     del aq, as_, bq, bs, a8, b8
+    def same_call(name, measured):
+        """``name``'s line: the kernel call ``measured`` timed, the same
+        operands (the same shape, scheme and K-block)."""
+        out[name] = dict(out[measured], same_call_as=measured)
+        emit("time", kernel=name, **out[name])
+
+    # musicgen's codebook heads at decode (forced strassen: one (4, 2048) @
+    # (2048, 2048) per codebook, against the codebook-stacked B̃): Combine A
+    # (#1) and the quantizing Combine A (#6) are the calls of a K = 2048
+    # leaf at decode, timed above; the fused product (#3) and, with --quant,
+    # the int8 product (#7) against the stacked B̃q
+    d, Vp, rows = 2048, 2048, 4
+    X, Y, Z = rows // 2, d // 2, Vp // 2
+    a = randn(rows, d, dtype=bf, gen=gen)
+    same_call("group_combine@codebook_head", "group_combine@decode_a")
+    at = kernels.group_combine(a, l.U)
+    bt = randn(l.R, Y, Z, dtype=bf, gen=gen)
+    record("fused_gemm_combine_h@codebook_head",
+           lambda: kernels.fused_gemm_combine_h(at, bt, l.W),
+           lambda: ref.fused_gemm_combine_h_ref(at, bt, l.W),
+           2.0 * l.R * X * Y * Z, (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx, (rows, d, Vp, 1),
+           plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2)))
+    by = scale_block(Y)
+    bq, bs = kernels.quantize_b_blockwise(randn(d, Vp, dtype=bf, gen=gen), l.V, by)
+    same_call("group_combine_quant@codebook_head", "group_combine_quant@decode")
+    aq, as_ = kernels.group_combine_quant(a, l.U, by)
+    a8 = torch.randint(-127, 128, (24, d), device=DEV, generator=gen, dtype=torch.int8)
+    b8 = torch.randint(-127, 128, (Vp, d), device=DEV, generator=gen, dtype=torch.int8).t()
+    record("fused_gemm_combine_h_quant@codebook_head",
+           lambda: kernels.fused_gemm_combine_h_quant(aq, as_, bq, bs, l.W, out_dtype=bf),
+           lambda: ref.fused_gemm_combine_h_quant_ref(aq, as_, bq, bs, l.W, bf),
+           2.0 * l.R * X * Y * Z,
+           l.R * (X * Y + Y * Z) + 4 * l.R * (X + Z) * (Y // by) + 4 * X * Z * it, fq,
+           (rows, d, Vp, 1), library=lambda: torch._int_mm(a8, b8),
+           plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2, by=by)))
+    del a, at, bt, bq, bs, aq, as_, a8, b8
     # The tune phase's Combine A + int8 probe on its 4096^2 input (probe 3):
     # X = Y = 2048, by 128, bound by bytes
     a = randn(4096, 4096, dtype=bf, gen=gen)
@@ -1056,7 +1165,8 @@ def serve(phase: str, cfg, params, quantize: bool = False, batch: int = BATCH,
          logits_finite=finite, sample=tok[0].tolist())
     if not finite or logits.shape[-1] != M.padded_vocab(cfg):
         raise AssertionError(f"{phase}: logits not finite or of the wrong width")
-    if tok.shape != (batch, gen) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
+    codebooks = (cfg.num_codebooks,) if cfg.frontend == "audio_codebooks" else ()
+    if tok.shape != (batch, gen, *codebooks) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
         raise AssertionError(f"{phase}: tokens out of range: {tok}")
     return res, counts
 
@@ -1096,8 +1206,9 @@ def quality(phase: str, q: list, fp: list, vocab: int) -> float:
 
 def logit_error(q: list, fp: list, vocab: int) -> tuple[float, int, float]:
     """(largest prefix-matched relative logit error, steps compared, share
-    of equal tokens) of ``q`` against ``fp``, as :func:`quality` reads them."""
-    row = lambda x: torch.as_tensor(x)[:vocab].float().cpu()  # noqa: E731
+    of equal tokens) of ``q`` against ``fp``, as :func:`quality` reads them.
+    An audio step's logits (CB, Vp) are compared over every codebook."""
+    row = lambda x: torch.as_tensor(x)[..., :vocab].float().cpu()  # noqa: E731
     worst, compared, same, total = 0.0, 0, 0, 0
     for (q_tok, q_lg), (f_tok, f_lg) in zip(q, fp, strict=True):
         scale = max(row(lg).abs().max().item() for lg in f_lg)
@@ -1340,6 +1451,55 @@ def engine_run(name: str, cfg, params, requests, cuda_graphs: bool, quantize: bo
     return out
 
 
+# Graphs against eager (and chunked or prefix-cached against whole prefill)
+# at the first layers: what these comparisons hold does not depend on the
+# depth, and eager steps at published depth took most of the engine phases'
+# time
+TWIN_LAYERS = 8
+
+
+def twin_depth(cfg) -> int:
+    """TWIN_LAYERS, in whole periods of the layer pattern (gemma3: 6)."""
+    p = cfg.global_every or 1
+    return min(cfg.num_layers, max(p, TWIN_LAYERS - TWIN_LAYERS % p))
+
+
+def cut_depth(cfg, params, layers: int):
+    """``cfg`` and ``params`` cut to their first ``layers`` layers (the
+    stacked leaves sliced, no copy)."""
+    def take(t):
+        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) else t[:layers]
+    return dataclasses.replace(cfg, num_layers=layers), {**params, "layers": take(params["layers"])}
+
+
+def twin_check(name: str, cfg, params, requests, quantize: bool = False) -> dict:
+    """The engine of ``cfg`` at its first :func:`twin_depth` layers, every
+    bucket's step a CUDA graph and the same engine eager: identical tokens,
+    logits within the bf16 TOL, equal launch counts and (SSM, hybrid) the
+    real slots' recurrent state bit-equal. Returns the two runs (graphs,
+    eager)."""
+    c, p = cut_depth(cfg, params, twin_depth(cfg))
+    tag = f"{name}@{c.num_layers}L"
+    graph, eager = (engine_run(tag, c, p, requests, g, quantize, profile=False)
+                    for g in (True, False))
+    same = all(g[0] == e[0] for g, e in zip(graph["outputs"], eager["outputs"]))
+    diff = max(err(torch.as_tensor(np.stack(g[1])), torch.as_tensor(np.stack(e[1])))[1]
+               for g, e in zip(graph["outputs"], eager["outputs"]))
+    same_state = graph["slot_state"] is None or torch.equal(graph["slot_state"],
+                                                             eager["slot_state"])
+    emit("serve_engine_check", config=tag, layers=c.num_layers, identical_tokens=same,
+         max_logit_err=diff, tol=TOL[torch.bfloat16]["fused"], slot_state_bit_equal=same_state,
+         launches_equal=graph["state"] == eager["state"],
+         n_precombined=graph["summary"]["precombined_weights"],
+         decode_speedup=eager["summary"]["t_decode"] / graph["summary"]["t_decode"])
+    if not same or not same_state or not diff <= TOL[torch.bfloat16]["fused"] \
+            or graph["state"] != eager["state"]:
+        raise AssertionError(f"serve_engine/{tag}: graphs and eager differ (identical tokens "
+                             f"{same}, slot state bit-equal {same_state}, logit error {diff}, "
+                             f"launches {dict(graph['state'])} vs {dict(eager['state'])})")
+    return graph, eager
+
+
 def profile_engine(name: str, engine, requests) -> None:
     """Where a decode step of the engine goes: 8 requests (full budgets)
     admitted and prefilled, then 4 decode steps under torch.profiler
@@ -1398,13 +1558,14 @@ def phase_serve_engine() -> dict:
     """The continuous-batching ServeEngine on full granite_3_2b, bf16, random
     weights from seed 0, 16 ragged requests: forced strassen fp, forced
     strassen int8 (``--quant``) and auto mode fp, each with every bucket's
-    step a CUDA graph and eagerly (``cuda_graphs=False``). The two give
-    identical tokens, logits within the bf16 TOL, and equal launch counts
-    (the graphs' counted at capture, added per replay); each is held to the
-    one-shot fp run of the same requests. Then speculation (γ = 2, identity
-    draft) with the prefix cache and 16-token prefill chunks, graphs on,
-    serving the requests twice, held to the plain forced engine. Returns
-    the launch counts of each graph run."""
+    step a CUDA graph, held to the one-shot fp run of the same requests;
+    then each at the model's first TWIN_LAYERS layers with graphs and
+    eagerly (``cuda_graphs=False``), which give identical tokens, logits
+    within the bf16 TOL, and equal launch counts (the graphs' counted at
+    capture, added per replay: :func:`twin_check`). Then, at those layers,
+    speculation (γ = 2, identity draft) with the prefix cache and 16-token
+    prefill chunks, graphs on, serving the requests twice, held to the
+    plain forced engine. Returns the launch counts of each graph run."""
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     base = get_config("granite_3_2b")
@@ -1415,22 +1576,8 @@ def phase_serve_engine() -> dict:
     counts, plain_forced = {}, None
     for name, cfg, quantize in (("forced_fp", forced, False), ("forced_int8", forced, True),
                                 ("auto_fp", base, False)):
-        runs = {g: engine_run(name, cfg, params, requests, g, quantize)
-                for g in (True, False)}
-        graph, eager = runs[True], runs[False]
-        same = all(g[0] == e[0] for g, e in zip(graph["outputs"], eager["outputs"]))
-        diff = max(err(torch.as_tensor(np.stack(g[1])), torch.as_tensor(np.stack(e[1])))[1]
-                   for g, e in zip(graph["outputs"], eager["outputs"]))
-        emit("serve_engine_check", config=name, identical_tokens=same,
-             max_logit_err=diff, tol=TOL[torch.bfloat16]["fused"],
-             launches_equal=graph["state"] == eager["state"],
-             decode_speedup=eager["summary"]["t_decode"] / graph["summary"]["t_decode"])
-        if not same or not diff <= TOL[torch.bfloat16]["fused"]:
-            raise AssertionError(f"serve_engine/{name}: graphs and eager steps differ "
-                                 f"(identical tokens {same}, logit error {diff})")
-        if graph["state"] != eager["state"]:
-            raise AssertionError(f"serve_engine/{name}: launches differ: graphs "
-                                 f"{dict(graph['state'])}, eager {dict(eager['state'])}")
+        graph = engine_run(name, cfg, params, requests, True, quantize)
+        twin, _ = twin_check(name, cfg, params, requests, quantize)
         want = () if cfg.falcon_mode == "auto" else ENGINE_FP_KERNELS + (
             ("group_combine_quant", "fused_gemm_combine_h_quant") if quantize else ())
         if min((graph["counts"][k] for k in want), default=1) <= 0:
@@ -1439,16 +1586,18 @@ def phase_serve_engine() -> dict:
         quality(f"serve_engine/{name}", graph["outputs"], fp_ref, base.vocab_size)
         counts[name] = graph["counts"]
         if name == "forced_fp":
-            plain_forced = graph["outputs"]
-        del runs, graph, eager
-    spec = engine_run("forced_fp_spec", forced, params, requests, True, passes=2,
-                      **ENGINE_SPEC)
+            plain_forced = twin["outputs"]
+        del graph, twin
+    # speculation against the plain engine, at the first layers
+    cut, cut_params = cut_depth(forced, params, twin_depth(forced))
+    spec = engine_run(f"forced_fp_spec@{cut.num_layers}L", cut, cut_params, requests, True,
+                      passes=2, profile=False, **ENGINE_SPEC)
     s = spec["summary"]
     if s["prefix_hits"] != ENGINE_REQUESTS or not s["acceptance_rate"] > 0:
         raise AssertionError(f"serve_engine/forced_fp_spec: {s['prefix_hits']} prefix hits, "
                              f"acceptance rate {s['acceptance_rate']}")
     quality("serve_engine/forced_fp_spec", spec["outputs"], plain_forced * 2, base.vocab_size)
-    del params, spec
+    del params, cut_params, spec
     gc.collect()
     torch.cuda.empty_cache()
     # what the phase leaves allocated (a cuBLAS workspace per stream it ran
@@ -1632,21 +1781,22 @@ def free_memory() -> None:
 
 
 def forced_logits(cfg, params, batch: int, prompt: int, tokens: torch.Tensor,
-                  seed: int = 0) -> list:
+                  seed: int = 0, quantize: bool = False) -> list:
     """``cfg``'s one-shot serve of :func:`serve`'s prompts (``run_oneshot``'s
-    steps and draw from ``seed``) with every decode step fed the next token
-    of ``tokens`` (batch, gen) instead of its own: the last-position logits
-    of the prefill and of each decode step, each (batch, Vp) on the host."""
-    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (batch, prompt)), device=DEV)
-    prefill = make_prefill_step(cfg, max_len=prompt + tokens.shape[1])
+    steps and draw from ``seed``: an audio model's codebook tokens, a vlm's
+    patches) with every decode step fed the next token of ``tokens`` (batch,
+    gen[, CB]) instead of its own: the last-position logits of the prefill
+    and of each decode step, each (batch[, CB], Vp) on the host."""
+    prompts, patches, pos0 = oneshot_inputs(cfg, batch, prompt, seed, DEV)
+    prefill = make_prefill_step(cfg, max_len=pos0 + tokens.shape[1])
     decode = make_decode_step(cfg)
-    with falcon.use(M.falcon_config_for(cfg)), torch.inference_mode():
+    fcfg = dataclasses.replace(M.falcon_config_for(cfg), quantize=quantize)
+    with falcon.use(fcfg), torch.inference_mode():
         p, _ = falcon.precombine_params(params, m_hint=batch * prompt)
-        logits, cache = prefill(p, prompts)
+        logits, cache = prefill(p, prompts, patches)
         out = [logits[:, -1].float().cpu()]
         for i in range(tokens.shape[1] - 1):
-            logits, _ = decode(p, cache, tokens[:, i:i + 1].to(DEV), prompt + i)
+            logits, _ = decode(p, cache, tokens[:, i:i + 1].to(DEV), pos0 + i)
             out.append(logits[:, -1].float().cpu())
     return out
 
@@ -1654,11 +1804,11 @@ def forced_logits(cfg, params, batch: int, prompt: int, tokens: torch.Tensor,
 def forced_err(forced: list, fp: dict, vocab: int) -> float:
     """The largest logit error of a teacher-forced run against the fp run
     whose tokens it was fed, over every step of every request, relative to
-    that request's largest fp logit."""
+    that request's largest fp logit (an audio step's over every codebook)."""
     worst = 0.0
     for b in range(fp["tokens"].shape[0]):
-        f = torch.stack([lg[b, :vocab].float().cpu() for lg in fp["logits"]])
-        q = torch.stack([lg[b, :vocab] for lg in forced])
+        f = torch.stack([lg[b][..., :vocab].float().cpu() for lg in fp["logits"]])
+        q = torch.stack([lg[b][..., :vocab] for lg in forced])
         worst = max(worst, ((q - f).abs().max() / f.abs().max()).item())
     return worst
 
@@ -1752,36 +1902,22 @@ def phase_serve_archs() -> None:
 
 def phase_serve_engine_archs() -> None:
     """One ServeEngine per new arch at its published depth, auto mode: the
-    16 requests of phase serve_engine, every bucket's step a CUDA graph, and
-    the same engine eager; identical tokens, logits within the bf16 TOL,
-    equal launch counts, no plan-cache miss after warm (both checked in
-    :func:`engine_run`). The buckets' M is at most 8 x 64 = 512 rows, where
-    auto mode plans every leaf on GEMM: no B̃ is held."""
+    16 requests of phase serve_engine, every bucket's step a CUDA graph, no
+    plan-cache miss after warm (:func:`engine_run`); then graphs against
+    eager at the first layers (:func:`twin_check`). The buckets' M is at
+    most 8 x 64 = 512 rows, where auto mode plans every leaf on GEMM: no B̃
+    is held."""
     for arch in NEW_ARCHS:
         cfg = get_config(arch)
         free_memory()
         params = M.init_params(cfg, 0, DEV)
         requests = engine_requests(cfg.vocab_size)
-        runs = {g: engine_run(f"{arch}/auto_fp", cfg, params, requests, g, profile=g)
-                for g in (True, False)}
-        graph, eager = runs[True], runs[False]
-        same = all(g[0] == e[0] for g, e in zip(graph["outputs"], eager["outputs"]))
-        diff = max(err(torch.as_tensor(np.stack(g[1])), torch.as_tensor(np.stack(e[1])))[1]
-                   for g, e in zip(graph["outputs"], eager["outputs"]))
-        emit("serve_engine_check", config=f"{arch}/auto_fp", identical_tokens=same,
-             max_logit_err=diff, tol=TOL[torch.bfloat16]["fused"],
-             launches_equal=graph["state"] == eager["state"],
-             n_precombined=graph["summary"]["precombined_weights"],
-             decode_speedup=eager["summary"]["t_decode"] / graph["summary"]["t_decode"])
-        if not same or not diff <= TOL[torch.bfloat16]["fused"] \
-                or graph["state"] != eager["state"]:
-            raise AssertionError(f"serve_engine/{arch}: graphs and eager steps differ "
-                                 f"(identical tokens {same}, logit error {diff}, launches "
-                                 f"{dict(graph['state'])} vs {dict(eager['state'])})")
+        graph = engine_run(f"{arch}/auto_fp", cfg, params, requests, True)
+        twin_check(f"{arch}/auto_fp", cfg, params, requests)
         if graph["summary"]["precombined_weights"]:
             raise AssertionError(f"serve_engine/{arch}: {graph['summary']['precombined_weights']}"
                                  f" leaves planned at the buckets' M")
-        del params, runs, graph, eager
+        del params, graph
         free_memory()
 
 
@@ -1901,6 +2037,16 @@ def phase_leaf_lcma() -> None:
         emit("leaf_lcma", M=LEAF_M, K=K, N=N, scheme=scheme, users=users,
              predicted_speedup={"fused": d.speedup, "unfused": du.gemm_seconds / est_u.time},
              measured_speedup={p: ms["matmul"]["ms"] / ms[p]["ms"] for p in ("cuda", "torch")},
+             # the paper's metric, 2MNK / t, measured and as the Decision
+             # Module predicts it on the data sheet (h100_sxm)
+             effective_tflops={p: effective_tflops(LEAF_M, N, K, ms[p]["ms"] / 1e3)
+                               for p in paths},
+             predicted_effective_tflops={
+                 "matmul": predicted_effective_tflops(None, LEAF_M, N, K, H100_SXM),
+                 "cuda": predicted_effective_tflops(l, LEAF_M, N, K, H100_SXM,
+                                                    precombined_b=True),
+                 "torch": predicted_effective_tflops(l, LEAF_M, N, K, H100_SXM,
+                                                     precombined_b=True, fused=False)},
              ms={p: t["ms"] for p, t in ms.items()}, source={p: t["source"] for p, t in ms.items()},
              matmul_bound_ms=bms, matmul_bound_by=by, errors=errs, tol=TOL[bf]["fused"],
              fused_plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, l.m, l.n)),
@@ -2543,30 +2689,43 @@ def ssm_contexts() -> list[tuple[int, int, int, bool, int]]:
     return sorted(out)
 
 
-def ssm_launches(cfg, mode: str) -> set[tuple]:
-    """Every product of ``cfg``'s SSM phases that runs an LCMA under
+def planned_launches(cfg, mode: str, contexts, quantize: bool = False) -> set[tuple]:
+    """Every product of ``cfg`` at the call ``contexts`` ((batch, tokens per
+    row, cache length, decode, m_hint) each) that runs an LCMA under
     ``mode`` ("auto" on h100_sxm, or a forced scheme), decided as
-    ``core.engine`` dispatches it: a grouped contraction (attention, the
-    SSD scan and decode step) by plan_batched in the dtype it runs in (the
-    SSD ones float32); the tied LM head by plan, its Combine B at every
-    call; a static leaf planned at its run's m_hint, then re-decided at the
-    call's rows restricted to its scheme; forced, phase ssd_layer's raw
-    projections with their Combine B. Keys: ("grouped", scheme, dtype,
-    G, M, K, N), ("dense", scheme, dtype, M, K, N, runtime Combine B) and
-    ("stack", scheme, dtype, layers, K, N), a leaf's offline Combine B."""
-    fcfg = falcon.FalconConfig(mode=mode)
+    ``core.engine`` dispatches it: a grouped contraction (attention, over
+    512-query chunks past 512 queries; the SSD scan and decode step) by
+    plan_batched in the dtype it runs in (the SSD ones float32); the tied LM
+    head by plan, its Combine B at every call; a static leaf (an untied
+    audio head: one per codebook, its stack CB deep) planned at its run's
+    m_hint, then re-decided at the call's rows restricted to its scheme,
+    under ``quantize`` on the int8 pipeline where its decision quantizes
+    (a forced scheme: always), its B̃q combined offline one slice at a
+    time. Keys: ("grouped", scheme, dtype, G, M, K, N), ("dense", scheme,
+    dtype, M, K, N, runtime Combine B), ("stack", scheme, dtype, layers, K,
+    N) (a leaf's offline Combine B), ("quant", scheme, dtype, M, K, N) (#6
+    and #7) and ("offline_b", scheme, dtype, K, N) (a slice's Combine B on
+    the way to its B̃q)."""
+    fcfg = falcon.FalconConfig(mode=mode, quantize=quantize)
+    audio = cfg.frontend == "audio_codebooks"
     out = set()
-    for batch, seq, kv, decode, hint in ssm_contexts():
-        for c in workloads.resolve_contractions(cfg, batch, seq, kv_len=kv, decode=decode):
+    for batch, seq, kv, decode, hint in contexts:
+        calls = [(c, cfg.num_layers) for c in workloads.resolve_contractions(
+            cfg, batch, seq, kv_len=kv, decode=decode)
+            if not (audio and c.role == "lm_head")]
+        if audio:       # one (d, Vp) head per codebook, on each row's last position
+            calls.append((workloads.Contraction("dense", "lm_head", batch, cfg.d_model,
+                                                M.padded_vocab(cfg)), cfg.num_codebooks))
+        for c, layers in calls:
             dtype = "float32" if c.kind in workloads.F32_KINDS else cfg.dtype
             if c.group > 1:
                 m = c.m
-                if c.kind == "attention" and not decode and seq > FLASH_Q:
+                if c.kind == "attention" and not decode and c.m > FLASH_Q:
                     m = FLASH_Q
                 d = falcon.plan_batched(c.group, m, c.k, c.n, fcfg, dtype, shared_b=c.shared_b)
                 if d.use_lcma:
                     out.add(("grouped", d.algo.name, dtype, c.group, m, c.k, c.n))
-            elif c.role == "lm_head":
+            elif c.role == "lm_head" and cfg.tie_embeddings:
                 d = falcon.plan(c.m, c.k, c.n, fcfg, dtype)
                 if d.use_lcma:
                     out.add(("dense", d.algo.name, dtype, c.m, c.k, c.n, True))
@@ -2574,13 +2733,27 @@ def ssm_launches(cfg, mode: str) -> set[tuple]:
                 d = falcon.plan(hint, c.k, c.n, fcfg, dtype, precombined_b=True)
                 if not d.use_lcma:
                     continue
-                out.add(("stack", d.algo.name, dtype, cfg.num_layers, c.k, c.n))
-                if mode != d.algo.name and not falcon.plan(
-                        c.m, c.k, c.n, dataclasses.replace(fcfg, mode="auto",
-                                                           candidates=(d.algo.name,)),
-                        dtype, precombined_b=True).use_lcma:
-                    continue
-                out.add(("dense", d.algo.name, dtype, c.m, c.k, c.n, False))
+                out.add(("stack", d.algo.name, dtype, layers, c.k, c.n))
+                if quantize:
+                    out.add(("offline_b", d.algo.name, dtype, c.k, c.n))
+                int8 = quantize
+                if mode != d.algo.name:
+                    dd = falcon.plan(c.m, c.k, c.n, dataclasses.replace(
+                        fcfg, mode="auto", candidates=(d.algo.name,)), dtype,
+                        precombined_b=True)
+                    if not dd.use_lcma:
+                        continue
+                    int8 = quantize and dd.quantized
+                out.add(("quant", d.algo.name, dtype, c.m, c.k, c.n) if int8 else
+                        ("dense", d.algo.name, dtype, c.m, c.k, c.n, False))
+    return out
+
+
+def ssm_launches(cfg, mode: str) -> set[tuple]:
+    """:func:`planned_launches` at the SSM phases' contexts
+    (:func:`ssm_contexts`); forced, also phase ssd_layer's raw projections
+    with their Combine B."""
+    out = planned_launches(cfg, mode, ssm_contexts())
     if mode != "auto" and cfg.dtype == "bfloat16":
         # phase ssd_layer's mixer holds its projections raw: Combine B at each call
         for c in workloads.contraction_set(cfg):
@@ -2589,17 +2762,15 @@ def ssm_launches(cfg, mode: str) -> set[tuple]:
     return out
 
 
-def ssm_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
+def launch_kernel_cases(arch_keys: dict[str, set]) -> list[tuple]:
     """(kernel, scheme, dtype, shape fields, check) of every call of #1-#4
-    the SSM phases make, auto mode and forced strassen, both archs in bf16
-    and in SSM_HELD (:func:`ssm_launches`), each padded shape and dtype
-    once: the SSD contractions' Combine A and B (#2) and grouped product
-    (#4) in float32 at the served groups (B x n_chunks x H at a prefill,
-    B x H at a decode step, the state update's K = 1 padded to 2), hymba's
-    attention, Combine A (#1) and the fused product (#3) of each planned
-    projection, the tied LM head's Combine B at every call, and each
-    planned leaf's offline Combine B over its layer stack. Each check
-    returns (max abs error, error as :func:`err`, shape)."""
+    that the keys of :func:`planned_launches` (per arch) name, each padded
+    shape and dtype once: Combine A and B (#2) and the grouped product (#4)
+    of a grouped contraction, Combine A (#1) and the fused product (#3) of
+    a planned product, a runtime Combine B (#1), a leaf's offline Combine B
+    over its stack (#2) and, on the way to a B̃q, one slice's (#1). The
+    int8 kernels' keys are phase_quant_kernels'. Each check returns (max
+    abs error, error as :func:`err`, shape)."""
     out, seen = [], set()
 
     def add(name, key, l, dt, fields, check):
@@ -2607,20 +2778,23 @@ def ssm_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
             seen.add((name, key))
             out.append((name, l.name, dt, fields, check))
 
-    for arch in SSM_ARCHS:
-        keys = set()
-        for dtype in ("bfloat16", SSM_HELD):
-            cfg = dataclasses.replace(get_config(arch), dtype=dtype)
-            keys |= ssm_launches(cfg, "auto") | ssm_launches(cfg, "strassen")
+    for arch, keys in arch_keys.items():
         for key in sorted(keys, key=str):
             kind, scheme = key[:2]
             l = alg.get(scheme)
             fields = {"arch": arch, kind: list(key[2:])}
             dt = getattr(torch, key[2])
+            if kind == "quant":
+                continue
             if kind == "stack":
                 G, K, N = key[3:]
                 add("batched_group_combine", key, l, dt, fields,
                     functools.partial(check_stacked_combine, l, G, K, N, dtype=dt))
+                continue
+            if kind == "offline_b":
+                K, N = key[3:]
+                add("group_combine", (scheme, key[2], "V", cdiv(K, l.k), cdiv(N, l.n)), l, dt,
+                    fields, checked(functools.partial(combine_case, l, dt, (K, N), "V")))
                 continue
             if kind == "grouped":
                 G, M_, K, N = key[3:]
@@ -2644,6 +2818,27 @@ def ssm_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
             add("fused_gemm_combine_h", (scheme, key[2], X, Y, Z), l, dt, fields,
                 checked(functools.partial(fused_case, l, dt, X, Y, Z)))
     return out
+
+
+def ssm_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
+    """:func:`launch_kernel_cases` of every call of #1-#4 the SSM phases
+    make, auto mode and forced strassen, both archs in bf16 and in SSM_HELD
+    (:func:`ssm_launches`; SSM_HELD at the first layers): the SSD contractions' Combine A and B (#2) and
+    grouped product (#4) in float32 at the served groups (B x n_chunks x H
+    at a prefill, B x H at a decode step, the state update's K = 1 padded
+    to 2), hymba's attention, Combine A (#1) and the fused product (#3) of
+    each planned projection, the tied LM head's Combine B at every call,
+    and each planned leaf's offline Combine B over its layer stack."""
+    arch_keys = {}
+    for arch in SSM_ARCHS:
+        keys = set()
+        for dtype in ("bfloat16", SSM_HELD):
+            cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+            if dtype == SSM_HELD:       # served at the first layers
+                cfg = dataclasses.replace(cfg, num_layers=twin_depth(cfg))
+            keys |= ssm_launches(cfg, "auto") | ssm_launches(cfg, "strassen")
+        arch_keys[arch] = keys
+    return launch_kernel_cases(arch_keys)
 
 
 def ssd_decisions(cfg) -> dict[str, str]:
@@ -2791,8 +2986,9 @@ def phase_serve_ssm() -> dict:
     step (``profile_ssm``). ``serve_ssm_sensitivity``: gemm on the same
     weights in float32, teacher-forced on the bf16 gemm run's tokens,
     against it: what bf16 rounding alone moves the logits by. Then the
-    three again on the weights in SSM_HELD (float32), auto and forced held
-    to gemm within QUALITY_TOL, prefix-matched and teacher-forced. Every
+    three again on the weights in SSM_HELD (float32), at the first layers
+    (:func:`twin_depth`), auto and forced held to gemm within QUALITY_TOL,
+    prefix-matched and teacher-forced. Every
     launch is at a shape phase_kernels checked. Returns the bf16 forced
     mamba2 run's launches of #1-#4 at prefill and decode (#2 and #4's are
     all SSD contractions)."""
@@ -2817,7 +3013,7 @@ def phase_serve_ssm() -> dict:
             runs[name] = res
             if name == "forced":
                 path = {k: res["launches"]["prefill"][k] + res["launches"]["decode"][k]
-                        for k in COVERED}
+                        for k in ENGINE_FP_KERNELS}
                 if min(path.values()) <= 0:
                     raise AssertionError(f"serve_ssm/{arch}/forced: a kernel of the path "
                                          f"never launched: {path}")
@@ -2844,6 +3040,8 @@ def phase_serve_ssm() -> dict:
         emit("serve_ssm_sensitivity", arch=arch, bf16_vs_f32_rel_logit_err=sens,
              tol=QUALITY_TOL)
         del params, runs
+        # the held runs at the first layers
+        gemm_held, held_params = cut_depth(gemm_held, held_params, twin_depth(gemm_held))
         free_memory()
         runs = {}
         for name, mode in modes:
@@ -2945,15 +3143,16 @@ def phase_serve_engine_ssm() -> None:
     """The continuous-batching ServeEngine on each SSM and hybrid arch at
     published width and depth (seed 0), the 16 requests of phase
     serve_engine over 8 slots. In bf16, the published dtype: auto mode and
-    forced strassen, each with every bucket's step a CUDA graph and
-    eagerly: identical tokens, logits within the bf16 TOL, the real slots'
-    recurrent state bit-equal, equal launch counts, no plan-cache miss after
-    warm (:func:`engine_run`); each compared with the same requests served
-    one at a time through the one-shot steps with every product on
+    forced strassen, each with every bucket's step a CUDA graph, no
+    plan-cache miss after warm (:func:`engine_run`). The comparisons run at
+    the first layers (:func:`twin_depth`): each mode with graphs and
+    eagerly (:func:`twin_check`: the real slots' recurrent state
+    bit-equal too), the graphs' outputs compared with the same requests
+    served one at a time through the one-shot steps with every product on
     torch.matmul (:func:`oneshot_reference` in gemm mode, the fp
-    reference), prefix-matched, printed (SSM_HELD). Then on the weights in
+    reference), prefix-matched, printed (SSM_HELD); then on the weights in
     SSM_HELD (float32), graphs on: auto and forced, each held to that
-    dtype's one-shot within QUALITY_TOL, prefix-matched, and auto with
+    dtype's one-shot within QUALITY_TOL, prefix-matched; and auto with
     16-token chunked prefill (the recurrent state carried from chunk to
     chunk through the slot cache) and with the prefix cache
     (:func:`prefix_run`), each held to the plain auto engine within
@@ -2965,56 +3164,45 @@ def phase_serve_engine_ssm() -> None:
         free_memory()
         params = M.init_params(base, 0, DEV)
         requests = engine_requests(vocab)
-        one = oneshot_reference(dataclasses.replace(base, falcon_mode="gemm"), params, requests)
+        cut, cut_params = cut_depth(base, params, twin_depth(base))
+        layers = cut.num_layers
+        one = oneshot_reference(dataclasses.replace(cut, falcon_mode="gemm"), cut_params,
+                                requests)
         for name, mode in (("auto", "auto"), ("forced", "strassen")):
             cfg = dataclasses.replace(base, falcon_mode=mode)
-            runs = {g: engine_run(f"{arch}/{name}", cfg, params, requests, g, profile=g)
-                    for g in (True, False)}
-            graph, eager = runs[True], runs[False]
-            check_covered(f"serve_engine/{arch}/{name}", eager["state"])
-            same = all(g[0] == e[0] for g, e in zip(graph["outputs"], eager["outputs"]))
-            diff = max(err(torch.as_tensor(np.stack(g[1])), torch.as_tensor(np.stack(e[1])))[1]
-                       for g, e in zip(graph["outputs"], eager["outputs"]))
-            same_state = torch.equal(graph["slot_state"], eager["slot_state"])
-            emit("serve_engine_check", config=f"{arch}/{name}", identical_tokens=same,
-                 max_logit_err=diff, tol=TOL[torch.bfloat16]["fused"],
-                 slot_state_bit_equal=same_state,
-                 launches_equal=graph["state"] == eager["state"], layers=cfg.num_layers,
-                 n_precombined=graph["summary"]["precombined_weights"],
-                 decode_speedup=eager["summary"]["t_decode"] / graph["summary"]["t_decode"])
-            if not same or not same_state or not diff <= TOL[torch.bfloat16]["fused"] \
-                    or graph["state"] != eager["state"]:
-                raise AssertionError(f"serve_engine/{arch}/{name}: graphs and eager differ "
-                                     f"(identical tokens {same}, slot state bit-equal "
-                                     f"{same_state}, logit error {diff}, launches "
-                                     f"{dict(graph['state'])} vs {dict(eager['state'])})")
-            if name == "forced" and min(graph["counts"][k] for k in COVERED) <= 0:
+            graph = engine_run(f"{arch}/{name}", cfg, params, requests, True)
+            check_covered(f"serve_engine/{arch}/{name}", graph["state"])
+            if name == "forced" and min(graph["counts"][k] for k in ENGINE_FP_KERNELS) <= 0:
                 raise AssertionError(f"serve_engine/{arch}/forced: a kernel of the path never "
                                      f"launched: {graph['counts']}")
-            engine_vs(f"serve_engine/{arch}/{name}/oneshot", graph["outputs"], one, vocab,
-                      gated=False)
-            del runs, graph, eager
+            del graph
+            twin, eager = twin_check(f"{arch}/{name}", cfg, params, requests)
+            check_covered(f"serve_engine/{arch}/{name}/twins", eager["state"])
+            engine_vs(f"serve_engine/{arch}/{name}@{layers}L/oneshot", twin["outputs"], one,
+                      vocab, gated=False)
+            del twin, eager
             free_memory()
-        held = dataclasses.replace(base, dtype=SSM_HELD)
-        p = as_dtype(params, SSM_HELD)
-        del params, one
+        # in SSM_HELD: auto and forced against the one-shot, chunked and
+        # prefix-cached prefill against plain auto
+        held, p = dataclasses.replace(cut, dtype=SSM_HELD), as_dtype(cut_params, SSM_HELD)
+        del params, cut_params, one
         one = oneshot_reference(dataclasses.replace(held, falcon_mode="gemm"), p, requests)
         plain = None
         for name, mode in (("auto", "auto"), ("forced", "strassen")):
-            tag = f"{arch}/{name}_{SSM_HELD}"
+            tag = f"{arch}/{name}_{SSM_HELD}@{layers}L"
             run_ = engine_run(tag, dataclasses.replace(held, falcon_mode=mode), p, requests,
                               True, profile=False)
             check_covered(f"serve_engine/{tag}", run_["state"])
             engine_vs(f"serve_engine/{tag}/oneshot", run_["outputs"], one, vocab, gated=True)
             plain = plain or run_["outputs"]
             del run_
-        chunked = engine_run(f"{arch}/auto_{SSM_HELD}_chunked", held, p, requests, True,
-                             profile=False, prefill_chunk=ENGINE_SPEC["prefill_chunk"])
+        chunked = engine_run(f"{arch}/auto_{SSM_HELD}_chunked@{layers}L", held, p, requests,
+                             True, profile=False, prefill_chunk=ENGINE_SPEC["prefill_chunk"])
         check_covered(f"serve_engine/{arch}/auto_{SSM_HELD}_chunked", chunked["state"])
-        prefix = prefix_run(f"{arch}/auto_{SSM_HELD}_prefix", held, p, requests)
+        prefix = prefix_run(f"{arch}/auto_{SSM_HELD}_prefix@{layers}L", held, p, requests)
         for tag, run_ in (("chunked", chunked), ("prefix", prefix)):
-            engine_vs(f"serve_engine/{arch}/auto_{SSM_HELD}_{tag}", run_["outputs"], plain,
-                      vocab, gated=True)
+            engine_vs(f"serve_engine/{arch}/auto_{SSM_HELD}_{tag}@{layers}L", run_["outputs"],
+                      plain, vocab, gated=True)
         del p, chunked, prefix, plain, one
         free_memory()
 
@@ -3030,6 +3218,249 @@ def engine_vs(what: str, got: list, want: list, vocab: int, gated: bool) -> None
     if gated and (compared < len(got) or not worst <= QUALITY_TOL):
         raise AssertionError(f"{what}: logit error {worst} over {compared} steps "
                              f"(tolerance {QUALITY_TOL})")
+
+
+# ---------------------------------------------------------------------------
+# The audio and vlm frontends (musicgen_large, pixtral_12b), and checkpoints
+# ---------------------------------------------------------------------------
+
+FE_ARCHS = ("musicgen_large", "pixtral_12b")
+# One-shot (batch, text tokens, new tokens): musicgen's tokens carry its 4
+# codebooks; pixtral's text follows 1,024 image patches, 4 x 1,536 = 6,144
+# prefill rows
+FE_SERVE = {"musicgen_large": (4, 512, 16), "pixtral_12b": (4, 512, 8)}
+# (run, mode, int8 tier): forced strassen on pixtral would hold ~43 GB of B̃
+# beside its 24 GB of weights, so it serves gemm and auto only
+FE_RUNS = {"musicgen_large": (("gemm", "gemm", False), ("auto", "auto", False),
+                              ("forced", "strassen", False), ("forced_int8", "strassen", True)),
+           "pixtral_12b": (("gemm", "gemm", False), ("auto", "auto", False))}
+CKPT_LAYERS = 4         # phase checkpoint: musicgen at full width, cut to 4 layers
+CKPT_DIR = os.path.join(ROOT, "build", "checkpoint")
+
+
+def fe_contexts(cfg) -> list[tuple[int, int, int, bool, int]]:
+    """(batch, tokens per row, cache length, decode, m_hint) of every call
+    a frontend arch's one-shot serves make: the prefill and the decode
+    steps against its cache (patches + text + new tokens), for the measured
+    serve and its 2-token warm-up. ``m_hint``: the text rows, which the
+    launcher prices its offline Combine B at."""
+    b, s, gen = FE_SERVE[cfg.name]
+    patches = cfg.num_patches if cfg.frontend == "vision_patches" else 0
+    return sorted({(b, n, patches + s + g, n == 1, b * s) for n in (s, 1) for g in (gen, 2)})
+
+
+def fe_launches(arch: str) -> set[tuple]:
+    """:func:`planned_launches` of every run of phase serve_frontends and,
+    for musicgen, of phase checkpoint."""
+    base = get_config(arch)
+    out = set()
+    for _, mode, quant in FE_RUNS[arch]:
+        if mode != "gemm":
+            out |= planned_launches(base, mode, fe_contexts(base), quantize=quant)
+    if arch == "musicgen_large":
+        cut = dataclasses.replace(base, num_layers=CKPT_LAYERS)
+        out |= planned_launches(cut, "strassen", fe_contexts(cut))
+    return out
+
+
+def fe_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
+    """:func:`launch_kernel_cases` of the frontend phases' calls of #1-#4:
+    musicgen's projections and codebook heads (#1, #3; the heads' offline
+    Combine B over the codebook stack, #2), its attention over 4 x 32
+    groups (#2, #4), each leaf's offline Combine B over the layers (#2)
+    and, under --quant, each slice's (#1); pixtral's planned leaves at its
+    6,144-row prefill."""
+    return launch_kernel_cases({arch: fe_launches(arch) for arch in FE_ARCHS})
+
+
+def fe_leaves(cfg, hint: int, quantize: bool = False) -> dict[str, tuple[int, int, object]]:
+    """:func:`planned_leaves`, with an audio arch's codebook head (a static
+    leaf, planned at ``hint`` as the others)."""
+    out = planned_leaves(cfg, hint)
+    if cfg.frontend == "audio_codebooks":
+        K, N = cfg.d_model, M.padded_vocab(cfg)
+        fcfg = dataclasses.replace(M.falcon_config_for(cfg), quantize=quantize)
+        d = falcon.plan(hint, K, N, fcfg, cfg.dtype, precombined_b=True)
+        if d.use_lcma:
+            out["lm_head"] = (K, N, d)
+    return out
+
+
+def fe_decisions(cfg, hint: int, rows: int, batch: int, quantize: bool) -> dict:
+    """Each leaf's decision (and the tied head's): planned at ``hint``
+    rows, and as the dispatch re-decides it at the prefill's ``rows`` and
+    at a decode step's ``batch`` rows."""
+    fcfg = dataclasses.replace(M.falcon_config_for(cfg), quantize=quantize)
+    out = {}
+    for path, (K, N) in arch_leaves(cfg, lm_head=True).items():
+        if path == "lm_head" and cfg.tie_embeddings:
+            out[path] = {f"M={m}": describe(falcon.plan(m, K, N, fcfg, cfg.dtype))
+                         for m in (batch, rows)}
+            continue
+        d = falcon.plan(hint, K, N, fcfg, cfg.dtype, precombined_b=True)
+        out[path] = {"planned": describe(d)}
+        if d.use_lcma and cfg.falcon_mode == "auto":
+            re = dataclasses.replace(fcfg, mode="auto", candidates=(d.algo.name,))
+            out[path].update({f"M={m}": describe(falcon.plan(m, K, N, re, cfg.dtype,
+                                                             precombined_b=True))
+                              for m in (batch, rows)})
+    return out
+
+
+def phase_serve_frontends() -> dict:
+    """The audio and vlm archs at full width and published depth, bf16,
+    random weights from seed 0, served one-shot (FE_SERVE), each run after
+    a 2-token warm-up serve: musicgen_large (48 layers, 4 x 512 tokens of 4
+    codebooks, 16 new) in gemm mode (every product on torch.matmul, the
+    reference), auto, forced strassen (#1/#3 on every projection and each
+    codebook's head, #2/#4 on attention) and forced strassen with the int8
+    tier (#6/#7 on every projection and head, the codebook-stacked B̃q);
+    pixtral_12b (40 layers, 4 x (1,024 patches + 512 text), 8 new) in gemm
+    and auto. Each run prints its times, peak bytes, each leaf's decision
+    and its launches; each non-gemm run is held to gemm within
+    QUALITY_TOL, prefix-matched and teacher-forced on gemm's tokens, over
+    all codebooks. Every launch of #1-#4, #6 and #7 is at a shape the
+    kernel phases checked. Returns the forced runs' launches of #1/#3 and
+    #6/#7 (the ``@codebook_head`` entries of the kernels line)."""
+    fe_counts = {}
+    for arch in FE_ARCHS:
+        base = get_config(arch)
+        batch, prompt, gen = FE_SERVE[arch]
+        patches = base.num_patches if base.frontend == "vision_patches" else 0
+        rows, hint, vocab = batch * (patches + prompt), batch * prompt, base.vocab_size
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        params = M.init_params(base, 0, DEV)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        emit("serve_frontends_weights", arch=arch, layers=base.num_layers, weight_bytes=held,
+             init_transient_bytes=torch.cuda.max_memory_allocated() - before - held,
+             frontend=base.frontend, prefill_rows=rows)
+        runs = {}
+        for name, mode, quant in FE_RUNS[arch]:
+            cfg = dataclasses.replace(base, falcon_mode=mode)
+            planned = {path: describe(d) for path, (_, _, d)
+                       in fe_leaves(cfg, hint, quant).items()} if mode != "gemm" else {}
+            kernels.reset_launch_counts()
+            run_oneshot(cfg, batch=batch, prompt_len=prompt, gen=2, seed=0, device=DEV,
+                        params=params, quantize=quant)
+            check_covered(f"serve_frontends/{arch}/{name}/warm-up", kernels.launch_state())
+            free_memory()
+            res, counts = serve("serve_frontends", cfg, params, quantize=quant, batch=batch,
+                                prompt=prompt, gen=gen, config=name, planned=planned,
+                                prefill_rows=rows,
+                                decisions=fe_decisions(cfg, hint, rows, batch, quant))
+            check_covered(f"serve_frontends/{arch}/{name}", kernels.launch_state())
+            runs[name] = res
+            if mode == "gemm" and (res["n_precombined"] or sum(counts.values())):
+                raise AssertionError(f"serve_frontends/{arch}/gemm: precombined "
+                                     f"{res['n_precombined']}, launches {counts}")
+            if mode != "gemm" and res["n_precombined"] != len(planned):
+                raise AssertionError(f"serve_frontends/{arch}/{name}: {res['n_precombined']} "
+                                     f"leaves precombined, the pricing names {planned}")
+            want = {"forced": ENGINE_FP_KERNELS,
+                    "forced_int8": ("batched_group_combine", "batched_fused_gemm_combine_h",
+                                    "group_combine_quant", "fused_gemm_combine_h_quant"),
+                    "auto": ("group_combine", "fused_gemm_combine_h") if planned else ()}
+            if min((counts[k] for k in want.get(name, ())), default=1) <= 0:
+                raise AssertionError(f"serve_frontends/{arch}/{name}: a kernel of the path "
+                                     f"never launched: {counts}")
+            if arch == "musicgen_large" and name in ("forced", "forced_int8"):
+                fe_counts.update({k: counts[k] for k in want[name]})
+            if mode != "gemm":
+                err_ = quality(f"serve_frontends/{arch}/{name}", per_request(res),
+                               per_request(runs["gemm"]), vocab)
+                free_memory()
+                kernels.reset_launch_counts()
+                forced = forced_err(forced_logits(cfg, params, batch, prompt,
+                                                  runs["gemm"]["tokens"], quantize=quant),
+                                    runs["gemm"], vocab)
+                check_covered(f"serve_frontends/{arch}/{name}/teacher_forced",
+                              kernels.launch_state())
+                emit("serve_frontends_vs_gemm", arch=arch, config=name, rel_logit_err=err_,
+                     forced_rel_logit_err=forced, steps_compared=batch * gen,
+                     tol=QUALITY_TOL, prefill_ms=res["timings"]["prefill_ms"],
+                     gemm_prefill_ms=runs["gemm"]["timings"]["prefill_ms"],
+                     prefill_speedup=runs["gemm"]["timings"]["prefill_ms"]
+                     / res["timings"]["prefill_ms"],
+                     decode_ms_per_step=res["timings"]["decode_ms_per_step"],
+                     gemm_decode_ms_per_step=runs["gemm"]["timings"]["decode_ms_per_step"])
+                if not forced <= QUALITY_TOL:
+                    raise AssertionError(f"serve_frontends/{arch}/{name}: teacher-forced "
+                                         f"logit error against gemm {forced} > {QUALITY_TOL}")
+                runs.pop(name)
+            del res
+            free_memory()
+        del params, runs
+        free_memory()
+    return fe_counts
+
+
+def phase_checkpoint() -> None:
+    """musicgen_large at full width, cut to CKPT_LAYERS layers (bf16, seed
+    0), served forced one-shot as phase serve_frontends serves it, saved
+    with the port's ``save_checkpoint`` (manifest + npz, bf16 as uint16, a
+    sha256 of the payload, an atomic rename), its weights freed, restored
+    to the card and served again: the same tokens and bit-equal logits at
+    every step. Then one flipped byte of the payload must fail the restore's
+    integrity check."""
+    base = dataclasses.replace(get_config("musicgen_large"), num_layers=CKPT_LAYERS,
+                               falcon_mode="strassen")
+    batch, prompt, gen = FE_SERVE[base.name]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    free_memory()
+    params = M.init_params(base, 0, DEV)
+    first, _ = serve("checkpoint_serve", base, params, batch=batch, prompt=prompt, gen=gen,
+                     config="before_save")
+    check_covered("checkpoint/before_save", kernels.launch_state())
+    t0 = time.perf_counter()
+    path = save_checkpoint(CKPT_DIR, 1, params, extra={"arch": base.name})
+    t_save = time.perf_counter() - t0
+    # the structure alone names the keys: the weights leave the card first
+    like = strip(params)
+    del params
+    free_memory()
+    t0 = time.perf_counter()
+    restored, step, extra = restore_checkpoint(CKPT_DIR, like, device=DEV)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    if step != 1 or extra != {"arch": base.name} or strip(restored) != like:
+        raise AssertionError(f"checkpoint: restored step {step}, extra {extra}, dtypes "
+                             f"{strip(restored)}")
+    second, _ = serve("checkpoint_serve", base, restored, batch=batch, prompt=prompt, gen=gen,
+                      config="restored")
+    check_covered("checkpoint/restored", kernels.launch_state())
+    same_tokens = torch.equal(first["tokens"], second["tokens"])
+    same_logits = all(torch.equal(a, b) for a, b in zip(first["logits"], second["logits"],
+                                                         strict=True))
+    del restored, first, second
+    free_memory()
+    npz = os.path.join(path, "arrays.npz")
+    size = os.path.getsize(npz)
+    with open(npz, "r+b") as f:
+        f.seek(size // 2)
+        byte = f.read(1)[0]
+        f.seek(size // 2)
+        f.write(bytes([byte ^ 0xFF]))
+    try:
+        restore_checkpoint(CKPT_DIR, like, device="cpu")
+        detected = False
+    except IOError as e:
+        detected = "integrity" in str(e)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit("checkpoint", arch=base.name, layers=base.num_layers, payload_bytes=size,
+         save_s=t_save, restore_s=t_restore, identical_tokens=same_tokens,
+         identical_logits=same_logits, corruption_detected=detected)
+    if not (same_tokens and same_logits and detected):
+        raise AssertionError(f"checkpoint: identical tokens {same_tokens}, logits "
+                             f"{same_logits}, corruption detected {detected}")
+
+
+def strip(tree):
+    """The nested dict's structure, each tensor replaced by its dtype (a leaf
+    that names a key, as ``restore_checkpoint`` reads it)."""
+    return {k: strip(v) if isinstance(v, dict) else v.dtype for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3193,6 +3624,8 @@ def main() -> None:
     run(phase_ssd_layer)
     ssd_counts = run(phase_serve_ssm)
     run(phase_serve_engine_ssm)
+    fe_counts = run(phase_serve_frontends)
+    run(phase_checkpoint)
     emit("total", seconds=time.perf_counter() - t0, phases=phases)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
@@ -3215,7 +3648,17 @@ def main() -> None:
          "max_abs_err": times[k]["max_abs_err"], "ms": times[k]["ms"],
          "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
          "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"]}
-        for k in ("batched_group_combine@ssd", "batched_fused_gemm_combine_h@ssd")]}))
+        for k in ("batched_group_combine@ssd", "batched_fused_gemm_combine_h@ssd")] + [
+        # musicgen's codebook heads at decode (forced strassen, and --quant),
+        # launches from serve_frontends
+        {"name": k, "route": "cuda", "source": SOURCES[k.split("@")[0]],
+         "replaces": REPLACES[k.split("@")[0]], "launches": fe_counts[k.split("@")[0]],
+         "max_abs_err": times[k]["max_abs_err"], "ms": times[k]["ms"],
+         "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
+         "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"]}
+        for k in ("group_combine@codebook_head", "fused_gemm_combine_h@codebook_head",
+                  "group_combine_quant@codebook_head",
+                  "fused_gemm_combine_h_quant@codebook_head")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

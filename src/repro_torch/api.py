@@ -12,24 +12,52 @@
     with falcon.use(falcon.FalconConfig(quantize=True)):    # the int8 tier
         pw = falcon.plan_weight(w, m_hint=256)   # also bakes int8 B̃q + scales
         y = falcon.dense(x, pw)                  # int8 where the decision says
+
+    eng = falcon.FalconEngine(falcon.FalconConfig(mode="gemm"))  # a pinned config
+    y = eng.dense(x, w)
+
+Compatibility forms (``falcon_matmul(a, b, cfg)`` / ``falcon_dense(x, w,
+cfg)`` with an explicit config) keep working.
 """
 from __future__ import annotations
 
 from repro_torch.core.backends import (Backend, available_backends, get_backend,
                                        register_backend, unregister_backend)
-from repro_torch.core.engine import (PlannedWeight, active_config,
+from repro_torch.core.engine import (FalconEngine, PlannedWeight, active_config,
                                      current_config, dense, dot_general, einsum,
-                                     grouped_matmul, matmul, plan_weight,
-                                     precombine_params, use)
-from repro_torch.core.falcon_gemm import (FalconConfig, matmul_with_precombined,
-                                          plan, plan_batched, precombine_weights)
+                                     grouped_expert_shapes, grouped_matmul, matmul,
+                                     plan_weight, precombine_params, projection_shapes,
+                                     use, warm_buckets)
+from repro_torch.core.falcon_gemm import (FalconConfig, falcon_dense, falcon_matmul,
+                                          grouped_matmul_with_precombined,
+                                          matmul_with_precombined, plan, plan_batched,
+                                          precombine_weights)
+from repro_torch.core.workloads import (Contraction, ContractionSpec, contraction_set,
+                                        dense_projection_shapes, grouped_moe_shapes,
+                                        resolve_contractions)
 
+# The reference's names minus those of work still to come: training
+# (plan_training, backward_shapes, refresh_planned_params) and multi-device
+# (plan_sharded).
 __all__ = [
-    "use", "current_config", "active_config", "FalconConfig",
+    # context-scoped config
+    "use", "current_config", "active_config", "FalconConfig", "FalconEngine",
+    # dispatch entry points
     "dense", "matmul", "dot_general", "einsum", "plan",
-    "grouped_matmul", "plan_batched",
+    # grouped batched dispatch (group-parallel execution)
+    "grouped_matmul", "plan_batched", "grouped_expert_shapes",
+    "grouped_matmul_with_precombined",
+    # precombined weights (offline Combine B)
     "PlannedWeight", "plan_weight", "precombine_params",
     "precombine_weights", "matmul_with_precombined",
+    # workload registry (config -> contraction set -> warm plan)
+    "ContractionSpec", "Contraction", "contraction_set",
+    "resolve_contractions", "dense_projection_shapes", "grouped_moe_shapes",
+    # bucket pre-planning (continuous-batching serve path)
+    "warm_buckets", "projection_shapes",
+    # backend registry
     "Backend", "register_backend", "unregister_backend", "get_backend",
     "available_backends",
+    # compatibility forms
+    "falcon_matmul", "falcon_dense",
 ]

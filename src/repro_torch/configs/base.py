@@ -5,15 +5,14 @@ import dataclasses
 
 __all__ = ["ModelConfig", "FAMILIES"]
 
-# The model families the port runs; the reference's audio and vision
-# frontends (families "audio", "vlm") are still to come.
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# The model families the port runs: all of the reference's.
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # the port runs dense | moe | ssm | hybrid
+    family: str                     # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -36,6 +35,10 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_groups: int = 1
     ssm_chunk: int = 256
+    # modality frontends (stubs: precomputed embeddings, as in the reference)
+    frontend: str = ""              # "" | "audio_codebooks" | "vision_patches"
+    num_codebooks: int = 4
+    num_patches: int = 1024
     # numerics
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6

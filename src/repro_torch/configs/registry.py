@@ -6,10 +6,10 @@ import importlib
 
 from .base import ModelConfig
 
-# Only what the port runs (the dense, MoE, SSM and hybrid families); the
-# reference zoo also lists the audio and vision frontends.
+# The reference zoo's ten archs, in its order.
 ARCH_IDS = ["hymba_1_5b", "gemma3_27b", "granite_3_2b", "starcoder2_15b",
-            "mistral_nemo_12b", "kimi_k2_1t", "dbrx_132b", "mamba2_370m"]
+            "mistral_nemo_12b", "kimi_k2_1t", "dbrx_132b", "mamba2_370m",
+            "musicgen_large", "pixtral_12b"]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}
 
@@ -53,6 +53,7 @@ def smoke_config(arch: str) -> ModelConfig:
         ssm_head_dim=16 if full.ssm_heads else 64,
         ssm_groups=1,
         ssm_chunk=8,
+        num_patches=8,
         dtype="float32",
         falcon_mode=full.falcon_mode,
     )

@@ -18,8 +18,9 @@ __all__ = ["params_from_numpy"]
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """Nested dict of numpy arrays -> the same tree of tensors on ``device``
-    in ``cfg.dtype``: ``embed (Vp, d)``, stacked ``layers/{ln1, attn/w_q..,
-    ln2, mlp/..}``, ``final_norm``. Arrays of any float type (bf16 ones
+    in ``cfg.dtype``: ``embed (Vp, d)`` (audio: ``(CB, Vp, d)``, and its
+    ``lm_head (CB, d, Vp)``), stacked ``layers/{ln1, attn/w_q.., ln2,
+    mlp/..}``, ``final_norm``; any leaf keeps its shape. Arrays of any float type (bf16 ones
     included) go through float32 on the way. The leaves the reference keeps
     in float32 whatever the model's dtype (the SSD mixer's ``ssm_A``,
     ``ssm_D``, ``ssm_dt_bias``) stay float32."""

@@ -40,7 +40,8 @@ __all__ = ["StageCost", "LCMAEstimate", "Decision", "GroupedDecision",
            "eq8_is_memory_bound", "eq10_profitable",
            "gemm_time_batched", "estimate_grouped",
            "decide_batched", "batched_is_memory_bound",
-           "estimate_quant", "estimate_grouped_quant"]
+           "estimate_quant", "estimate_grouped_quant", "effective_tflops",
+           "predicted_effective_tflops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,6 +235,21 @@ def estimate(l: LCMA, M: int, N: int, K: int, hw: HardwareProfile | str,
 def lcma_time(l: LCMA, M: int, N: int, K: int, hw: HardwareProfile, **kw) -> float:
     """Predicted seconds of one LCMA application (the sum of its stages)."""
     return estimate(l, M, N, K, hw, **kw).time
+
+
+def effective_tflops(M: int, N: int, K: int, seconds: float) -> float:
+    """The paper's metric: 2MNK / time. An LCMA can exceed the card's peak."""
+    return 2.0 * M * N * K / seconds / 1e12
+
+
+def predicted_effective_tflops(l: LCMA | None, M: int, N: int, K: int,
+                               hw: HardwareProfile | str, dtype: str = "bfloat16",
+                               **kw) -> float:
+    """:func:`effective_tflops` at the predicted time of ``l`` (GEMM if
+    None) on ``hw``; ``kw`` goes to :func:`estimate`."""
+    t = gemm_time(M, N, K, hw, dtype) if l is None else \
+        lcma_time(l, M, N, K, _resolve_hw(hw), dtype=dtype, **kw)
+    return effective_tflops(M, N, K, t)
 
 
 def eq10_profitable(l: LCMA, M: int, N: int, K: int, hw: HardwareProfile | str,

@@ -27,6 +27,7 @@ import contextlib
 import contextvars
 import dataclasses
 import math
+import warnings
 
 import torch
 
@@ -36,7 +37,8 @@ from .lcma import LCMA
 
 __all__ = ["use", "current_config", "active_config", "config_scope",
            "matmul", "dense", "dot_general", "einsum", "grouped_matmul",
-           "PlannedWeight", "plan_weight", "precombine_params", "warm_buckets"]
+           "PlannedWeight", "plan_weight", "precombine_params", "warm_buckets",
+           "projection_shapes", "grouped_expert_shapes", "FalconEngine"]
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +246,27 @@ def precombine_params(params, cfg: FalconConfig | None = None,
 
 def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
+
+
+def projection_shapes(arch) -> list[tuple[int, int]]:
+    """Deprecated shim: the (K, N) dense-projection shapes of ``arch``; use
+    ``workloads.dense_projection_shapes`` (or ``contraction_set`` /
+    ``resolve_contractions``), the one source of a model's contractions."""
+    warnings.warn(
+        "falcon.projection_shapes is deprecated; use "
+        "repro_torch.core.workloads.dense_projection_shapes / contraction_set "
+        "(the workload registry) instead", DeprecationWarning, stacklevel=2)
+    return workloads.dense_projection_shapes(arch)
+
+
+def grouped_expert_shapes(arch, m_tokens: int) -> list[tuple[int, int, int, int]]:
+    """Deprecated shim: the grouped (E, C, K, N) MoE contractions of
+    ``arch`` at ``m_tokens`` rows; use ``workloads.grouped_moe_shapes``."""
+    warnings.warn(
+        "falcon.grouped_expert_shapes is deprecated; use "
+        "repro_torch.core.workloads.grouped_moe_shapes (the workload registry) "
+        "instead", DeprecationWarning, stacklevel=2)
+    return workloads.grouped_moe_shapes(arch, m_tokens)
 
 
 def _warm_contraction(c, cfg: FalconConfig, dtype: str, pre_algos: dict,
@@ -587,3 +610,63 @@ def _einsum_dimension_numbers(subscripts: str, a_ndim: int, b_ndim: int):
     natural = list(batch) + a_free + b_free   # dot_general output order
     perm = tuple(natural.index(c) for c in out)
     return dn, perm
+
+
+# ---------------------------------------------------------------------------
+# The engine object: a bound config + the dispatch surface
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FalconEngine:
+    """A FalconConfig bound to the dispatch surface.
+
+    The module-level functions resolve their config from the ambient
+    context; an engine pins one, for a service that juggles several
+    hardware or policy profiles at once:
+
+        eng = FalconEngine(FalconConfig(mode="strassen"))
+        y = eng.dense(x, w)
+        with eng.activate():     # or make it the ambient config
+            y = dense(x, w)
+
+    The reference's ``plan_training`` comes with the training slice.
+    """
+
+    config: FalconConfig = dataclasses.field(default_factory=FalconConfig)
+
+    def activate(self):
+        return use(self.config)
+
+    def plan(self, M: int, K: int, N: int, dtype: str = "bfloat16",
+             precombined_b: bool = False):
+        return plan(M, K, N, self.config, dtype, precombined_b=precombined_b)
+
+    def matmul(self, a, b):
+        return matmul(a, b, cfg=self.config)
+
+    def dense(self, x, w):
+        return dense(x, w, cfg=self.config)
+
+    def dot_general(self, a, b, dimension_numbers):
+        return dot_general(a, b, dimension_numbers, cfg=self.config)
+
+    def grouped_matmul(self, a, b):
+        return grouped_matmul(a, b, cfg=self.config)
+
+    def plan_batched(self, B: int, M: int, K: int, N: int,
+                     dtype: str = "bfloat16", precombined_b: bool = False,
+                     shared_b: bool = False):
+        return plan_batched(B, M, K, N, self.config, dtype,
+                            precombined_b=precombined_b, shared_b=shared_b)
+
+    def einsum(self, subscripts, *operands):
+        return einsum(subscripts, *operands, cfg=self.config)
+
+    def plan_weight(self, w, **kw):
+        return plan_weight(w, cfg=self.config, **kw)
+
+    def precombine_params(self, params, **kw):
+        return precombine_params(params, cfg=self.config, **kw)
+
+    def warm_buckets(self, arch, buckets, **kw):
+        return warm_buckets(self.config, arch, buckets, **kw)

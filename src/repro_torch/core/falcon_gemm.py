@@ -28,7 +28,7 @@ log = logging.getLogger(__name__)
 
 __all__ = ["FalconConfig", "plan", "plan_batched", "precombine_weights",
            "matmul_with_precombined", "grouped_matmul_generated",
-           "grouped_matmul_with_precombined"]
+           "grouped_matmul_with_precombined", "falcon_matmul", "falcon_dense"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,3 +316,18 @@ def grouped_matmul_with_precombined(a3: torch.Tensor, bt: torch.Tensor, l: LCMA,
     at = gen.combine_a(ap)
     c = gen.stages["combine_h"](_grouped_h(at, bt.to(at.dtype)), a3.dtype)
     return c[:, :M, :n_logical]
+
+
+def falcon_matmul(a: torch.Tensor, b, cfg: FalconConfig | None = None) -> torch.Tensor:
+    """``a @ b`` with FalconGEMM dispatch, ``a`` (..., M, K), ``b`` (K, N) or
+    a ``PlannedWeight``: the compatibility form of ``engine.matmul`` with an
+    explicit config (``cfg=None`` resolves the context's)."""
+    from . import engine
+    return engine.matmul(a, b, cfg=cfg)
+
+
+def falcon_dense(x: torch.Tensor, w, cfg: FalconConfig | None = None) -> torch.Tensor:
+    """Linear layer contraction ``x (..., K) @ w (K, N)``: the compatibility
+    form of ``engine.dense`` with an explicit config."""
+    from . import engine
+    return engine.dense(x, w, cfg=cfg)

@@ -164,9 +164,7 @@ def _model_specs(cfg) -> list[ContractionSpec]:
     SSM family, the SSD block for the SSM and hybrid ones."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the port's registry lists the dense, MoE, SSM and hybrid "
-            f"families (got {cfg.family!r}; the audio and vision frontends come next, "
-            "ROADMAP Queue 1 item 4)")
+            f"{cfg.name}: unknown family {cfg.family!r}; the registry lists {FAMILIES}")
     d, fam = cfg.d_model, cfg.family
     specs: list[ContractionSpec] = []
     heads = cfg.num_heads
@@ -219,6 +217,7 @@ def _model_specs(cfg) -> list[ContractionSpec]:
             ContractionSpec("ssd_decode", "ssd.readout", "one", "ssd_state",
                             "ssd_head_dim", group="ssd_decode_groups", **act),
         ]
+    # the lm head: audio runs one per codebook, each of this same (d, Vp) shape
     vp = -(-cfg.vocab_size // 256) * 256   # padded vocab (models.model.padded_vocab)
     specs.append(ContractionSpec("dense", "lm_head", "logit_tokens", d, vp))
     return specs
@@ -253,29 +252,33 @@ def _shape_env(cfg, batch: int, seq: int, *, kv_len=None, decode=False,
     γ+1 draft-scoring rows and the lm head runs on every one of them
     (``logit_tokens = batch * seq`` instead of ``batch``).
     """
-    env: dict = {"one": 1, "tokens": batch * seq, "batch": batch, "seq": seq}
+    # a vlm sequence counts its image patches beside the text; a decode step
+    # carries none (the reference counts them there too)
+    patches = cfg.num_patches if cfg.frontend == "vision_patches" and not decode else 0
+    S = seq + patches
+    env: dict = {"one": 1, "tokens": batch * S, "batch": batch, "seq": S}
     if decode:
-        env["attn_q"], env["attn_kv"] = 1, (kv_len or seq)
+        env["attn_q"], env["attn_kv"] = 1, (kv_len or S)
     elif kv_len is not None:
-        env["attn_q"], env["attn_kv"] = seq, kv_len
+        env["attn_q"], env["attn_kv"] = S, kv_len
     else:
-        flash = seq > _FLASH_Q_CHUNK and seq % _FLASH_Q_CHUNK == 0
-        env["attn_q"] = _FLASH_Q_CHUNK if flash else seq
-        env["attn_kv"] = seq
+        flash = S > _FLASH_Q_CHUNK and S % _FLASH_Q_CHUNK == 0
+        env["attn_q"] = _FLASH_Q_CHUNK if flash else S
+        env["attn_kv"] = S
     env["attn_groups"] = batch * cfg.num_heads
     env["head_dim"] = cfg.resolved_head_dim
     if kv_len is not None or decode:
-        env["logit_tokens"] = batch * seq if spec_verify else batch
+        env["logit_tokens"] = batch * S if spec_verify else batch
     else:
         cx = min(_XENT_CHUNK, seq)
         while cx > 1 and seq % cx:
             cx -= 1
         env["logit_tokens"] = batch * cx
     if getattr(cfg, "num_experts", 0):
-        env["capacity"] = layer_capacity(cfg, batch * seq)
+        env["capacity"] = layer_capacity(cfg, batch * S)
         env["experts"] = cfg.num_experts
     if getattr(cfg, "ssm_heads", 0):
-        n_chunks = max(1, -(-seq // cfg.ssm_chunk))
+        n_chunks = max(1, -(-S // cfg.ssm_chunk))
         env.update(ssd_chunk=cfg.ssm_chunk, ssd_state=cfg.ssm_state,
                    ssd_head_dim=cfg.ssm_head_dim, ssd_groups=batch * n_chunks * cfg.ssm_heads,
                    ssd_decode_groups=batch * cfg.ssm_heads)

@@ -23,6 +23,8 @@ def reset_launch_counts() -> None:
     group_combine_quant.routes = dict.fromkeys(group_combine_quant.routes, 0)
     group_combine.shapes.clear()
     batched_group_combine.shapes.clear()
+    group_combine_quant.shapes.clear()
+    fused_gemm_combine_h_quant.shapes.clear()
     fused_gemm_combine_h.shapes.clear()
     batched_fused_gemm_combine_h.shapes.clear()
 
@@ -36,15 +38,20 @@ _SUBCOUNTS = {"tiled_matmul": lambda: tiled_matmul.routes,
               "group_combine": lambda: group_combine.shapes,
               "batched_group_combine": lambda: batched_group_combine.shapes,
               "fused_gemm_combine_h": lambda: fused_gemm_combine_h.shapes,
-              "batched_fused_gemm_combine_h": lambda: batched_fused_gemm_combine_h.shapes}
+              "batched_fused_gemm_combine_h": lambda: batched_fused_gemm_combine_h.shapes,
+              "group_combine_quant/shape": lambda: group_combine_quant.shapes,
+              "fused_gemm_combine_h_quant": lambda: fused_gemm_combine_h_quant.shapes}
 
 
 def launch_state() -> Counter:
     """Every launch counter in one Counter: each kernel's launches under its
     name, and under ``(name, route or input shape)`` the tiled GEMM's and
     the quantizing Combine A's launches by route, Group Combine's (2-D and
-    batched) by input shape and the fused kernel's (2-D and batched) by its
-    operands' shapes. ``launch_state() - before`` is what ran since ``before``."""
+    batched) by input shape, the fused kernel's (2-D and batched) by its
+    operands' shapes, and the int8 kernels' by their operands' shapes and
+    K-block (the quantizing Combine A's under ``"group_combine_quant/shape"``,
+    its routes keeping its own name). ``launch_state() - before`` is what
+    ran since ``before``."""
     state = Counter(launch_counts())
     for name, sub in _SUBCOUNTS.items():
         state.update({(name, k): n for k, n in sub().items()})

@@ -27,6 +27,8 @@ tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
@@ -95,6 +97,7 @@ def group_combine_quant(x: torch.Tensor, coeff: np.ndarray,
     build.check(lib, err, "group_combine_quant")
     group_combine_quant.launches += 1
     group_combine_quant.routes[plan.route] += 1
+    group_combine_quant.shapes[(tuple(x.shape), by)] += 1
     return q, s
 
 
@@ -153,6 +156,7 @@ def fused_gemm_combine_h_quant(aq: torch.Tensor, a_scales: torch.Tensor,
         torch.cuda.current_stream(aq.device).cuda_stream)
     build.check(lib, err, "fused_gemm_combine_h_quant")
     fused_gemm_combine_h_quant.launches += 1
+    fused_gemm_combine_h_quant.shapes[(tuple(aq.shape), tuple(bq.shape), by)] += 1
     return out
 
 
@@ -169,4 +173,6 @@ def quantize_b_blockwise(b: torch.Tensor, coeff: np.ndarray,
 # splits > 1 also launches the reduce pass, which is not counted.
 group_combine_quant.launches = 0
 group_combine_quant.routes = {"vector": 0, "scalar": 0}   # the same launches, by route
+group_combine_quant.shapes = Counter()      # by (input shape, K-block)
 fused_gemm_combine_h_quant.launches = 0
+fused_gemm_combine_h_quant.shapes = Counter()   # by (Ãq shape, B̃q shape, K-block)

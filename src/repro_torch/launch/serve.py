@@ -44,7 +44,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import ServeEngine, StepLoop
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
-__all__ = ["run_oneshot", "main"]
+__all__ = ["run_oneshot", "oneshot_inputs", "main"]
 
 
 def _sync(device: torch.device) -> None:
@@ -60,6 +60,22 @@ def _quantized_leaves(params, path: str = "") -> list[str]:
     return [path] if isinstance(params, PlannedWeight) and params.quantized else []
 
 
+def oneshot_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int, device):
+    """The one-shot serve's inputs, drawn from ``seed``: the prompts (batch,
+    prompt_len) int64 ((batch, prompt_len, CB) codebook tokens for audio),
+    then a vlm's patch embeddings (batch, num_patches, d) in the model's
+    dtype (else None), and the position the first decode step writes."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, prompt_len) + ((cfg.num_codebooks,)
+                                   if cfg.frontend == "audio_codebooks" else ())
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, shape), device=device)
+    if cfg.frontend != "vision_patches":
+        return prompts, None, prompt_len
+    patches = torch.as_tensor(rng.standard_normal((batch, cfg.num_patches, cfg.d_model)),
+                              device=device).to(getattr(torch, cfg.dtype))
+    return prompts, patches, prompt_len + cfg.num_patches
+
+
 def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
                 gen: int = 32, seed: int = 0, device="cuda",
                 precombine: bool = True, params: dict | None = None,
@@ -69,9 +85,15 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
 
     ``params`` defaults to ``init_params(cfg, seed, device)``. The FalconGEMM
     policy is the ambient config, else the model's ``falcon_config_for``;
-    ``quantize=True`` turns its int8 tier on. Returns
-    ``tokens`` (batch, gen) int64 on the CPU, ``logits`` (the last-position
-    logits of the prefill and of every decode step, each (batch, Vp)),
+    ``quantize=True`` turns its int8 tier on. An audio model's prompts are
+    (batch, prompt_len, CB) codebook tokens; a vlm's prompts follow
+    ``num_patches`` random patch embeddings, drawn after the tokens from the
+    same generator, so its decode starts at ``prompt_len + num_patches`` and
+    its cache holds ``prompt_len + num_patches + gen`` positions (the
+    reference's launcher leaves the patches out of its cache length). Returns
+    ``tokens`` (batch, gen) int64 on the CPU ((batch, gen, CB) for audio),
+    ``logits`` (the last-position logits of the prefill and of every decode
+    step, each (batch, Vp), or (batch, CB, Vp) for audio),
     ``n_precombined``, ``quantized`` (the paths of the planned leaves that
     carry int8 B̃q) and ``n_quantized``, ``timings`` (host clock,
     synchronized) and ``launches`` (kernel launches per phase).
@@ -85,10 +107,8 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
         fcfg = dataclasses.replace(fcfg, quantize=True)
     if params is None:
         params = M.init_params(cfg, seed, device)
-    rng = np.random.default_rng(seed)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
-                              device=device)
-    prefill = make_prefill_step(cfg, max_len=prompt_len + gen)
+    prompts, patches, pos0 = oneshot_inputs(cfg, batch, prompt_len, seed, device)
+    prefill = make_prefill_step(cfg, max_len=pos0 + gen)
     decode = make_decode_step(cfg)
     launches = {}
 
@@ -111,17 +131,18 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
             (params, n_planned), t_pre = phase(
                 "precombine", lambda: falcon.precombine_params(
                     params, m_hint=batch * prompt_len))
-        (logits, cache), t_prefill = phase("prefill", lambda: prefill(params, prompts))
+        (logits, cache), t_prefill = phase("prefill",
+                                           lambda: prefill(params, prompts, patches))
         all_logits = [logits[:, -1]]
         out_tokens = []
 
         def decode_all():
             nonlocal logits
             for i in range(gen):
-                nxt = torch.argmax(logits[:, -1], dim=-1)
+                nxt = torch.argmax(logits[:, -1], dim=-1)     # (B,), or (B, CB)
                 out_tokens.append(nxt)
                 if i + 1 < gen:
-                    logits, _ = decode(params, cache, nxt[:, None], prompt_len + i)
+                    logits, _ = decode(params, cache, nxt[:, None], pos0 + i)
                     all_logits.append(logits[:, -1])
 
         _, t_decode = phase("decode", decode_all)
@@ -225,7 +246,7 @@ def _print_oneshot(cfg: ModelConfig, args) -> None:
     print(f"prefill: {t['prefill_ms']:.1f} ms for {args.batch}x{args.prompt_len} tokens")
     print(f"decode:  {t['decode_ms_per_step']:.2f} ms/step "
           f"({t['tokens_per_s']:.1f} tok/s overall)")
-    print("sample:", res["tokens"][0, :16].tolist())
+    print("sample:", res["tokens"][0].reshape(-1)[:16].tolist())
     st = plan_cache.stats()
     print(f"plan cache: {st.hits} hits / {st.misses} misses "
           f"({st.hit_rate:.0%} hit rate, {len(plan_cache.default_cache())} plans)")

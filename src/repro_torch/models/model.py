@@ -1,12 +1,17 @@
-"""Decoder LM, dense, MoE, SSM and hybrid families: init, cache, forward,
-logits.
+"""Decoder LM, all six families (dense, MoE, SSM, hybrid, and the audio and
+vlm frontends): init, cache, forward, logits.
 
 Params are a nested dict of tensors with the reference's layout: ``embed``
 (Vp, d), ``layers`` holding every per-layer leaf stacked on a leading layer
 dim (an MoE layer's ``moe`` group in place of ``mlp``: the router (L, d, E)
 and the expert stacks (L, E, K, N); an SSM layer's ``ssm`` group in place of
 attention and MLP; a hybrid layer's ``ssm`` group and its two branch norms
-beside attention), ``final_norm``. The layer stack is a Python loop over
+beside attention), ``final_norm``. The audio family (musicgen) has one
+embedding table and one untied LM head per codebook, ``embed`` (CB, Vp, d)
+and ``lm_head`` (CB, d, Vp): its tokens are (B, S, CB), their embeddings
+are summed and its logits are (B, S, CB, Vp). The vlm family (pixtral)
+takes precomputed patch embeddings (B, P, d), prepended to the text at
+positions 0..P-1. The layer stack is a Python loop over
 slices of it. All projections, the expert FFN, the tied LM head, the
 attention contractions and the SSD scan's contractions are
 FalconGEMM-dispatched; the MoE router is a plain f32 product, as in the
@@ -38,9 +43,7 @@ def falcon_config_for(cfg: ModelConfig) -> FalconConfig:
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense, MoE, SSM and hybrid families (got "
-            f"family={cfg.family!r}; the audio and vision frontends come next, ROADMAP "
-            "Queue 1 item 4)")
+            f"{cfg.name}: unknown family {cfg.family!r}; the port runs {FAMILIES}")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -59,7 +62,9 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     at most one layer slice (the embedding: ``_EMBED_ROWS`` rows), so the
     largest transient is one slice, not a whole stacked leaf (an expert
     stack: one expert of one layer). The SSD leaves ``ssm_A``, ``ssm_D`` and
-    ``ssm_dt_bias`` are float32, as in the reference."""
+    ``ssm_dt_bias`` are float32, as in the reference. The audio family's
+    ``embed`` (CB, Vp, d) is drawn in blocks of rows over all codebooks, its
+    ``lm_head`` (CB, d, Vp) one codebook at a time, Normal(0, 1/d)."""
     _check_family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, cfg.dtype)
@@ -89,14 +94,19 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
             layers["mlp"] = {"mlp_gate": dense(Lc, d, cfg.d_ff),
                              "mlp_up": dense(Lc, d, cfg.d_ff),
                              "mlp_down": dense(Lc, cfg.d_ff, d)}
+    audio = cfg.frontend == "audio_codebooks"
+    CB = cfg.num_codebooks if audio else 1
+    # in blocks of rows: gemma3's f32 embedding alone would be 5.6 GB
+    embed = L.normal_init(gen, (CB * Vp, d), lambda w: w * 0.02, dt, device,
+                          rows=_EMBED_ROWS)
     params = {
-        # in blocks of rows: gemma3's f32 embedding alone would be 5.6 GB
-        "embed": L.normal_init(gen, (Vp, d), lambda w: w * 0.02, dt, device,
-                               rows=_EMBED_ROWS),
+        "embed": embed.view(CB, Vp, d) if audio else embed,
         "layers": layers,
         "final_norm": ones(d),
     }
-    if not cfg.tie_embeddings:
+    if audio:
+        params["lm_head"] = dense(CB, d, Vp)
+    elif not cfg.tie_embeddings:
         params["lm_head"] = dense(d, Vp)
     return params
 
@@ -140,6 +150,22 @@ def _ssd(lp, h, cfg: ModelConfig, cache_layer, length_mask):
     return y
 
 
+def _embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None):
+    """Token embeddings (B, S, d); audio sums its codebooks' embeddings in
+    codebook order, each sum rounded to the model's dtype; vlm prepends
+    ``patch_embeds`` (B, P, d), cast to the model's dtype."""
+    embed = params["embed"]
+    if cfg.frontend == "audio_codebooks":
+        x = embed[0][tokens[..., 0]]
+        for c in range(1, cfg.num_codebooks):
+            x = x + embed[c][tokens[..., c]]
+        return x
+    x = embed[tokens]
+    if cfg.frontend == "vision_patches" and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
            cache_index=None, length_mask=None):
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
@@ -167,22 +193,25 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
     return x + L.mlp_apply(lp["mlp"], h2)
 
 
-def forward(params, cfg: ModelConfig, tokens, *, cache=None, cache_index=None,
-            logits_mode: str = "none", length_mask=None):
-    """Run the decoder stack on ``tokens`` (B, S).
+def forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
+            cache_index=None, logits_mode: str = "none", length_mask=None):
+    """Run the decoder stack on ``tokens`` (B, S), or (B, S, CB) for audio.
 
     logits_mode: "none" (return hidden), "last" (logits of the final
     position), "all". With a ``cache`` the new K/V (and SSD state) are
     written into it in place at ``cache_index``. ``length_mask`` (B, S): 1
     on real positions, 0 on right pad; it makes a bucketed (right-padded)
-    prefill exact for the recurrent state. Returns (out, cache). FalconGEMM
-    policy is the ambient config, else this model's ``falcon_config_for``.
+    prefill exact for the recurrent state. ``patch_embeds`` (B, P, d), vlm
+    only: the image prefix, at positions 0..P-1 (the text follows, so a
+    decode step after it runs at ``cache_index = P + S``). Returns (out,
+    cache). FalconGEMM policy is the ambient config, else this model's
+    ``falcon_config_for``.
     """
     _check_family(cfg)
     with engine.config_scope(lambda: falcon_config_for(cfg)):
-        x = params["embed"][tokens]                             # (B, S, d)
-        B, S = tokens.shape
-        steps = torch.arange(S, device=tokens.device)
+        x = _embed_tokens(params, cfg, tokens, patch_embeds)   # (B, S, d)
+        B, S = x.shape[:2]
+        steps = torch.arange(S, device=x.device)
         if cache is None:
             positions = steps.expand(B, S)
         elif isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
@@ -204,10 +233,15 @@ def forward(params, cfg: ModelConfig, tokens, *, cache=None, cache_index=None,
 
 def compute_logits(params, cfg: ModelConfig, x):
     """LM head (tied to the embedding unless ``lm_head`` exists), with the
-    padded-vocab columns masked to -1e30."""
+    padded-vocab columns masked to -1e30. Audio runs one head per codebook,
+    each its own dense call as in the reference, stacked to (B, S, CB, Vp)."""
     with engine.config_scope(lambda: falcon_config_for(cfg)):
-        w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
-        logits = engine.dense(x, w)
+        if cfg.frontend == "audio_codebooks":
+            logits = torch.stack([engine.dense(x, params["lm_head"][c])
+                                  for c in range(cfg.num_codebooks)], dim=2)
+        else:
+            w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
+            logits = engine.dense(x, w)
         Vp = padded_vocab(cfg)
         if Vp == cfg.vocab_size:
             return logits

@@ -26,11 +26,10 @@ Queue 1 item 6); on one device ``moe_apply`` takes the dense path.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import engine
 from repro_torch.core.workloads import moe_capacity
-from .layers import dense_init
+from .layers import dense_init, silu
 
 __all__ = ["moe_init", "moe_apply"]
 
@@ -53,7 +52,7 @@ def _expert_ffn(p_gate, p_up, p_down, xb: torch.Tensor) -> torch.Tensor:
     stacks or stacked PlannedWeights)."""
     g = engine.grouped_matmul(xb, p_gate)
     u = engine.grouped_matmul(xb, p_up)
-    return engine.grouped_matmul(F.silu(g) * u, p_down)
+    return engine.grouped_matmul(silu(g) * u, p_down)
 
 
 def _route(xt: torch.Tensor, router_logits: torch.Tensor, top_k: int):

@@ -15,10 +15,10 @@ to them; serving never runs them.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.lcma import LCMA
 from repro_torch.kernels import ref
+from .layers import silu
 from .moe import _aux_loss, _dispatch_compute_combine, _route
 
 __all__ = ["eager_expert_ffn", "lcma_expert_ffn", "eager_moe_apply", "loop_moe_apply"]
@@ -32,7 +32,7 @@ def eager_expert_ffn(p_gate, p_up, p_down, xb: torch.Tensor,
     out = torch.empty_like(xb)
     for e in range(xb.shape[0]):
         x = xb[e].to(dt)
-        h = F.silu(x @ p_gate[e].to(dt)) * (x @ p_up[e].to(dt))
+        h = silu(x @ p_gate[e].to(dt)) * (x @ p_up[e].to(dt))
         out[e] = (h @ p_down[e].to(dt)).to(xb.dtype)
     return out
 
@@ -45,7 +45,7 @@ def lcma_expert_ffn(l: LCMA):
     def ffn(p_gate, p_up, p_down, xb):
         g = ref.grouped_lcma_matmul_ref(xb, p_gate, l)
         u = ref.grouped_lcma_matmul_ref(xb, p_up, l)
-        return ref.grouped_lcma_matmul_ref(F.silu(g) * u, p_down, l)
+        return ref.grouped_lcma_matmul_ref(silu(g) * u, p_down, l)
     return ffn
 
 

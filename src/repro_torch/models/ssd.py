@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import engine
-from .layers import dense_init
+from .layers import dense_init, silu
 
 __all__ = ["ssd_init", "ssd_apply", "ssd_decode_step", "ssd_scan", "carry_states",
            "F32_LEAVES"]
@@ -186,5 +186,5 @@ def ssd_apply(p: dict, x: torch.Tensor, cfg, state=None, decode: bool = False,
         y, new_state = ssd_scan(xs, dt, p["ssm_A"], B_, C_, cfg.ssm_chunk,
                                 init_state=state)
     y = y + xs * p["ssm_D"][None, None, :, None].to(x.dtype)
-    y = y.reshape(B, L, d_inner) * F.silu(z)                      # mamba2 output gate
+    y = y.reshape(B, L, d_inner) * silu(z)                      # mamba2 output gate
     return engine.dense(y, p["ssm_out"]), new_state

@@ -113,7 +113,7 @@ class ServeEngine:
                  prefill_chunk: int | None = None,
                  max_consecutive_prefills: int = 2,
                  device="cuda", cuda_graphs: bool = True):
-        if getattr(model_cfg, "frontend", ""):
+        if model_cfg.frontend:
             raise NotImplementedError(
                 f"ServeEngine serves token-stream decoders; got "
                 f"frontend={model_cfg.frontend!r} (bucketed prefill assumes "

@@ -1,6 +1,7 @@
 """Step functions of the serve path (inference only): one-shot prefill and
 decode, and the continuous-batching engine's bucketed prefill, chunk
-prefill and speculative verify.
+prefill and speculative verify. Only the one-shot prefill takes a vlm's
+patch embeddings: the engine refuses the frontends, as the reference's does.
 
 Each step writes its cache in place. The engine's steps take per-row
 tensor offsets (``start``, ``index`` as (B,) tensors) and never a host
@@ -20,13 +21,14 @@ __all__ = ["make_prefill_step", "make_serve_prefill_step", "make_chunk_prefill_s
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
     """Single-pass prefill: fills a fresh KV cache AND returns last-token
-    logits. The cache lives on the tokens' device."""
+    logits. The cache lives on the tokens' device. ``patch_embeds`` (B, P, d)
+    is a vlm's image prefix; ``max_len`` must then count its P positions."""
 
     @torch.inference_mode()
-    def prefill_step(params, tokens):
+    def prefill_step(params, tokens, patch_embeds=None):
         cache = M.init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
-        return M.forward(params, cfg, tokens, cache=cache, cache_index=0,
-                         logits_mode="last")
+        return M.forward(params, cfg, tokens, patch_embeds=patch_embeds, cache=cache,
+                         cache_index=0, logits_mode="last")
 
     return prefill_step
 

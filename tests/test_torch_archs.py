@@ -50,15 +50,18 @@ CASES = [(a, m, "cuda") for a in NEW_ARCHS for m in ("strassen", "auto", "gemm")
 
 
 def test_registry_lists_the_dense_archs():
-    """The dense archs, with the MoE, SSM and hybrid ones beside them; the
-    frontends (pixtral, musicgen) are still to come."""
+    """The dense archs, with the MoE, SSM and hybrid ones and the two
+    frontends (musicgen, pixtral) beside them: the reference's ten, in its
+    order."""
     assert sorted(treg.list_archs()) == sorted(
         ["granite_3_2b", "mistral_nemo_12b", "starcoder2_15b", "gemma3_27b",
-         "dbrx_132b", "kimi_k2_1t", "mamba2_370m", "hymba_1_5b"])
-    assert set(treg.list_archs()) <= set(jreg.list_archs())
+         "dbrx_132b", "kimi_k2_1t", "mamba2_370m", "hymba_1_5b",
+         "musicgen_large", "pixtral_12b"])
+    assert treg.list_archs() == jreg.list_archs()
     assert treg.get_config("gemma3-27b") is treg.get_config("gemma3_27b")
+    assert treg.get_config("pixtral-12b") is treg.get_config("pixtral_12b")
     with pytest.raises(KeyError, match="the port runs"):
-        treg.get_config("pixtral_12b")
+        treg.get_config("llava_7b")
 
 
 @pytest.mark.parametrize("arch", ["granite_3_2b"] + NEW_ARCHS)

@@ -486,11 +486,13 @@ def test_eager_expert_ffn_is_the_per_expert_product():
 
 
 def test_family_gate():
-    """The port's model and registry take the dense, MoE, SSM and hybrid
-    families; the next one still missing (the vision frontend's) raises,
-    naming the queue item that brings it."""
-    vlm = dataclasses.replace(treg.smoke_config("granite_3_2b"), family="vlm", name="x")
-    with pytest.raises(NotImplementedError, match="dense, MoE, SSM and hybrid"):
-        TM.init_params(vlm, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        twl.contraction_set(vlm)
+    """The port's model and registry take all six of the reference's
+    families; a family outside them raises, naming the ones the port runs."""
+    other = dataclasses.replace(treg.smoke_config("granite_3_2b"), family="diffusion",
+                                name="x")
+    with pytest.raises(NotImplementedError, match="unknown family 'diffusion'"):
+        TM.init_params(other, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="unknown family 'diffusion'"):
+        twl.contraction_set(other)
+    for arch in treg.list_archs():
+        assert twl.contraction_set(treg.smoke_config(arch))

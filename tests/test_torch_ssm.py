@@ -617,3 +617,53 @@ def test_launcher_serves_mamba2_on_cpu(capsys):
                   "4", "--prompt-len", "16", "--gen", "3", "--prefix-cache"])
     out = capsys.readouterr().out
     assert "served 4/4 requests" in out and "0 CUDA graphs" in out
+
+
+# ---------------------------------------------------------------------------
+# bf16 rounding at published width
+# ---------------------------------------------------------------------------
+
+def test_bf16_rounding_matches_reference():
+    """mamba2_370m at its published width, cut to 4 layers, gemm, one 1 x 256
+    prompt: one numpy f32 weight set (the reference's seed-0 init), cast to
+    each dtype the way each package's own init casts it. The port's bf16
+    logits must sit no further from its f32 logits than 1.5x the reference's
+    own bf16-vs-f32 gap, and no further from the reference's bf16 logits
+    than that gap. The error is max |diff| / max |ref| over the real
+    vocabulary (the padded columns hold -1e30). The SiLU must round as
+    ``jax.nn.silu`` does (``models.layers.silu``) for this to hold."""
+    depth, S = 4, 256
+    jbase = dataclasses.replace(jreg.get_config("mamba2_370m"), num_layers=depth,
+                                falcon_mode="gemm", falcon_backend="jnp")
+    tbase = dataclasses.replace(treg.get_config("mamba2_370m"), num_layers=depth,
+                                falcon_mode="gemm")
+    np_params = jax.tree.map(np.asarray, JM.init_params(
+        dataclasses.replace(jbase, dtype="float32"), jax.random.PRNGKey(0)))
+    prompt = np.random.default_rng(0).integers(0, jbase.vocab_size, (1, S))
+    V = jbase.vocab_size
+
+    def ref(dtype):
+        cfg = dataclasses.replace(jbase, dtype=dtype)
+
+        def cast(path, a):      # the reference's init keeps the SSD f32 leaves
+            f32 = any(n in jax.tree_util.keystr(path) for n in TSSD.F32_LEAVES)
+            return jnp.asarray(a) if f32 else jnp.asarray(a).astype(dtype)
+        params = jax.tree_util.tree_map_with_path(cast, np_params)
+        with jfalcon.use(JM.falcon_config_for(cfg)):
+            lg, _ = jax.jit(j_prefill_step(cfg, max_len=S))(params, jnp.asarray(prompt))
+        return np.asarray(lg, np.float32)[0, -1, :V]
+
+    def port(dtype):
+        cfg = dataclasses.replace(tbase, dtype=dtype)
+        params = params_from_numpy(np_params, cfg, device="cpu")
+        lg, _ = TM.forward(params, cfg, torch.from_numpy(prompt), logits_mode="last")
+        return lg.float().numpy()[0, -1, :V]
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    r32, r16, t32, t16 = ref("float32"), ref("bfloat16"), port("float32"), port("bfloat16")
+    ref_gap = rel(r16, r32)
+    assert rel(t32, r32) < 1e-4                     # the packages agree in f32
+    assert rel(t16, t32) <= 1.5 * ref_gap, (rel(t16, t32), ref_gap)
+    assert rel(t16, r16) <= ref_gap, (rel(t16, r16), ref_gap)
