@@ -16,6 +16,9 @@
     eng = falcon.FalconEngine(falcon.FalconConfig(mode="gemm"))  # a pinned config
     y = eng.dense(x, w)
 
+    w.requires_grad_()                   # training: a planned backward
+    falcon.dense(x, w).sum().backward()  # dA, dB planned like the forward
+
 Compatibility forms (``falcon_matmul(a, b, cfg)`` / ``falcon_dense(x, w,
 cfg)`` with an explicit config) keep working.
 """
@@ -23,21 +26,21 @@ from __future__ import annotations
 
 from repro_torch.core.backends import (Backend, available_backends, get_backend,
                                        register_backend, unregister_backend)
+from repro_torch.core.decision import backward_shapes
 from repro_torch.core.engine import (FalconEngine, PlannedWeight, active_config,
                                      current_config, dense, dot_general, einsum,
                                      grouped_expert_shapes, grouped_matmul, matmul,
                                      plan_weight, precombine_params, projection_shapes,
-                                     use, warm_buckets)
+                                     refresh_planned_params, use, warm_buckets)
 from repro_torch.core.falcon_gemm import (FalconConfig, falcon_dense, falcon_matmul,
                                           grouped_matmul_with_precombined,
                                           matmul_with_precombined, plan, plan_batched,
-                                          precombine_weights)
+                                          plan_training, precombine_weights)
 from repro_torch.core.workloads import (Contraction, ContractionSpec, contraction_set,
                                         dense_projection_shapes, grouped_moe_shapes,
                                         resolve_contractions)
 
-# The reference's names minus those of work still to come: training
-# (plan_training, backward_shapes, refresh_planned_params) and multi-device
+# The reference's names minus that of work still to come: multi-device
 # (plan_sharded).
 __all__ = [
     # context-scoped config
@@ -47,6 +50,8 @@ __all__ = [
     # grouped batched dispatch (group-parallel execution)
     "grouped_matmul", "plan_batched", "grouped_expert_shapes",
     "grouped_matmul_with_precombined",
+    # planned training (autograd cores over the planned dispatch)
+    "plan_training", "backward_shapes", "refresh_planned_params",
     # precombined weights (offline Combine B)
     "PlannedWeight", "plan_weight", "precombine_params",
     "precombine_weights", "matmul_with_precombined",

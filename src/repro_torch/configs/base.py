@@ -39,10 +39,12 @@ class ModelConfig:
     frontend: str = ""              # "" | "audio_codebooks" | "vision_patches"
     num_codebooks: int = 4
     num_patches: int = 1024
-    # numerics
+    # numerics / training
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
+    remat: bool = True              # activation checkpointing around each layer
+    remat_policy: str = "full"      # "full"; the reference's "dots" raises here
     # PaLM-style parallel attention+FFN block: both branches read ln1(x)
     parallel_block: bool = False
     # FalconGEMM integration

@@ -55,6 +55,7 @@ def smoke_config(arch: str) -> ModelConfig:
         ssm_chunk=8,
         num_patches=8,
         dtype="float32",
+        remat=False,
         falcon_mode=full.falcon_mode,
     )
 

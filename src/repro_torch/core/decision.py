@@ -41,7 +41,23 @@ __all__ = ["StageCost", "LCMAEstimate", "Decision", "GroupedDecision",
            "gemm_time_batched", "estimate_grouped",
            "decide_batched", "batched_is_memory_bound",
            "estimate_quant", "estimate_grouped_quant", "effective_tflops",
-           "predicted_effective_tflops"]
+           "predicted_effective_tflops", "backward_shapes"]
+
+
+def backward_shapes(M: int, K: int, N: int) -> tuple[tuple[int, int, int],
+                                                     tuple[int, int, int]]:
+    """The two backward contraction shapes of a forward ``(M, K) @ (K, N)``.
+
+    In (rows, contract, cols) convention:
+
+      * ``dA = g @ Bᵀ``  — ``(M, N, K)``
+      * ``dB = Aᵀ @ g``  — ``(K, M, N)``
+
+    Training prices (and pre-plans) all three independently: the backward
+    aspect ratios differ from the forward's, so the Decision Module may pick
+    a different scheme — or an LCMA where the forward ran plain GEMM.
+    """
+    return (M, N, K), (K, M, N)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""FalconEngine: the unified dispatch surface for FalconGEMM (forward only).
+"""FalconEngine: the unified dispatch surface for FalconGEMM.
 
 * **Context-scoped config** — ``with use(cfg): ...`` installs a
   :class:`~repro_torch.core.falcon_gemm.FalconConfig` in a contextvar;
@@ -17,7 +17,15 @@
   :func:`precombine_params` lifts a whole param tree.
 * **Bucket warmup** — :func:`warm_buckets` pre-plans a model's whole
   contraction inventory (``core.workloads``) at every serving bucket, so
-  the continuous-batching engine's steps are plan-cache hits.
+  the continuous-batching engine's steps are plan-cache hits; with
+  ``train=True`` also both backward shapes of each contraction.
+* **Planned autodiff** — an LCMA-routed call that autograd records runs
+  through a ``torch.autograd.Function`` core whose backward computes
+  ``dA = g Bᵀ`` and ``dB = Aᵀ g`` as independently planned contractions
+  (the reference's ``jax.custom_vjp`` cores): the CUDA kernels have no
+  backward of their own, and the backward GEMMs meet the Decision Module.
+  PlannedWeights are trainable, and :func:`refresh_planned_params` keeps B̃
+  consistent across optimizer steps.
 
 ``repro_torch.api`` re-exports this surface.
 """
@@ -30,15 +38,18 @@ import math
 import warnings
 
 import torch
+import torch.nn.functional as F
 
 from . import algorithms, backends, workloads
-from .falcon_gemm import FalconConfig, _pad2, plan, plan_batched, precombine_weights
+from .falcon_gemm import (FalconConfig, _pad2, plan, plan_batched, plan_training,
+                          precombine_weights)
 from .lcma import LCMA
 
 __all__ = ["use", "current_config", "active_config", "config_scope",
            "matmul", "dense", "dot_general", "einsum", "grouped_matmul",
-           "PlannedWeight", "plan_weight", "precombine_params", "warm_buckets",
-           "projection_shapes", "grouped_expert_shapes", "FalconEngine"]
+           "PlannedWeight", "plan_weight", "precombine_params",
+           "refresh_planned_params", "warm_buckets", "projection_shapes",
+           "grouped_expert_shapes", "FalconEngine"]
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +162,9 @@ def plan_weight(w: torch.Tensor, cfg: FalconConfig | None = None,
     won at ``m_hint``: the serve-time re-decision picks fp or int8 at the
     actual M, so both must be available.
     ``keep_weight=False`` drops the raw weight; the precombined path is then
-    always taken.
+    always taken. B̃ (and B̃q) are made outside autograd: a kept raw weight
+    is what trains (:func:`refresh_planned_params` re-derives B̃ from it),
+    a dropped one leaves B̃ as the parameter.
     """
     cfg = _resolve(cfg)
     if w.ndim not in (2, 3):
@@ -169,10 +182,11 @@ def plan_weight(w: torch.Tensor, cfg: FalconConfig | None = None,
         return PlannedWeight(w=w, bt=None, algo=None, k=K, n=N)
     l = d.algo
     bq = b_scales = None
-    if cfg.quantize and backends.get_backend(cfg.backend).apply_quant is not None:
-        bq, b_scales = _quantize_weight(w, l)
-    return PlannedWeight(w=w if keep_weight else None,
-                         bt=precombine_weights(w, l),
+    with torch.no_grad():
+        if cfg.quantize and backends.get_backend(cfg.backend).apply_quant is not None:
+            bq, b_scales = _quantize_weight(w, l)
+        bt = precombine_weights(w, l)
+    return PlannedWeight(w=w if keep_weight else None, bt=bt,
                          algo=l.name, k=K, n=N, bq=bq, b_scales=b_scales)
 
 
@@ -294,7 +308,8 @@ def _warm_contraction(c, cfg: FalconConfig, dtype: str, pre_algos: dict,
 
 
 def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = None,
-                 kv_len: int | None = None, spec_gamma: int | None = None) -> int:
+                 train: bool = False, kv_len: int | None = None,
+                 spec_gamma: int | None = None) -> int:
     """Pre-plan the registry contraction set of ``arch`` at every bucket.
 
     The continuous-batching scheduler only ever launches bucket shapes, so
@@ -313,9 +328,13 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
     dtype they run in (the reference plans them in ``dtype``, which misses
     them when the model is bf16). ``spec_gamma`` (with ``kv_len``) also warms,
     at every decode bucket ``(b, 1)``, the ``(b, γ+1)`` verify forward (lm
-    head on every row) and the ``(b, 2)`` draft catch-up forward. The
-    reference's ``train`` and ``mesh_shape`` arguments come with the
-    training and multi-device slices (ROADMAP Queue 1 items 5 and 6).
+    head on every row) and the ``(b, 2)`` draft catch-up forward.
+    ``train=True`` also pre-plans both backward contractions of each
+    forward one (``decision.backward_shapes``, the grouped grad rules), so
+    one warm pass at ``buckets=[(batch, seq)]`` makes a whole train step,
+    forward and planned backward, run against a hot plan cache. The
+    reference's ``mesh_shape`` comes with the multi-device slice (ROADMAP
+    Queue 1 item 6).
     """
     cfg = _resolve(cfg)
     dtype = dtype or str(getattr(arch, "dtype", "bfloat16"))
@@ -326,16 +345,17 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
     pre_algos_grouped: dict[tuple[int, int, int], set[str]] = {}
     contractions: list = []
     for M in flat:
-        contractions += [c for c in workloads.resolve_contractions(arch, 1, M)
+        contractions += [c for c in workloads.resolve_contractions(arch, 1, M, train=train)
                          if c.kind in ("dense", "grouped_moe")]
     for b, s in pairs:
         decode = kv_len is not None and s == 1
-        contractions += workloads.resolve_contractions(arch, b, s, kv_len=kv_len,
-                                                       decode=decode)
+        contractions += workloads.resolve_contractions(arch, b, s, train=train,
+                                                       kv_len=kv_len, decode=decode)
         if spec_gamma and decode:
             contractions += workloads.resolve_contractions(
-                arch, b, spec_gamma + 1, kv_len=kv_len, spec_verify=True)
-            contractions += workloads.resolve_contractions(arch, b, 2, kv_len=kv_len)
+                arch, b, spec_gamma + 1, train=train, kv_len=kv_len, spec_verify=True)
+            contractions += workloads.resolve_contractions(arch, b, 2, train=train,
+                                                           kv_len=kv_len)
     # static-weight contractions first, so a shape shared between a weight
     # contraction and an activation one keeps its precombined variant
     contractions.sort(key=lambda c: not c.weight_static)
@@ -373,7 +393,9 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
 
 def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
                    cfg: FalconConfig) -> torch.Tensor:
-    """x (..., K) @ PlannedWeight -> (..., N); serving fast path."""
+    """x (..., K) @ PlannedWeight -> (..., N); serving fast path, and
+    trainable: where autograd records the call, the planned cores route the
+    gradient to the raw weight (or, dropped, to B̃ itself)."""
     *lead, K = x.shape
     if pw.algo is None:
         return torch.matmul(x, pw.w)
@@ -397,8 +419,17 @@ def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
     if not use_pre:
         return torch.matmul(x, pw.w)
     be = backends.get_backend(cfg.backend)
+    train = cfg.planned_vjp and _grad_needed(x2, pw.w, pw.bt)
     if use_quant and be.apply_quant is not None:
-        out2 = be.apply_quant(x2, pw.bq, pw.b_scales, pw.lcma, pw.n, cfg)
+        if train and pw.w is not None:
+            out2 = _PlannedWeightQuantCore.apply(x2, pw.w, pw.bq, pw.b_scales, pw.lcma,
+                                                 pw.n, cfg)
+        else:
+            out2 = be.apply_quant(x2, pw.bq, pw.b_scales, pw.lcma, pw.n, cfg)
+    elif train and pw.w is not None:
+        out2 = _PlannedWeightCore.apply(x2, pw.w, pw.bt, pw.lcma, pw.n, cfg)
+    elif train:
+        out2 = _PlannedWeightRotatedCore.apply(x2, pw.bt, pw.lcma, pw.n, cfg)
     else:
         out2 = be.apply_precombined(x2, pw.bt, pw.lcma, pw.n, cfg)
     return out2.reshape(*lead, pw.n)
@@ -412,6 +443,7 @@ def _apply_planned_grouped(a3: torch.Tensor, pw: PlannedWeight,
     a stacked one (``bt`` (G, R, K/k, N/n)) is applied per group element,
     still as one grouped contraction. The Decision Module re-prices the
     grouped problem at the actual (G, M), restricted to the weight's scheme.
+    Trainable as :func:`_apply_planned` is.
     """
     G, M, K = a3.shape
     if pw.algo is None:
@@ -430,13 +462,35 @@ def _apply_planned_grouped(a3: torch.Tensor, pw: PlannedWeight,
         use_pre = d.use_lcma
     if not use_pre:
         return torch.matmul(a3, pw.w)
+    if cfg.planned_vjp and _grad_needed(a3, pw.w, pw.bt):
+        if pw.w is not None:
+            return _GroupedPlannedWeightCore.apply(a3, pw.w, pw.bt, pw.lcma, pw.n, cfg)
+        return _PlannedWeightRotatedCore.apply(a3, pw.bt, pw.lcma, pw.n, cfg)
     be = backends.get_backend(cfg.backend)
     return be.apply_grouped_precombined(a3, pw.bt, pw.lcma, pw.n, cfg)
 
 
 # ---------------------------------------------------------------------------
-# Dispatch entry points
+# Planned autodiff: the autograd cores
+#
+# Autograd through the raw combine / R-GEMM / combine graph would
+# differentiate the *implementation* — and the CUDA kernels have no
+# backward, so on the "cuda" backend it could not run at all (their
+# wrappers refuse an operand that requires grad). The cores below
+# differentiate the *contraction*: the forward runs the planned dispatch,
+# the backward computes dA and dB as two independently planned contractions,
+# each through plan(), the plan cache and the backend exactly like a
+# forward call. A core runs only where autograd records the call (grad mode
+# on, an operand requiring grad): that is where the backward shapes are
+# priced, so inference (``torch.inference_mode`` serving, CUDA graphs) never
+# prices or caches one. Forward and backward both run with grad mode off.
 # ---------------------------------------------------------------------------
+
+def _grad_needed(*ts) -> bool:
+    """True where autograd records a call: grad mode on and an operand
+    (None entries skipped) requiring grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
 
 def _dispatch2d(a2: torch.Tensor, b2: torch.Tensor,
                 cfg: FalconConfig) -> torch.Tensor:
@@ -467,12 +521,284 @@ def _dispatch_grouped(a3: torch.Tensor, b: torch.Tensor,
     return torch.matmul(a3, b)     # broadcasts the shared-b case
 
 
+class _PlannedCore(torch.autograd.Function):
+    """The planned 2-D core (the reference's ``_planned_core``): a2 (M, K)
+    @ b2 (K, N); dA = g b2ᵀ (M, N, K) and dB = a2ᵀ g (K, M, N), each planned
+    and cast back to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a2, b2, cfg):
+        plan_training(a2.shape[0], a2.shape[1], b2.shape[1], cfg, _dtype_name(a2))
+        ctx.cfg = cfg
+        ctx.save_for_backward(a2, b2)
+        return _dispatch2d(a2, b2, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, b2 = ctx.saved_tensors
+        need_a, need_b, _ = ctx.needs_input_grad
+        da = _dispatch2d(g, b2.T, ctx.cfg).to(a2.dtype) if need_a else None
+        db = _dispatch2d(a2.T, g, ctx.cfg).to(b2.dtype) if need_b else None
+        return da, db, None
+
+
+class _GroupedCore(torch.autograd.Function):
+    """The planned grouped core (the reference's ``_grouped_core``): a3 (G,
+    M, K) against b (K, N) shared by the group or (G, K, N). Both gradients
+    are planned grouped contractions, except the shared operand's
+    ``dB = Σ_g a3[g]ᵀ g3[g]``, the flattened 2-D problem (K, G·M) @ (G·M, N)."""
+
+    @staticmethod
+    def forward(ctx, a3, b, cfg):
+        G, M, K = a3.shape
+        N, dt, shared = b.shape[-1], _dtype_name(a3), b.ndim == 2
+        plan_batched(G, M, N, K, cfg, dt, shared_b=shared)             # dA
+        if shared:
+            plan(K, G * M, N, cfg, dt)                                  # dB (2-D)
+        else:
+            plan_batched(G, K, M, N, cfg, dt)                           # dB
+        ctx.cfg = cfg
+        ctx.save_for_backward(a3, b)
+        return _dispatch_grouped(a3, b, cfg)
+
+    @staticmethod
+    def backward(ctx, g3):
+        a3, b = ctx.saved_tensors
+        need_a, need_b, _ = ctx.needs_input_grad
+        G, M, K = a3.shape
+        da = db = None
+        if b.ndim == 2:
+            if need_a:
+                da = _dispatch_grouped(g3, b.T, ctx.cfg).to(a3.dtype)
+            if need_b:
+                db = _dispatch2d(a3.reshape(G * M, K).T, g3.reshape(G * M, -1),
+                                 ctx.cfg).to(b.dtype)
+        else:
+            if need_a:
+                da = _dispatch_grouped(g3, b.transpose(1, 2), ctx.cfg).to(a3.dtype)
+            if need_b:
+                db = _dispatch_grouped(a3.transpose(1, 2), g3, ctx.cfg).to(b.dtype)
+        return da, db, None
+
+
+def _zeros_like_if(need: bool, t: torch.Tensor | None):
+    return torch.zeros_like(t) if need and t is not None else None
+
+
+class _PlannedWeightCore(torch.autograd.Function):
+    """A PlannedWeight apply with its raw weight kept (the reference's
+    trainable ``_pw_core``): the primal reads only B̃ (the serving path),
+    the backward returns ``dw = x2ᵀ g`` and ``dx = g wᵀ`` as planned
+    contractions against the raw weight (the Combine-B map is linear, so
+    the B̃ cotangent transposes back to exactly ``dw``). B̃ gets a zero
+    gradient; :func:`refresh_planned_params` re-derives it from ``w``."""
+
+    @staticmethod
+    def forward(ctx, x2, w, bt, l, n_logical, cfg):
+        plan_training(x2.shape[0], x2.shape[1], n_logical, cfg, _dtype_name(x2))
+        ctx.cfg = cfg
+        ctx.save_for_backward(x2, w, bt)
+        return backends.get_backend(cfg.backend).apply_precombined(x2, bt, l, n_logical, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, bt = ctx.saved_tensors
+        need_x, need_w, need_bt = ctx.needs_input_grad[:3]
+        dx = _dispatch2d(g, w.T, ctx.cfg).to(x2.dtype) if need_x else None
+        dw = _dispatch2d(x2.T, g, ctx.cfg).to(w.dtype) if need_w else None
+        return dx, dw, _zeros_like_if(need_bt, bt), None, None, None
+
+
+class _GroupedPlannedWeightCore(torch.autograd.Function):
+    """The grouped PlannedWeight apply with its raw weight kept (the
+    reference's trainable ``_pw_grouped_core``): a3 (G, M, K) against a
+    shared weight w (K, N) or a stack (G, K, N). ``dx`` is a planned grouped
+    contraction; ``dw`` too for a stack, and for a shared weight the
+    flattened 2-D problem ``Σ_g a3[g]ᵀ g3[g]``. B̃ gets a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, a3, w, bt, l, n_logical, cfg):
+        G, M, K = a3.shape
+        dt, stacked = _dtype_name(a3), w.ndim == 3
+        plan_batched(G, M, n_logical, K, cfg, dt, shared_b=not stacked)
+        if stacked:
+            plan_batched(G, K, M, n_logical, cfg, dt)
+        else:
+            plan(K, G * M, n_logical, cfg, dt)
+        ctx.cfg = cfg
+        ctx.save_for_backward(a3, w, bt)
+        return backends.get_backend(cfg.backend).apply_grouped_precombined(
+            a3, bt, l, n_logical, cfg)
+
+    @staticmethod
+    def backward(ctx, g3):
+        a3, w, bt = ctx.saved_tensors
+        need_x, need_w, need_bt = ctx.needs_input_grad[:3]
+        G, M, K = a3.shape
+        dx = dw = None
+        if w.ndim == 3:
+            if need_x:
+                dx = _dispatch_grouped(g3, w.transpose(1, 2), ctx.cfg).to(a3.dtype)
+            if need_w:
+                dw = _dispatch_grouped(a3.transpose(1, 2), g3, ctx.cfg).to(w.dtype)
+        else:
+            if need_x:
+                dx = _dispatch_grouped(g3, w.T, ctx.cfg).to(a3.dtype)
+            if need_w:
+                dw = _dispatch2d(a3.reshape(G * M, K).T, g3.reshape(G * M, -1),
+                                 ctx.cfg).to(w.dtype)
+        return dx, dw, _zeros_like_if(need_bt, bt), None, None, None
+
+
+def _pw_bwd_rotated(x: torch.Tensor, bt: torch.Tensor, g: torch.Tensor, l: LCMA):
+    """Exact LCMA-structured backward against B̃ alone (raw weight dropped).
+
+    With H_r = Ãt_r B̃t_r and C[i,j] = Σ_r W[r,i,j] H_r, the cotangents are
+
+        G̃t_r  = Σ_ij W[r,i,j] G[i,j]            (Combine with W coefficients)
+        dX[i,l] = Σ_r U[r,i,l] (G̃t_r B̃t_rᵀ)     (R batched GEMMs, Combine U)
+        dB̃t_r  = Ãt_rᵀ G̃t_r                     (R batched GEMMs)
+
+    — the rank-R scheme rotated onto the gradient, reusing the stored B̃:
+    the LCMA identity, not an approximation, so training directly on B̃ is
+    sound (the output is linear in B̃). ``x`` (..., M, K) and ``g`` (..., M,
+    N) may carry a group dim; ``bt`` is (R, K/k, N/n), shared by the group
+    (its gradient summed over it), or stacked (G, R, K/k, N/n). Plain
+    ``torch.einsum``, as the reference writes it with ``jnp.einsum``.
+    """
+    *lead, Mrows, K = x.shape
+    Ks, Ns = int(bt.shape[-2]), int(bt.shape[-1])
+    xp = F.pad(x, (0, (-K) % l.k, 0, (-Mrows) % l.m))
+    Ms = xp.shape[-2] // l.m
+    gp = F.pad(g, (0, l.n * Ns - g.shape[-1], 0, (-Mrows) % l.m))
+    U = torch.tensor(l.U, dtype=xp.dtype, device=x.device)
+    W = torch.tensor(l.W, dtype=gp.dtype, device=x.device)
+    Gt = torch.einsum("rij,...ixjz->...rxz", W, gp.reshape(*lead, l.m, Ms, l.n, Ns))
+    At = torch.einsum("ril,...ixly->...rxy", U, xp.reshape(*lead, l.m, Ms, l.k, Ks))
+    Hb = torch.einsum("...rxz,...ryz->...rxy", Gt, bt.to(Gt.dtype))    # G̃t_r B̃t_rᵀ
+    dx = torch.einsum("ril,...rxy->...ixly", U.to(Hb.dtype), Hb) \
+        .reshape(*lead, l.m * Ms, l.k * Ks)[..., :Mrows, :K].to(x.dtype)
+    dbt = torch.einsum("...rxy,...rxz->...ryz", At, Gt)
+    if dbt.ndim > bt.ndim:                      # a B̃ shared by the group
+        dbt = dbt.sum(0)
+    return dx, dbt.to(bt.dtype)
+
+
+class _PlannedWeightRotatedCore(torch.autograd.Function):
+    """A PlannedWeight apply whose raw weight was dropped
+    (``keep_weight=False``, the reference's ``_pw_core`` and
+    ``_pw_grouped_core`` with ``trainable=False``): B̃ *is* the parameter,
+    and both gradients come from the rotated rank-R scheme
+    (:func:`_pw_bwd_rotated`). 2-D (x (M, K)) or grouped (x (G, M, K))."""
+
+    @staticmethod
+    def forward(ctx, x, bt, l, n_logical, cfg):
+        ctx.l = l
+        ctx.save_for_backward(x, bt)
+        be = backends.get_backend(cfg.backend)
+        if x.ndim == 2:
+            return be.apply_precombined(x, bt, l, n_logical, cfg)
+        return be.apply_grouped_precombined(x, bt, l, n_logical, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bt = ctx.saved_tensors
+        dx, dbt = _pw_bwd_rotated(x, bt, g, ctx.l)
+        return dx, dbt, None, None, None
+
+
+class _PlannedWeightQuantCore(torch.autograd.Function):
+    """A quantized PlannedWeight apply (the reference's ``_pw_quant_core``):
+    the primal is the backend's int8 pipeline (#6/#7) against B̃q and its
+    scales; the backward stays fp, ``dx`` and ``dw`` planned against the
+    RAW weight, so quantization error never enters the gradient. B̃q (int8)
+    gets none and the scales a zero one; :func:`refresh_planned_params`
+    re-bakes both after each update."""
+
+    @staticmethod
+    def forward(ctx, x2, w, bq, b_scales, l, n_logical, cfg):
+        plan_training(x2.shape[0], x2.shape[1], n_logical, cfg, _dtype_name(x2))
+        ctx.cfg = cfg
+        ctx.save_for_backward(x2, w, b_scales)
+        return backends.get_backend(cfg.backend).apply_quant(x2, bq, b_scales, l,
+                                                             n_logical, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, b_scales = ctx.saved_tensors
+        need_x, need_w, _, need_s = ctx.needs_input_grad[:4]
+        dx = _dispatch2d(g, w.T, ctx.cfg).to(x2.dtype) if need_x else None
+        dw = _dispatch2d(x2.T, g, ctx.cfg).to(w.dtype) if need_w else None
+        return dx, dw, None, _zeros_like_if(need_s, b_scales), None, None, None
+
+
+def _contract2d(a2: torch.Tensor, b2: torch.Tensor, cfg: FalconConfig) -> torch.Tensor:
+    """A 2-D contraction through the dispatch, trainable: where autograd
+    records it and the forward decision picks an LCMA, the planned core
+    (the reference's ``_route_planned``); otherwise ``torch.matmul``, whose
+    own backward is a plain GEMM, or the LCMA without a core
+    (``planned_vjp=False``: autograd differentiates the combine graph,
+    which the generated ``"torch"`` backend allows and the CUDA kernels
+    refuse)."""
+    if cfg.planned_vjp and _grad_needed(a2, b2):
+        if plan(a2.shape[0], a2.shape[1], b2.shape[1], cfg, _dtype_name(a2)).use_lcma:
+            return _PlannedCore.apply(a2, b2, cfg)
+        return torch.matmul(a2, b2)
+    return _dispatch2d(a2, b2, cfg)
+
+
+def _contract_grouped(a3: torch.Tensor, b: torch.Tensor, cfg: FalconConfig) -> torch.Tensor:
+    """A grouped contraction through the dispatch, trainable as
+    :func:`_contract2d` is (the reference's ``_route_grouped``)."""
+    if cfg.planned_vjp and _grad_needed(a3, b):
+        G, M, K = a3.shape
+        if plan_batched(G, M, K, b.shape[-1], cfg, _dtype_name(a3),
+                        shared_b=b.ndim == 2).use_lcma:
+            return _GroupedCore.apply(a3, b, cfg)
+        return torch.matmul(a3, b)
+    return _dispatch_grouped(a3, b, cfg)
+
+
+def refresh_planned_params(params):
+    """Re-derive every PlannedWeight's B̃ from its (just updated) raw weight.
+
+    Planned gradients land on the raw weight (the B̃ gradient is zero), so
+    after an optimizer step the stored B̃ is stale; Combine B is linear and
+    cheap beside a train step, so the train steps re-run it here after each
+    update (outside autograd). A quantized PlannedWeight re-bakes B̃q and its
+    scales at the same K-block. Weights without a raw copy
+    (``keep_weight=False``) train B̃ directly and pass through, as does
+    every other leaf. Returns a new tree.
+    """
+    def refresh(node):
+        if isinstance(node, dict):
+            return {k: refresh(v) for k, v in node.items()}
+        if not isinstance(node, PlannedWeight) or not node.precombined or node.w is None:
+            return node
+        lc = node.lcma
+        with torch.no_grad():
+            bt = precombine_weights(node.w, lc)
+            if node.bq is None:
+                return dataclasses.replace(node, bt=bt)
+            by = node.bq.shape[-2] // node.b_scales.shape[-2]
+            bq, b_scales = _quantize_weight(node.w, lc, by=by)
+        return dataclasses.replace(node, bt=bt, bq=bq, b_scales=b_scales)
+
+    return refresh(params)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch entry points
+# ---------------------------------------------------------------------------
+
 def grouped_matmul(a: torch.Tensor, b, cfg: FalconConfig | None = None
                    ) -> torch.Tensor:
     """Grouped batched matmul ``out[g] = a[g] @ b[g]`` as one planned unit.
 
     ``a``: (G, M, K). ``b``: (K, N) shared across the group (Combine B
     hoisted, run once), (G, K, N) per group, or a :class:`PlannedWeight`.
+    Differentiable: under ``cfg.planned_vjp`` the gradients are planned
+    grouped contractions.
     """
     cfg = _resolve(cfg)
     if a.ndim != 3:
@@ -485,12 +811,13 @@ def grouped_matmul(a: torch.Tensor, b, cfg: FalconConfig | None = None
             or (b.ndim == 3 and b.shape[0] != G):
         raise ValueError(f"grouped_matmul: shapes do not conform: "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    return _dispatch_grouped(a, b, cfg)
+    return _contract_grouped(a, b, cfg)
 
 
 def matmul(a: torch.Tensor, b, cfg: FalconConfig | None = None) -> torch.Tensor:
     """``a @ b`` with FalconGEMM dispatch. ``a``: (..., M, K), ``b``: (K, N)
-    or a :class:`PlannedWeight`."""
+    or a :class:`PlannedWeight`. Differentiable end to end: under
+    ``cfg.planned_vjp`` both backward GEMMs are planned contractions."""
     cfg = _resolve(cfg)
     if isinstance(b, PlannedWeight):
         return _apply_planned(a, b, cfg)
@@ -499,7 +826,7 @@ def matmul(a: torch.Tensor, b, cfg: FalconConfig | None = None) -> torch.Tensor:
     if K != K2:
         raise ValueError(f"matmul: contracting dims differ: "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    c = _dispatch2d(a.reshape(-1, K), b, cfg)
+    c = _contract2d(a.reshape(-1, K), b, cfg)
     return c.reshape(*lead, M, N)
 
 
@@ -521,7 +848,9 @@ def dot_general(a: torch.Tensor, b, dimension_numbers,
     contracting dims are transposed adjacent and flattened to a (M, K) x
     (K, N) problem: an unbatched contraction is priced by ``plan()``, a
     **batched** one as a whole group by ``plan_batched`` (one grouped
-    decision for the batch, never per-element pricing).
+    decision for the batch, never per-element pricing). Under
+    ``cfg.planned_vjp`` an LCMA-routed contraction that autograd records
+    runs through the matching planned core.
     """
     cfg = _resolve(cfg)
     (ac, bc), (ab, bb) = dimension_numbers
@@ -543,10 +872,10 @@ def dot_general(a: torch.Tensor, b, dimension_numbers,
     at = a.permute(ab + a_free + ac)
     bt = b.permute(bb + bc + b_free)
     if not ab:
-        c = _dispatch2d(at.reshape(M, K), bt.reshape(K, N), cfg)
+        c = _contract2d(at.reshape(M, K), bt.reshape(K, N), cfg)
     else:
         Bsz = math.prod(batch_shape)
-        c = _dispatch_grouped(at.reshape(Bsz, M, K), bt.reshape(Bsz, K, N), cfg)
+        c = _contract_grouped(at.reshape(Bsz, M, K), bt.reshape(Bsz, K, N), cfg)
     return c.reshape(out_shape)
 
 
@@ -628,8 +957,6 @@ class FalconEngine:
         y = eng.dense(x, w)
         with eng.activate():     # or make it the ambient config
             y = dense(x, w)
-
-    The reference's ``plan_training`` comes with the training slice.
     """
 
     config: FalconConfig = dataclasses.field(default_factory=FalconConfig)
@@ -667,6 +994,9 @@ class FalconEngine:
 
     def precombine_params(self, params, **kw):
         return precombine_params(params, cfg=self.config, **kw)
+
+    def plan_training(self, M: int, K: int, N: int, dtype: str = "bfloat16"):
+        return plan_training(M, K, N, self.config, dtype)
 
     def warm_buckets(self, arch, buckets, **kw):
         return warm_buckets(self.config, arch, buckets, **kw)

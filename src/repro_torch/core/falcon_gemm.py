@@ -26,7 +26,7 @@ from .lcma import LCMA
 
 log = logging.getLogger(__name__)
 
-__all__ = ["FalconConfig", "plan", "plan_batched", "precombine_weights",
+__all__ = ["FalconConfig", "plan", "plan_batched", "plan_training", "precombine_weights",
            "matmul_with_precombined", "grouped_matmul_generated",
            "grouped_matmul_with_precombined", "falcon_matmul", "falcon_dense"]
 
@@ -55,6 +55,12 @@ class FalconConfig:
     shards: tuple[int, int, int] = (1, 1, 1)
     # Memoize auto-mode Decisions in the process plan cache.
     use_plan_cache: bool = True
+    # Differentiate the contraction, not its implementation: an LCMA-routed
+    # call runs through an autograd core whose backward computes dA = g Bᵀ
+    # and dB = Aᵀ g as independently planned contractions (``core.engine``).
+    # False differentiates through the combine graph, which only the
+    # generated "torch" backend allows: the CUDA kernels have no backward.
+    planned_vjp: bool = True
 
     @property
     def fused(self) -> bool:
@@ -204,6 +210,23 @@ def plan_batched(B: int, M: int, K: int, N: int, cfg: FalconConfig,
     if cache is not None:
         cache.insert(key, d)
     return d
+
+
+def plan_training(M: int, K: int, N: int, cfg: FalconConfig,
+                  dtype: str = "bfloat16") -> tuple[dec.Decision, dec.Decision,
+                                                    dec.Decision]:
+    """Plan a contraction's forward AND both backward shapes.
+
+    Training runs three falcon contractions per layer: the forward
+    ``(M, K) @ (K, N)`` plus the two gradients ``dA = g Bᵀ`` (rows M,
+    contract N, cols K) and ``dB = Aᵀ g`` (rows K, contract M, cols N).
+    Each goes through the Decision Module and plan cache under its own key,
+    so a training warm pass (``engine.warm_buckets(train=True)`` /
+    ``tools.tune --train``) leaves a whole train step plan-cache hot.
+    Returns ``(d_fwd, d_dA, d_dB)``.
+    """
+    sa, sb = dec.backward_shapes(M, K, N)
+    return plan(M, K, N, cfg, dtype), plan(*sa, cfg, dtype), plan(*sb, cfg, dtype)
 
 
 def _pad2(x: torch.Tensor, d0: int, d1: int) -> torch.Tensor:

@@ -14,13 +14,13 @@ dense projection pairs of a workload swept over ``WARM_TOKENS``, plus
 square operators. The MoE expert capacity has its one definition here
 (:func:`moe_capacity`): the grouped plan keys embed it, so the layer and
 the resolver must agree. The reference's per-shard symbols
-(``mesh_shape``) come with the multi-device slice (ROADMAP Queue 1 item 6),
-its backward contractions (``train``) with the training slice (item 5).
+(``mesh_shape``) come with the multi-device slice (ROADMAP Queue 1 item 6).
 
 The paper's three LLM serving workloads (§IV-B: DeepSeek-R1, Qwen3.5,
 HunyuanVideo projections) are registry entries too, addressable by name,
 so ``contraction_set("deepseek_r1")`` and a model config give grids of the
-same form.
+same form. ``train=True`` adds each forward contraction's two backward ones
+(``dA``, ``dB``: the planned autograd cores' gradient contractions).
 """
 from __future__ import annotations
 
@@ -223,22 +223,45 @@ def _model_specs(cfg) -> list[ContractionSpec]:
     return specs
 
 
-def contraction_set(arch, *, quantize: bool = False) -> list[ContractionSpec]:
+def contraction_set(arch, *, train: bool = False,
+                    quantize: bool = False) -> list[ContractionSpec]:
     """Every planned contraction ``arch`` runs, as symbolic specs.
 
     ``arch`` is a :class:`ModelConfig`, a registry arch id
     (``"granite_3_2b"``) or a paper workload name (``"deepseek_r1"``).
-    ``quantize=True`` keeps the contractions the int8 tier can serve (a
-    static-weight B operand: the dense projections and the expert FFN).
+    ``train=True`` appends the two backward specs of each forward one
+    (``role.dA`` / ``role.dB``). ``quantize=True`` keeps the contractions
+    the int8 tier can serve (a static-weight B operand: the dense
+    projections and the expert FFN).
     """
     if isinstance(arch, str) and arch in _PAPER_PROJECTIONS:
         specs = _paper_specs(arch)
     else:
         specs = _model_specs(_resolve_arch(arch))
+    if train:
+        specs = specs + [b for s in specs for b in _backward_specs(s)]
     if quantize:
         specs = [s for s in specs
                  if s.weight_static and s.kind in ("dense", "grouped_moe")]
     return specs
+
+
+def _backward_specs(s: ContractionSpec) -> list[ContractionSpec]:
+    """Symbolic backward contractions of one forward spec.
+
+    Dense ``(M, K, N)`` -> dA ``(M, N, K)``, dB ``(K, M, N)``
+    (``core.decision.backward_shapes``); grouped keeps the group: dA ``(G,
+    M, N, K)``, dB ``(G, K, M, N)``, as the planned autograd cores of
+    ``core.engine`` run them. A shared-B grouped dB collapses to a dense
+    ``(K, G*M, N)``; no model spec is shared-B, so that case is resolved
+    concretely in :func:`resolve_contractions` only.
+    """
+    return [
+        dataclasses.replace(s, role=s.role + ".dA", m=s.m, k=s.n, n=s.k,
+                            weight_static=False),
+        dataclasses.replace(s, role=s.role + ".dB", m=s.k, k=s.m, n=s.n,
+                            weight_static=False),
+    ]
 
 
 def _shape_env(cfg, batch: int, seq: int, *, kv_len=None, decode=False,
@@ -293,15 +316,17 @@ def layer_capacity(cfg, tokens: int) -> int:
                         cfg.capacity_factor, shard_round=True)
 
 
-def resolve_contractions(arch, batch: int, seq: int, *, kv_len=None, decode: bool = False,
-                         spec_verify: bool = False) -> list[Contraction]:
+def resolve_contractions(arch, batch: int, seq: int, *, train: bool = False, kv_len=None,
+                         decode: bool = False, spec_verify: bool = False) -> list[Contraction]:
     """Concrete contraction inventory for one (batch, seq) call context.
 
     Returns deduplicated :class:`Contraction` entries whose ``key_shape()``
-    tokens are exactly what ``core.plan_cache`` keys embed. ``kv_len``,
-    ``decode`` and ``spec_verify`` are as in :func:`_shape_env`; a decode
-    context keeps the SSD recurrence and drops the scan, any other keeps
-    the scan and drops the recurrence.
+    tokens are exactly what ``core.plan_cache`` keys embed. ``train=True``
+    puts both backward contractions after each forward one (a shared-B
+    grouped dB as its dense ``(K, G*M, N)`` form). ``kv_len``, ``decode``
+    and ``spec_verify`` are as in :func:`_shape_env`; a decode context keeps
+    the SSD recurrence and drops the scan, any other keeps the scan and
+    drops the recurrence.
     """
     paper = isinstance(arch, str) and arch in _PAPER_PROJECTIONS
     specs = contraction_set(arch)
@@ -314,14 +339,27 @@ def resolve_contractions(arch, batch: int, seq: int, *, kv_len=None, decode: boo
 
     out: list[Contraction] = []
     seen: set = set()
+
+    def emit(c: Contraction):
+        if (c.key_shape(), c.kind) not in seen:
+            seen.add((c.key_shape(), c.kind))
+            out.append(c)
+
     for s in specs:
         if s.kind == ("ssd_scan" if decode else "ssd_decode"):
             continue
         c = Contraction(s.kind, s.role, val(s.m), val(s.k), val(s.n), group=val(s.group),
                         shared_b=s.shared_b, weight_static=s.weight_static)
-        if (c.key_shape(), c.kind) not in seen:
-            seen.add((c.key_shape(), c.kind))
-            out.append(c)
+        emit(c)
+        if train:
+            emit(Contraction(c.kind, c.role + ".dA", c.m, c.n, c.k, group=c.group,
+                             shared_b=c.shared_b, weight_static=False))
+            if c.group != 1 and c.shared_b:
+                emit(Contraction("dense", c.role + ".dB", c.k, c.group * c.m, c.n,
+                                 weight_static=False))
+            else:
+                emit(Contraction(c.kind, c.role + ".dB", c.k, c.m, c.n, group=c.group,
+                                 shared_b=c.shared_b, weight_static=False))
     return out
 
 

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import build, ref
-from .group_combine import coeff_table
+from .group_combine import coeff_table, refuse_grad
 from .tuning import (plan_fused_gemm_blocks, plan_fused_tc, plan_tiled_matmul_blocks,
                      plan_tiled_wgmma, tiled_route)
 
@@ -46,6 +46,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(at, bt, w, out_dtype, at_ndim, what):
+    refuse_grad(what, at, bt)
     R, m, n = w.shape
     if at.ndim != at_ndim or bt.ndim not in (3, at_ndim):
         raise ValueError(f"{what}: unexpected ranks {tuple(at.shape)} x "
@@ -135,6 +136,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
     """(M, K) @ (K, N) -> (M, N) in ``out_dtype`` (default ``a``'s), summed
     in f32 and rounded once. Any M, K, N: the kernel masks its own edges."""
     out_dtype = out_dtype or a.dtype
+    refuse_grad("tiled_matmul", a, b)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"tiled_matmul: shapes do not conform: {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")

@@ -27,7 +27,8 @@ import torch
 from . import build, ref
 from .tuning import CombinePlan, plan_combine
 
-__all__ = ["group_combine", "batched_group_combine", "coeff_table", "launch_plan"]
+__all__ = ["group_combine", "batched_group_combine", "coeff_table", "launch_plan",
+           "refuse_grad"]
 
 _TABLES: dict[tuple, torch.Tensor] = {}
 _TABLES_LOCK = threading.Lock()
@@ -56,7 +57,20 @@ def coeff_table(coeff: np.ndarray, device: torch.device) -> torch.Tensor:
     return tab
 
 
+def refuse_grad(what: str, *ts: torch.Tensor) -> None:
+    """Raise where autograd would record a kernel call: the kernels have no
+    backward, so a gradient through one would silently be missing. Under
+    grad, autograd reaches the kernels only through the planned cores of
+    ``core.engine``, whose forward and backward run with grad mode off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{what}: an operand requires grad and the kernels have no backward; "
+            f"run under torch.no_grad(), or differentiate through the planned "
+            f"cores (FalconConfig.planned_vjp=True, the default)")
+
+
 def _check(x: torch.Tensor, coeff: np.ndarray, ndim: int, what: str):
+    refuse_grad(what, x)
     if x.ndim != ndim:
         raise ValueError(f"{what}: expected a {ndim}-D input, got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):

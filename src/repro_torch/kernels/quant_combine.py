@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.analysis.stability import max_safe_accum_depth
 from . import build, ref
-from .group_combine import coeff_table, group_combine
+from .group_combine import coeff_table, group_combine, refuse_grad
 from .tuning import QuantCombinePlan, plan_fused_tc, plan_quant_combine, scale_block
 
 __all__ = ["group_combine_quant", "fused_gemm_combine_h_quant",
@@ -45,6 +45,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def _on_card(*ts: torch.Tensor, what: str) -> bool:
     """True for CUDA operands (contiguous, one device), False for CPU ones."""
+    refuse_grad(what, *ts)
     devs = {t.device for t in ts}
     if len(devs) != 1 or next(iter(devs)).type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: operands on {sorted(map(str, devs))}")

@@ -13,6 +13,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import engine
 
@@ -46,6 +47,20 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...], dtype,
     root = math.sqrt(shape[-2])
     return normal_init(gen, shape, lambda w: w / root, dtype, device,
                        rows=shape[0] if len(shape) == 2 else 1)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    nothing inside is stored for backward, which recomputes it. The
+    recomputation runs under the FalconGEMM config ambient now, since
+    backward runs outside the caller's ``falcon.use`` scope."""
+    cfg = engine.current_config()
+
+    def run(*a):
+        with engine.use(cfg):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -128,7 +143,9 @@ def attention_scores(q, k, v, qpos, kpos, window: int, kv_valid=None,
 def flash_attention(q, k, v, qpos, kpos, window: int, kv_valid=None,
                     q_chunk: int = 512, ragged: bool = False):
     """Memory-bounded attention: a loop over query chunks keeps the score
-    tensor at (B, H, q_chunk, Sk)."""
+    tensor at (B, H, q_chunk, Sk). Under autograd each chunk is recomputed
+    in backward (``torch.utils.checkpoint``), so no chunk's scores are
+    stored for it either, as the reference's ``jax.checkpoint`` does."""
     Sq = q.shape[1]
     if Sq <= q_chunk:
         return attention_scores(q, k, v, qpos, kpos, window, kv_valid=kv_valid,
@@ -136,9 +153,16 @@ def flash_attention(q, k, v, qpos, kpos, window: int, kv_valid=None,
     if Sq % q_chunk:
         raise ValueError(f"flash_attention: {Sq} queries are not a multiple "
                          f"of the chunk {q_chunk}")
-    outs = [attention_scores(q[:, s:s + q_chunk], k, v, qpos[:, s:s + q_chunk],
-                             kpos, window, kv_valid=kv_valid, ragged=ragged)
-            for s in range(0, Sq, q_chunk)]
+
+    def chunk_attn(qi, pi, kk, vv):
+        return attention_scores(qi, kk, vv, pi, kpos, window, kv_valid=kv_valid,
+                                ragged=ragged)
+
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    outs = []
+    for s in range(0, Sq, q_chunk):
+        args = (q[:, s:s + q_chunk], qpos[:, s:s + q_chunk], k, v)
+        outs.append(remat(chunk_attn, *args) if grad else chunk_attn(*args))
     return torch.cat(outs, dim=1)
 
 

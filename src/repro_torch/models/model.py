@@ -17,6 +17,12 @@ attention contractions and the SSD scan's contractions are
 FalconGEMM-dispatched; the MoE router is a plain f32 product, as in the
 reference. The cache holds attention K/V and, for the SSM and hybrid
 families, the recurrent ``state``; every entry is written in place.
+
+Training: :func:`lm_loss` is the chunked cross-entropy over the LM head
+plus 0.01 times the MoE layers' load-balancing loss. Under autograd each
+layer is recomputed in backward (``cfg.remat``, ``torch.utils.checkpoint``)
+and the stacked leaves are unbound once per forward, so autograd stacks
+their gradients once.
 """
 from __future__ import annotations
 
@@ -26,12 +32,13 @@ from repro_torch.configs.base import FAMILIES, ModelConfig
 from repro_torch.core import engine
 from repro_torch.core.falcon_gemm import FalconConfig
 from repro_torch.core.workloads import layer_capacity
+from repro_torch.tree import tree_leaves, tree_map
 from . import layers as L
 from . import moe as MOE
 from . import ssd as SSD
 
 __all__ = ["init_params", "forward", "init_cache", "falcon_config_for",
-           "compute_logits", "padded_vocab", "layer_params"]
+           "compute_logits", "padded_vocab", "layer_params", "chunked_xent", "lm_loss"]
 
 
 def falcon_config_for(cfg: ModelConfig) -> FalconConfig:
@@ -118,6 +125,16 @@ def layer_params(stacked, i: int):
     return stacked[i]
 
 
+def _unbind_layers(stacked, n: int) -> list:
+    """The stacked per-layer tree as ``n`` layer trees, each leaf (and each
+    PlannedWeight's tensors) unbound once. Under autograd, slicing layer i
+    of a stacked leaf n times would make each slice's backward allocate a
+    zero tensor the size of the whole stack and add into it; one unbind's
+    backward stacks the n gradients once."""
+    parts = tree_map(torch.unbind, stacked)
+    return [tree_map(lambda ts, i=i: ts[i], parts) for i in range(n)]
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                dtype=None) -> dict:
     """Zeroed cache: attention K/V (L, B, max_len, Hkv, hd) for every family
@@ -168,9 +185,10 @@ def _embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None):
 
 def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
            cache_index=None, length_mask=None):
+    """One decoder layer: (x, its MoE load-balancing loss or None)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        return x + _ssd(lp, h, cfg, cache_layer, length_mask)
+        return x + _ssd(lp, h, cfg, cache_layer, length_mask), None
     dims = L.AttnDims(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.resolved_head_dim)
     y, _ = L.attn_apply(lp["attn"], h, dims, positions, cfg.rope_theta, window,
@@ -184,13 +202,12 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
     h2 = h if cfg.parallel_block else L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         # the shard-rounded capacity of the layer's B*S tokens, as the
-        # reference's layer stack serves it (the grouped plan keys embed C);
-        # the load-balancing loss is dropped until training is ported
+        # reference's layer stack serves it (the grouped plan keys embed C)
         cap = layer_capacity(cfg, h2.shape[0] * h2.shape[1])
-        y2, _aux = MOE.moe_apply(lp["moe"], h2, cfg.experts_per_token, cfg.capacity_factor,
-                                 deterministic_capacity=cap)
-        return x + y2
-    return x + L.mlp_apply(lp["mlp"], h2)
+        y2, aux = MOE.moe_apply(lp["moe"], h2, cfg.experts_per_token, cfg.capacity_factor,
+                                deterministic_capacity=cap)
+        return x + y2, aux
+    return x + L.mlp_apply(lp["mlp"], h2), None
 
 
 def forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
@@ -207,6 +224,20 @@ def forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
     cache). FalconGEMM policy is the ambient config, else this model's
     ``falcon_config_for``.
     """
+    out, cache, _ = _forward(params, cfg, tokens, patch_embeds=patch_embeds, cache=cache,
+                             cache_index=cache_index, logits_mode=logits_mode,
+                             length_mask=length_mask)
+    return out, cache
+
+
+def _forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
+             cache_index=None, logits_mode: str = "none", length_mask=None):
+    """:func:`forward`, also returning the MoE layers' summed load-balancing
+    loss (None for a model without MoE layers): (out, cache, aux).
+
+    Under autograd the stacked leaves are unbound once, and without a cache
+    each layer runs under ``torch.utils.checkpoint`` when ``cfg.remat`` is
+    set (recomputed in backward, as the reference's ``jax.checkpoint``)."""
     _check_family(cfg)
     with engine.config_scope(lambda: falcon_config_for(cfg)):
         x = _embed_tokens(params, cfg, tokens, patch_embeds)   # (B, S, d)
@@ -218,17 +249,33 @@ def forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
             positions = cache_index[:, None] + steps            # per-row offsets
         else:
             positions = (int(cache_index) + steps).expand(B, S)
-        for i, window in enumerate(cfg.layer_windows()):
+        windows = cfg.layer_windows()
+        grad = torch.is_grad_enabled() and any(t.requires_grad
+                                               for t in tree_leaves(params["layers"]))
+        per_layer = (_unbind_layers(params["layers"], len(windows)) if grad else
+                     [layer_params(params["layers"], i) for i in range(len(windows))])
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        if remat and cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r}: a selective checkpoint policy sees "
+                f"aten ops, not the planned cores' kernel outputs; the port runs 'full'")
+        aux = None
+        for i, window in enumerate(windows):
             cl = None if cache is None else {name: c[i] for name, c in cache.items()}
-            x = _layer(x, layer_params(params["layers"], i), window, cfg,
-                       positions, cache_layer=cl, cache_index=cache_index,
-                       length_mask=length_mask)
+            layer = dict(lp=per_layer[i], window=window, cfg=cfg, positions=positions,
+                         cache_layer=cl, cache_index=cache_index, length_mask=length_mask)
+            if remat:
+                x, a = L.remat(lambda x_, kw=layer: _layer(x_, **kw), x)
+            else:
+                x, a = _layer(x, **layer)
+            if a is not None:
+                aux = a if aux is None else aux + a
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         if logits_mode == "none":
-            return x, cache
+            return x, cache, aux
         if logits_mode == "last":
             x = x[:, -1:]
-        return compute_logits(params, cfg, x), cache
+        return compute_logits(params, cfg, x), cache, aux
 
 
 def compute_logits(params, cfg: ModelConfig, x):
@@ -247,3 +294,58 @@ def compute_logits(params, cfg: ModelConfig, x):
             return logits
         pad_mask = torch.arange(Vp, device=x.device) < cfg.vocab_size
         return torch.where(pad_mask, logits, -1e30)
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked cross-entropy: never materialize (B, S, V) for big vocabs)
+# ---------------------------------------------------------------------------
+
+def _chunk_loss(params, cfg: ModelConfig, h, lab):
+    """Summed cross-entropy of one chunk: f32 logits, logsumexp less the gold
+    logit (labels (B, c) or, audio, (B, c, CB))."""
+    logits = compute_logits(params, cfg, h).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_xent(params, cfg: ModelConfig, hidden, labels, chunk: int = 512):
+    """hidden (B, S, d), labels (B, S[, CB]) -> mean cross-entropy (f32).
+
+    The sequence runs in chunks of at most ``chunk`` positions (the largest
+    divisor of S not above it); under autograd each chunk's logits are
+    recomputed in backward (``torch.utils.checkpoint``), so no (B, chunk,
+    V) logits are stored for it."""
+    with engine.config_scope(lambda: falcon_config_for(cfg)):
+        S = hidden.shape[1]
+        chunk = min(chunk, S)
+        while S % chunk:
+            chunk -= 1
+        grad = torch.is_grad_enabled() and any(t.requires_grad
+                                               for t in [hidden, *tree_leaves(params)])
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for s in range(0, S, chunk):
+            h, lab = hidden[:, s:s + chunk], labels[:, s:s + chunk]
+            part = (L.remat(_chunk_loss, params, cfg, h, lab) if grad
+                    else _chunk_loss(params, cfg, h, lab))
+            total = total + part
+        return total / labels.numel()
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict):
+    """batch: {'tokens', 'labels'[, 'patch_embeds']} -> (loss, metrics).
+
+    The loss is the chunked cross-entropy plus 0.01 times the MoE layers'
+    summed load-balancing loss; a vlm's covers its text positions only.
+    ``metrics`` holds ``xent`` and ``aux`` (f32 scalars)."""
+    with engine.config_scope(lambda: falcon_config_for(cfg)):
+        hidden, _, aux = _forward(params, cfg, batch["tokens"],
+                                  patch_embeds=batch.get("patch_embeds"), logits_mode="none")
+        labels = batch["labels"]
+        if cfg.frontend == "vision_patches":
+            hidden = hidden[:, -labels.shape[1]:]   # the loss on the text positions
+        xent = chunked_xent(params, cfg, hidden, labels)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=xent.device)
+        loss = xent + 0.01 * aux
+        return loss, {"xent": xent, "aux": aux}

@@ -14,8 +14,9 @@ per-step contractions the same way (groups ``B * H``). Registry entries:
 
 The reference carries the state across chunks with ``jax.lax.scan``; here
 it is a plain loop over the chunks, one ``addcmul`` launch per chunk
-(``s[n+1] = states[n] + s[n] * decay[n]``) writing into one
-(n_chunks + 1)-deep buffer, so a captured CUDA graph holds it as it is.
+(``s[n+1] = states[n] + s[n] * decay[n]``), then one stack of the states
+entering the chunks, so a captured CUDA graph holds it as it is and
+autograd follows it.
 
 Shapes: x (B, L, H, P) values; dt (B, L, H) step sizes; A (H,) decay rates;
 B_, C_ (B, L, G, N) input/output projections with H % G == 0; state
@@ -106,19 +107,18 @@ def carry_states(states, chunk_decay, init_state=None):
     states[n]`` from ``s[0] = init_state`` (zeros if None), in float32.
     states: (B, nc, H, N, P) chunk-end states; chunk_decay: (B, nc, H).
     Returns (the state entering each chunk (B, nc, H, N, P), the final
-    state (B, H, N, P)): views of one (nc + 1, B, H, N, P) buffer, filled
-    by one ``addcmul`` launch per chunk."""
+    state (B, H, N, P)): one ``addcmul`` launch per chunk, then one stack of
+    the states entering the chunks. Autograd follows every step (an op
+    with ``out=`` it would not)."""
     Bb, nc, H, N, Pd = states.shape
-    carried = torch.empty((nc + 1, Bb, H, N, Pd), dtype=torch.float32, device=states.device)
-    if init_state is None:
-        carried[0].zero_()
-    else:
-        carried[0].copy_(init_state)
+    s = (torch.zeros((Bb, H, N, Pd), dtype=torch.float32, device=states.device)
+         if init_state is None else init_state.float())
     states_t = states.transpose(0, 1)
     decay = chunk_decay.transpose(0, 1)[..., None, None]           # (nc, B, H, 1, 1)
+    carried = [s]
     for n in range(nc):
-        torch.addcmul(states_t[n], carried[n], decay[n], out=carried[n + 1])
-    return carried[:nc].transpose(0, 1), carried[nc]
+        carried.append(torch.addcmul(states_t[n], carried[n], decay[n]))
+    return torch.stack(carried[:nc], dim=1), carried[nc]
 
 
 def ssd_decode_step(x, dt, A, B_, C_, state):

@@ -21,6 +21,10 @@ does three things:
      saves it next to the profile, for ``repro_torch.launch.serve
      --plan-cache ...``.
 
+``--train`` calibrates and warms for training: the probe shapes gain their
+backward (transposed) triples, and the warm pass plans each shape's
+forward, dA and dB (``falcon_gemm.plan_training``).
+
 After tuning, both of these resolve the calibrated numbers:
 
   FalconConfig(hardware="<base>_autotuned")
@@ -81,14 +85,33 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="smoke run: small probe shapes, one rep, reduced "
                          "plan-cache warm grid")
+    ap.add_argument("--train", action="store_true",
+                    help="calibrate + warm for training: probe shapes gain "
+                         "their backward (transposed) variants and the plan "
+                         "cache is warmed with full fwd+dA+dB shape triples")
     args = ap.parse_args(argv)
     if args.quick:
         args.reps, args.warmup = 1, 0
         if args.shape is None:
             args.shape = [(192, 192, 192), (384, 384, 384)]
+    if args.train:
+        # The backward GEMMs run the same kernels at transposed aspect ratios
+        # (M, N, K) / (K, M, N), so the fit sees those shapes too, also when
+        # no --shape was given (the grid then starts from the autotuner's
+        # defaults); duplicates are dropped.
+        from repro_torch.core.autotune import default_probe_shapes
+        from repro_torch.core.decision import backward_shapes
+        if args.shape is None:
+            args.shape = default_probe_shapes(args.backend)
+        seen = set(args.shape)
+        for s in list(args.shape):
+            for sb in backward_shapes(*s):
+                if sb not in seen:
+                    seen.add(sb)
+                    args.shape.append(sb)
 
     from repro_torch.core import autotune, plan_cache
-    from repro_torch.core.falcon_gemm import FalconConfig, plan
+    from repro_torch.core.falcon_gemm import FalconConfig, plan, plan_training
     from repro_torch.core.hardware import get_profile
     from repro_torch.core.workloads import warm_shapes
 
@@ -137,10 +160,15 @@ def main(argv: list[str] | None = None) -> int:
         if args.quick:
             shapes = shapes[:8]
         for (m, k, n) in shapes:
-            d = plan(m, k, n, cfg, dtype=args.warm_dtype)
-            n_lcma += int(d.use_lcma)
+            if args.train:
+                for d in plan_training(m, k, n, cfg, dtype=args.warm_dtype):
+                    n_lcma += int(d.use_lcma)
+            else:
+                d = plan(m, k, n, cfg, dtype=args.warm_dtype)
+                n_lcma += int(d.use_lcma)
         cache.save()
-        print(f"warmed plan cache: {len(cache)} plans "
+        kind = "fwd+bwd triples" if args.train else "plans"
+        print(f"warmed plan cache: {len(cache)} {kind} "
               f"({n_lcma} pick an LCMA) -> {cache_path}")
         # The launcher prices on the model's own profile, so its --plan-cache
         # hits none of these plans (their keys carry this profile's

@@ -1,3 +1,6 @@
-from .steps import make_decode_step, make_prefill_step
+from .loop import FaultInjector, TrainLoop, TrainLoopConfig
+from .steps import (make_decode_step, make_eval_step, make_prefill_step, make_train_step,
+                    warm_train)
 
-__all__ = ["make_prefill_step", "make_decode_step"]
+__all__ = ["TrainLoop", "TrainLoopConfig", "FaultInjector", "make_train_step",
+           "make_eval_step", "warm_train", "make_prefill_step", "make_decode_step"]

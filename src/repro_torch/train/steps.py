@@ -1,22 +1,109 @@
-"""Step functions of the serve path (inference only): one-shot prefill and
-decode, and the continuous-batching engine's bucketed prefill, chunk
-prefill and speculative verify. Only the one-shot prefill takes a vlm's
-patch embeddings: the engine refuses the frontends, as the reference's does.
+"""Step functions: train (forward + planned backward + AdamW) and eval,
+and the serve path's one-shot prefill and decode, and the
+continuous-batching engine's bucketed prefill, chunk prefill and
+speculative verify. Only the one-shot prefill takes a vlm's patch
+embeddings: the engine refuses the frontends, as the reference's does.
 
-Each step writes its cache in place. The engine's steps take per-row
-tensor offsets (``start``, ``index`` as (B,) tensors) and never a host
-int, so that on the card a step can be captured as a CUDA graph. The
-planned backward and the training steps come with the training slice.
+The serve steps run under ``torch.inference_mode`` and write their cache
+in place. The engine's steps take per-row tensor offsets (``start``,
+``index`` as (B,) tensors) and never a host int, so that on the card a step
+can be captured as a CUDA graph. The train step differentiates
+:func:`~repro_torch.models.model.lm_loss` with autograd: every LCMA-routed
+contraction runs through a planned core (``core.engine``), whose backward
+is two planned contractions on the same kernels. FalconGEMM policy is the
+ambient config (``falcon.use``), else the model's own.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import engine
 from repro_torch.models import model as M
+from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
+from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["make_prefill_step", "make_serve_prefill_step", "make_chunk_prefill_step",
-           "make_decode_step", "make_verify_step"]
+__all__ = ["make_train_step", "make_eval_step", "loss_and_grads", "warm_train",
+           "make_prefill_step",
+           "make_serve_prefill_step", "make_chunk_prefill_step", "make_decode_step",
+           "make_verify_step"]
+
+
+def warm_train(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """Pre-plan the forward AND backward shapes of every contraction of
+    ``cfg`` at (batch, seq): dense projections, grouped MoE expert FFNs,
+    attention score/value contractions and SSD chunk contractions, all from
+    the workload registry (``core.workloads.contraction_set``). Run once
+    before the first train step, every Decision-Module query of the step
+    (the forward contractions and each planned core's backward pair) is a
+    plan-cache hit. Returns the number of ``plan()`` calls made."""
+    fc = engine.active_config() or M.falcon_config_for(cfg)
+    return engine.warm_buckets(fc, cfg, [(batch, seq)], dtype=str(cfg.dtype), train=True)
+
+
+def loss_and_grads(params, cfg: ModelConfig, batch: dict):
+    """(loss, metrics, grads): ``grads`` mirrors ``params`` (zeros where a
+    float leaf does not reach the loss, as the reference's gradient is;
+    None for int8 B̃q). Every float leaf is made to require grad."""
+    leaves = [p for p in tree_leaves(params) if p.is_floating_point()]
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, metrics = M.lm_loss(params, cfg, batch)
+    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_id = {id(p): torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)}
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        tree_map(lambda p: by_id.get(id(p)), params)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 10_000,
+                    warmup: int = 100, microbatches: int = 1):
+    """Forward + planned backward + AdamW: ``train_step(params, opt_state,
+    batch, step) -> (params, opt_state, metrics)``. The parameters and the
+    optimizer state are updated in place (the reference's jitted step
+    donates both), then every PlannedWeight's B̃ is re-derived from its
+    updated raw weight (``refresh_planned_params``). ``microbatches > 1``
+    accumulates gradients over that many slices of the batch in float32:
+    activation memory scales with the slice while the optimizer sees the
+    whole batch."""
+
+    def train_step(params, opt_state, batch, step):
+        if microbatches == 1:
+            loss, metrics, grads = loss_and_grads(params, cfg, batch)
+        else:
+            n = microbatches
+            for v in batch.values():
+                if v.shape[0] % n:
+                    raise ValueError(f"batch of {v.shape[0]} rows does not split into "
+                                     f"{n} microbatches")
+            gacc = lsum = None
+            for i in range(n):
+                mb = {k: v.chunk(n)[i] for k, v in batch.items()}
+                loss_i, _, g = loss_and_grads(params, cfg, mb)
+                gacc = (tree_map(lambda t: t.float(), g) if gacc is None
+                        else tree_map(lambda a, b: a + b.float(), gacc, g))
+                lsum = loss_i if lsum is None else lsum + loss_i
+            grads = tree_map(lambda t: t / n, gacc)
+            loss, metrics = lsum / n, {}
+        lr_scale = cosine_schedule(step, warmup, total_steps)
+        params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg,
+                                             lr_scale=lr_scale)
+        # planned gradients landed on each PlannedWeight's raw weight (B̃'s
+        # is zero): re-derive B̃ so the next forward reads a consistent one
+        params = engine.refresh_planned_params(params)
+        return params, opt_state, {"loss": loss, "lr_scale": lr_scale, **metrics, **om}
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig):
+    """``eval_step(params, batch) -> {'loss', 'xent', 'aux'}``, no gradients."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss, metrics = M.lm_loss(params, cfg, batch)
+        return {"loss": loss, **metrics}
+
+    return eval_step
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
