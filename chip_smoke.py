@@ -42,7 +42,7 @@ planned paths, each held to the plain version, beside its predicted
 speedup; each arch served one-shot at that prefill, auto against gemm
 (starcoder2 also on "torch"), depth cut where weights and B̃ exceed the
 card, held to gemm prefix-matched and teacher-forced; each arch's
-ServeEngine at published depth, graphs against eager. Offline Combine B
+ServeEngine at half its published depth, graphs against eager. Offline Combine B
 of those leaves (one launch over all served layers) is held to its plain
 version layer by layer among the kernel cases. Last, the MoE family at
 published width: the expert FFN's calls of #2 (Combine B of whole expert
@@ -54,8 +54,8 @@ plain versions and to strassen's static error bound; dbrx served one-shot
 (4 x 512 tokens) gemm, auto and forced, at the depth whose weights and B̃
 fit (9 of 40 layers), held to gemm prefix-matched and teacher-forced; and
 dbrx's ServeEngine at that depth, auto and forced, graphs against eager.
-Then the SSM and hybrid families at published width and depth
-(mamba2_370m, hymba_1_5b): every call of #1-#4 their phases make among
+Then the SSM and hybrid families at published width and half their
+published depth (mamba2_370m 24 of 48 layers, hymba_1_5b 16 of 32): every call of #1-#4 their phases make among
 the kernel cases (the SSD scan's and decode step's grouped contractions in
 float32, hymba's attention in bf16), the scan's scores contraction timed
 beside torch.bmm; one SSD mixer of each (4 x 2048 tokens) in gemm mode and
@@ -67,8 +67,9 @@ forced, graphs against eager, then with 16-token chunks and with prefix
 snapshots. Every comparison of one engine run with another (graphs
 against eager, speculation, chunked or prefix-cached prefill against whole
 prompts, and the SSM archs' float32 runs) is made at the model's first 8
-layers (gemma3: 6), while the graphed runs serve at published depth: what
-those comparisons hold does not depend on depth.
+layers (gemma3: 6), while the graphed runs serve deeper (published depth,
+or half of it where the run's time asked for it): what those comparisons
+hold does not depend on depth.
 Last, the audio and vlm frontends at full width and published depth:
 musicgen_large (4 x 512 tokens of 4 codebooks, 16 new) in gemm, auto,
 forced strassen (#1/#3 on every projection and each codebook's head, #2/#4
@@ -88,7 +89,18 @@ autograd cores at checked shapes (each backward call among the kernel
 cases); the gradient is held in float32 (granite cut to 4 layers, forced
 within 1e-3 of gemm per leaf) and so is mamba2_370m's through the SSD
 scan's grouped f32 route (one step at published depth, held at its first 4
-layers). Any failure raises, so the exit code is non-zero and the final
+layers). Last, multi-device serving on a 1 x 2 mesh whose two ranks are
+processes spawned on this one card over gloo (every collective staged
+through pinned host memory, so nothing it times is a link's rate): every
+call of #1-#4 a rank makes among the kernel cases (granite's shards, dbrx's
+8 experts a rank) and timed (``@tp``, ``@ep``); granite_3_2b at full width
+and published depth served tensor-parallel (bf16, 4 x 64 tokens, 16 new;
+gemm, auto and forced strassen), each held to one-device serving of the
+same weights prefix-matched and teacher-forced, and at 2 layers in float32
+within 1e-4; the 8-layer ServeEngine on the mesh (eager steps) against the
+one-device engine, equal tokens in float32; one full-width dbrx MoE layer
+expert-parallel against the one-device layer; and the collective probe on
+those ranks. Any failure raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
 """
@@ -126,9 +138,11 @@ from repro_torch.kernels.group_combine import launch_plan  # noqa: E402
 from repro_torch.kernels.quant_combine import launch_plan as quant_plan  # noqa: E402
 from repro_torch.kernels.quant_combine import scale_block  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.core.autotune import measure_collective_bw  # noqa: E402
 from repro_torch.core.decision import effective_tflops, predicted_effective_tflops  # noqa: E402
 from repro_torch.launch.serve import oneshot_inputs, run_oneshot  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.parallel import mesh as PM, sharding as SH  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve.buckets import BucketPolicy, next_pow2  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMData  # noqa: E402
@@ -459,6 +473,19 @@ def phase_kernels() -> None:
             raise AssertionError(f"{name}/{scheme}/train {fields}: error {e} > {tol}")
         worst[name] = max(worst.get(name, 0.0), e)
         seconds[name + "@train"] = seconds.get(name + "@train", 0.0) + time.perf_counter() - t0
+    # One rank's calls on the mesh of phase serve_mesh: granite's shards
+    # (bf16, and float32 at 2 layers), dbrx's 8 experts a rank
+    for name, scheme, dtype, fields, check in tp_kernel_cases():
+        tol = TOL[dtype]["fused" if "fused" in name else "combine"]
+        t0 = time.perf_counter()
+        a, e, shape = check(gen)
+        n += 1
+        emit("kernel_case", kernel=name, scheme=scheme, dtype=str(dtype), shape=shape,
+             max_abs_err=a, err=e, tol=tol, mesh=fields)
+        if not e <= tol:
+            raise AssertionError(f"{name}/{scheme}/mesh {fields}: error {e} > {tol}")
+        worst[name] = max(worst.get(name, 0.0), e)
+        seconds[name + "@tp"] = seconds.get(name + "@tp", 0.0) + time.perf_counter() - t0
     CHECKED.update(k for k in kernels.launch_state() if isinstance(k, tuple))
     emit("kernels", cases=n, worst_err=worst, seconds=seconds)
 
@@ -1176,6 +1203,70 @@ def phase_times() -> dict:
            plan=fused_plan(tuning.plan_fused_tc(G, X, Y, Z, l.R, 2, 2)), launches=10)
     del at4, bt4
     free_memory()
+    # One rank's calls on phase serve_mesh's 1 x 2 mesh (granite, forced
+    # strassen): the tied LM head's vocab shard (2048, 24704) through Combine
+    # B at every call (#1), the mlp_up shard at prefill (256, 2048) @ (2048,
+    # 4096) (#3), attention over the rank's 16 heads at prefill (64 groups
+    # of (64, 64) @ (64, 80)): Combine A of q (#2) and the scores product
+    # (#4); dbrx's expert-parallel layer at 8 experts a rank: Combine B of
+    # the gate/up stack's shard (8, 6144, 10752) (#2) and the grouped product
+    # at C = 768 against per-expert B̃ (#4).
+    x = randn(2048, 24704, dtype=bf, gen=gen)
+    X, Y = 1024, 12352
+    record("group_combine@tp", lambda: kernels.group_combine(x, l.V),
+           lambda: ref.group_combine_ref(ref.split_blocks(x, 2, 2), l.V),
+           2.0 * l.nnz_v * X * Y, (4 + l.R) * X * Y * it, fa, (256, 2048, 24704, 1),
+           library=combine_library(x, l.V), plan=launch_plan(x, l.V).as_dict())
+    del x
+    x3 = randn(64, 64, 64, dtype=bf, gen=gen)
+    X, Y = 32, 32
+    record("batched_group_combine@tp", lambda: kernels.batched_group_combine(x3, l.U),
+           lambda: ref.group_combine_ref(ref.split_blocks(x3, 2, 2), l.U),
+           64 * 2.0 * l.nnz_u * X * Y, 64 * (4 + l.R) * X * Y * it, fa, (64, 64, 80, 64),
+           library=combine_library(x3, l.U), plan=launch_plan(x3, l.U).as_dict())
+    del x3
+    X, Y, Z = 128, 1024, 2048
+    at = randn(l.R, X, Y, dtype=bf, gen=gen)
+    bt = randn(l.R, Y, Z, dtype=bf, gen=gen)
+    record("fused_gemm_combine_h@tp", lambda: kernels.fused_gemm_combine_h(at, bt, l.W),
+           lambda: ref.fused_gemm_combine_h_ref(at, bt, l.W),
+           2.0 * l.R * X * Y * Z, (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
+           (256, 2048, 4096, 1), plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2)))
+    del at, bt
+    G, X, Y, Z = 64, 32, 32, 40
+    at4 = randn(G, l.R, X, Y, dtype=bf, gen=gen)
+    bt4 = randn(G, l.R, Y, Z, dtype=bf, gen=gen)
+    record("batched_fused_gemm_combine_h@tp",
+           lambda: kernels.batched_fused_gemm_combine_h(at4, bt4, l.W),
+           lambda: ref.fused_gemm_combine_h_ref(at4, bt4, l.W),
+           G * 2.0 * l.R * X * Y * Z, G * (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
+           (64, 64, 80, G), plan=fused_plan(tuning.plan_fused_tc(G, X, Y, Z, l.R, 2, 2)))
+    del at4, bt4
+    cfg = get_config(MESH_MOE)
+    E, d, ff = cfg.num_experts // MESH["model"], cfg.d_model, cfg.d_ff
+    C = mesh_moe_capacity(cfg)
+    x3 = randn(E, d, ff, dtype=bf, gen=gen)
+    X, Y = d // 2, ff // 2
+    record("batched_group_combine@ep", lambda: kernels.batched_group_combine(x3, l.V),
+           lambda: ref.group_combine_ref(ref.split_blocks(x3, 2, 2), l.V),
+           E * 2.0 * l.nnz_v * X * Y, E * (4 + l.R) * X * Y * it, fa, (C, d, ff, E),
+           library=combine_library(x3, l.V), plan=launch_plan(x3, l.V).as_dict(), launches=5)
+    del x3
+    free_memory()
+    X, Y, Z = C // 2, d // 2, ff // 2
+    at4 = randn(E, l.R, X, Y, dtype=bf, gen=gen)
+    bt4 = torch.empty(E, l.R, Y, Z, dtype=bf, device=DEV)
+    for g in range(E):
+        bt4[g] = randn(l.R, Y, Z, dtype=bf, gen=gen)
+    record("batched_fused_gemm_combine_h@ep",
+           lambda: kernels.batched_fused_gemm_combine_h(at4, bt4, l.W),
+           lambda: ref.fused_gemm_combine_h_ref(at4, bt4, l.W),
+           E * 2.0 * l.R * X * Y * Z, E * (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
+           (C, d, ff, E),
+           library=lambda: torch.bmm(at4.view(E * l.R, X, Y), bt4.view(E * l.R, Y, Z)),
+           plan=fused_plan(tuning.plan_fused_tc(E, X, Y, Z, l.R, 2, 2)), launches=5)
+    del at4, bt4
+    free_memory()
     torch.cuda.empty_cache()
     return out
 
@@ -1855,17 +1946,21 @@ def free_memory() -> None:
 
 
 def forced_logits(cfg, params, batch: int, prompt: int, tokens: torch.Tensor,
-                  seed: int = 0, quantize: bool = False) -> list:
+                  seed: int = 0, quantize: bool = False, mesh_shape: dict | None = None) -> list:
     """``cfg``'s one-shot serve of :func:`serve`'s prompts (``run_oneshot``'s
     steps and draw from ``seed``: an audio model's codebook tokens, a vlm's
     patches) with every decode step fed the next token of ``tokens`` (batch,
     gen[, CB]) instead of its own: the last-position logits of the prefill
-    and of each decode step, each (batch[, CB], Vp) on the host."""
+    and of each decode step, each (batch[, CB], Vp) on the host. With
+    ``mesh_shape``, on this rank of its mesh (``params`` sharded here)."""
     prompts, patches, pos0 = oneshot_inputs(cfg, batch, prompt, seed, DEV)
     prefill = make_prefill_step(cfg, max_len=pos0 + tokens.shape[1])
     decode = make_decode_step(cfg)
     fcfg = dataclasses.replace(M.falcon_config_for(cfg), quantize=quantize)
-    with falcon.use(fcfg), torch.inference_mode():
+    mesh = PM.mesh_for(mesh_shape)
+    if mesh is not None:
+        params = SH.shard_params(params, cfg, mesh)
+    with falcon.use(fcfg), PM.use_mesh(mesh), torch.inference_mode():
         p, _ = falcon.precombine_params(params, m_hint=batch * prompt)
         logits, cache = prefill(p, prompts, patches)
         out = [logits[:, -1].float().cpu()]
@@ -1974,15 +2069,21 @@ def phase_serve_archs() -> None:
         free_memory()
 
 
+# The depth phase serve_engine_archs serves at: half the published depth
+# (40, 40, 62 layers; gemma3 in whole 6-layer periods), to make room in the
+# run's time for phase serve_mesh
+ENGINE_ARCH_DEPTH = {"mistral_nemo_12b": 20, "starcoder2_15b": 20, "gemma3_27b": 30}
+
+
 def phase_serve_engine_archs() -> None:
-    """One ServeEngine per new arch at its published depth, auto mode: the
-    16 requests of phase serve_engine, every bucket's step a CUDA graph, no
-    plan-cache miss after warm (:func:`engine_run`); then graphs against
-    eager at the first layers (:func:`twin_check`). The buckets' M is at
-    most 8 x 64 = 512 rows, where auto mode plans every leaf on GEMM: no B̃
-    is held."""
+    """One ServeEngine per new arch at ENGINE_ARCH_DEPTH layers (published
+    width), auto mode: the 16 requests of phase serve_engine, every bucket's
+    step a CUDA graph, no plan-cache miss after warm (:func:`engine_run`);
+    then graphs against eager at the first layers (:func:`twin_check`). The
+    buckets' M is at most 8 x 64 = 512 rows, where auto mode plans every
+    leaf on GEMM: no B̃ is held."""
     for arch in NEW_ARCHS:
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch), num_layers=ENGINE_ARCH_DEPTH[arch])
         free_memory()
         params = M.init_params(cfg, 0, DEV)
         requests = engine_requests(cfg.vocab_size)
@@ -2716,6 +2817,11 @@ def phase_serve_engine_moe() -> None:
 # ---------------------------------------------------------------------------
 
 SSM_ARCHS = ("mamba2_370m", "hymba_1_5b")
+# The depth the SSM phases serve at: half the published depth (48 and 32
+# layers), at published width, to make room in the run's time for phase
+# serve_mesh (what the comparisons hold does not depend on depth; the SSD
+# mixer's phase runs one full-width mixer either way)
+SSM_DEPTH = {"mamba2_370m": 24, "hymba_1_5b": 16}
 SSM_SERVE = (4, 2048)           # one-shot: 4 x 2048 prompt tokens, 8 chunks of 256
 SSM_GEN = 16
 SSD_ROLES = ("ssd.scores", "ssd.y_diag", "ssd.states", "ssd.y_off")
@@ -2736,6 +2842,11 @@ SSM_HELD = "float32"
 # models.layers.flash_attention's query chunk: a prefill of more queries
 # runs its attention 512 queries at a time
 FLASH_Q = 512
+
+
+def ssm_served(arch: str):
+    """The config the SSM phases serve ``arch`` at: published width, SSM_DEPTH layers."""
+    return dataclasses.replace(get_config(arch), num_layers=SSM_DEPTH[arch])
 
 
 def as_dtype(tree, dtype: str):
@@ -2763,7 +2874,8 @@ def ssm_contexts() -> list[tuple[int, int, int, bool, int]]:
     return sorted(out)
 
 
-def planned_launches(cfg, mode: str, contexts, quantize: bool = False) -> set[tuple]:
+def planned_launches(cfg, mode: str, contexts, quantize: bool = False,
+                     mesh_shape: dict | None = None) -> set[tuple]:
     """Every product of ``cfg`` at the call ``contexts`` ((batch, tokens per
     row, cache length, decode, m_hint) each) that runs an LCMA under
     ``mode`` ("auto" on h100_sxm, or a forced scheme), decided as
@@ -2779,14 +2891,15 @@ def planned_launches(cfg, mode: str, contexts, quantize: bool = False) -> set[tu
     dtype, M, K, N, runtime Combine B), ("stack", scheme, dtype, layers, K,
     N) (a leaf's offline Combine B), ("quant", scheme, dtype, M, K, N) (#6
     and #7) and ("offline_b", scheme, dtype, K, N) (a slice's Combine B on
-    the way to its B̃q)."""
+    the way to its B̃q). ``mesh_shape``: the shapes one rank of that mesh
+    contracts (``resolve_contractions(..., local=True)``)."""
     fcfg = falcon.FalconConfig(mode=mode, quantize=quantize)
     audio = cfg.frontend == "audio_codebooks"
     out = set()
     for batch, seq, kv, decode, hint in contexts:
         calls = [(c, cfg.num_layers) for c in workloads.resolve_contractions(
-            cfg, batch, seq, kv_len=kv, decode=decode)
-            if not (audio and c.role == "lm_head")]
+            cfg, batch, seq, kv_len=kv, decode=decode, mesh_shape=mesh_shape,
+            local=bool(mesh_shape)) if not (audio and c.role == "lm_head")]
         if audio:       # one (d, Vp) head per codebook, on each row's last position
             calls.append((workloads.Contraction("dense", "lm_head", batch, cfg.d_model,
                                                 M.padded_vocab(cfg)), cfg.num_codebooks))
@@ -2907,7 +3020,7 @@ def ssm_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
     for arch in SSM_ARCHS:
         keys = set()
         for dtype in ("bfloat16", SSM_HELD):
-            cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+            cfg = dataclasses.replace(ssm_served(arch), dtype=dtype)
             if dtype == SSM_HELD:       # served at the first layers
                 cfg = dataclasses.replace(cfg, num_layers=twin_depth(cfg))
             keys |= ssm_launches(cfg, "auto") | ssm_launches(cfg, "strassen")
@@ -3046,8 +3159,8 @@ def phase_ssd_layer() -> None:
 
 
 def phase_serve_ssm() -> dict:
-    """Each SSM and hybrid arch at published width and depth, random
-    weights from seed 0, served one-shot (4 x 2048 prompt tokens, 16 new)
+    """Each SSM and hybrid arch at published width and SSM_DEPTH layers,
+    random weights from seed 0, served one-shot (4 x 2048 prompt tokens, 16 new)
     three ways, each after a 2-token warm-up serve: ``gemm`` (every product
     on torch.matmul, the reference), ``auto`` (h100_sxm: the leaves it
     prices to an LCMA at M = 8192 precombined; the f32 SSD contractions
@@ -3070,7 +3183,7 @@ def phase_serve_ssm() -> dict:
     ssd_counts = {}
     modes = (("gemm", "gemm"), ("auto", "auto"), ("forced", "strassen"))
     for arch in SSM_ARCHS:
-        base = get_config(arch)
+        base = ssm_served(arch)
         vocab = base.vocab_size
         free_memory()
         torch.cuda.reset_peak_memory_stats()
@@ -3215,7 +3328,7 @@ def prefix_run(name: str, cfg, params, requests) -> dict:
 
 def phase_serve_engine_ssm() -> None:
     """The continuous-batching ServeEngine on each SSM and hybrid arch at
-    published width and depth (seed 0), the 16 requests of phase
+    published width and SSM_DEPTH layers (seed 0), the 16 requests of phase
     serve_engine over 8 slots. In bf16, the published dtype: auto mode and
     forced strassen, each with every bucket's step a CUDA graph, no
     plan-cache miss after warm (:func:`engine_run`). The comparisons run at
@@ -3233,7 +3346,7 @@ def phase_serve_engine_ssm() -> None:
     QUALITY_TOL. Whether every token is equal is printed for each pair.
     Every launch is at a shape phase_kernels checked."""
     for arch in SSM_ARCHS:
-        base = get_config(arch)
+        base = ssm_served(arch)
         vocab = base.vocab_size
         free_memory()
         params = M.init_params(base, 0, DEV)
@@ -3535,6 +3648,368 @@ def strip(tree):
     """The nested dict's structure, each tensor replaced by its dtype (a leaf
     that names a key, as ``restore_checkpoint`` reads it)."""
     return {k: strip(v) if isinstance(v, dict) else v.dtype for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Multi-device serving: granite_3_2b tensor-parallel and one dbrx_132b MoE
+# layer expert-parallel over 2 ranks, both processes on the one card
+# ---------------------------------------------------------------------------
+
+MESH = {"data": 1, "model": 2}
+MESH_ARCH = "granite_3_2b"
+MESH_MODES = ("gemm", "auto", "strassen")
+MESH_F32_LAYERS = 2             # the float32 comparison: granite cut to 2 layers
+MESH_F32_TOL = 1e-4             # max |mesh - one device| / max |one device|, float32
+MESH_MOE = "dbrx_132b"
+MESH_DIR = os.path.join(ROOT, "build", "mesh")
+# A gloo mesh of ranks sharing one card: its collectives cross pinned host
+# memory, so what it measures is that path, never a link's rate.
+MESH_LABEL = "gloo, 2 ranks sharing one card"
+
+
+def mesh_contexts(cfg) -> dict[str, list]:
+    """(batch, tokens per row, cache length, decode, m_hint) of every call
+    the ranks make: the one-shot's prefill and decode against its 80-key
+    cache (66 keys: the 2-token warm-up serve), and (``engine``) every
+    prefill and decode bucket of the 8-layer engine against the slot cache."""
+    oneshot = [(BATCH, n, PROMPT + gen, n == 1, BATCH * PROMPT)
+               for n in (PROMPT, 1) for gen in (GEN, 2)]
+    pol = engine_policy(False)
+    hint, keys = pol.prefill_batch[-1] * pol.prefill_seq[-1], engine_keys(False)
+    engine = ([(rows, n, keys, False, hint) for rows, n in pol.prefill_shapes()]
+              + [(rows, 1, keys, True, hint) for rows in pol.decode_batch])
+    return {"oneshot": oneshot, "engine": engine}
+
+
+def mesh_moe_capacity(cfg) -> int:
+    return workloads.layer_capacity(cfg, MOE_LAYER_T)
+
+
+def tp_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
+    """(kernel, scheme, dtype, shape fields, check) of every call of #1-#4
+    one rank of the mesh makes (:func:`planned_launches` at the shapes a
+    rank contracts): granite's one-shot in auto mode and forced strassen
+    and its 8-layer engine forced (bf16), the float32 one-shot at 2 layers
+    and engine at 8, forced; and the expert-parallel dbrx layer's grouped calls at 8 experts
+    a rank: Combine B of each rank's expert stacks and Combine A of the
+    activations at its capacity (#2), the grouped product against
+    per-expert B̃ (#4)."""
+    base = get_config(MESH_ARCH)
+    ctx = mesh_contexts(base)
+    bf16 = set().union(*(planned_launches(base, mode, ctx["oneshot"], mesh_shape=MESH)
+                         for mode in ("auto", "strassen")))
+    bf16 |= planned_launches(dataclasses.replace(base, num_layers=TWIN_LAYERS), "strassen",
+                             ctx["engine"], mesh_shape=MESH)
+    f32 = planned_launches(dataclasses.replace(base, num_layers=MESH_F32_LAYERS,
+                                               dtype="float32"), "strassen", ctx["oneshot"],
+                           mesh_shape=MESH)
+    f32 |= planned_launches(dataclasses.replace(base, num_layers=TWIN_LAYERS, dtype="float32"),
+                            "strassen", ctx["engine"], mesh_shape=MESH)
+    out = [(name, scheme, dt, {**fields, "tp": MESH["model"]}, check)
+           for name, scheme, dt, fields, check in launch_kernel_cases(
+               {f"{MESH_ARCH}@tp": bf16, f"{MESH_ARCH}@tp_f32": f32})]
+    l = alg.get("strassen")
+    cfg = get_config(MESH_MOE)
+    E, d, ff = cfg.num_experts // MESH["model"], cfg.d_model, cfg.d_ff
+    X = cdiv(mesh_moe_capacity(cfg), l.m)
+    fields = {"arch": MESH_MOE, "ep": MESH["model"]}
+    for K, N in ((d, ff), (ff, d)):
+        out.append(("batched_group_combine", l.name, torch.bfloat16,
+                    {**fields, "stack": [E, K, N]},
+                    functools.partial(check_stacked_combine, l, E, K, N)))
+        out.append(("batched_group_combine", l.name, torch.bfloat16,
+                    {**fields, "activations": [E, 2 * X, K]},
+                    checked(functools.partial(combine_case, l, torch.bfloat16, (2 * X, K), "U",
+                                              groups=E))))
+        out.append(("batched_fused_gemm_combine_h", l.name, torch.bfloat16,
+                    {**fields, "per_group_bt": [E, l.R, K // 2, N // 2], "X": X},
+                    functools.partial(check_grouped_fused, l, E, X, K // 2, N // 2)))
+    return out
+
+
+def mesh_engine(dtype: str, mesh=None) -> dict:
+    """granite's ServeEngine at TWIN_LAYERS layers, forced strassen, eager
+    steps, in ``dtype``, on one device or, with ``mesh``, on this rank:
+    phase serve_engine's 16 requests served after warm, with their launch
+    counts (set to 0 after warm) and the plan misses serving added."""
+    cfg = dataclasses.replace(get_config(MESH_ARCH), num_layers=TWIN_LAYERS,
+                              falcon_mode="strassen", dtype=dtype)
+    engine = ServeEngine(cfg, M.init_params(cfg, 0, DEV), device=DEV, cuda_graphs=False,
+                         record_logits=True, mesh_shape=MESH if mesh is not None else None,
+                         **ENGINE)
+    warm = engine.warm()
+    misses = plan_cache.stats().misses
+    kernels.reset_launch_counts()
+    if mesh is not None:
+        mesh.stats.reset()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=n) for p, n in engine_requests(cfg.vocab_size)]
+    engine.run()
+    torch.cuda.synchronize()
+    out = {"outputs": [(r.generated, r.logits) for r in reqs],
+           "seconds": time.perf_counter() - t0, "warm": warm,
+           "misses_after_warm": plan_cache.stats().misses - misses,
+           "launches": kernels.launch_counts(), "state": dict(kernels.launch_state()),
+           "summary": {k: v for k, v in engine.summary().items() if k != "prefix_cache"}}
+    del engine
+    free_memory()
+    return out
+
+
+def mesh_moe_layer(cfg, mode: str, mesh=None) -> dict:
+    """One full-width dbrx MoE layer (random bf16 weights and a 4 x 512
+    input drawn from seed 0, as phase moe_layer's) under ``mode``, on one
+    device or, with ``mesh``, expert-parallel on this rank: its output, the
+    routes, launches and launch_state, and the device ms per call."""
+    from repro_torch.models import moe as MOE
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    p = MOE.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, torch.bfloat16, DEV)
+    x = randn(4, MOE_LAYER_T // 4, cfg.d_model, dtype=torch.bfloat16, gen=gen)
+    if mesh is not None:
+        p = SH.shard_params(p, cfg, mesh)
+        free_memory()
+    seen = {}
+    route = MOE._route
+
+    def rec_route(*a):
+        out = route(*a)
+        seen["idx"] = out[2]
+        return out
+
+    fn = lambda: MOE.moe_apply(p, x, cfg.experts_per_token, cfg.capacity_factor,  # noqa: E731
+                               deterministic_capacity=mesh_moe_capacity(cfg),
+                               num_experts=cfg.num_experts)
+    with falcon.use(falcon.FalconConfig(mode=mode)), PM.use_mesh(mesh), \
+            torch.inference_mode():
+        kernels.reset_launch_counts()
+        MOE._route = rec_route
+        try:
+            y, aux = fn()
+            torch.cuda.synchronize()
+        finally:
+            MOE._route = route
+        counts, state = kernels.launch_counts(), dict(kernels.launch_state())
+        t = events_ms(fn, warmup=1, launches=3, runs=3)[0]
+    return {"y": y.cpu(), "aux": float(aux), "idx": seen["idx"].cpu(), "counts": counts,
+            "state": state, "ms": t, "held": p["router"].shape[-1]}
+
+
+def mesh_rank(mesh, refs: dict) -> dict:
+    """One rank of the mesh (spawned by phase serve_mesh): every run the
+    phase holds to one device, on this rank's shard, each with its launch
+    counts set to 0 just before it and read just after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend,
+           "oneshot": {}, "f32": {}}
+    # ``refs``: the one-device one-shot's tokens per mode, fed back to the
+    # teacher-forced runs
+    base = get_config(MESH_ARCH)
+    params = M.init_params(base, 0, DEV)
+    for mode in MESH_MODES:
+        cfg = dataclasses.replace(base, falcon_mode=mode)
+        run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=2, seed=0, device=DEV,
+                    params=params, mesh_shape=MESH)             # warm-up
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        mesh.stats.reset()
+        res = run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, device=DEV,
+                          params=params, mesh_shape=MESH)
+        counts, state = kernels.launch_counts(), dict(kernels.launch_state())
+        out["oneshot"][mode] = {
+            "tokens": res["tokens"], "logits": [lg.float().cpu() for lg in res["logits"]],
+            "timings": res["timings"], "launches": counts, "state": state,
+            "launches_by_phase": res["launches"], "mesh": res["mesh"],
+            "n_precombined": res["n_precombined"],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "forced": forced_logits(cfg, params, BATCH, PROMPT, refs["oneshot"][mode],
+                                    mesh_shape=MESH)}
+        free_memory()
+    del params
+    free_memory()
+    f32 = dataclasses.replace(base, num_layers=MESH_F32_LAYERS, dtype="float32")
+    params = M.init_params(f32, 0, DEV)
+    for mode in ("gemm", "strassen"):
+        kernels.reset_launch_counts()
+        res = run_oneshot(dataclasses.replace(f32, falcon_mode=mode), batch=BATCH,
+                          prompt_len=PROMPT, gen=GEN, seed=0, device=DEV, params=params,
+                          mesh_shape=MESH)
+        out["f32"][mode] = {"tokens": res["tokens"],
+                            "logits": [lg.float().cpu() for lg in res["logits"]],
+                            "state": dict(kernels.launch_state())}
+    del params
+    free_memory()
+    out["engine"] = {dt: mesh_engine(dt, mesh) for dt in ("float32", "bfloat16")}
+    moe = get_config(MESH_MOE)
+    out["moe"] = {mode: mesh_moe_layer(moe, mode, mesh) for mode in ("gemm", "strassen")}
+    free_memory()
+    # (d) the collective probe, and whether gloo takes CUDA tensors itself
+    import torch.distributed as dist
+    direct = {}
+    for op in ("all_reduce", "all_gather"):
+        x = torch.ones(4, device=DEV)
+        try:
+            if op == "all_reduce":
+                dist.all_reduce(x)
+            else:
+                dist.all_gather([torch.empty_like(x) for _ in range(mesh.n_devices)], x)
+            torch.cuda.synchronize()
+            direct[op] = "works"
+        except RuntimeError as e:
+            direct[op] = f"raises: {str(e).splitlines()[0][:160]}"
+    out["probe"] = {"collective_bw": measure_collective_bw(), "gloo_cuda_tensors": direct}
+    return out
+
+
+def mesh_check(what: str, got: dict, want: dict, vocab: int) -> tuple[float, float]:
+    """A mesh run against the one-device run of the same weights: (prefix-
+    matched relative logit error, teacher-forced one), each held to
+    QUALITY_TOL."""
+    pre, compared, agreement = logit_error(per_request(got), per_request(want), vocab)
+    forced = forced_err(got["forced"], want, vocab)
+    if compared < len(want["tokens"]) or not max(pre, forced) <= QUALITY_TOL:
+        raise AssertionError(f"serve_mesh/{what}: logit error against one device {pre} "
+                             f"(prefix, {compared} steps), {forced} (teacher-forced), "
+                             f"tolerance {QUALITY_TOL}")
+    return pre, forced, agreement
+
+
+def phase_serve_mesh() -> dict:
+    """granite_3_2b served tensor-parallel on a 1 x 2 mesh (full width,
+    published depth, bf16, 4 x 64 prompts, 16 new tokens; gemm, auto and
+    forced strassen), both ranks spawned on this card over gloo, each run
+    held to one-device serving of the same weights prefix-matched and
+    teacher-forced (QUALITY_TOL); the same at 2 layers in float32 within
+    MESH_F32_TOL; the 8-layer ServeEngine (forced strassen, eager: a
+    host-staged collective cannot be captured) on 16 ragged requests held to
+    the one-device engine, in float32 to equal tokens and MESH_F32_TOL, in
+    bf16 prefix-matched (QUALITY_TOL); one full-width dbrx MoE layer
+    expert-parallel (8 experts a rank), gemm and forced strassen, held to
+    the one-device layer; and the collective probe on those ranks. Every
+    rank launch of #1-#4 must be at a shape phase_kernels checked. Returns
+    rank 0's launch counts of the forced one-shot (``@tp``) and of the
+    forced MoE layer (``@ep``)."""
+    base = get_config(MESH_ARCH)
+    refs = {"oneshot": {}}
+    singles = {}
+    params = M.init_params(base, 0, DEV)
+    for mode in MESH_MODES:
+        cfg = dataclasses.replace(base, falcon_mode=mode)
+        run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=2, seed=0, device=DEV,
+                    params=params)                              # warm-up
+        res = run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, device=DEV,
+                          params=params)
+        singles[mode] = {"tokens": res["tokens"], "timings": res["timings"],
+                         "logits": [lg.float().cpu() for lg in res["logits"]]}
+        refs["oneshot"][mode] = res["tokens"]
+        free_memory()
+    del params
+    f32 = dataclasses.replace(base, num_layers=MESH_F32_LAYERS, dtype="float32")
+    params = M.init_params(f32, 0, DEV)
+    f32_single = {mode: run_oneshot(dataclasses.replace(f32, falcon_mode=mode), batch=BATCH,
+                                    prompt_len=PROMPT, gen=GEN, seed=0, device=DEV,
+                                    params=params)["logits"]
+                  for mode in ("gemm", "strassen")}
+    del params
+    engine_single = {dt: mesh_engine(dt)["outputs"] for dt in ("float32", "bfloat16")}
+    moe = get_config(MESH_MOE)
+    moe_single = {mode: mesh_moe_layer(moe, mode) for mode in ("gemm", "strassen")}
+    free_memory()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = PM.run_ranks(mesh_rank, MESH, refs, backend="gloo", device=DEV, workdir=MESH_DIR,
+                         timeout=600)
+    spawn_s = time.perf_counter() - t0
+    V = base.vocab_size
+    r0 = ranks[0]
+    # (a) one-shot granite, each mode against one device
+    for mode in MESH_MODES:
+        runs = [r["oneshot"][mode] for r in ranks]
+        for i, run in enumerate(runs):
+            check_covered(f"serve_mesh/{mode}/rank{i}", collections.Counter(run["state"]))
+            if not torch.equal(run["tokens"], runs[0]["tokens"]):
+                raise AssertionError(f"serve_mesh/{mode}: rank {i}'s tokens differ from rank 0's")
+        run = runs[0]
+        pre, forced, agreement = mesh_check(mode, run, singles[mode], V)
+        emit("serve_mesh", arch=MESH_ARCH, layers=base.num_layers, dtype=base.dtype, mode=mode,
+             mesh=MESH, label=MESH_LABEL, backend=r0["backend"], batch=BATCH,
+             prompt_len=PROMPT, new_tokens=GEN, n_precombined=run["n_precombined"],
+             rel_logit_err=pre, forced_rel_logit_err=forced, token_agreement=agreement,
+             tol=QUALITY_TOL, **run["timings"],
+             single_device=singles[mode]["timings"],
+             launches_by_rank=[r["oneshot"][mode]["launches"] for r in ranks],
+             launches_by_phase=run["launches_by_phase"],
+             staged_bytes=run["mesh"]["staged_bytes"],
+             collective_ms=run["mesh"]["collective_ms"],
+             collective_calls=run["mesh"]["collective_calls"],
+             collectives_by_phase=run["mesh"]["collectives"],
+             peak_bytes_by_rank=[r["oneshot"][mode]["peak_bytes"] for r in ranks])
+        if mode == "strassen" and min(r["oneshot"][mode]["launches"][k]
+                                      for r in ranks for k in ENGINE_FP_KERNELS) <= 0:
+            raise AssertionError(f"serve_mesh/strassen: a rank launched no #1-#4: "
+                                 f"{[r['oneshot'][mode]['launches'] for r in ranks]}")
+    # ... and in float32 at 2 layers
+    for mode in ("gemm", "strassen"):
+        got, want = r0["f32"][mode]["logits"], f32_single[mode]
+        check_covered(f"serve_mesh/f32/{mode}", collections.Counter(r0["f32"][mode]["state"]))
+        scale = max(w[..., :V].abs().max().item() for w in want)
+        d = max((g[..., :V] - w[..., :V].float().cpu()).abs().max().item()
+                for g, w in zip(got, want)) / scale
+        emit("serve_mesh_f32", arch=MESH_ARCH, layers=MESH_F32_LAYERS, mode=mode, mesh=MESH,
+             rel_err=d, tol=MESH_F32_TOL)
+        if not d <= MESH_F32_TOL:
+            raise AssertionError(f"serve_mesh/f32/{mode}: {d} > {MESH_F32_TOL}")
+    # (b) the engine: in float32 the ranks' partial sums cannot flip a
+    # greedy token (tokens equal, logits within MESH_F32_TOL); in bf16 each
+    # rank rounds its partial sum where one device rounds once, so tokens
+    # may part where two logits nearly tie: held prefix-matched
+    for dt in ("float32", "bfloat16"):
+        e = r0["engine"][dt]
+        for i, r in enumerate(ranks):
+            check_covered(f"serve_mesh/engine/{dt}/rank{i}",
+                          collections.Counter(r["engine"][dt]["state"]))
+            if [o[0] for o in r["engine"][dt]["outputs"]] != [o[0] for o in e["outputs"]]:
+                raise AssertionError(f"serve_mesh/engine/{dt}: rank {i}'s tokens differ "
+                                     "from rank 0's")
+        single = engine_single[dt]
+        same = all(g[0] == s_[0] for g, s_ in zip(e["outputs"], single))
+        worst, compared, agreement = logit_error(e["outputs"], single, V)
+        misses = [r["engine"][dt]["misses_after_warm"] for r in ranks]
+        tol = MESH_F32_TOL if dt == "float32" else QUALITY_TOL
+        emit("serve_mesh_engine", arch=MESH_ARCH, layers=TWIN_LAYERS, dtype=dt,
+             mode="strassen", mesh=MESH, requests=ENGINE_REQUESTS, cuda_graphs=False,
+             tokens_equal=same, token_agreement=agreement, rel_logit_err=worst,
+             steps_compared=compared, tol=tol, misses_after_warm=misses,
+             seconds=e["seconds"], warm=e["warm"], launches=e["launches"],
+             summary=e["summary"])
+        if (dt == "float32" and not same) or compared < len(single) or \
+                not worst <= tol or any(misses):
+            raise AssertionError(f"serve_mesh/engine/{dt}: tokens equal {same}, logit error "
+                                 f"{worst} over {compared} steps, misses after warm {misses}")
+    # (c) the expert-parallel MoE layer
+    for mode in ("gemm", "strassen"):
+        got, want = r0["moe"][mode], moe_single[mode]
+        for i, r in enumerate(ranks):
+            check_covered(f"serve_mesh/moe/{mode}/rank{i}", collections.Counter(r["moe"][mode]["state"]))
+        a, e_ = err(got["y"], want["y"])
+        routes = torch.equal(got["idx"], want["idx"])
+        emit("serve_mesh_moe", arch=MESH_MOE, mode=mode, mesh=MESH, tokens=MOE_LAYER_T,
+             experts_per_rank=got["held"], capacity=mesh_moe_capacity(moe), max_abs_err=a,
+             err=e_, tol=LAYER_TOL, routes_equal=routes, ms=got["ms"], single_ms=want["ms"],
+             launches_by_rank=[r["moe"][mode]["counts"] for r in ranks],
+             single_launches=want["counts"])
+        if not e_ <= LAYER_TOL or got["held"] != moe.num_experts // MESH["model"]:
+            raise AssertionError(f"serve_mesh/moe/{mode}: error {e_} > {LAYER_TOL} "
+                                 f"(routes equal {routes}), {got['held']} experts a rank")
+    # (d) the probe
+    emit("serve_mesh_probe", label=MESH_LABEL, backend=r0["backend"],
+         collective_bw=r0["probe"]["collective_bw"],
+         note="ring all-gather / reduce-scatter of 8 MiB over 2 processes on one card, "
+              "through pinned host memory: not a link's rate, never saved into a profile",
+         gloo_cuda_tensors=r0["probe"]["gloo_cuda_tensors"], spawn_and_ranks_s=spawn_s)
+    counts = {f"{k}@tp": v for k, v in r0["oneshot"]["strassen"]["launches"].items()}
+    counts.update({f"{k}@ep": v for k, v in r0["moe"]["strassen"]["counts"].items()})
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4095,6 +4570,7 @@ def main() -> None:
     fe_counts = run(phase_serve_frontends)
     run(phase_checkpoint)
     train_counts = run(phase_train)
+    mesh_counts = run(phase_serve_mesh)
     emit("total", seconds=time.perf_counter() - t0, phases=phases)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
@@ -4137,7 +4613,17 @@ def main() -> None:
         for k in ("group_combine@train_dA", "fused_gemm_combine_h@train_dA",
                   "group_combine@train_dB", "fused_gemm_combine_h@train_dB",
                   "batched_group_combine@train_attn",
-                  "batched_fused_gemm_combine_h@train_attn")]}))
+                  "batched_fused_gemm_combine_h@train_attn")] + [
+        # one rank of the 1 x 2 mesh (granite tensor-parallel, dbrx's layer
+        # expert-parallel; forced strassen), launches from serve_mesh's rank 0
+        {"name": k, "route": "cuda", "source": SOURCES[k.split("@")[0]],
+         "replaces": REPLACES[k.split("@")[0]], "launches": mesh_counts[k],
+         "max_abs_err": times[k]["max_abs_err"], "ms": times[k]["ms"],
+         "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
+         "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"]}
+        for k in ("group_combine@tp", "batched_group_combine@tp", "fused_gemm_combine_h@tp",
+                  "batched_fused_gemm_combine_h@tp", "batched_group_combine@ep",
+                  "batched_fused_gemm_combine_h@ep")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

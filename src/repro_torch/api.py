@@ -35,18 +35,17 @@ from repro_torch.core.engine import (FalconEngine, PlannedWeight, active_config,
 from repro_torch.core.falcon_gemm import (FalconConfig, falcon_dense, falcon_matmul,
                                           grouped_matmul_with_precombined,
                                           matmul_with_precombined, plan, plan_batched,
-                                          plan_training, precombine_weights)
+                                          plan_sharded, plan_training, precombine_weights)
 from repro_torch.core.workloads import (Contraction, ContractionSpec, contraction_set,
                                         dense_projection_shapes, grouped_moe_shapes,
                                         resolve_contractions)
 
-# The reference's names minus that of work still to come: multi-device
-# (plan_sharded).
+# The reference's names.
 __all__ = [
     # context-scoped config
     "use", "current_config", "active_config", "FalconConfig", "FalconEngine",
     # dispatch entry points
-    "dense", "matmul", "dot_general", "einsum", "plan",
+    "dense", "matmul", "dot_general", "einsum", "plan", "plan_sharded",
     # grouped batched dispatch (group-parallel execution)
     "grouped_matmul", "plan_batched", "grouped_expert_shapes",
     "grouped_matmul_with_precombined",

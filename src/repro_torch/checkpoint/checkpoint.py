@@ -8,7 +8,7 @@ Layout:  <dir>/step_<N>/manifest.json + arrays.npz
     load;
   * arrays are stored whole; ``restore_checkpoint`` places them on the
     ``device`` the caller names (resharding onto a mesh comes with the
-    multi-device work);
+    training half of multi-device, ROADMAP Queue 1 item 6b);
   * ``CheckpointManager`` adds async save (the host copy is made at once,
     the disk write on a background thread), retention and ``wait``.
 

@@ -19,6 +19,9 @@ of the static one:
   * on ``"torch"``, the grouped stage (``group_size`` groups of R products
     as one batched GEMM), checked against the eff_B law the grouped
     decisions assume (``decision.estimate_grouped``);
+  * with ``collectives=True``: the process group's collective bandwidth
+    (:func:`measure_collective_bw`) into ``collective_bw``, which the
+    sharded decision tier divides collective bytes by;
   * with ``quant=True``: ``flops_int8`` (``torch._int_mm``, the int8 product
     the reference leaves to XLA) into ``dtype_flops["int8"]``, and the
     quantizing Combine A's bandwidth ``beta_quant`` (metadata only).
@@ -50,7 +53,7 @@ from .hardware import HardwareProfile, get_profile, register_profile, save_profi
 from .lcma import LCMA
 
 __all__ = ["ProbeMeasurement", "CalibrationReport", "autotune", "calibrate",
-           "default_probe_shapes", "best_of_timer"]
+           "default_probe_shapes", "best_of_timer", "measure_collective_bw"]
 
 log = logging.getLogger(__name__)
 
@@ -148,6 +151,12 @@ class CalibrationReport:
     # in the profile's dtype_flops["int8"], beta_quant rides in metadata
     flops_int8: float | None = None
     beta_quant: float | None = None
+    # the collective probe (``collectives=True``): bytes/s over the process
+    # group, its backend, and whether it went into the profile (not when
+    # gloo ranks share a card: that times host staging, not a link)
+    collective_bw: float | None = None
+    collective_backend: str | None = None
+    collective_recorded: bool = False
 
     @property
     def max_rel_err(self) -> float | None:
@@ -163,6 +172,9 @@ class CalibrationReport:
             "eff_grouped_predicted": self.eff_grouped_predicted,
             "flops_int8": self.flops_int8,
             "beta_quant": self.beta_quant,
+            "collective_bw": self.collective_bw,
+            "collective_backend": self.collective_backend,
+            "collective_recorded": self.collective_recorded,
         }
 
 
@@ -251,13 +263,61 @@ def _measure_probe(M: int, K: int, N: int, l: LCMA, backend: str, dtype: str,
                             flops_int8_est=flops_int8, beta_quant_est=beta_quant)
 
 
+def measure_collective_bw(size_bytes: int = 8 << 20, reps: int = 3, warmup: int = 1,
+                          timer: Callable | None = None) -> float | None:
+    """Effective per-device collective bandwidth (bytes/s) over the process
+    group of this process's mesh (``parallel.mesh.init_mesh``).
+
+    Times a ring all-gather and a reduce-scatter of ``size_bytes`` of
+    float32 over every rank and reports the slower of the two as
+    bytes-moved-per-device / seconds: the number the sharded decision model
+    divides collective bytes by. Tensors live on the mesh's device; on a
+    gloo mesh of CUDA ranks they cross pinned host memory inside the timed
+    call, as serving's collectives do. Returns ``None`` on a world of one
+    (no mesh), where the profile's static ``link_bw`` remains the fallback.
+    """
+    import torch.distributed as dist
+
+    from repro_torch.parallel.mesh import world_mesh
+
+    mesh = world_mesh()
+    if mesh is None or dist.get_world_size() < 2:
+        return None
+    D = dist.get_world_size()
+    timer = timer or best_of_timer(reps=reps, warmup=warmup, device=mesh.device)
+    n = max(size_bytes // 4 // D, 1)          # float32 elements per shard
+    xl = torch.ones(n, dtype=torch.float32, device=mesh.device)
+    x = torch.ones(D * n, dtype=torch.float32, device=mesh.device)
+
+    def staged(fn):
+        """``fn`` on pinned host copies where gloo takes no CUDA tensors."""
+        if not mesh.staged:
+            return fn
+        return lambda t: fn(t.to("cpu").pin_memory()).to(mesh.device)
+
+    def ag(t):
+        out = torch.empty(D * n, dtype=t.dtype, device=t.device)
+        dist.all_gather(list(out.view(D, n).unbind(0)), t)
+        return out
+
+    def rs(t):
+        out = torch.empty(n, dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, t)
+        return out
+
+    t_ag = timer(staged(ag), xl)
+    t_rs = timer(staged(rs), x)
+    moved = (D - 1) * n * 4                   # ring model: (D-1)/D of total
+    return moved / max(t_ag, t_rs)
+
+
 def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
              shapes: Sequence[tuple[int, int, int]] | None = None,
              dtype: str = "float32", scheme: str = "strassen",
              reps: int = 3, warmup: int = 1,
              timer: Callable | None = None, name: str | None = None,
              validate: bool = True, group_size: int = 4, quant: bool = False,
-             device="cuda") -> CalibrationReport:
+             device="cuda", collectives: bool = False) -> CalibrationReport:
     """Measure the backend on probe shapes and fit a calibrated profile.
 
     Returns a :class:`CalibrationReport`; ``report.profile`` is registered
@@ -272,6 +332,12 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
     quantizing Combine A — and persists the measured FLOPS_int8 as the
     profile's ``dtype_flops["int8"]``. The profile fingerprint hashes
     ``dtype_flops``, so plan caches warmed under another calibration miss.
+
+    ``collectives=True`` also probes the process group's collective
+    bandwidth (:func:`measure_collective_bw`; None outside a mesh) and
+    records it as the profile's ``collective_bw``, unless the mesh is gloo
+    ranks sharing a card (staged through host memory): that figure is
+    reported and left out of the profile.
     """
     base_prof = get_profile(base) if isinstance(base, str) else base
     _check_backend(backend)
@@ -298,6 +364,17 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
         flops_int8 = statistics.median(p.flops_int8_est for p in probes)
         beta_quant = statistics.median(p.beta_quant_est for p in probes)
 
+    coll_bw, coll_backend, recorded = base_prof.collective_bw, None, False
+    measured = None
+    if collectives:
+        from repro_torch.parallel.mesh import world_mesh
+        measured = measure_collective_bw(reps=reps, warmup=warmup, timer=timer)
+        if measured is not None:
+            mesh = world_mesh()
+            coll_backend = mesh.backend
+            if not mesh.staged:
+                coll_bw, recorded = measured, True
+
     prof = dataclasses.replace(
         base_prof,
         name=name or f"{base_prof.name}_autotuned",
@@ -305,6 +382,7 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
         flops_add=flops_add,
         beta=beta,
         lcma_gemm_efficiency=eff,
+        collective_bw=coll_bw,
         # calibration is per measured dtype; the only per-dtype override a
         # calibrated profile carries is the measured int8 peak (quant=True)
         dtype_flops={"int8": flops_int8} if flops_int8 else None,
@@ -336,7 +414,9 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
                              scheme=scheme, probes=probes, profile=prof,
                              model_rel_err=rel_err, eff_grouped=eff_grouped,
                              eff_grouped_predicted=eff_grouped_pred,
-                             flops_int8=flops_int8, beta_quant=beta_quant)
+                             flops_int8=flops_int8, beta_quant=beta_quant,
+                             collective_bw=measured, collective_backend=coll_backend,
+                             collective_recorded=recorded)
 
 
 def calibrate(path: str | None = None, block_plan_shapes: bool = True,

@@ -41,7 +41,11 @@ __all__ = ["StageCost", "LCMAEstimate", "Decision", "GroupedDecision",
            "gemm_time_batched", "estimate_grouped",
            "decide_batched", "batched_is_memory_bound",
            "estimate_quant", "estimate_grouped_quant", "effective_tflops",
-           "predicted_effective_tflops", "backward_shapes"]
+           "predicted_effective_tflops", "backward_shapes",
+           "ShardLayout", "ShardedEstimate", "ShardedDecision",
+           "default_layouts", "fsdp_layouts", "layout_by_name",
+           "collective_bytes", "collective_cost", "local_shape",
+           "estimate_sharded", "gemm_time_sharded", "decide_sharded"]
 
 
 def backward_shapes(M: int, K: int, N: int) -> tuple[tuple[int, int, int],
@@ -582,3 +586,231 @@ def decide_batched(B: int, M: int, N: int, K: int, hw: HardwareProfile | str,
                                B=B, shared_b=shared_b)
     return GroupedDecision(M, N, K, dtype, None, t_gemm, None, ests,
                            B=B, shared_b=shared_b)
+
+
+# ---------------------------------------------------------------------------
+# Shard-aware pricing (communication-avoiding layouts as a candidate axis)
+#
+# A sharded contraction is priced as per-shard compute PLUS an explicit
+# collective term,
+#
+#     T(layout) = T_local(M/s_M, N/s_N, K/s_K) + bytes_coll / bw_coll
+#
+# where the local term reuses the calibrated per-stage model above (so LCMA
+# candidates are priced on the *local* shapes a device actually contracts)
+# and the collective term charges ring all-gather / reduce-scatter traffic:
+# each device moves (D-1)/D of the operand per all-gather or reduce-scatter
+# and twice that for an all-reduce. Layout choice thereby becomes one more
+# dimension of the candidate set `decide` searches over.
+# ---------------------------------------------------------------------------
+
+# bytes moved per device, as a multiple of the operand size, for one collective
+_COLL_FACTOR = {"all_gather": 1.0, "reduce_scatter": 1.0, "all_reduce": 2.0}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """A 1-D device layout for an ``(M, K) @ (K, N)`` contraction.
+
+    ``shard`` flags which of (M, K, N) is divided across the D devices of the
+    mesh axis; ``collectives`` lists the ``(op, operand)`` pairs the layout
+    must run to materialize the full output, with operands named "A" (M*K),
+    "B" (K*N) and "C" (M*N).
+    """
+
+    name: str
+    shard: tuple[bool, bool, bool]                    # (M, K, N) sharded?
+    collectives: tuple[tuple[str, str], ...] = ()     # ((op, operand), ...)
+
+    def local_shape(self, M: int, N: int, K: int,
+                    n_devices: int) -> tuple[int, int, int]:
+        sm, sk, sn = self.shard
+        d = max(int(n_devices), 1)
+        ceil = lambda x: -(-x // d)  # noqa: E731
+        return (ceil(M) if sm else M, ceil(N) if sn else N,
+                ceil(K) if sk else K)
+
+
+def local_shape(layout: ShardLayout, M: int, N: int, K: int,
+                n_devices: int) -> tuple[int, int, int]:
+    """Per-device ``(M, N, K)`` under ``layout`` (ceil-divided shards)."""
+    return layout.local_shape(M, N, K, n_devices)
+
+
+# Tensor-parallel projection layouts (activations replicated on the model
+# axis; the weight is the shardable operand):
+#   replicated — every device runs the full contraction, no communication;
+#   col        — weight sharded on N (column-parallel); each device owns an
+#                (M, N/D) slice of C, all-gathered for the next replicated op;
+#   row        — weight sharded on K (row-parallel); each device holds a full
+#                (M, N) partial sum, all-reduced.
+_TP_LAYOUTS = (
+    ShardLayout("replicated", (False, False, False)),
+    ShardLayout("col", (False, False, True), (("all_gather", "C"),)),
+    ShardLayout("row", (False, True, False), (("all_reduce", "C"),)),
+)
+
+# FSDP-style layouts (activations sharded on the batch/M axis; the weight
+# sharded at rest must be gathered before use in either layout):
+#   gathered — undo the batch shard too: gather A and B, contract everything
+#              everywhere;
+#   data     — keep M sharded, all-gather only the weight (ZeRO-style).
+_FSDP_LAYOUTS = (
+    ShardLayout("gathered", (False, False, False),
+                (("all_gather", "A"), ("all_gather", "B"))),
+    ShardLayout("data", (True, False, False), (("all_gather", "B"),)),
+)
+
+_LAYOUTS_BY_NAME = {l.name: l for l in _TP_LAYOUTS + _FSDP_LAYOUTS}
+
+
+def default_layouts() -> tuple[ShardLayout, ...]:
+    """Candidate layouts for tensor-parallel (replicated-activation) ops."""
+    return _TP_LAYOUTS
+
+
+def fsdp_layouts() -> tuple[ShardLayout, ...]:
+    """Candidate layouts for batch-sharded (fsdp_only) dense ops."""
+    return _FSDP_LAYOUTS
+
+
+def layout_by_name(name: str) -> ShardLayout:
+    try:
+        return _LAYOUTS_BY_NAME[name]
+    except KeyError:
+        raise KeyError(f"unknown shard layout {name!r}; known: "
+                       f"{sorted(_LAYOUTS_BY_NAME)}") from None
+
+
+def collective_bytes(layout: ShardLayout, M: int, N: int, K: int,
+                     n_devices: int, dtype: str = "bfloat16") -> float:
+    """Per-device bytes moved by ``layout``'s collectives (ring model)."""
+    if n_devices <= 1:
+        return 0.0
+    by = _dtype_bytes(dtype)
+    sizes = {"A": M * K, "B": K * N, "C": M * N}
+    frac = (n_devices - 1) / n_devices
+    return sum(_COLL_FACTOR[op] * sizes[operand] * by * frac
+               for op, operand in layout.collectives)
+
+
+def collective_cost(layout: ShardLayout, M: int, N: int, K: int,
+                    n_devices: int, hw: HardwareProfile | str,
+                    dtype: str = "bfloat16") -> StageCost:
+    """The collective term as a StageCost (pure memory traffic, zero flops)."""
+    hw = _resolve_hw(hw)
+    nbytes = collective_bytes(layout, M, N, K, n_devices, dtype)
+    bw = hw.coll_bw()
+    t = nbytes / bw if nbytes else 0.0
+    return StageCost(f"collective[{layout.name}]", 0.0, nbytes, 0.0, t)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEstimate:
+    """Local per-stage estimate plus the layout's collective term."""
+
+    local: LCMAEstimate
+    collective: StageCost
+    layout: str
+    n_devices: int
+
+    @property
+    def time(self) -> float:
+        return self.local.time + self.collective.time
+
+
+def gemm_time_sharded(M: int, N: int, K: int, hw: HardwareProfile | str,
+                      layout: ShardLayout, n_devices: int,
+                      dtype: str = "bfloat16") -> float:
+    """Roofline time of standard GEMM under ``layout``: local + collective."""
+    hw = _resolve_hw(hw)
+    Ml, Nl, Kl = layout.local_shape(M, N, K, n_devices)
+    return (gemm_time(Ml, Nl, Kl, hw, dtype)
+            + collective_cost(layout, M, N, K, n_devices, hw, dtype).time)
+
+
+def estimate_sharded(l: LCMA, M: int, N: int, K: int,
+                     hw: HardwareProfile | str, dtype: str = "bfloat16",
+                     *, layout: ShardLayout, n_devices: int,
+                     fused: bool = True, precombined_b: bool = False,
+                     ) -> ShardedEstimate:
+    """One LCMA candidate under ``layout``: the calibrated per-stage model on
+    the per-shard (local) shape, plus the layout's collective term."""
+    hw = _resolve_hw(hw)
+    Ml, Nl, Kl = layout.local_shape(M, N, K, n_devices)
+    loc = estimate(l, Ml, Nl, Kl, hw, dtype, fused=fused,
+                   precombined_b=precombined_b)
+    coll = collective_cost(layout, M, N, K, n_devices, hw, dtype)
+    return ShardedEstimate(loc, coll, layout.name, n_devices)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedDecision(Decision):
+    """A Decision for a contraction distributed over a 1-D mesh axis.
+
+    ``M/N/K`` are the *global* shape. ``gemm_seconds``/``lcma_seconds`` are
+    end-to-end per-device times under the winning ``layout`` — local
+    contraction plus ``collective_seconds`` — so ``seconds``/``speedup``
+    compare complete distributed executions. ``local_shape_mnk`` is the
+    per-device shape the winning layout actually contracts (what the executor
+    should plan its kernels for).
+    """
+
+    layout: str = "replicated"
+    n_devices: int = 1
+    collective_seconds: float = 0.0
+    local_shape_mnk: tuple[int, int, int] = (0, 0, 0)
+
+    @property
+    def communication_avoiding(self) -> bool:
+        """True when a sharded layout beat full replication."""
+        return any(self.shard_layout.shard)
+
+    @property
+    def shard_layout(self) -> ShardLayout:
+        return layout_by_name(self.layout)
+
+    @property
+    def collective_fraction(self) -> float:
+        return self.collective_seconds / self.seconds if self.seconds else 0.0
+
+
+def decide_sharded(M: int, N: int, K: int, hw: HardwareProfile | str,
+                   dtype: str = "bfloat16", *, n_devices: int,
+                   layouts: tuple[ShardLayout, ...] | None = None,
+                   candidates: list[LCMA] | None = None, fused: bool = True,
+                   precombined_b: bool = False,
+                   min_speedup: float = 1.0,
+                   accuracy_budget: float | None = None,
+                   quantize: bool = False) -> ShardedDecision:
+    """Pick the best (layout, algorithm) pair for a distributed contraction.
+
+    The layout axis widens :func:`decide`'s search: every candidate layout is
+    priced as local-contraction time on its per-shard shape (via the same
+    calibrated estimates, so the Eq. 8 guard and padding apply to the LOCAL
+    problem) plus its collective bytes over the profile's measured or
+    profiled collective bandwidth. With ``n_devices == 1`` every layout
+    degenerates to the local model and the replicated plan wins by ties.
+    """
+    hw = _resolve_hw(hw)
+    if layouts is None:
+        layouts = default_layouts()
+    best: ShardedDecision | None = None
+    for ly in layouts:
+        Ml, Nl, Kl = ly.local_shape(M, N, K, n_devices)
+        t_coll = collective_cost(ly, M, N, K, n_devices, hw, dtype).time
+        d = decide(Ml, Nl, Kl, hw, dtype, candidates=candidates, fused=fused,
+                   precombined_b=precombined_b, min_speedup=min_speedup,
+                   accuracy_budget=accuracy_budget, quantize=quantize)
+        sd = ShardedDecision(
+            M, N, K, dtype, d.algo,
+            d.gemm_seconds + t_coll,
+            None if d.lcma_seconds is None else d.lcma_seconds + t_coll,
+            d.estimates, precision=d.precision,
+            layout=ly.name, n_devices=n_devices,
+            collective_seconds=t_coll, local_shape_mnk=(Ml, Nl, Kl))
+        if best is None or sd.seconds < best.seconds:
+            best = sd
+    if best is None:
+        raise ValueError("decide_sharded: empty layout set")
+    return best

@@ -34,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 import warnings
 
@@ -308,8 +309,8 @@ def _warm_contraction(c, cfg: FalconConfig, dtype: str, pre_algos: dict,
 
 
 def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = None,
-                 train: bool = False, kv_len: int | None = None,
-                 spec_gamma: int | None = None) -> int:
+                 train: bool = False, mesh_shape: dict | None = None,
+                 kv_len: int | None = None, spec_gamma: int | None = None) -> int:
     """Pre-plan the registry contraction set of ``arch`` at every bucket.
 
     The continuous-batching scheduler only ever launches bucket shapes, so
@@ -332,9 +333,12 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
     ``train=True`` also pre-plans both backward contractions of each
     forward one (``decision.backward_shapes``, the grouped grad rules), so
     one warm pass at ``buckets=[(batch, seq)]`` makes a whole train step,
-    forward and planned backward, run against a hot plan cache. The
-    reference's ``mesh_shape`` comes with the multi-device slice (ROADMAP
-    Queue 1 item 6).
+    forward and planned backward, run against a hot plan cache.
+    ``mesh_shape`` warms the shapes each rank of that mesh contracts
+    (``workloads.resolve_contractions(..., local=True)``: tensor-parallel
+    projections at their shard's K or N, attention over the local heads,
+    the expert group and capacity of one shard), so a multi-device engine's
+    ranks serve on plan hits too.
     """
     cfg = _resolve(cfg)
     dtype = dtype or str(getattr(arch, "dtype", "bfloat16"))
@@ -344,18 +348,16 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
     pre_algos: dict[tuple[int, int], set[str]] = {}
     pre_algos_grouped: dict[tuple[int, int, int], set[str]] = {}
     contractions: list = []
+    resolve = functools.partial(workloads.resolve_contractions, arch, train=train,
+                                mesh_shape=mesh_shape, local=bool(mesh_shape))
     for M in flat:
-        contractions += [c for c in workloads.resolve_contractions(arch, 1, M, train=train)
-                         if c.kind in ("dense", "grouped_moe")]
+        contractions += [c for c in resolve(1, M) if c.kind in ("dense", "grouped_moe")]
     for b, s in pairs:
         decode = kv_len is not None and s == 1
-        contractions += workloads.resolve_contractions(arch, b, s, train=train,
-                                                       kv_len=kv_len, decode=decode)
+        contractions += resolve(b, s, kv_len=kv_len, decode=decode)
         if spec_gamma and decode:
-            contractions += workloads.resolve_contractions(
-                arch, b, spec_gamma + 1, train=train, kv_len=kv_len, spec_verify=True)
-            contractions += workloads.resolve_contractions(arch, b, 2, train=train,
-                                                           kv_len=kv_len)
+            contractions += resolve(b, spec_gamma + 1, kv_len=kv_len, spec_verify=True)
+            contractions += resolve(b, 2, kv_len=kv_len)
     # static-weight contractions first, so a shape shared between a weight
     # contraction and an activation one keeps its precombined variant
     contractions.sort(key=lambda c: not c.weight_static)

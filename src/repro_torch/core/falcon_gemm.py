@@ -26,7 +26,8 @@ from .lcma import LCMA
 
 log = logging.getLogger(__name__)
 
-__all__ = ["FalconConfig", "plan", "plan_batched", "plan_training", "precombine_weights",
+__all__ = ["FalconConfig", "plan", "plan_batched", "plan_sharded", "plan_training",
+           "precombine_weights",
            "matmul_with_precombined", "grouped_matmul_generated",
            "grouped_matmul_with_precombined", "falcon_matmul", "falcon_dense"]
 
@@ -120,13 +121,25 @@ def _local_shape(M: int, K: int, N: int, cfg: FalconConfig) -> tuple[int, int, i
 
 
 def plan(M: int, K: int, N: int, cfg: FalconConfig, dtype: str = "bfloat16",
-         precombined_b: bool = False) -> dec.Decision:
-    """Run the Decision Module for a matmul shape.
+         precombined_b: bool = False, *, mesh=None,
+         layouts: tuple[dec.ShardLayout, ...] | None = None,
+         n_devices: int | None = None) -> dec.Decision:
+    """Run the Decision Module for a (possibly sharded) matmul shape.
 
     Auto-mode decisions are memoized in the process plan cache (keyed on the
     local shape, dtype, hardware fingerprint and dispatch policy). A forced
     scheme (``cfg.mode`` = a scheme name) is taken without the Eq. 8 guard.
+
+    Passing a mesh context (``mesh=``: a ``parallel.mesh.Mesh`` or a
+    ``{axis: size}`` dict; or explicit ``layouts``/``n_devices``) promotes
+    the plan to the shard-aware tier: ``(M, K, N)`` is then the GLOBAL
+    shape, candidate layouts come from ``parallel.sharding.layouts_for_mesh``
+    and the returned :class:`~repro_torch.core.decision.ShardedDecision`
+    prices local contraction plus collectives (see :func:`plan_sharded`).
     """
+    if mesh is not None or layouts is not None or (n_devices or 0) > 1:
+        return plan_sharded(M, K, N, cfg, dtype, precombined_b,
+                            mesh=mesh, layouts=layouts, n_devices=n_devices)
     Ml, Kl, Nl = _local_shape(M, K, N, cfg)
     if cfg.mode == "gemm" or not cfg.enabled:
         t = dec.gemm_time(Ml, Nl, Kl, cfg.profile, dtype)
@@ -154,6 +167,81 @@ def plan(M: int, K: int, N: int, cfg: FalconConfig, dtype: str = "bfloat16",
                    candidates=cfg.candidate_schemes(), fused=cfg.fused,
                    precombined_b=precombined_b, min_speedup=cfg.min_speedup,
                    accuracy_budget=cfg.accuracy_budget, quantize=cfg.quantize)
+    if cache is not None:
+        cache.insert(key, d)
+    return d
+
+
+def plan_sharded(M: int, K: int, N: int, cfg: FalconConfig,
+                 dtype: str = "bfloat16", precombined_b: bool = False, *,
+                 mesh=None, layouts: tuple[dec.ShardLayout, ...] | None = None,
+                 n_devices: int | None = None) -> dec.ShardedDecision:
+    """Run the shard-aware Decision Module for a distributed contraction.
+
+    ``(M, K, N)`` is the GLOBAL shape. The candidate layouts and the device
+    count come from an explicit ``layouts``/``n_devices`` pair, or are
+    resolved from ``mesh`` (default: the ambient mesh,
+    ``parallel.mesh.use_mesh``) through the ``parallel.sharding`` rules for
+    the active parallel style. Each layout is priced as per-shard local time
+    plus its collective bytes over the profile's measured-or-profiled
+    collective bandwidth; plan-cache keys embed the layout context
+    (candidate set, D, collective bw), so sharded plans never alias local
+    ones.
+
+    Non-auto modes restrict the algorithm axis (``"gemm"``/disabled price no
+    LCMA; an explicit scheme prices only that scheme) while the layout axis is
+    still searched.
+    """
+    if layouts is None or n_devices is None:
+        from repro_torch.parallel.sharding import layouts_for_mesh
+        d_mesh, mesh_layouts = layouts_for_mesh(mesh)
+        if n_devices is None:
+            n_devices = d_mesh
+        if layouts is None:
+            layouts = mesh_layouts
+    n_devices = max(int(n_devices), 1)
+    layouts = tuple(layouts)
+    if cfg.mode not in ("auto", "gemm") and cfg.enabled:
+        # Forced scheme: search only the layout axis (no Eq. 8 guard, like
+        # the forced branch of plan()).
+        l = algorithms.get(cfg.mode)
+        best = None
+        for ly in layouts:
+            Ml, Nl, Kl = ly.local_shape(M, N, K, n_devices)
+            t_coll = dec.collective_cost(ly, M, N, K, n_devices,
+                                         cfg.profile, dtype).time
+            est = dec.estimate(l, Ml, Nl, Kl, cfg.profile, dtype,
+                               fused=cfg.fused, precombined_b=precombined_b)
+            sd = dec.ShardedDecision(
+                M, N, K, dtype, l,
+                dec.gemm_time(Ml, Nl, Kl, cfg.profile, dtype) + t_coll,
+                est.time + t_coll, (est,), layout=ly.name,
+                n_devices=n_devices, collective_seconds=t_coll,
+                local_shape_mnk=(Ml, Nl, Kl))
+            if best is None or sd.seconds < best.seconds:
+                best = sd
+        return best
+    cand = [] if (cfg.mode == "gemm" or not cfg.enabled) \
+        else cfg.candidate_schemes()
+    cache = key = None
+    if cfg.use_plan_cache and cfg.mode == "auto" and cfg.enabled:
+        cache = plan_cache.default_cache()
+        key = plan_cache.plan_key(
+            M, K, N, cfg.profile, dtype, fused=cfg.fused,
+            precombined_b=precombined_b, mode=cfg.mode,
+            candidates=cfg.candidates, max_grid=cfg.max_grid,
+            min_speedup=cfg.min_speedup,
+            accuracy_budget=cfg.accuracy_budget, quantize=cfg.quantize,
+            layout=",".join(l.name for l in layouts), n_devices=n_devices)
+        hit = cache.lookup(key)
+        if isinstance(hit, dec.ShardedDecision):
+            return hit
+    d = dec.decide_sharded(M, N, K, cfg.profile, dtype, n_devices=n_devices,
+                           layouts=layouts, candidates=cand,
+                           fused=cfg.fused, precombined_b=precombined_b,
+                           min_speedup=cfg.min_speedup,
+                           accuracy_budget=cfg.accuracy_budget,
+                           quantize=cfg.quantize)
     if cache is not None:
         cache.insert(key, d)
     return d

@@ -5,9 +5,11 @@ The paper abstracts a platform as ``(FLOPS_x, FLOPS_+, beta)`` (§III-C):
   * ``FLOPS_+`` — elementwise add/sub throughput (CUDA cores),
   * ``beta``    — off-chip (HBM) bandwidth for the target dtype.
 
-We extend it with the memory and on-chip capacities the tile planner
-needs (``vmem_bytes`` is the per-block shared-memory budget on a GPU; the
-field keeps the reference package's name so profiles round-trip).
+We extend it with the interconnect rates the sharded decision tier prices
+collectives with (``link_bw``, ``collective_bw``) and the memory and on-chip
+capacities the tile planner needs (``vmem_bytes`` is the per-block
+shared-memory budget on a GPU; the field keeps the reference package's name
+so profiles round-trip).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ class HardwareProfile:
     flops_mul: float            # FLOPS_x  (per chip, matmul units, bf16 unless noted)
     flops_add: float            # FLOPS_+  (per chip, vector units)
     beta: float                 # HBM bytes/s per chip
+    link_bw: float = 50e9       # interconnect bytes/s per link per chip
     hbm_bytes: int = 16 << 30
     vmem_bytes: int = 16 << 20  # on-chip working-set budget of one kernel block
     mxu_align: int = 128        # matrix-unit tile alignment
@@ -33,11 +36,20 @@ class HardwareProfile:
     # throughput of the R-batched LCMA GEMM relative to one big GEMM
     # (1.0 = no batching loss; measured by an autotuner)
     lcma_gemm_efficiency: float = 1.0
+    # effective per-device collective (all-gather / reduce-scatter) bytes/s,
+    # measured by the autotuner's collective probe; 0.0 => not measured,
+    # fall back to the static per-link rate.
+    collective_bw: float = 0.0
 
     def flops_for(self, dtype: str) -> float:
         if self.dtype_flops and dtype in self.dtype_flops:
             return self.dtype_flops[dtype]
         return self.flops_mul
+
+    def coll_bw(self) -> float:
+        """Collective bandwidth for the sharded decision model: the measured
+        value when the collective probe ran, else the profiled link rate."""
+        return self.collective_bw if self.collective_bw > 0 else self.link_bw
 
     @property
     def ridge_intensity(self) -> float:
@@ -57,13 +69,16 @@ class HardwareProfile:
 # Tensor cores: 989 TFLOP/s bf16, 1979 TOP/s int8; float32 runs on the CUDA
 # cores at 67 TFLOP/s (TF32 stays off), which is also FLOPS_+ for the combines.
 # 80 GB HBM3 at 3.35 TB/s; 232,448 B of shared
-# memory per block; wgmma tiles are 64 rows. ``repro_torch.tools.tune``
+# memory per block; wgmma tiles are 64 rows. NVLink 4: 18 links x 25 GB/s
+# per direction = 450 GB/s (data sheet, uncalibrated); ``collective_bw``
+# stays 0.0 (not measured). ``repro_torch.tools.tune``
 # measures the card and registers the calibrated ``h100_sxm_autotuned``.
 H100_SXM = HardwareProfile(
     name="h100_sxm",
     flops_mul=989e12,
     flops_add=67e12,
     beta=3.35e12,
+    link_bw=450e9,
     hbm_bytes=80 * 10**9,
     vmem_bytes=232_448,
     mxu_align=64,
@@ -76,6 +91,7 @@ CPU_HOST = HardwareProfile(
     flops_mul=6.0e10,
     flops_add=1.5e10,
     beta=2.0e10,
+    link_bw=1e9,
     hbm_bytes=32 << 30,
     vmem_bytes=32 << 20,   # L2/L3 analogue
     mxu_align=8,

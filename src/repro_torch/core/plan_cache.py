@@ -93,13 +93,20 @@ def plan_key(M: int, K: int, N: int, hw: HardwareProfile, dtype: str, *,
              max_grid: int = 5, min_speedup: float = 1.0,
              batch: int = 1, shared_b: bool = False,
              accuracy_budget: float | None = None,
-             quantize: bool = False) -> str:
+             quantize: bool = False,
+             layout: str | None = None, n_devices: int = 1) -> str:
     """Cache key for one Decision-Module invocation (local, per-device shape).
 
     ``batch > 1`` keys a *grouped* decision (``plan_batched``): the whole
     ``B x (M, K) @ (K, N)`` group lives under ONE ``gBxMxKxN`` key — never B
     per-element keys — and the shared-B (hoisted Combine-B) variant is keyed
     separately because it prices differently.
+
+    ``layout`` keys a *sharded* decision (``plan_sharded``): ``M/K/N`` are
+    then the GLOBAL shape and the key embeds the mesh layout context — the
+    candidate-layout set, the device count and the collective bandwidth the
+    collective term was priced against (so re-probing the collectives
+    invalidates stale sharded plans without touching local ones).
 
     ``accuracy_budget`` appends an ``ab=`` token only when a budget is set:
     a budget narrows the candidate set statically (stability-pass filter), so
@@ -124,6 +131,8 @@ def plan_key(M: int, K: int, N: int, hw: HardwareProfile, dtype: str, *,
         parts.append("quant=1")
     if not fused:
         parts.append("fused=0")
+    if layout is not None:
+        parts.append(f"ly={layout}xD{int(n_devices)}@cb={hw.coll_bw():g}")
     return "|".join(parts)
 
 
@@ -179,6 +188,11 @@ def _encode(d: dec.Decision) -> dict:
     if isinstance(d, dec.GroupedDecision):
         out["B"] = d.B
         out["shared_b"] = d.shared_b
+    elif isinstance(d, dec.ShardedDecision):
+        out["ly"] = d.layout
+        out["D"] = d.n_devices
+        out["coll_seconds"] = d.collective_seconds
+        out["local_mnk"] = list(d.local_shape_mnk)
     return out
 
 
@@ -204,6 +218,13 @@ def _decode(payload: dict) -> dec.Decision | None:
             return dec.GroupedDecision(B=int(payload["B"]),
                                        shared_b=bool(payload.get("shared_b")),
                                        **kw)
+        if "ly" in payload:  # sharded entry (plan_sharded)
+            dec.layout_by_name(str(payload["ly"]))  # drop unknown layouts
+            return dec.ShardedDecision(
+                layout=str(payload["ly"]), n_devices=int(payload["D"]),
+                collective_seconds=float(payload["coll_seconds"]),
+                local_shape_mnk=tuple(int(x) for x in payload["local_mnk"]),
+                **kw)
         return dec.Decision(**kw)
     except (KeyError, TypeError, ValueError):
         return None       # unknown scheme / malformed entry: drop, don't crash

@@ -13,8 +13,10 @@ stack. The tune CLI warms the plan cache over :func:`warm_shapes`: the
 dense projection pairs of a workload swept over ``WARM_TOKENS``, plus
 square operators. The MoE expert capacity has its one definition here
 (:func:`moe_capacity`): the grouped plan keys embed it, so the layer and
-the resolver must agree. The reference's per-shard symbols
-(``mesh_shape``) come with the multi-device slice (ROADMAP Queue 1 item 6).
+the resolver must agree. ``mesh_shape`` scales the symbols the reference
+scales (the expert group over "model" shards, the MoE capacity's tokens
+over "data" shards); ``resolve_contractions(..., local=True)`` then gives
+the shapes each rank of the port's explicit tensor parallelism contracts.
 
 The paper's three LLM serving workloads (§IV-B: DeepSeek-R1, Qwen3.5,
 HunyuanVideo projections) are registry entries too, addressable by name,
@@ -141,6 +143,20 @@ def _resolve_arch(arch):
     return arch
 
 
+def _mesh_factors(mesh_shape) -> tuple[int, int]:
+    """-> (data shards, model shards). Accepts the engine's axis-name dict
+    (``{"data": .., "model": .., "pod": ..}``) or a plain (data, model)
+    tuple; None => single device."""
+    if not mesh_shape:
+        return 1, 1
+    if isinstance(mesh_shape, dict):
+        nd = int(mesh_shape.get("data", 1)) * int(mesh_shape.get("pod", 1) or 1)
+        return max(nd, 1), int(mesh_shape.get("model", 1)) or 1
+    nd = int(mesh_shape[0]) or 1
+    nm = int(mesh_shape[1]) if len(mesh_shape) > 1 else 1
+    return max(nd, 1), max(nm, 1)
+
+
 def paper_workloads() -> list[str]:
     """The paper's §IV-B LLM workload names (addressable by contraction_set)."""
     return list(_PAPER_PROJECTIONS)
@@ -223,14 +239,16 @@ def _model_specs(cfg) -> list[ContractionSpec]:
     return specs
 
 
-def contraction_set(arch, *, train: bool = False,
+def contraction_set(arch, *, train: bool = False, mesh_shape=None,
                     quantize: bool = False) -> list[ContractionSpec]:
     """Every planned contraction ``arch`` runs, as symbolic specs.
 
     ``arch`` is a :class:`ModelConfig`, a registry arch id
     (``"granite_3_2b"``) or a paper workload name (``"deepseek_r1"``).
     ``train=True`` appends the two backward specs of each forward one
-    (``role.dA`` / ``role.dB``). ``quantize=True`` keeps the contractions
+    (``role.dA`` / ``role.dB``). ``mesh_shape=(data, model)`` scales the
+    ``experts`` group to the per-shard expert count (where the experts
+    divide the model axis). ``quantize=True`` keeps the contractions
     the int8 tier can serve (a static-weight B operand: the dense
     projections and the expert FFN).
     """
@@ -238,6 +256,16 @@ def contraction_set(arch, *, train: bool = False,
         specs = _paper_specs(arch)
     else:
         specs = _model_specs(_resolve_arch(arch))
+    if mesh_shape:
+        _, nm = _mesh_factors(mesh_shape)
+
+        def _scale(s):
+            if s.group == "experts":
+                E = _resolve_arch(arch).num_experts
+                return dataclasses.replace(
+                    s, group=E // nm if nm > 1 and E % nm == 0 else E)
+            return s
+        specs = [_scale(s) for s in specs]
     if train:
         specs = specs + [b for s in specs for b in _backward_specs(s)]
     if quantize:
@@ -265,7 +293,7 @@ def _backward_specs(s: ContractionSpec) -> list[ContractionSpec]:
 
 
 def _shape_env(cfg, batch: int, seq: int, *, kv_len=None, decode=False,
-               spec_verify=False) -> dict:
+               mesh_shape=None, spec_verify=False) -> dict:
     """Symbol values for one (batch, seq) call context.
 
     ``kv_len`` set => serving against a KV cache of that length (attention
@@ -273,7 +301,8 @@ def _shape_env(cfg, batch: int, seq: int, *, kv_len=None, decode=False,
     ``decode=True`` => a single-token step (seq is the number of new tokens,
     normally 1). ``spec_verify=True`` => a speculative verify step: seq is
     γ+1 draft-scoring rows and the lm head runs on every one of them
-    (``logit_tokens = batch * seq`` instead of ``batch``).
+    (``logit_tokens = batch * seq`` instead of ``batch``). ``mesh_shape``:
+    the MoE capacity is the layer's at the tokens of one "data" shard.
     """
     # a vlm sequence counts its image patches beside the text; a decode step
     # carries none (the reference counts them there too)
@@ -298,7 +327,8 @@ def _shape_env(cfg, batch: int, seq: int, *, kv_len=None, decode=False,
             cx -= 1
         env["logit_tokens"] = batch * cx
     if getattr(cfg, "num_experts", 0):
-        env["capacity"] = layer_capacity(cfg, batch * S)
+        nd, _ = _mesh_factors(mesh_shape)
+        env["capacity"] = layer_capacity(cfg, max(-(-(batch * S) // nd), 1))
         env["experts"] = cfg.num_experts
     if getattr(cfg, "ssm_heads", 0):
         n_chunks = max(1, -(-S // cfg.ssm_chunk))
@@ -316,8 +346,9 @@ def layer_capacity(cfg, tokens: int) -> int:
                         cfg.capacity_factor, shard_round=True)
 
 
-def resolve_contractions(arch, batch: int, seq: int, *, train: bool = False, kv_len=None,
-                         decode: bool = False, spec_verify: bool = False) -> list[Contraction]:
+def resolve_contractions(arch, batch: int, seq: int, *, train: bool = False,
+                         mesh_shape=None, kv_len=None, decode: bool = False,
+                         spec_verify: bool = False, local: bool = False) -> list[Contraction]:
     """Concrete contraction inventory for one (batch, seq) call context.
 
     Returns deduplicated :class:`Contraction` entries whose ``key_shape()``
@@ -326,13 +357,22 @@ def resolve_contractions(arch, batch: int, seq: int, *, train: bool = False, kv_
     grouped dB as its dense ``(K, G*M, N)`` form). ``kv_len``, ``decode``
     and ``spec_verify`` are as in :func:`_shape_env`; a decode context keeps
     the SSD recurrence and drops the scan, any other keeps the scan and
-    drops the recurrence.
+    drops the recurrence. ``mesh_shape`` scales the expert group and the
+    capacity as the reference does (:func:`contraction_set`,
+    :func:`_shape_env`): the other shapes stay global. ``local=True`` (a
+    port extension) gives instead the shapes each rank of ``mesh_shape``
+    contracts under the port's explicit tensor parallelism
+    (:func:`_localize`), deduplicated as such: two leaves of one global
+    shape (granite's ``w_q`` and ``w_o``) can shard on different dims.
     """
+    if local and train:
+        raise NotImplementedError("tensor-parallel backward shapes: the training half of "
+                                  "multi-device (ROADMAP Queue 1 item 6b)")
     paper = isinstance(arch, str) and arch in _PAPER_PROJECTIONS
-    specs = contraction_set(arch)
+    specs = contraction_set(arch, mesh_shape=mesh_shape)
     env = {"tokens": batch * seq} if paper else _shape_env(
         _resolve_arch(arch), batch, seq, kv_len=kv_len, decode=decode,
-        spec_verify=spec_verify)
+        mesh_shape=mesh_shape, spec_verify=spec_verify)
 
     def val(x):
         return env[x] if isinstance(x, str) else x
@@ -350,7 +390,7 @@ def resolve_contractions(arch, batch: int, seq: int, *, train: bool = False, kv_
             continue
         c = Contraction(s.kind, s.role, val(s.m), val(s.k), val(s.n), group=val(s.group),
                         shared_b=s.shared_b, weight_static=s.weight_static)
-        emit(c)
+        emit(_localize(c, _resolve_arch(arch), mesh_shape) if local else c)
         if train:
             emit(Contraction(c.kind, c.role + ".dA", c.m, c.n, c.k, group=c.group,
                              shared_b=c.shared_b, weight_static=False))
@@ -372,20 +412,60 @@ def dense_projection_shapes(arch) -> list[tuple[int, int]]:
     return out
 
 
-def grouped_moe_shapes(arch, m_tokens: int) -> list[tuple[int, int, int, int]]:
+def grouped_moe_shapes(arch, m_tokens: int,
+                       mesh_shape=None) -> list[tuple[int, int, int, int]]:
     """Grouped MoE expert shapes ``(E, C, K, N)`` at ``m_tokens`` rows,
-    deduplicated, C as the layer stack serves it (shard-rounded: the
-    grouped plan-cache keys embed C). One device: no mesh scaling."""
+    deduplicated, C shard-rounded (the grouped plan-cache keys embed C).
+    ``mesh_shape`` scales them as the reference's does: tokens over data
+    shards, experts over model shards (where they divide), and C then taken
+    at the per-shard expert count, as the reference computes it."""
     cfg = _resolve_arch(arch)
-    if not cfg.num_experts:
+    E = cfg.num_experts
+    if not E:
         return []
-    C = layer_capacity(cfg, max(m_tokens, 1))
+    specs = [s for s in contraction_set(cfg, mesh_shape=mesh_shape)
+             if s.kind == "grouped_moe"]
+    nd, nm = _mesh_factors(mesh_shape)
+    if nm > 1 and E % nm == 0:
+        E //= nm
+    mt = max(-(-m_tokens // nd), 1)
+    C = moe_capacity(mt, cfg.experts_per_token or 1, E, cfg.capacity_factor,
+                     shard_round=True)
     out: list[tuple[int, int, int, int]] = []
-    for s in contraction_set(cfg):
-        shape = (cfg.num_experts, C, s.k, s.n)
-        if s.kind == "grouped_moe" and shape not in out:
+    for s in specs:
+        g = s.group if isinstance(s.group, int) else E
+        shape = (g, C, s.k, s.n)
+        if shape not in out:
             out.append(shape)
     return out
+
+
+def _localize(c: Contraction, cfg, mesh_shape) -> Contraction:
+    """The shape of ``c`` on one rank of ``mesh_shape`` under the port's
+    explicit tensor parallelism: a column-parallel projection (``w_q``,
+    ``w_k``, ``w_v``, ``mlp_gate``, ``mlp_up``, the vocab-sharded LM head)
+    contracts N / model, a row-parallel one (``w_o``, ``mlp_down``) K /
+    model, the attention einsums run over the local heads' groups. An
+    attention block shards only where both head counts divide the model
+    axis, the MLP only where d_ff does; the SSD mixer stays whole, and the
+    expert group and capacity are already the shard's. The reference
+    instead prices every leaf at full K and N / model
+    (``falcon_config_for``'s ``shards``): its GSPMD traces global shapes."""
+    _, nm = _mesh_factors(mesh_shape)
+    if nm <= 1:
+        return c
+    attn = cfg.num_heads % nm == 0 and cfg.num_kv_heads % nm == 0
+    mlp = cfg.d_ff % nm == 0
+    col = {"attn.w_q": attn, "attn.w_k": attn, "attn.w_v": attn, "mlp.gate": mlp,
+           "mlp.up": mlp, "lm_head": (-(-cfg.vocab_size // 256) * 256) % nm == 0}
+    row = {"attn.w_o": attn, "mlp.down": mlp}
+    if col.get(c.role):
+        return dataclasses.replace(c, n=c.n // nm)
+    if row.get(c.role):
+        return dataclasses.replace(c, k=c.k // nm)
+    if c.kind == "attention" and attn:
+        return dataclasses.replace(c, group=c.group // nm)
+    return c
 
 
 def warm_shapes(workload: str = "deepseek_r1") -> list[tuple[int, int, int]]:

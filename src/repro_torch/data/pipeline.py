@@ -5,8 +5,8 @@ hash (splitmix64 in numpy, the reference's exactly), so any worker can
 regenerate any batch: restarts need no data state beyond the integer
 ``step``, and the port's batches are bit-equal to the reference's. A batch
 is placed on the ``device`` the pipeline was made for. The reference's
-``mesh`` / ``batch_spec`` placement comes with the multi-device slice
-(ROADMAP Queue 1 item 6).
+``mesh`` / ``batch_spec`` placement comes with the training half of
+multi-device (ROADMAP Queue 1 item 6b).
 
 The stream is Zipfian with a Markov backbone, so the LM loss actually
 decreases in short runs (uniform noise would pin it at log V).

@@ -17,9 +17,16 @@ Combine B via ``PlannedWeight``, persistent plan cache):
     python -m repro_torch.launch.serve --arch granite_3_2b --full [--quant]
         [--plan-cache PATH] [--layers N] [--continuous --requests 32 [--speculate 2]
         [--prefix-cache] [--prefill-chunk 16] [--no-cuda-graphs]]
+        [--mesh 1,2 [--dist-backend gloo]]
 
 runs on the card (``--device cuda``, the default) or, with ``--device cpu``,
-through the kernels' plain versions. Static weights are lifted to
+through the kernels' plain versions. ``--mesh DATA,MODEL`` (DATA = 1)
+serves tensor- and expert-parallel over MODEL ranks, one-shot or
+``--continuous``: the launcher starts one process per rank itself
+(``parallel.mesh.run_ranks``), unless ``RANK``/``WORLD_SIZE`` say it is one
+already (``torchrun``); ``--dist-backend`` is ``nccl`` (a card per rank) or
+``gloo`` (ranks sharing a card, or on the CPU), chosen by the visible cards
+when not given, and printed. Rank 0 prints. Static weights are lifted to
 PlannedWeights (offline Combine B) where the Decision Module picks an LCMA;
 ``--quant`` puts the int8 tier into its search and bakes int8 B̃q into the
 PlannedWeights. ``--plan-cache`` loads a plan cache warmed by
@@ -28,7 +35,11 @@ PlannedWeights. ``--plan-cache`` loads a plan cache warmed by
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import math
+import os
+import sys
 import time
 
 import numpy as np
@@ -41,6 +52,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan_cache
 from repro_torch.core.engine import PlannedWeight, active_config
 from repro_torch.models import model as M
+from repro_torch.parallel import mesh as PM, sharding as SH
 from repro_torch.serve import ServeEngine, StepLoop
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -79,7 +91,7 @@ def oneshot_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int, dev
 def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
                 gen: int = 32, seed: int = 0, device="cuda",
                 precombine: bool = True, params: dict | None = None,
-                quantize: bool = False) -> dict:
+                quantize: bool = False, mesh_shape: dict | None = None) -> dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens for ``gen``
     greedy tokens each.
 
@@ -97,6 +109,12 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
     ``n_precombined``, ``quantized`` (the paths of the planned leaves that
     carry int8 B̃q) and ``n_quantized``, ``timings`` (host clock,
     synchronized) and ``launches`` (kernel launches per phase).
+
+    ``mesh_shape`` ({"model": m}, m > 1) serves on this rank of this
+    process's mesh (``parallel.mesh``): ``params`` (the full tree, or the
+    seed's) are sharded by the rule table before precombining, and the
+    result adds ``mesh`` (the mesh, its backend, and its collectives'
+    counters per phase under ``collectives``).
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -105,24 +123,35 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
     fcfg = active_config() or M.falcon_config_for(cfg)
     if quantize:
         fcfg = dataclasses.replace(fcfg, quantize=True)
+    if PM.mesh_factors(mesh_shape)[0] > 1:
+        raise NotImplementedError(f"mesh_shape={mesh_shape}: a data axis is the training "
+                                  "half of multi-device (ROADMAP Queue 1 item 6b)")
+    mesh = PM.mesh_for(mesh_shape)
     if params is None:
         params = M.init_params(cfg, seed, device)
+    if mesh is not None:
+        params = SH.shard_params(params, cfg, mesh)
     prompts, patches, pos0 = oneshot_inputs(cfg, batch, prompt_len, seed, device)
     prefill = make_prefill_step(cfg, max_len=pos0 + gen)
     decode = make_decode_step(cfg)
-    launches = {}
+    launches, collectives = {}, {}
 
     def phase(name, fn):
         before = kernels.launch_counts()
+        coll = mesh and mesh.stats.as_dict()
         _sync(device)
         t0 = time.perf_counter()
         out = fn()
         _sync(device)
         after = kernels.launch_counts()
         launches[name] = {k: after[k] - before[k] for k in after}
+        if mesh is not None:
+            now = mesh.stats.as_dict()
+            collectives[name] = {k: now[k] - coll[k] for k in
+                                 ("payload_bytes", "staged_bytes", "collective_ms")}
         return out, time.perf_counter() - t0
 
-    with falcon.use(fcfg), torch.inference_mode():
+    with falcon.use(fcfg), PM.use_mesh(mesh), torch.inference_mode():
         n_planned = 0
         t_pre = 0.0
         if precombine:
@@ -159,6 +188,7 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
                     "decode_steps": gen - 1,
                     "tokens_per_s": batch * gen / (t_prefill + t_decode)},
         "launches": launches,
+        "mesh": None if mesh is None else {**mesh.summary(), "collectives": collectives},
     }
 
 
@@ -221,7 +251,34 @@ def main(argv=None) -> None:
     ap.add_argument("--stream", action="store_true",
                     help="print the first request's tokens as they are "
                          "emitted (--continuous)")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="serve tensor- and expert-parallel over a (data, model) "
+                         "mesh, e.g. --mesh 1,2: one process per rank, started by "
+                         "the launcher unless RANK/WORLD_SIZE are set (torchrun)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="the process group's backend (--mesh): nccl where every "
+                         "rank has a card, gloo where ranks share one or run on the "
+                         "CPU (default: by the visible cards)")
     args = ap.parse_args(argv)
+    args.mesh_shape = _parse_mesh(args.mesh)
+    world = math.prod(args.mesh_shape.values()) if args.mesh_shape else 1
+    if world <= 1:
+        _serve(args)
+        return
+    backend = args.dist_backend or PM.choose_backend(args.device, world)
+    if "RANK" not in os.environ:
+        # one process per rank, each joined through a file store of its own
+        PM.run_ranks(_serve_rank, args.mesh_shape, args, backend=backend,
+                     device=args.device, timeout=None)
+        return
+    mesh = PM.init_mesh(args.mesh_shape, backend, device=args.device)   # torchrun's rank
+    try:
+        _serve_rank(mesh, args)
+    finally:
+        PM.shutdown()
+
+
+def _serve(args) -> None:
     if args.plan_cache:
         cache = plan_cache.configure(path=args.plan_cache)
         print(f"plan cache: {len(cache)} plans loaded from {args.plan_cache}")
@@ -236,10 +293,32 @@ def main(argv=None) -> None:
         plan_cache.flush()
 
 
+def _parse_mesh(spec: str | None) -> dict:
+    """"DATA,MODEL" -> {"data": DATA, "model": MODEL} (empty without --mesh)."""
+    if not spec:
+        return {}
+    parts = [int(x) for x in spec.replace("x", ",").split(",") if x]
+    if len(parts) != 2 or min(parts) < 1:
+        raise SystemExit(f"--mesh expects DATA,MODEL (e.g. 1,8); got {spec!r}")
+    return {"data": parts[0], "model": parts[1]}
+
+
+def _serve_rank(mesh, args) -> None:
+    """This process as one rank of ``--mesh``: it serves as every rank does,
+    and prints only if it is rank 0."""
+    with contextlib.redirect_stdout(sys.stdout if mesh.rank == 0 else open(os.devnull, "w")):
+        cards = torch.cuda.device_count() if mesh.device.type == "cuda" else 0
+        print(f"mesh: {mesh.shape} over {mesh.n_devices} ranks, backend {mesh.backend} "
+              f"({'staged through pinned host memory, ' if mesh.staged else ''}"
+              f"{mesh.n_devices} ranks on {cards or 'no'} card(s) of {mesh.device.type})")
+        _serve(args)
+
+
 def _print_oneshot(cfg: ModelConfig, args) -> None:
     res = run_oneshot(cfg, batch=args.batch, prompt_len=args.prompt_len,
                       gen=args.gen, seed=args.seed, device=args.device,
-                      precombine=args.precombine, quantize=args.quant)
+                      precombine=args.precombine, quantize=args.quant,
+                      mesh_shape=args.mesh_shape)
     t = res["timings"]
     print(f"offline Combine B: {res['n_precombined']} weight tensor(s) "
           f"precombined into PlannedWeights, {res['n_quantized']} with int8 B̃q")
@@ -247,6 +326,8 @@ def _print_oneshot(cfg: ModelConfig, args) -> None:
     print(f"decode:  {t['decode_ms_per_step']:.2f} ms/step "
           f"({t['tokens_per_s']:.1f} tok/s overall)")
     print("sample:", res["tokens"][0].reshape(-1)[:16].tolist())
+    if res["mesh"] is not None:
+        _print_collectives(res["mesh"])
     st = plan_cache.stats()
     print(f"plan cache: {st.hits} hits / {st.misses} misses "
           f"({st.hit_rate:.0%} hit rate, {len(plan_cache.default_cache())} plans)")
@@ -259,7 +340,7 @@ def _run_continuous(cfg: ModelConfig, args) -> None:
         quantize=args.quant, speculate=args.speculate,
         draft_keep_layers=args.draft_layers, prefix_cache=args.prefix_cache,
         prefill_chunk=args.prefill_chunk, device=args.device,
-        cuda_graphs=args.cuda_graphs)
+        cuda_graphs=args.cuda_graphs, mesh_shape=args.mesh_shape)
     print(f"engine: {args.max_slots} slots, cache len {engine.max_len}, "
           f"{engine.n_precombined} weight tensor(s) precombined"
           f"{' (int8-quantized tier on)' if args.quant else ''}, buckets "
@@ -308,6 +389,16 @@ def _run_continuous(cfg: ModelConfig, args) -> None:
     if done:
         sample = done[0]
         print(f"sample (rid={sample.rid}): {sample.generated[:16]}")
+    if engine.mesh is not None:
+        _print_collectives(s)
+
+
+def _print_collectives(m: dict) -> None:
+    """Rank 0's collectives: calls, bytes, staged bytes and host ms (on one
+    shared card: the multi-process path's cost, not a link's rate)."""
+    print(f"collectives ({m['backend']}): {m['collective_calls']}, "
+          f"{m['payload_bytes']} payload bytes, {m['staged_bytes']} staged bytes, "
+          f"{m['collective_ms']:.1f} ms on the host clock")
 
 
 if __name__ == "__main__":

@@ -7,8 +7,8 @@ from ``--seed``, AdamW under a cosine schedule, the FalconGEMM policy the
 model's own (``falcon_mode``, auto by default). It runs on the card
 (``--device cuda``, the default) or, with ``--device cpu``, through the
 kernels' plain versions. The reference's ``--compressed-dp`` and
-``--production-mesh`` need several devices and come with the multi-device
-work (ROADMAP Queue 1 item 6); here they raise.
+``--production-mesh`` need several devices and come with the training
+half of multi-device (ROADMAP Queue 1 item 6b); here they raise.
 
     python -m repro_torch.launch.train --arch granite_3_2b --full --steps 4 --batch 4 --seq 512
 """
@@ -52,7 +52,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.compressed_dp or args.production_mesh:
         raise NotImplementedError("--compressed-dp and --production-mesh need several "
-                                  "devices: the port trains on one (ROADMAP Queue 1 item 6)")
+                                  "devices: the port trains on one (the training half of "
+                                  "multi-device, ROADMAP Queue 1 item 6b)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("launch.train: no CUDA device (pass --device cpu to run "

@@ -18,6 +18,17 @@ FalconGEMM-dispatched; the MoE router is a plain f32 product, as in the
 reference. The cache holds attention K/V and, for the SSM and hybrid
 families, the recurrent ``state``; every entry is written in place.
 
+On a mesh (``parallel.mesh.use_mesh``; params sharded by
+``parallel.sharding.shard_params``) every rank runs this code on its
+shard: the vocab-sharded embedding looks up the ids in its range and sums
+over the model axis, an attention block over the local heads (where they
+divide the axis) and the MLP over the local d_ff each end in one
+all-reduce after the row-parallel ``w_o`` / ``mlp_down``, the LM head's
+vocab shards are all-gathered, the MoE layer runs expert-parallel
+(``models.moe``), and the cache holds the local KV heads. What a layer
+holds whole needs no collective. Which it is, is read from the shapes of
+the leaves against the config.
+
 Training: :func:`lm_loss` is the chunked cross-entropy over the LM head
 plus 0.01 times the MoE layers' load-balancing loss. Under autograd each
 layer is recomputed in backward (``cfg.remat``, ``torch.utils.checkpoint``)
@@ -32,6 +43,9 @@ from repro_torch.configs.base import FAMILIES, ModelConfig
 from repro_torch.core import engine
 from repro_torch.core.falcon_gemm import FalconConfig
 from repro_torch.core.workloads import layer_capacity
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.mesh import current_mesh
+from repro_torch.parallel.sharding import attention_sharded
 from repro_torch.tree import tree_leaves, tree_map
 from . import layers as L
 from . import moe as MOE
@@ -42,7 +56,10 @@ __all__ = ["init_params", "forward", "init_cache", "falcon_config_for",
 
 
 def falcon_config_for(cfg: ModelConfig) -> FalconConfig:
-    """The FalconGEMM policy for this model (one device: no shard scaling)."""
+    """The FalconGEMM policy for this model. No shard scaling: on a mesh
+    each rank contracts local shapes already (the reference's
+    ``falcon_config_for(cfg, mesh_shape)`` sets ``shards`` because its
+    GSPMD traces global ones)."""
     return FalconConfig(enabled=cfg.use_falcon, mode=cfg.falcon_mode,
                         backend=cfg.falcon_backend)
 
@@ -139,11 +156,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                dtype=None) -> dict:
     """Zeroed cache: attention K/V (L, B, max_len, Hkv, hd) for every family
     with attention, the recurrent SSD ``state`` (L, B, H, N, P) for the SSM
-    and hybrid ones."""
+    and hybrid ones. Under a mesh whose model axis shards attention, Hkv is
+    the rank's local KV heads."""
     dt = getattr(torch, dtype or cfg.dtype)
     cache = {}
     if cfg.family != "ssm":
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads // _attn_shards(cfg),
                  cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=dt, device=device)
         cache["v"] = torch.zeros(shape, dtype=dt, device=device)
@@ -167,17 +185,53 @@ def _ssd(lp, h, cfg: ModelConfig, cache_layer, length_mask):
     return y
 
 
+def _attn_shards(cfg: ModelConfig) -> int:
+    """How many ways the ambient mesh splits this config's attention heads."""
+    mesh = current_mesh()
+    m = 1 if mesh is None else mesh.size("model")
+    return m if attention_sharded(cfg.num_heads, cfg.num_kv_heads, m) else 1
+
+
+def _width(w) -> int:
+    """N of a (..., K, N) weight or PlannedWeight."""
+    return w.n if isinstance(w, engine.PlannedWeight) else w.shape[-1]
+
+
+def _rows(w) -> int:
+    """K of a (..., K, N) weight or PlannedWeight."""
+    return w.k if isinstance(w, engine.PlannedWeight) else w.shape[-2]
+
+
+def _vocab_lookup(table, ids):
+    """``table[ids]`` from a vocab shard of the table on every rank of the
+    ambient mesh's model axis: each rank takes the rows of the ids in its
+    range and zeros for the rest, then they sum. Exact: every id's row
+    comes from one rank and zeros from the others."""
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("a vocab-sharded embedding needs the mesh it was sharded over "
+                         "(parallel.mesh.use_mesh)")
+    Vl = table.shape[0]
+    local = ids - mesh.local_rank("model") * Vl
+    valid = (local >= 0) & (local < Vl)
+    rows = table[local.clamp(0, Vl - 1)]
+    return C.all_reduce(torch.where(valid[..., None], rows, torch.zeros_like(rows)), mesh)
+
+
 def _embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None):
     """Token embeddings (B, S, d); audio sums its codebooks' embeddings in
     codebook order, each sum rounded to the model's dtype; vlm prepends
-    ``patch_embeds`` (B, P, d), cast to the model's dtype."""
+    ``patch_embeds`` (B, P, d), cast to the model's dtype. A vocab-sharded
+    table looks up across the model axis (:func:`_vocab_lookup`)."""
     embed = params["embed"]
+    sharded = embed.shape[-2] != padded_vocab(cfg)
+    look = _vocab_lookup if sharded else (lambda t, i: t[i])
     if cfg.frontend == "audio_codebooks":
-        x = embed[0][tokens[..., 0]]
+        x = look(embed[0], tokens[..., 0])
         for c in range(1, cfg.num_codebooks):
-            x = x + embed[c][tokens[..., c]]
+            x = x + look(embed[c], tokens[..., c])
         return x
-    x = embed[tokens]
+    x = look(embed, tokens)
     if cfg.frontend == "vision_patches" and patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x
@@ -189,10 +243,13 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         return x + _ssd(lp, h, cfg, cache_layer, length_mask), None
-    dims = L.AttnDims(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                      cfg.resolved_head_dim)
+    hd = cfg.resolved_head_dim
+    heads = _width(lp["attn"]["w_q"]) // hd      # the rank's heads: all, or a shard
+    dims = L.AttnDims(cfg.d_model, heads, _width(lp["attn"]["w_k"]) // hd, hd)
     y, _ = L.attn_apply(lp["attn"], h, dims, positions, cfg.rope_theta, window,
                         cache=cache_layer, cache_index=cache_index)
+    if heads != cfg.num_heads:                   # row-parallel w_o: partial sums
+        y = C.all_reduce(y, current_mesh())
     if cfg.family == "hybrid":
         # parallel attention and SSD branches on ln1(x), their norms averaged
         ys = _ssd(lp, h, cfg, cache_layer, length_mask)
@@ -205,9 +262,12 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
         # reference's layer stack serves it (the grouped plan keys embed C)
         cap = layer_capacity(cfg, h2.shape[0] * h2.shape[1])
         y2, aux = MOE.moe_apply(lp["moe"], h2, cfg.experts_per_token, cfg.capacity_factor,
-                                deterministic_capacity=cap)
+                                deterministic_capacity=cap, num_experts=cfg.num_experts)
         return x + y2, aux
-    return x + L.mlp_apply(lp["mlp"], h2), None
+    y2 = L.mlp_apply(lp["mlp"], h2)
+    if _rows(lp["mlp"]["mlp_down"]) != cfg.d_ff:  # row-parallel mlp_down: partial sums
+        y2 = C.all_reduce(y2, current_mesh())
+    return x + y2, None
 
 
 def forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
@@ -281,7 +341,8 @@ def _forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
 def compute_logits(params, cfg: ModelConfig, x):
     """LM head (tied to the embedding unless ``lm_head`` exists), with the
     padded-vocab columns masked to -1e30. Audio runs one head per codebook,
-    each its own dense call as in the reference, stacked to (B, S, CB, Vp)."""
+    each its own dense call as in the reference, stacked to (B, S, CB, Vp).
+    A vocab-sharded head's logits are all-gathered over the model axis."""
     with engine.config_scope(lambda: falcon_config_for(cfg)):
         if cfg.frontend == "audio_codebooks":
             logits = torch.stack([engine.dense(x, params["lm_head"][c])
@@ -290,6 +351,8 @@ def compute_logits(params, cfg: ModelConfig, x):
             w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
             logits = engine.dense(x, w)
         Vp = padded_vocab(cfg)
+        if logits.shape[-1] != Vp:
+            logits = C.all_gather(logits, current_mesh(), dim=-1)
         if Vp == cfg.vocab_size:
             return logits
         pad_mask = torch.arange(Vp, device=x.device) < cfg.vocab_size

@@ -19,9 +19,13 @@ built from fixed-shape operations only (comparisons, ``cumsum``,
 back), so a serving step that runs it still captures as one CUDA graph:
 nothing reads the card back.
 
-The reference's expert-parallel path (``_moe_shardmap``: experts sharded
-over a mesh's "model" axis) comes with the multi-device slice (ROADMAP
-Queue 1 item 6); on one device ``moe_apply`` takes the dense path.
+Under a mesh whose "model" axis divides the experts (``parallel.mesh``),
+``moe_apply`` runs expert-parallel (``_moe_ep``, the counterpart of the
+reference's ``_moe_shardmap``): each rank holds ``E / model`` experts and
+the router's matching columns, all-gathers the router logits, dispatches
+its tokens to its own experts only (``e_offset = rank * E_local``), and the
+ranks' outputs are summed. Otherwise (one device, or experts that do not
+divide the axis) it takes the dense path with every expert on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.workloads import moe_capacity
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.mesh import current_mesh
 from .layers import dense_init, silu
 
 __all__ = ["moe_init", "moe_apply"]
@@ -123,19 +129,56 @@ def _moe_dense(p: dict, x: torch.Tensor, top_k: int, C: int):
     return y.reshape(B, S, d), _aux_loss(probs, expert_idx, E)
 
 
+def _moe_ep(p: dict, x: torch.Tensor, top_k: int, C_global: int, mesh, E: int):
+    """Expert-parallel MoE over the mesh's "model" axis: this rank's
+    ``E / model`` experts and router columns, the router logits
+    all-gathered, local dispatch at ``e_offset = rank * E_local``, the
+    ranks' outputs summed. Tokens are not sharded (serving runs data = 1),
+    so the local capacity is the layer's, at least 8, as the reference's
+    ``C_local`` over one data shard."""
+    B, S, d = x.shape
+    E_local = E // mesh.size("model")
+    C_local = max(C_global, 8)       # the reference's max(ceil(C / data shards), 8)
+    xt = x.reshape(B * S, d)
+    logits_loc = xt.float() @ p["router"].float()     # (T, E_local)
+    logits = C.all_gather(logits_loc, mesh, dim=1)    # (T, E), rank order
+    probs, gate_vals, expert_idx = _route(xt, logits, top_k)
+    y = _dispatch_compute_combine(xt, probs, gate_vals, expert_idx, C_local, p["moe_gate"],
+                                  p["moe_up"], p["moe_down"], E_local=E_local,
+                                  e_offset=mesh.local_rank("model") * E_local)
+    y = C.all_reduce(y, mesh)     # each token's k expert contributions over the ranks
+    return y.reshape(B, S, d), _aux_loss(probs, expert_idx, E)
+
+
 def moe_apply(p: dict, x: torch.Tensor, top_k: int, capacity_factor: float,
-              deterministic_capacity: int | None = None):
+              deterministic_capacity: int | None = None, num_experts: int | None = None):
     """x: (B, S, d) -> (y, aux_loss). Token-drop capacity MoE (Switch-style).
 
     ``p``: ``router`` (d, E) and the stacks ``moe_gate``/``moe_up`` (E, d,
-    d_ff), ``moe_down`` (E, d_ff, d), raw or PlannedWeights. C is
+    d_ff), ``moe_down`` (E, d_ff, d), raw or PlannedWeights; on a mesh whose
+    "model" axis divides E, this rank's ``E / model`` of them (its router
+    columns and expert stacks). ``num_experts`` is the layer's E (default:
+    the router's width, a layer that holds every expert). C is
     ``deterministic_capacity`` where given (the layer stack passes the
     shard-rounded capacity), else :func:`moe_capacity` of the B*S tokens.
-    One device: the dense path (the reference's expert-parallel
-    ``shard_map`` path comes with the multi-device slice). Dispatch policy
-    comes from the context config.
+    Under the ambient mesh the layer runs expert-parallel where the axis
+    divides E (:func:`_moe_ep`), as the reference's ``_moe_shardmap``;
+    otherwise the dense path. Dispatch policy comes from the context
+    config.
     """
     B, S, _ = x.shape
-    E = p["router"].shape[-1]
-    C = deterministic_capacity or moe_capacity(B * S, top_k, E, capacity_factor)
-    return _moe_dense(p, x, top_k, C)
+    E = num_experts or p["router"].shape[-1]
+    C_ = deterministic_capacity or moe_capacity(B * S, top_k, E, capacity_factor)
+    mesh = current_mesh()
+    nm = 1 if mesh is None else mesh.size("model")
+    ep = nm > 1 and E % nm == 0
+    held = p["router"].shape[-1]
+    if held != (E // nm if ep else E):
+        raise ValueError(f"moe_apply: the router holds {held} of {E} experts; on a "
+                         f"{nm}-way model axis this rank holds {E // nm if ep else E}")
+    if ep:
+        if mesh.size("data") > 1:
+            raise NotImplementedError("moe_apply: tokens over a data axis are the training "
+                                      "half of multi-device (ROADMAP Queue 1 item 6b)")
+        return _moe_ep(p, x, top_k, C_, mesh, E)
+    return _moe_dense(p, x, top_k, C_)

@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 import queue as _queue
 import threading
 import time
@@ -63,6 +62,7 @@ import repro_torch.api as falcon
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine as core_engine, plan_cache
 from repro_torch.models import model as M
+from repro_torch.parallel import mesh as PM, sharding as SH
 from repro_torch.train.steps import make_chunk_prefill_step, make_decode_step, make_verify_step
 
 from .buckets import BucketPolicy, next_pow2
@@ -97,8 +97,19 @@ class ServeEngine:
     the caller asks for the CPU, where every kernel wrapper runs its plain
     version); with ``cuda_graphs`` (the default) each bucket's step on the
     card is a captured CUDA graph, without it the same steps run eagerly.
-    ``mesh_shape`` spanning more than one device comes with the
-    multi-device slice (ROADMAP Queue 1 item 6).
+
+    ``mesh_shape={"data": 1, "model": m}`` with m > 1 serves tensor- and
+    expert-parallel over the m ranks of this process's mesh
+    (``parallel.mesh.init_mesh``; ``launch.serve --mesh`` starts them):
+    every rank builds the same engine, gets the same requests and runs the
+    same steps. The weights are sharded by the rule table
+    (``parallel.sharding.shard_params``) before precombining, so offline
+    Combine B runs on each rank's shard; the cache holds the rank's KV heads;
+    ``warm()`` plans the local shapes each rank contracts. A gloo mesh's
+    collectives on the card cross host memory, which a CUDA graph cannot
+    capture: such an engine needs ``cuda_graphs=False``. A data axis over
+    one device is the training half of multi-device (ROADMAP Queue 1 item
+    6b) and raises, as does a process outside a mesh of that shape.
     """
 
     def __init__(self, model_cfg: ModelConfig, params=None, *,
@@ -118,11 +129,19 @@ class ServeEngine:
                 f"ServeEngine serves token-stream decoders; got "
                 f"frontend={model_cfg.frontend!r} (bucketed prefill assumes "
                 "one int token stream)")
-        if math.prod(int(v) for v in (mesh_shape or {}).values()) > 1:
+        data, _ = PM.mesh_factors(mesh_shape)
+        if data > 1:
             raise NotImplementedError(
-                f"mesh_shape={mesh_shape}: serving over more than one device comes "
-                "with the multi-device slice (ROADMAP Queue 1 item 6)")
+                f"mesh_shape={mesh_shape}: a data axis over {data} devices is the training "
+                "half of multi-device (ROADMAP Queue 1 item 6b); serving shards over "
+                "'model' only")
         self.device = torch.device(device)
+        self.mesh = PM.mesh_for(mesh_shape)
+        if self.mesh is not None and self.device.type == "cuda" and cuda_graphs:
+            raise ValueError(
+                f"ServeEngine: cuda_graphs=True on a {self.mesh.backend} mesh: a collective "
+                "staged through host memory cannot be captured (pass cuda_graphs=False; "
+                "capturing nccl steps waits for a machine with a card per rank)")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine: no CUDA device (pass device='cpu' to run "
                                "the kernels' plain versions)")
@@ -162,6 +181,10 @@ class ServeEngine:
         with self._ctx():
             self.params = params if params is not None \
                 else M.init_params(model_cfg, seed, self.device)
+            if self.mesh is not None:
+                # tensor-parallel at rest: shard the raw weights BEFORE
+                # precombining, so offline Combine B runs on each rank's shard
+                self.params = SH.shard_params(self.params, model_cfg, self.mesh)
             self.draft: DraftModel | None = draft
             if self.gamma and self.draft is None:
                 # built from RAW params: a layer slice of a precombined tree
@@ -204,8 +227,8 @@ class ServeEngine:
 
     @contextlib.contextmanager
     def _ctx(self):
-        """The engine's FalconGEMM policy, in inference mode."""
-        with falcon.use(self.fcfg), torch.inference_mode():
+        """The engine's FalconGEMM policy and mesh, in inference mode."""
+        with falcon.use(self.fcfg), PM.use_mesh(self.mesh), torch.inference_mode():
             yield
 
     # -- admission ----------------------------------------------------------
@@ -319,7 +342,8 @@ class ServeEngine:
         with self._ctx():
             n_plans = core_engine.warm_buckets(
                 self.fcfg, self.cfg, grid, dtype=str(self.cfg.dtype),
-                kv_len=self.max_len, spec_gamma=self.gamma or None)
+                kv_len=self.max_len, spec_gamma=self.gamma or None,
+                mesh_shape=self.mesh_shape if self.mesh is not None else None)
             t_plan = time.perf_counter() - t0
             captured = self.graphs.seconds
             for (b, s) in self.policy.prefill_shapes():
@@ -538,7 +562,9 @@ class ServeEngine:
     def summary(self) -> dict:
         """ServeStats + the process plan cache, one coherent snapshot, with
         the reference's keys; ``cuda_graphs`` says whether the steps ran as
-        captured graphs (``graphs`` of them) or eagerly."""
+        captured graphs (``graphs`` of them) or eagerly. On a mesh, also its
+        backend and its collectives' counters (``parallel.mesh.Mesh.summary``:
+        calls, staged bytes, milliseconds)."""
         d = self.stats.as_dict()
         d["plan_cache"] = plan_cache.stats().as_dict()
         d["plan_cache"]["entries"] = len(plan_cache.default_cache())
@@ -551,6 +577,8 @@ class ServeEngine:
         d["prefill_chunk"] = self.prefill_chunk
         d["mesh"] = self.mesh_shape or None
         d["n_devices"] = 1
+        if self.mesh is not None:
+            d.update(self.mesh.summary())
         d["cuda_graphs"] = self.graphs.enabled
         d["graphs"] = self.graphs.n_graphs
         return d

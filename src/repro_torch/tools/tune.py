@@ -82,6 +82,11 @@ def main(argv: list[str] | None = None) -> int:
                          "Combine-A+quantize) and persist the measured "
                          "FLOPS_int8 as the profile's dtype_flops['int8'] — "
                          "what the quantized decision tier is priced with")
+    ap.add_argument("--collectives", action="store_true",
+                    help="probe the all-gather/reduce-scatter bandwidth over the "
+                         "process group of this rank's mesh (collective_bw, priced "
+                         "by the sharded decision tier); skipped on a world of one, "
+                         "and not recorded where gloo ranks share a card")
     ap.add_argument("--quick", action="store_true",
                     help="smoke run: small probe shapes, one rep, reduced "
                          "plan-cache warm grid")
@@ -122,7 +127,7 @@ def main(argv: list[str] | None = None) -> int:
         path=args.out, base=args.hardware, backend=args.backend,
         shapes=args.shape, dtype=args.dtype, scheme=args.scheme,
         reps=args.reps, warmup=args.warmup, name=args.name,
-        quant=args.quant, device=args.device)
+        quant=args.quant, device=args.device, collectives=args.collectives)
     prof = report.profile
 
     def tera(x):
@@ -142,6 +147,17 @@ def main(argv: list[str] | None = None) -> int:
               f"{tera(base.flops_for('int8'))} {tera(report.flops_int8)}")
         print(f"  {'beta_quant (bytes/s)':24s} {'':>10s} "
               f"{tera(report.beta_quant)}")
+    if args.collectives:
+        if report.collective_bw is None:
+            print(f"  collective probe skipped: a world of one "
+                  f"(link_bw fallback {tera(base.coll_bw())})")
+        elif report.collective_recorded:
+            print(f"  {'collective_bw (bytes/s)':24s} {tera(base.coll_bw())} "
+                  f"{tera(prof.collective_bw)}")
+        else:
+            print(f"  collective probe: {tera(report.collective_bw)}B/s over "
+                  f"{report.collective_backend}, ranks sharing one card (host staging, "
+                  f"not a link's rate): not recorded")
     if report.eff_grouped is not None:
         print(f"  grouped GEMM stage eff: measured {report.eff_grouped:.3f} "
               f"vs eff_B model {report.eff_grouped_predicted:.3f}")

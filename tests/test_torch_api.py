@@ -1,7 +1,7 @@
 """The port's public API (``repro_torch.api``) against the reference's.
 
 ``__all__`` is the reference's minus the names of work still to come
-(multi-device: ``plan_sharded``); every name resolves. ``FalconEngine`` dispatches as the module-level functions do under
+(none left since the multi-device slice); every name resolves. ``FalconEngine`` dispatches as the module-level functions do under
 the same config; the compatibility forms and the deprecated shape shims
 return what they wrap; the paper's metric ``effective_tflops`` (2MNK / t)
 and its predicted form equal the reference's on the same profile.
@@ -19,7 +19,7 @@ from repro_torch.core import algorithms as talg, decision as tdec, hardware as t
 from repro_torch.core import workloads as twl
 from repro_torch.core.hardware import H100_SXM
 
-LATER = {"plan_sharded"}
+LATER: set[str] = set()
 
 
 def test_all_is_the_reference_minus_later_work():
