@@ -100,7 +100,23 @@ same weights prefix-matched and teacher-forced, and at 2 layers in float32
 within 1e-4; the 8-layer ServeEngine on the mesh (eager steps) against the
 one-device engine, equal tokens in float32; one full-width dbrx MoE layer
 expert-parallel against the one-device layer; and the collective probe on
-those ranks. Any failure raises, so the exit code is non-zero and the final
+those ranks. Before it, multi-device training (phase ``train_mesh``):
+granite_3_2b at full width, cut to 4 of 40 layers (every collective is
+staged), bf16, the 4 x 512 batch, steps 1-3, trained by two ranks on this
+card over gloo: on a 2 x 1 mesh with ZeRO-3 over "data" (the published
+config's ``fsdp=True``; gemm and forced strassen), in the ``fsdp_only``
+style with the ``shard_map_local`` backend (forced) and with the
+int8-compressed DP step (gemm); on a 1 x 2 mesh tensor parallel (gemm and
+forced; these run in serve_mesh's ranks). Each exact run's losses at
+steps 1-3 are held to one device on the same weights and batch, and its
+float32 gradient (2 layers) to one device's; the compressed run's step-1
+loss, one max all-reduce a step, and its step's float32 gradient bit for
+bit to the reference's compressed mean of the ranks' local gradients,
+written out apart from the port; every rank's launches of #1-#4 (forward and
+backward, ``@fsdp`` / ``@tp_train``) to checked shapes, its m/v bytes to
+the reckoning from its shards, and its plan misses after warm_train to 0;
+per rank it prints ms a step, tokens/s, peak bytes and the collectives by
+operation, forward and backward. Any failure raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
 """
@@ -137,7 +153,7 @@ from repro_torch.kernels import build, ops, ref, tuning  # noqa: E402
 from repro_torch.kernels.group_combine import launch_plan  # noqa: E402
 from repro_torch.kernels.quant_combine import launch_plan as quant_plan  # noqa: E402
 from repro_torch.kernels.quant_combine import scale_block  # noqa: E402
-from repro_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.checkpoint import gather_state, restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.core.autotune import measure_collective_bw  # noqa: E402
 from repro_torch.core.decision import effective_tflops, predicted_effective_tflops  # noqa: E402
 from repro_torch.launch.serve import oneshot_inputs, run_oneshot  # noqa: E402
@@ -149,8 +165,11 @@ from repro_torch.data import DataConfig, SyntheticLMData  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.train import TrainLoop, TrainLoopConfig, steps as train_steps  # noqa: E402
-from repro_torch.train.steps import (loss_and_grads, make_decode_step,  # noqa: E402
-                                     make_prefill_step, make_train_step, warm_train)
+from repro_torch.train.steps import (loss_and_grads, make_compressed_dp_train_step,  # noqa: E402
+                                     make_decode_step, make_prefill_step, make_train_step,
+                                     warm_train)
+from repro_torch.core.falcon_gemm import SHARD_MAP_LOCAL  # noqa: E402
+from repro_torch.parallel.collectives import all_gather  # noqa: E402
 
 DEV = "cuda"
 # Kernel vs plain version, error normalized by max(1, max|plain|). f32: the
@@ -486,6 +505,21 @@ def phase_kernels() -> None:
             raise AssertionError(f"{name}/{scheme}/mesh {fields}: error {e} > {tol}")
         worst[name] = max(worst.get(name, 0.0), e)
         seconds[name + "@tp"] = seconds.get(name + "@tp", 0.0) + time.perf_counter() - t0
+    # One rank's calls in phase train_mesh: granite's local rows against
+    # the gathered weights (2 x 1: fsdp, fsdp_only, compressed DP) and its
+    # tensor-parallel shards (1 x 2), forward, dA and dB, bf16 and float32
+    for name, scheme, dtype, fields, check in train_mesh_kernel_cases():
+        tol = TOL[dtype]["fused" if "fused" in name else "combine"]
+        t0 = time.perf_counter()
+        a, e, shape = check(gen)
+        n += 1
+        emit("kernel_case", kernel=name, scheme=scheme, dtype=str(dtype), shape=shape,
+             max_abs_err=a, err=e, tol=tol, train_mesh=fields)
+        if not e <= tol:
+            raise AssertionError(f"{name}/{scheme}/train_mesh {fields}: error {e} > {tol}")
+        worst[name] = max(worst.get(name, 0.0), e)
+        seconds[name + "@train_mesh"] = (seconds.get(name + "@train_mesh", 0.0)
+                                         + time.perf_counter() - t0)
     CHECKED.update(k for k in kernels.launch_state() if isinstance(k, tuple))
     emit("kernels", cases=n, worst_err=worst, seconds=seconds)
 
@@ -859,9 +893,12 @@ def time_ms(fn, launches=LAUNCHES) -> dict:
     time per call exceeds the device's: then the queue ran dry between
     launches, the events measured the host, and ``ms`` is the profiler's
     device time. ``source`` says which. Calls of many ms take fewer
-    launches."""
+    launches. Where the host enqueued the launches in under half the
+    events' time, the host was the faster side by far and the events
+    measured the device: the profiler is not run (``profiler_ms`` None; in
+    PR 24's three whole runs no such call had taken the profiler's time)."""
     ev, host = events_ms(fn, launches=launches)
-    dev = profiler_ms(fn, launches)
+    dev = None if host < 0.5 * ev else profiler_ms(fn, launches)
     host_bound = dev is not None and host > dev
     return {"ms": dev if host_bound else ev, "source": "profiler" if host_bound else "events",
             "events_ms": ev, "host_ms": host, "profiler_ms": dev}
@@ -1266,6 +1303,57 @@ def phase_times() -> dict:
            library=lambda: torch.bmm(at4.view(E * l.R, X, Y), bt4.view(E * l.R, Y, Z)),
            plan=fused_plan(tuning.plan_fused_tc(E, X, Y, Z, l.R, 2, 2)), launches=5)
     del at4, bt4
+    free_memory()
+    # One rank's calls in phase train_mesh (granite, forced strassen, bf16):
+    # ``@fsdp``, the 2 x 1 mesh's local rows (1,024 = 2 x 512) against the
+    # gathered weight: Combine A of mlp_up's input (1024, 2048) (#1) and its
+    # product (1024, 2048) @ (2048, 8192) (#3), attention over the rank's
+    # 64 head groups (2 rows x 32 heads): Combine A of q (#2) and the scores
+    # product (#4); ``@tp_train``, the 1 x 2 mesh's shards in backward:
+    # mlp_up's dA, Combine A of g (2048, 4096) (#1) and g @ w_shard.T
+    # (2048, 4096) @ (4096, 2048) (#3), and the scores' dA over the rank's
+    # 64 groups (4 rows x 16 heads): Combine A of g (64, 512, 512) (#2) and
+    # the product against k (#4).
+    for tag, (rows, cols), mkn in (("@fsdp", (1024, 2048), (1024, 2048, 8192)),
+                                   ("@tp_train", (2048, 4096), (2048, 4096, 2048))):
+        x = randn(rows, cols, dtype=bf, gen=gen)
+        X, Y = rows // 2, cols // 2
+        record("group_combine" + tag, lambda: kernels.group_combine(x, l.U),
+               lambda: ref.group_combine_ref(ref.split_blocks(x, 2, 2), l.U),
+               2.0 * l.nnz_u * X * Y, (4 + l.R) * X * Y * it, fa, (*mkn, 1),
+               library=combine_library(x, l.U), plan=launch_plan(x, l.U).as_dict())
+        del x
+    for tag, (X, Y, Z) in (("@fsdp", (512, 1024, 4096)), ("@tp_train", (1024, 2048, 1024))):
+        at = randn(l.R, X, Y, dtype=bf, gen=gen)
+        bt = randn(l.R, Y, Z, dtype=bf, gen=gen)
+        record("fused_gemm_combine_h" + tag, lambda: kernels.fused_gemm_combine_h(at, bt, l.W),
+               lambda: ref.fused_gemm_combine_h_ref(at, bt, l.W),
+               2.0 * l.R * X * Y * Z, (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
+               (2 * X, 2 * Y, 2 * Z, 1),
+               plan=fused_plan(tuning.plan_fused_tc(1, X, Y, Z, l.R, 2, 2)), launches=10)
+        del at, bt
+    G = 64
+    for tag, (Sq, K), logical in (("@fsdp", (512, 64), (512, 64, 512, G)),
+                                  ("@tp_train", (512, 512), (512, 512, 64, G))):
+        x3 = randn(G, Sq, K, dtype=bf, gen=gen)
+        X, Y = Sq // 2, K // 2
+        record("batched_group_combine" + tag, lambda: kernels.batched_group_combine(x3, l.U),
+               lambda: ref.group_combine_ref(ref.split_blocks(x3, 2, 2), l.U),
+               G * 2.0 * l.nnz_u * X * Y, G * (4 + l.R) * X * Y * it, fa, logical,
+               library=combine_library(x3, l.U), plan=launch_plan(x3, l.U).as_dict())
+        del x3
+    for tag, (X, Y, Z), logical in (("@fsdp", (256, 32, 256), (512, 64, 512, G)),
+                                    ("@tp_train", (256, 256, 32), (512, 512, 64, G))):
+        at4 = randn(G, l.R, X, Y, dtype=bf, gen=gen)
+        bt4 = randn(G, l.R, Y, Z, dtype=bf, gen=gen)
+        record("batched_fused_gemm_combine_h" + tag,
+               lambda: kernels.batched_fused_gemm_combine_h(at4, bt4, l.W),
+               lambda: ref.fused_gemm_combine_h_ref(at4, bt4, l.W),
+               G * 2.0 * l.R * X * Y * Z, G * (l.R * (X * Y + Y * Z) + 4 * X * Z) * it, fx,
+               logical,
+               library=lambda: torch.bmm(at4.view(G * l.R, X, Y), bt4.view(G * l.R, Y, Z)),
+               plan=fused_plan(tuning.plan_fused_tc(G, X, Y, Z, l.R, 2, 2)), launches=10)
+        del at4, bt4
     free_memory()
     torch.cuda.empty_cache()
     return out
@@ -3858,6 +3946,8 @@ def mesh_rank(mesh, refs: dict) -> dict:
         except RuntimeError as e:
             direct[op] = f"raises: {str(e).splitlines()[0][:160]}"
     out["probe"] = {"collective_bw": measure_collective_bw(), "gloo_cuda_tensors": direct}
+    # phase train_mesh's tensor-parallel runs, on these ranks
+    out["train"] = train_mesh_jobs(mesh, refs.get("train", []))
     return out
 
 
@@ -3890,7 +3980,7 @@ def phase_serve_mesh() -> dict:
     rank 0's launch counts of the forced one-shot (``@tp``) and of the
     forced MoE layer (``@ep``)."""
     base = get_config(MESH_ARCH)
-    refs = {"oneshot": {}}
+    refs = {"oneshot": {}, "train": TRAIN_MESH_REFS.get("jobs", [])}
     singles = {}
     params = M.init_params(base, 0, DEV)
     for mode in MESH_MODES:
@@ -4009,6 +4099,10 @@ def phase_serve_mesh() -> dict:
          gloo_cuda_tensors=r0["probe"]["gloo_cuda_tensors"], spawn_and_ranks_s=spawn_s)
     counts = {f"{k}@tp": v for k, v in r0["oneshot"]["strassen"]["launches"].items()}
     counts.update({f"{k}@ep": v for k, v in r0["moe"]["strassen"]["counts"].items()})
+    # phase train_mesh's tensor-parallel runs, held to one device
+    if refs["train"]:
+        tp = check_train_mesh([r["train"] for r in ranks], TRAIN_MESH_REFS)["tp"]
+        counts.update({f"{k}@tp_train": v for k, v in tp.items()})
     return counts
 
 
@@ -4030,17 +4124,19 @@ SSM_TRAIN = (4, 512)
 TRAIN_CKPT = os.path.join(ROOT, "build", "train_ckpt")
 
 
-def train_launches(cfg, mode: str, batch: int, seq: int) -> set[tuple]:
+def train_launches(cfg, mode: str, batch: int, seq: int, mesh_shape=None) -> set[tuple]:
     """Every product a train step of ``cfg`` at (batch, seq) runs as an
     LCMA under ``mode``, decided as ``core.engine``'s planned cores decide
     it: each forward contraction of the registry and its dA and dB
-    (``resolve_contractions(train=True)``). The weights are raw, so every
-    dense product combines its B at the call; a grouped one (attention,
-    the SSD scan) is decided by plan_batched in the dtype it runs in. Keys
-    as :func:`planned_launches`'."""
+    (``resolve_contractions(train=True)``; with ``mesh_shape``, the shapes
+    one rank of that mesh contracts under ``cfg.parallel_style``). The
+    weights are raw, so every dense product combines its B at the call; a
+    grouped one (attention, the SSD scan) is decided by plan_batched in the
+    dtype it runs in. Keys as :func:`planned_launches`'."""
     fcfg = falcon.FalconConfig(mode=mode)
     out = set()
-    for c in workloads.resolve_contractions(cfg, batch, seq, train=True):
+    for c in workloads.resolve_contractions(cfg, batch, seq, train=True, mesh_shape=mesh_shape,
+                                            local=bool(mesh_shape)):
         dtype = "float32" if c.kind in workloads.F32_KINDS else cfg.dtype
         if c.group > 1:
             d = falcon.plan_batched(c.group, c.m, c.k, c.n, fcfg, dtype, shared_b=c.shared_b)
@@ -4107,7 +4203,7 @@ def captured_grads(keep: bool):
     one), under ``"first"``."""
     seen, orig = {"stats": [], "first": None, "update_ms": []}, train_steps.adamw_update
 
-    def update(params, grads, state, cfg, lr_scale=1.0):
+    def update(params, grads, state, cfg, lr_scale=1.0, **kw):
         leaves = flat(grads)
         seen["stats"].append({k: (bool(torch.isfinite(g).all()), float(g.float().norm()))
                               for k, g in leaves.items()})
@@ -4115,7 +4211,7 @@ def captured_grads(keep: bool):
             seen["first"] = grads if keep else leaves.get("embed", torch.empty(0)).clone()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = orig(params, grads, state, cfg, lr_scale=lr_scale)
+        out = orig(params, grads, state, cfg, lr_scale=lr_scale, **kw)
         torch.cuda.synchronize()
         seen["update_ms"].append((time.perf_counter() - t0) * 1e3)
         return out
@@ -4407,6 +4503,472 @@ def grad_check(name: str, cfg, batch: dict, layers: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Multi-device training: granite_3_2b at full width and a cut depth on a
+# 2 x 1 mesh (ZeRO-3, fsdp_only, int8-compressed DP) and a 1 x 2 mesh
+# (tensor parallel) of two ranks sharing this card over gloo
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_LAYERS = 4           # of 40: every collective is staged through host memory
+TRAIN_MESH_GRAD_LAYERS = 2      # the float32 gradient check
+TRAIN_MESH_STEPS = 3            # steps 1-3 (step 0's lr is 0)
+DP_MESH = {"data": 2, "model": 1}
+# (run, mesh, modes): each run's losses at steps 1-3 (compressed_dp's at
+# step 1) within TRAIN_MESH_LOSS_TOL of one device (relative), its float32
+# gradient (in TRAIN_MESH_GRAD_MODE) within TRAIN_MESH_GRAD_TOL (relative
+# Frobenius, the worst leaf; compressed_dp's is printed against the exact
+# mean and held to the plain compressed mean bit for bit)
+TRAIN_MESH_RUNS = (("fsdp", DP_MESH, ("gemm", "strassen")),
+                   ("fsdp_only", DP_MESH, ("strassen",)),
+                   ("compressed_dp", DP_MESH, ("gemm",)),
+                   ("tp", MESH, ("gemm", "strassen")))
+TRAIN_MESH_SHAPES = {run: mesh for run, mesh, _ in TRAIN_MESH_RUNS}
+TRAIN_MESH_LOSS_TOL = {"fsdp": 1e-3, "fsdp_only": 1e-3, "compressed_dp": 1e-3, "tp": 1e-2}
+TRAIN_MESH_GRAD_MODE = {"fsdp": "gemm", "fsdp_only": "strassen", "compressed_dp": "gemm",
+                        "tp": "strassen"}
+TRAIN_MESH_GRAD_TOL = {"fsdp": 1e-4, "fsdp_only": 1e-4, "tp": 1e-4, "compressed_dp": 2e-2}
+# the compressed mean against one device's gradient, elementwise, in the
+# leaf's quantization steps: half a step of rounding, and one device's
+# float32 sums in another order (1e-5 of the largest value is 1.3e-3 step)
+COMPRESSED_STEP_TOL = 0.51
+TRAIN_MESH_DIR = os.path.join(ROOT, "build", "train_mesh")
+# what phase train_mesh leaves for phase serve_mesh: the 1 x 2 runs' jobs
+# (they run in serve_mesh's ranks) and the one-device references
+TRAIN_MESH_REFS: dict = {}
+
+
+def train_mesh_config(run: str, mode: str, layers: int, dtype: str):
+    """granite_3_2b at full width, ``layers`` deep, for one run: ``fsdp``
+    (the published config's ``fsdp=True``: ZeRO-3 over "data", the
+    launcher's default), ``fsdp_only`` (that style and the
+    ``shard_map_local`` backend), ``compressed_dp`` (parameters
+    replicated) and ``tp`` (on a 1 x 2 mesh the data axis is 1)."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers, dtype=dtype,
+                              falcon_mode=mode)
+    if run == "fsdp_only":
+        cfg = dataclasses.replace(cfg, parallel_style="fsdp_only",
+                                  falcon_backend="shard_map_local")
+    return cfg
+
+
+def train_mesh_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
+    """:func:`launch_kernel_cases` of every call of #1-#4 one rank of phase
+    train_mesh makes (:func:`train_launches` at the shapes it contracts):
+    each run's forced bf16 steps and its float32 gradient."""
+    b, s = TRAIN
+    keys: dict[str, set] = {}
+    for run, mesh, modes in TRAIN_MESH_RUNS:
+        tag = f"{TRAIN_ARCH}@{'tp_train' if run == 'tp' else 'fsdp'}"
+        for mode in modes:
+            cfg = train_mesh_config(run, mode, TRAIN_MESH_LAYERS, "bfloat16")
+            keys.setdefault(tag, set()).update(train_launches(cfg, mode, b, s, mesh))
+        mode = TRAIN_MESH_GRAD_MODE[run]
+        cfg = train_mesh_config(run, mode, TRAIN_MESH_GRAD_LAYERS, "float32")
+        keys.setdefault(tag, set()).update(train_launches(cfg, mode, b, s, mesh))
+    return launch_kernel_cases(keys)
+
+
+def float_numel(tree) -> int:
+    return sum(t.numel() for t in tree_leaves(tree) if t.is_floating_point())
+
+
+def train_mesh_job(mesh, run: str, mode: str) -> dict:
+    """One run of phase train_mesh on this rank: granite (bf16, full width,
+    TRAIN_MESH_LAYERS deep, weights from seed 0 placed by ``make_rules(mesh,
+    fsdp=cfg.fsdp, style=cfg.parallel_style)``; replicated for
+    ``compressed_dp``), its rows of the global TRAIN batch
+    (``SyntheticLMData`` over the batch axes), ``warm_train(mesh_shape=)``,
+    then TRAIN_MESH_STEPS AdamW steps through make_train_step (or
+    make_compressed_dp_train_step) in a TrainLoop. Returned: losses, ms a
+    step, tokens/s of the global batch, peak bytes, m/v bytes (asserted equal
+    to the reckoning from this rank's shards), launches in all and in the
+    cores' backward, the collectives by operation (``/bwd``: in backward),
+    plan misses after the warm pass, the shard_map_local hook's decisions,
+    and each step's gradients checked finite and nonzero. Counts are reset
+    just before the loop."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_mesh_config(run, mode, TRAIN_MESH_LAYERS, "bfloat16")
+    b, s = TRAIN
+    free_memory()
+    params = M.init_params(cfg, 0, DEV)
+    whole = float_numel(params)
+    placement = rules = None
+    if run != "compressed_dp":
+        rules = SH.make_rules(mesh, fsdp=cfg.fsdp, style=cfg.parallel_style)
+        placement = SH.param_sharding(params, mesh, rules, cfg)
+        params = SH.shard_params(params, cfg, mesh, rules)
+        free_memory()
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    state = adamw_init(params, opt_cfg)
+    local = float_numel(params)
+    mv = sum(t.numel() * t.element_size() for t in tree_leaves(state["m"]) + tree_leaves(state["v"]))
+    if mv != 2 * 4 * local:
+        raise AssertionError(f"train_mesh/{run}/{mode}: m and v hold {mv} B, the rank's shards "
+                             f"({local} float elements) reckon {2 * 4 * local}")
+    spec = ("data",) if run == "compressed_dp" else SH.loss_axes(cfg.parallel_style)
+    batch = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                                       seed=0), device=DEV, mesh=mesh, batch_spec=spec).batch(0)
+    with falcon.use(M.falcon_config_for(cfg)):
+        n_plans = warm_train(cfg, b, s, mesh_shape=mesh.shape)
+        misses = plan_cache.stats().misses
+        if run == "compressed_dp":
+            step = make_compressed_dp_train_step(cfg, opt_cfg, mesh,
+                                                 total_steps=TRAIN_MESH_STEPS + 1, warmup=1)
+        else:
+            step = make_train_step(cfg, opt_cfg, total_steps=TRAIN_MESH_STEPS + 1, warmup=1,
+                                   mesh=mesh, placement=placement)
+        loop = TrainLoop(TrainLoopConfig(total_steps=TRAIN_MESH_STEPS + 1,
+                                         checkpoint_every=10 ** 9, checkpoint_dir=TRAIN_CKPT,
+                                         log_every=10 ** 9),
+                         step, _SameBatch(batch), params, state, mesh=mesh,
+                         placement=placement, rules=rules, model_cfg=cfg)
+        SHARD_MAP_LOCAL.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        mesh.stats.reset()
+        with captured_grads(False) as grads, backward_launches() as bwd:
+            out = loop.run(start_step=1)
+        launches = kernels.launch_state()
+        peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    ms = [h["time"] * 1e3 for h in hist]
+    steady = statistics.mean(ms[1:])
+    bad = [(i, k) for i, st in enumerate(grads["stats"])
+           for k, (finite, norm) in st.items() if not finite or norm <= 0]
+    res = {"run": run, "mode": mode, "rank": mesh.rank, "losses": [h["loss"] for h in hist],
+           "ms": ms, "ms_steady": steady, "tok_s": b * s / (steady / 1e3), "peak_bytes": peak,
+           "mv_bytes": mv, "float_elements": {"rank": local, "whole": whole},
+           "warm_plans": n_plans, "plan_misses": plan_cache.stats().misses - misses,
+           "launches": {k: v for k, v in launches.items() if isinstance(k, str) and v},
+           "backward_launches": {k: v for k, v in bwd.items() if isinstance(k, str) and v},
+           "collectives": mesh.stats.as_dict(), "hook": dict(SHARD_MAP_LOCAL),
+           "update_ms": grads["update_ms"], "bad_grads": bad[:8], "state": dict(launches)}
+    del loop, params, state, grads
+    free_memory()
+    return res
+
+
+def compressed_mean_plain(parts: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """The reference's int``bits``-compressed mean of one leaf, written out
+    rank by rank (``parts[r]``: rank r's local gradient), apart from the
+    port's bucketed ``compressed_psum_mean``: the scale is the largest
+    magnitude over the ranks (at least 1e-20), each rank's gradient is
+    rounded half to even to int8 levels of it and clipped, the levels are
+    summed in int32 and dequantized over the rank count."""
+    levels = float(2 ** (bits - 1) - 1)
+    n = parts.shape[0]
+    scale = parts[0].float().abs().max()
+    for r in range(1, n):
+        scale = torch.maximum(scale, parts[r].float().abs().max())
+    scale = torch.clamp(scale, min=1e-20)
+    total = torch.zeros(parts.shape[1:], dtype=torch.int32, device=parts.device)
+    for r in range(n):
+        q = torch.clamp(torch.round(parts[r].float() / scale * levels), -levels, levels)
+        total += q.to(torch.int8).to(torch.int32)
+    return (total.float() * (scale / levels) / n).to(parts.dtype)
+
+
+def compressed_step_grads(mesh, params, cfg, batch) -> dict:
+    """One step (step 1) of make_compressed_dp_train_step on this rank,
+    with each rank's local gradient (what ``loss_and_grads`` returns inside
+    the step) and the gradient the step hands AdamW captured. Returned: the
+    step's loss, the applied gradient, every rank's local gradient stacked
+    (gathered to every rank), the step's collective calls, and a digest of
+    the updated parameters (equal on every rank: they are replicas)."""
+    local, orig = {}, train_steps.loss_and_grads
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        local.update(flat(out[2]))
+        return out
+
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    state = adamw_init(params, opt_cfg)
+    step = make_compressed_dp_train_step(cfg, opt_cfg, mesh, total_steps=2, warmup=1)
+    mesh.stats.reset()
+    train_steps.loss_and_grads = spy
+    try:
+        with captured_grads(True) as seen:
+            params, state, metrics = step(params, state, batch, 1)
+    finally:
+        train_steps.loss_and_grads = orig
+    calls = dict(mesh.stats.calls)
+    parts = {k: all_gather(v.unsqueeze(0), mesh, ("data",), dim=0) for k, v in local.items()}
+    digest = [float(p.detach().double().sum()) for p in tree_leaves(params)
+              if p.is_floating_point()]
+    return {"loss": float(metrics["loss"]), "applied": flat(seen["first"]), "parts": parts,
+            "calls": calls, "digest": digest}
+
+
+def train_mesh_grad_job(mesh, run: str) -> dict:
+    """The float32 gradient of one run on this rank (granite cut to
+    TRAIN_MESH_GRAD_LAYERS, full width, TF32 off, in TRAIN_MESH_GRAD_MODE):
+    the mesh's gathered whole, held on rank 0 leaf by leaf against the
+    one-device gradient phase train_mesh saved (relative Frobenius). For
+    ``compressed_dp``, the gradient the compressed step applied
+    (:func:`compressed_step_grads`), also held on rank 0 to
+    :func:`compressed_mean_plain` of the ranks' local gradients (bit for
+    bit) and to their exact mean (relative Frobenius, nonzero)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mode = TRAIN_MESH_GRAD_MODE[run]
+    cfg = train_mesh_config(run, mode, TRAIN_MESH_GRAD_LAYERS, "float32")
+    b, s = TRAIN
+    free_memory()
+    params = M.init_params(cfg, 0, DEV)
+    placement = None
+    if run != "compressed_dp":
+        rules = SH.make_rules(mesh, fsdp=cfg.fsdp, style=cfg.parallel_style)
+        placement = SH.param_sharding(params, mesh, rules, cfg)
+        params = SH.shard_params(params, cfg, mesh, rules)
+    spec = ("data",) if run == "compressed_dp" else SH.loss_axes(cfg.parallel_style)
+    batch = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                                       seed=0), device=DEV, mesh=mesh, batch_spec=spec).batch(0)
+    kernels.reset_launch_counts()
+    steps, comp = {}, {}
+    with falcon.use(M.falcon_config_for(cfg)):
+        if run == "compressed_dp":
+            cs = compressed_step_grads(mesh, params, cfg, batch)
+            loss, g = cs["loss"], cs["applied"]
+            comp = {"calls": cs["calls"], "digest": cs["digest"], "plain_mismatch": {}}
+            if mesh.rank == 0:
+                sq_diff = sq_exact = 0.0
+                for k, parts in cs["parts"].items():
+                    plain = compressed_mean_plain(parts)
+                    if not torch.equal(g[k], plain):
+                        comp["plain_mismatch"][k] = float((g[k] - plain).abs().max())
+                    exact = parts.sum(0) / parts.shape[0]
+                    sq_diff += float((g[k] - exact).double().square().sum())
+                    sq_exact += float(exact.double().square().sum())
+                    # the leaf's quantization step, scale / 127
+                    steps[k] = float(parts.abs().max()) / 127.0
+                comp["vs_exact"] = math.sqrt(sq_diff / sq_exact)
+            del cs
+        else:
+            loss, _, g = loss_and_grads(params, cfg, batch, mesh=mesh, placement=placement)
+            loss = loss.item()
+            g = gather_state(g, placement, mesh)
+    state = dict(kernels.launch_state())
+    errs, whole, in_steps = {}, None, {}
+    if mesh.rank == 0:
+        want = torch.load(os.path.join(TRAIN_MESH_DIR, f"grads_{mode}.pt"))
+        sq_diff = sq_want = 0.0
+        for k, v in flat(g).items():
+            got, w = v.to(DEV).float(), want[k].to(DEV).float()
+            errs[k] = rel_frob(got, w)
+            if k in steps:       # the largest error, in quantization steps
+                in_steps[k] = float((got - w).abs().max()) / steps[k]
+            sq_diff += float((got - w).square().sum())
+            sq_want += float(w.square().sum())
+        whole = math.sqrt(sq_diff / sq_want)
+    del params, g
+    free_memory()
+    return {"run": run, "mode": mode, "loss": loss, "errs": errs, "whole": whole,
+            "err_in_steps": in_steps, "compressed": comp, "state": state}
+
+
+
+def train_mesh_jobs(mesh, jobs: list) -> list:
+    """Phase train_mesh's jobs on this rank: ("train", run, mode) and
+    ("grad", run)."""
+    return [train_mesh_job(mesh, *j[1:]) if j[0] == "train" else train_mesh_grad_job(mesh, *j[1:])
+            for j in jobs]
+
+
+def one_device_train(cfg, batch: dict) -> dict:
+    """``cfg`` on one device (weights from seed 0) for TRAIN_MESH_STEPS
+    steps through make_train_step in a TrainLoop: the losses and ms a step."""
+    free_memory()
+    params = M.init_params(cfg, 0, DEV)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    state = adamw_init(params, opt_cfg)
+    b, s = batch["tokens"].shape[:2]
+    with falcon.use(M.falcon_config_for(cfg)):
+        warm_train(cfg, b, s)
+        step = make_train_step(cfg, opt_cfg, total_steps=TRAIN_MESH_STEPS + 1, warmup=1)
+        loop = TrainLoop(TrainLoopConfig(total_steps=TRAIN_MESH_STEPS + 1,
+                                         checkpoint_every=10 ** 9, checkpoint_dir=TRAIN_CKPT,
+                                         log_every=10 ** 9),
+                         step, _SameBatch(batch), params, state)
+        torch.cuda.reset_peak_memory_stats()
+        out = loop.run(start_step=1)
+    ms = [h["time"] * 1e3 for h in out["history"]]
+    res = {"losses": [h["loss"] for h in out["history"]], "ms": ms,
+           "ms_steady": statistics.mean(ms[1:]), "peak_bytes": torch.cuda.max_memory_allocated()}
+    del loop, params, state
+    free_memory()
+    return res
+
+
+def check_train_mesh(results: list, refs: dict) -> dict:
+    """Hold each rank's runs of phase train_mesh to one device: every
+    launch at a checked shape, no plan missed after the warm pass, every
+    gradient finite and nonzero, the ranks' losses equal, the losses of
+    steps 1-3 (compressed_dp's of step 1) within TRAIN_MESH_LOSS_TOL,
+    forced strassen's forward and backward through #1-#4, the float32
+    gradient within TRAIN_MESH_GRAD_TOL (compressed_dp's: the plain
+    compressed mean bit for bit, not the exact mean). One
+    ``train_mesh`` line per run and mode, one ``train_mesh_grads`` line per
+    run. Returns rank 0's launch counts of each forced run by run."""
+    by_job: dict = {}
+    for rank_res in results:
+        for r in rank_res:
+            by_job.setdefault((r["run"], r["mode"], "errs" in r), []).append(r)
+    counts = {}
+    for (run, mode, grad), rs in sorted(by_job.items()):
+        for i, r in enumerate(rs):
+            check_covered(f"train_mesh/{run}/{mode}{'/grad' if grad else ''}/rank{i}",
+                          collections.Counter(r["state"]))
+        if grad:
+            errs = rs[0]["errs"]
+            worst = max(errs, key=errs.get)
+            tol = TRAIN_MESH_GRAD_TOL[run]
+            steps = rs[0]["err_in_steps"]
+            comp = rs[0]["compressed"]
+            emit("train_mesh_grads", run=run, mode=mode, layers=TRAIN_MESH_GRAD_LAYERS,
+                 dtype="float32", mesh=TRAIN_MESH_SHAPES[run], loss_by_rank=[r["loss"] for r in rs],
+                 one_device_loss=refs["grad_loss"][mode], whole_rel_frob=rs[0]["whole"],
+                 max_rel_frob=errs[worst], worst=worst, tol=tol, per_leaf=errs,
+                 max_err_in_quant_steps=steps or None,
+                 quant_step_tol=COMPRESSED_STEP_TOL if steps else None,
+                 step_collective_calls=comp.get("calls"),
+                 plain_mismatch=comp.get("plain_mismatch"),
+                 vs_exact_rel_frob=comp.get("vs_exact"),
+                 reference_bar=("met" if comp["vs_exact"] <= tol else "not met") if comp else None)
+            if run == "compressed_dp":
+                # the step's applied gradient is the reference's compressed
+                # mean of the ranks' local gradients, bit for bit, through
+                # one max all-reduce (every leaf's scale); it is not the
+                # exact mean, and each rank rounds to the nearest of 255
+                # levels of the leaf's scale, so the mean is off by at most
+                # half a step (scale / 127) anywhere. Its distance from the
+                # exact mean is printed beside the reference's 2e-2 bar,
+                # which it does not meet on these heavy-tailed gradients
+                # (PERF.md, PR 24)
+                if comp["plain_mismatch"] or len(steps) != len(errs):
+                    raise AssertionError(f"train_mesh/compressed_dp: the step's gradient is not "
+                                         f"the plain compressed mean: {comp['plain_mismatch']}")
+                if not comp["vs_exact"] > 0:
+                    raise AssertionError("train_mesh/compressed_dp: the step's gradient is the "
+                                         "exact mean: nothing was compressed")
+                if any(r["compressed"]["calls"].get("all_reduce_max") != 1 for r in rs):
+                    raise AssertionError(f"train_mesh/compressed_dp: the step made "
+                                         f"{[r['compressed']['calls'] for r in rs]} collectives, "
+                                         f"not one max all-reduce")
+                if any(r["compressed"]["digest"] != comp["digest"] for r in rs):
+                    raise AssertionError("train_mesh/compressed_dp: the ranks' updated "
+                                         "parameters differ")
+                bad = {k: e for k, e in steps.items() if not e <= COMPRESSED_STEP_TOL}
+                if bad:
+                    raise AssertionError(f"train_mesh/compressed_dp: the compressed mean is "
+                                         f"off by more than {COMPRESSED_STEP_TOL} of a "
+                                         f"quantization step: {bad}")
+            elif not errs[worst] <= tol:
+                raise AssertionError(f"train_mesh/{run}: {worst}'s float32 gradient "
+                                     f"{errs[worst]} from one device's > {tol}")
+            continue
+        one = refs["one_device"][mode]
+        r0 = rs[0]
+        rels = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"])]
+        rel = rels[0]
+        tol = TRAIN_MESH_LOSS_TOL[run]
+        emit("train_mesh", run=run, mode=mode, arch=TRAIN_ARCH, layers=TRAIN_MESH_LAYERS,
+             dtype="bfloat16", mesh=TRAIN_MESH_SHAPES[run], label=MESH_LABEL, batch=TRAIN[0],
+             tokens=TRAIN[1], losses_by_rank=[r["losses"] for r in rs],
+             one_device=one, first_loss_rel=rel, loss_rel_by_step=rels, tol=tol,
+             ms_by_rank=[r["ms"] for r in rs], ms_steady_by_rank=[r["ms_steady"] for r in rs],
+             tok_s_by_rank=[r["tok_s"] for r in rs],
+             peak_bytes_by_rank=[r["peak_bytes"] for r in rs],
+             mv_bytes_by_rank=[r["mv_bytes"] for r in rs],
+             float_elements_by_rank=[r["float_elements"] for r in rs],
+             collectives_by_rank=[r["collectives"] for r in rs],
+             launches_by_rank=[r["launches"] for r in rs],
+             backward_launches_by_rank=[r["backward_launches"] for r in rs],
+             plan_misses_by_rank=[r["plan_misses"] for r in rs],
+             warm_plans=r0["warm_plans"], hook_by_rank=[r["hook"] for r in rs],
+             update_ms_by_rank=[r["update_ms"] for r in rs])
+        if any(r["bad_grads"] for r in rs) or not all(math.isfinite(x) for r in rs
+                                                      for x in r["losses"]):
+            raise AssertionError(f"train_mesh/{run}/{mode}: a non-finite loss or a zero or "
+                                 f"non-finite gradient: {[r['bad_grads'] for r in rs]}")
+        if any(r["losses"] != r0["losses"] for r in rs):
+            raise AssertionError(f"train_mesh/{run}/{mode}: the ranks' losses differ")
+        if any(r["plan_misses"] for r in rs):
+            raise AssertionError(f"train_mesh/{run}/{mode}: plan misses after warm_train "
+                                 f"{[r['plan_misses'] for r in rs]}")
+        if not rel <= tol:
+            raise AssertionError(f"train_mesh/{run}/{mode}: step-1 loss {rel} from one "
+                                 f"device's > {tol}")
+        # after step 1 the exact styles' updates (sharded AdamW, the whole
+        # tree's clip) are one device's; the compressed step's are not (its
+        # gradient is quantized), so only its first loss is held here and
+        # its gradient by its grad job
+        if run != "compressed_dp" and not (len(rels) == TRAIN_MESH_STEPS
+                                           and max(rels) <= tol):
+            raise AssertionError(f"train_mesh/{run}/{mode}: losses {r0['losses']} from one "
+                                 f"device's {one['losses']} > {tol} relative")
+        if run == "compressed_dp" and any(
+                r["collectives"]["collective_calls"].get("all_reduce_max") != len(r["losses"])
+                for r in rs):
+            raise AssertionError(f"train_mesh/compressed_dp/{mode}: not one max all-reduce "
+                                 f"a step: {[r['collectives']['collective_calls'] for r in rs]}")
+        if run == "fsdp_only" and any(not r["hook"].get("taken") for r in rs):
+            raise AssertionError(f"train_mesh/fsdp_only: the shard_map_local hook took no "
+                                 f"contraction: {[r['hook'] for r in rs]}")
+        if mode == "strassen":
+            for r in rs:
+                for k in ENGINE_FP_KERNELS:
+                    if not r["launches"].get(k) or not r["backward_launches"].get(k):
+                        raise AssertionError(f"train_mesh/{run}/strassen: rank {r['rank']} ran "
+                                             f"no {k} forward and backward: {r['launches']}, "
+                                             f"{r['backward_launches']}")
+            counts[run] = r0["launches"]
+    return counts
+
+
+def phase_train_mesh() -> dict:
+    """granite_3_2b at full width, TRAIN_MESH_LAYERS deep (bf16, the TRAIN
+    batch of 4 x 512, weights from seed 0, steps 1-3) trained by two ranks
+    spawned on this card over gloo: on 2 x 1, ZeRO-3 (the launcher's
+    default rules, gemm and forced strassen), ``fsdp_only`` with the
+    ``shard_map_local`` backend (forced) and the int8-compressed DP step
+    (gemm); on 1 x 2, tensor parallel (gemm and forced; those run in phase
+    serve_mesh's ranks, which this phase hands its jobs to). Each is held
+    to one device on the same weights and batch (:func:`check_train_mesh`),
+    and its float32 gradient, cut to TRAIN_MESH_GRAD_LAYERS, to one
+    device's. Returns rank 0's launch counts of the forced fsdp run."""
+    os.makedirs(TRAIN_MESH_DIR, exist_ok=True)
+    b, s = TRAIN
+    base = get_config(TRAIN_ARCH)
+    batch = train_batch(base, b, s)
+    one = {mode: one_device_train(dataclasses.replace(base, num_layers=TRAIN_MESH_LAYERS,
+                                                      falcon_mode=mode), batch)
+           for mode in ("gemm", "strassen")}
+    grad_loss = {}
+    for mode in ("gemm", "strassen"):
+        cfg = dataclasses.replace(base, num_layers=TRAIN_MESH_GRAD_LAYERS, dtype="float32",
+                                  falcon_mode=mode)
+        params = M.init_params(cfg, 0, DEV)
+        with falcon.use(M.falcon_config_for(cfg)):
+            loss, _, g = loss_and_grads(params, cfg, batch)
+        grad_loss[mode] = loss.item()
+        torch.save({k: v.cpu() for k, v in flat(g).items()},
+                   os.path.join(TRAIN_MESH_DIR, f"grads_{mode}.pt"))
+        del params, g
+        free_memory()
+    TRAIN_MESH_REFS.update(one_device=one, grad_loss=grad_loss, jobs=[
+        *(("train", "tp", mode) for mode in ("gemm", "strassen")), ("grad", "tp")])
+    jobs = [("train", run, mode) for run, mesh, modes in TRAIN_MESH_RUNS if mesh == DP_MESH
+            for mode in modes]
+    jobs += [("grad", run) for run, mesh, _ in TRAIN_MESH_RUNS if mesh == DP_MESH]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = PM.run_ranks(train_mesh_jobs, DP_MESH, jobs, backend="gloo", device=DEV,
+                         workdir=TRAIN_MESH_DIR, timeout=600)
+    emit("train_mesh_spawn", mesh=DP_MESH, jobs=jobs, seconds=time.perf_counter() - t0)
+    return check_train_mesh(ranks, TRAIN_MESH_REFS)["fsdp"]
+
+
+# ---------------------------------------------------------------------------
 # The calibration path: tune CLI -> calibrated profile + warmed plan cache ->
 # serving under it
 # ---------------------------------------------------------------------------
@@ -4570,7 +5132,9 @@ def main() -> None:
     fe_counts = run(phase_serve_frontends)
     run(phase_checkpoint)
     train_counts = run(phase_train)
+    fsdp_counts = run(phase_train_mesh)
     mesh_counts = run(phase_serve_mesh)
+    mesh_counts.update({f"{k}@fsdp": v for k, v in fsdp_counts.items()})
     emit("total", seconds=time.perf_counter() - t0, phases=phases)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
@@ -4623,7 +5187,18 @@ def main() -> None:
          "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"]}
         for k in ("group_combine@tp", "batched_group_combine@tp", "fused_gemm_combine_h@tp",
                   "batched_fused_gemm_combine_h@tp", "batched_group_combine@ep",
-                  "batched_fused_gemm_combine_h@ep")]}))
+                  "batched_fused_gemm_combine_h@ep")] + [
+        # one rank of phase train_mesh's meshes (forced strassen): 2 x 1
+        # ZeRO-3 (``@fsdp``) and 1 x 2 tensor parallel (``@tp_train``),
+        # launches from rank 0 of those runs
+        {"name": k, "route": "cuda", "source": SOURCES[k.split("@")[0]],
+         "replaces": REPLACES[k.split("@")[0]], "launches": mesh_counts[k],
+         "max_abs_err": times[k]["max_abs_err"], "ms": times[k]["ms"],
+         "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
+         "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"]}
+        for tag in ("@fsdp", "@tp_train")
+        for k in (f"group_combine{tag}", f"batched_group_combine{tag}",
+                  f"fused_gemm_combine_h{tag}", f"batched_fused_gemm_combine_h{tag}")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,5 @@
-from .checkpoint import CheckpointManager, latest_step, restore_checkpoint, save_checkpoint
+from .checkpoint import (CheckpointManager, gather_state, latest_step, restore_checkpoint,
+                         save_checkpoint)
 
-__all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint", "latest_step"]
+__all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint", "latest_step",
+           "gather_state"]

@@ -7,10 +7,13 @@ Layout:  <dir>/step_<N>/manifest.json + arrays.npz
     sha256 of the array payload, so bit-rot or truncation is detected at
     load;
   * arrays are stored whole; ``restore_checkpoint`` places them on the
-    ``device`` the caller names (resharding onto a mesh comes with the
-    training half of multi-device, ROADMAP Queue 1 item 6b);
+    ``device`` the caller names, or, given a ``mesh`` and its ``rules``,
+    narrows each to this rank's placement on the mesh's device: the
+    elastic path (the mesh a run saved on is irrelevant);
   * ``CheckpointManager`` adds async save (the host copy is made at once,
-    the disk write on a background thread), retention and ``wait``.
+    the disk write on a background thread), retention and ``wait``. On a
+    mesh the ranks gather each sharded leaf whole (``gather_state``), rank
+    0 writes, and every rank waits on a barrier in ``wait``.
 
 The keys, their order and the payload's bytes are the reference package's
 (``src/repro/checkpoint``): a dict is flattened in sorted key order, a list
@@ -32,7 +35,8 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "CheckpointManager"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "CheckpointManager",
+           "gather_state"]
 
 _BF16 = "bfloat16"
 
@@ -127,11 +131,38 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
+def gather_state(tree, placement, mesh):
+    """``tree`` (this rank's shards, ``placement`` mirroring it) with every
+    sharded leaf all-gathered whole over each axis it is split over, leaf
+    by leaf, as host tensors: what a whole-array save writes. Every rank of
+    the mesh must call it, in the same order."""
+    from repro_torch.parallel.collectives import all_gather
+
+    def whole(t, where):
+        if isinstance(t, dict):
+            return {k: whole(v, where[k]) for k, v in t.items()}
+        if t is None:
+            return None
+        with torch.no_grad():
+            for dim, axis in where:
+                if mesh.size(axis) > 1:
+                    t = all_gather(t, mesh, axis, dim=dim)
+        return _to_host(t)
+
+    return whole(tree, placement)
+
+
 def restore_checkpoint(directory: str, tree_like, step: int | None = None,
-                       device="cpu", verify: bool = True):
+                       device="cpu", verify: bool = True, mesh=None, rules=None, cfg=None):
     """Restore into the structure of ``tree_like`` (its leaves only name the
     keys: tensors, arrays, anything), as tensors on ``device``. The latest
-    step unless ``step`` is given. Returns (tree, step, extra)."""
+    step unless ``step`` is given. Returns (tree, step, extra).
+
+    With a ``mesh`` (``parallel.mesh.Mesh``) each whole array is narrowed
+    to this rank's part under ``rules`` (``parallel.sharding.make_rules``
+    of that mesh; ``cfg`` gives the head counts its placement reads) and
+    placed on the mesh's device: a run saved on any mesh, or on one device,
+    resumes on this one."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -155,25 +186,44 @@ def restore_checkpoint(directory: str, tree_like, step: int | None = None,
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        out.append(t.to(device))
-    return _unflatten(tree_like, iter(out)), step, manifest.get("extra", {})
+        out.append(t if mesh is not None else t.to(device))
+    tree = _unflatten(tree_like, iter(out))
+    if mesh is not None:
+        from repro_torch.parallel.sharding import make_rules, param_sharding, shard_leaf
+        from repro_torch.tree import tree_map
+        placement = param_sharding(tree, mesh, rules or make_rules(mesh), cfg)
+        tree = tree_map(lambda t, where: shard_leaf(t, where, mesh).to(mesh.device,
+                                                                        copy=True),
+                        tree, placement)
+    return tree, step, manifest.get("extra", {})
 
 
 class CheckpointManager:
     """Async save + retention + preemption-safe flush."""
 
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = True, mesh=None,
+                 placement=None):
+        """``mesh`` and ``placement`` (mirroring the saved tree): each save
+        gathers the shards whole, rank 0 writes, and ``wait`` is a barrier
+        of every rank."""
         self.directory = directory
         self.keep = keep
         self.async_save = async_save
+        self.mesh = mesh
+        self.placement = placement
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
 
     def save(self, step: int, tree, extra: dict | None = None):
         self.wait()  # one in-flight save at a time
-        _, leaves = _flatten(tree)
         # the host copy now, so the caller may update the tree in place
-        host = _unflatten(tree, iter([_to_host(x) for x in leaves]))
+        if self.mesh is not None:
+            host = gather_state(tree, self.placement, self.mesh)
+            if self.mesh.rank != 0:
+                return
+        else:
+            _, leaves = _flatten(tree)
+            host = _unflatten(tree, iter([_to_host(x) for x in leaves]))
 
         def work():
             try:
@@ -194,12 +244,16 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
         if self._error:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, tree_like, device="cpu"):
-        return restore_checkpoint(self.directory, tree_like, device=device)
+    def restore_latest(self, tree_like, device="cpu", rules=None, cfg=None):
+        return restore_checkpoint(self.directory, tree_like, device=device, mesh=self.mesh,
+                                  rules=rules, cfg=cfg)
 
     def _gc(self):
         steps = sorted(

@@ -45,6 +45,12 @@ class ModelConfig:
     tie_embeddings: bool = True
     remat: bool = True              # activation checkpointing around each layer
     remat_policy: str = "full"      # "full"; the reference's "dots" raises here
+    fsdp: bool = True               # shard params/opt-state over "data"
+    # parallelism style on the fixed (data, model) mesh:
+    #   "tp"        — tensor parallel over "model" (default)
+    #   "fsdp_only" — no TP: batch over (data x model), params ZeRO-3 over all
+    #                 axes
+    parallel_style: str = "tp"
     # PaLM-style parallel attention+FFN block: both branches read ln1(x)
     parallel_block: bool = False
     # FalconGEMM integration

@@ -56,6 +56,7 @@ def smoke_config(arch: str) -> ModelConfig:
         num_patches=8,
         dtype="float32",
         remat=False,
+        fsdp=False,
         falcon_mode=full.falcon_mode,
     )
 

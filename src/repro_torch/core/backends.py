@@ -10,7 +10,10 @@ a **backend** decides *how* the chosen LCMA executes:
     register_backend("mine", my_apply)
 
 The built-in ``"cuda"`` backend is the hand-written kernel pipeline
-(``kernels.ops``). Its wrappers run the plain versions on CPU tensors, so
+(``kernels.ops``); ``"shard_map_local"`` is the same pipeline behind a
+``dense_hook`` that, under ``fsdp_only``, prices a layer's global
+contraction on the mesh and runs the rank's local rows
+(``falcon_gemm._falcon_dense_shardmap``). Its wrappers run the plain versions on CPU tensors, so
 the same backend serves the tests. The built-in ``"torch"`` backend is the
 Deployment Module's generated code (``core.codegen``): literal-coefficient
 combines around one batched library GEMM, the counterpart of the
@@ -64,6 +67,10 @@ class Backend:
     # Module prices the pipeline the backend runs (``FalconConfig.fused``).
     fused: bool = True
     description: str = ""
+    # dense_hook(x, w, cfg) -> out | None: claims a whole (..., K) @ (K, N)
+    # layer contraction on a raw weight before the dispatch (and before a
+    # PlannedWeight's precombined path), or declines with None
+    dense_hook: Callable | None = None
 
 
 _REGISTRY: dict[str, Backend] = {}
@@ -182,3 +189,14 @@ _REGISTRY["cuda"] = Backend(
     apply_grouped_precombined=_cuda_apply_grouped_precombined,
     apply_quant=_cuda_apply_quant,
     description="hand-written CUDA kernel pipeline (plain versions on CPU)")
+
+
+def _shard_map_local_hook(x, w, cfg):
+    from .falcon_gemm import _falcon_dense_shardmap
+    return _falcon_dense_shardmap(x, w, cfg)
+
+
+_REGISTRY["shard_map_local"] = dataclasses.replace(
+    _REGISTRY["cuda"], name="shard_map_local", dense_hook=_shard_map_local_hook,
+    description="LCMA on each rank's local rows against the gathered weight "
+                "(fsdp_only; the CUDA kernel pipeline)")

@@ -401,6 +401,13 @@ def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
     *lead, K = x.shape
     if pw.algo is None:
         return torch.matmul(x, pw.w)
+    hook = backends.get_backend(cfg.backend).dense_hook
+    if hook is not None and pw.w is not None:
+        # a layer-level placement (shard_map_local's rank-local product)
+        # takes precedence over the precombined path, as in the reference
+        out = hook(x, pw.w, cfg)
+        if out is not None:
+            return out
     x2 = x.reshape(-1, K)
     use_quant = False
     if cfg.mode == pw.algo or pw.w is None:
@@ -837,6 +844,11 @@ def dense(x: torch.Tensor, w, cfg: FalconConfig | None = None) -> torch.Tensor:
     cfg = _resolve(cfg)
     if isinstance(w, PlannedWeight):
         return _apply_planned(x, w, cfg)
+    hook = backends.get_backend(cfg.backend).dense_hook
+    if hook is not None:
+        out = hook(x, w, cfg)
+        if out is not None:
+            return out
     *lead, K = x.shape
     return matmul(x.reshape(-1, K), w, cfg).reshape(*lead, w.shape[1])
 

@@ -442,3 +442,68 @@ def falcon_dense(x: torch.Tensor, w, cfg: FalconConfig | None = None) -> torch.T
     form of ``engine.dense`` with an explicit config."""
     from . import engine
     return engine.dense(x, w, cfg=cfg)
+
+
+# Decisions of the ``shard_map_local`` hook since the last reset: "taken"
+# (the batch-sharded layout priced cheaper) and "declined" (the replicated
+# one did, or the hook does not apply), with why.
+SHARD_MAP_LOCAL = collections.Counter()
+
+
+def _falcon_dense_shardmap(x: torch.Tensor, w: torch.Tensor,
+                           cfg: FalconConfig) -> torch.Tensor | None:
+    """LCMA on the per-rank LOCAL matmul under ``fsdp_only``: the
+    counterpart of the reference's ``_falcon_dense_shardmap``.
+
+    Under ``parallel_style="fsdp_only"`` each rank holds its rows of the
+    batch (over every batch axis) and the layer's weight gathered whole
+    (the ZeRO-3 gather, ``parallel.sharding.gather_param``). The hook prices
+    the GLOBAL (T, K, N) through the sharded tier (``plan_sharded`` with
+    the FSDP layouts over the nb batch ranks): when the batch-sharded
+    layout wins it runs this rank's rows against the gathered weight, as an
+    LCMA through the planned core where the decision picks one (gradients
+    flow as in any planned contraction) and ``torch.matmul`` otherwise.
+    When the replicated layout wins, or there is no mesh, another style or
+    rows that do not divide, it declines (returns None). The reference then
+    hands the op to GSPMD; the port has no GSPMD, so the caller runs its
+    ordinary planned dispatch on the same local rows. Every decision is
+    counted in :data:`SHARD_MAP_LOCAL`.
+
+    The mesh and style are read here, in the forward; nothing of them is
+    needed in backward (the planned core keeps its config on ``ctx``).
+    """
+    from repro_torch.parallel.mesh import current_mesh
+    from repro_torch.parallel.sharding import get_parallel_style, resolve_batch_axes
+
+    mesh = current_mesh()
+    if mesh is None or get_parallel_style() != "fsdp_only":
+        SHARD_MAP_LOCAL["declined: no fsdp_only mesh"] += 1
+        return None
+    axes = tuple(a for a in resolve_batch_axes() if a in mesh.shape)
+    nb = mesh.size(axes)
+    *lead, K = x.shape
+    T_local = 1
+    for s in lead:
+        T_local *= s
+    N = w.shape[1]
+    if nb <= 1:
+        SHARD_MAP_LOCAL["declined: one batch rank"] += 1
+        return None
+    d = plan_sharded(T_local * nb, K, N, dataclasses.replace(cfg, shards=(1, 1, 1)),
+                     _dtype(x), n_devices=nb, layouts=dec.fsdp_layouts())
+    if not d.shard_layout.shard[0]:
+        SHARD_MAP_LOCAL["declined"] += 1
+        return None            # the replicated layout priced cheaper
+    SHARD_MAP_LOCAL["taken"] += 1
+    x2 = x.reshape(T_local, K)
+    if d.use_lcma:
+        from . import engine
+        local = dataclasses.replace(cfg, mode=d.algo.name, candidates=None)
+        out = engine._contract2d(x2, w, local)
+    else:
+        out = torch.matmul(x2, w)
+    return out.reshape(*lead, N)
+
+
+def _dtype(x: torch.Tensor) -> str:
+    return str(x.dtype).replace("torch.", "")

@@ -364,11 +364,23 @@ def resolve_contractions(arch, batch: int, seq: int, *, train: bool = False,
     contracts under the port's explicit tensor parallelism
     (:func:`_localize`), deduplicated as such: two leaves of one global
     shape (granite's ``w_q`` and ``w_o``) can shard on different dims.
+    There ``batch`` is the global batch, split over the data axis (under
+    the config's ``parallel_style="fsdp_only"``: over data x model, with
+    no tensor parallelism, every weight gathered whole), so with
+    ``train=True`` each rank's forward, dA and dB shapes under TP, FSDP
+    (a ZeRO-3 weight is gathered to its TP shard before use) and
+    ``fsdp_only``.
     """
-    if local and train:
-        raise NotImplementedError("tensor-parallel backward shapes: the training half of "
-                                  "multi-device (ROADMAP Queue 1 item 6b)")
     paper = isinstance(arch, str) and arch in _PAPER_PROJECTIONS
+    if local and not paper:
+        nd, nm = _mesh_factors(mesh_shape)
+        if getattr(_resolve_arch(arch), "parallel_style", "tp") == "fsdp_only":
+            nd, nm = nd * nm, 1
+        if batch % nd:
+            raise ValueError(f"resolve_contractions: a batch of {batch} does not split over "
+                             f"{nd} ranks")
+        batch //= nd
+        mesh_shape = {"data": 1, "model": nm}
     specs = contraction_set(arch, mesh_shape=mesh_shape)
     env = {"tokens": batch * seq} if paper else _shape_env(
         _resolve_arch(arch), batch, seq, kv_len=kv_len, decode=decode,
@@ -390,7 +402,9 @@ def resolve_contractions(arch, batch: int, seq: int, *, train: bool = False,
             continue
         c = Contraction(s.kind, s.role, val(s.m), val(s.k), val(s.n), group=val(s.group),
                         shared_b=s.shared_b, weight_static=s.weight_static)
-        emit(_localize(c, _resolve_arch(arch), mesh_shape) if local else c)
+        if local:
+            c = _localize(c, _resolve_arch(arch), mesh_shape)
+        emit(c)
         if train:
             emit(Contraction(c.kind, c.role + ".dA", c.m, c.n, c.k, group=c.group,
                              shared_b=c.shared_b, weight_static=False))

@@ -4,9 +4,10 @@ Tokens are a pure function of (seed, step, position) via a counter-based
 hash (splitmix64 in numpy, the reference's exactly), so any worker can
 regenerate any batch: restarts need no data state beyond the integer
 ``step``, and the port's batches are bit-equal to the reference's. A batch
-is placed on the ``device`` the pipeline was made for. The reference's
-``mesh`` / ``batch_spec`` placement comes with the training half of
-multi-device (ROADMAP Queue 1 item 6b).
+is placed on the ``device`` the pipeline was made for; on a ``mesh``
+(``batch_spec`` the axes its rows split over, as the reference's
+``PartitionSpec``) each rank gets its rows of the same global batch, so
+the topology never changes the data.
 
 The stream is Zipfian with a Markov backbone, so the LM loss actually
 decreases in short runs (uniform noise would pin it at log V).
@@ -42,9 +43,14 @@ class DataConfig:
 class SyntheticLMData:
     """Stateless per step: ``batch(step)`` is pure and deterministic."""
 
-    def __init__(self, cfg: DataConfig, device="cuda"):
+    def __init__(self, cfg: DataConfig, device="cuda", mesh=None, batch_spec=("data",)):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.batch_spec = tuple(batch_spec or ())
+        if mesh is not None and cfg.global_batch % mesh.size(self.batch_spec):
+            raise ValueError(f"a global batch of {cfg.global_batch} rows does not split over "
+                             f"the {mesh.size(self.batch_spec)} ranks of {self.batch_spec}")
         # Zipf-ish stationary distribution over the vocabulary
         ranks = np.arange(1, cfg.vocab_size + 1, dtype=np.float64)
         p = ranks ** (-cfg.zipf_alpha)
@@ -69,6 +75,14 @@ class SyntheticLMData:
 
     def batch(self, step: int) -> dict:
         """{'tokens', 'labels'}: (B, S[, CB]) int64 tensors on the device,
-        the labels the tokens shifted by one position."""
-        toks = torch.from_numpy(self._tokens(step)).to(self.device, torch.int64)
+        the labels the tokens shifted by one position. On a mesh B is this
+        rank's rows: the global batch split in rank order over
+        ``batch_spec``."""
+        toks = self._tokens(step)
+        if self.mesh is not None and self.batch_spec:
+            n = self.mesh.size(self.batch_spec)
+            rows = toks.shape[0] // n
+            lo = self.mesh.local_rank(self.batch_spec) * rows
+            toks = toks[lo:lo + rows]
+        toks = torch.from_numpy(toks).to(self.device, torch.int64)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

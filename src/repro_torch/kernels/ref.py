@@ -169,15 +169,15 @@ def fused_gemm_combine_h_quant_ref(aq: torch.Tensor, a_scales: torch.Tensor,
     _, X, Y = aq.shape
     Yb = a_scales.shape[-1]
     by = Y // Yb
-    h = []
-    for r in range(R):
-        hr = None
-        for y in range(Yb):
-            part = torch.matmul(aq[r, :, y * by:(y + 1) * by].float(),
-                                bq[r, y * by:(y + 1) * by].float())
-            t = part * a_scales[r, :, y:y + 1] * b_scales[r, y:y + 1]
-            hr = t if hr is None else hr + t
-        h.append(hr)
+    # every rank's K-block product at once (a batched matmul over R: the
+    # int8 products and their sums are exact in f32), accumulated over the
+    # K-blocks in ascending order as above
+    h = None
+    for y in range(Yb):
+        part = torch.matmul(aq[:, :, y * by:(y + 1) * by].float(),
+                            bq[:, y * by:(y + 1) * by].float())
+        t = part * a_scales[:, :, y:y + 1] * b_scales[:, y:y + 1]
+        h = t if h is None else h + t
     out = torch.empty((m, n, X, bq.shape[-1]), dtype=out_dtype, device=aq.device)
     for i in range(m):
         for j in range(n):

@@ -124,8 +124,8 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
     if quantize:
         fcfg = dataclasses.replace(fcfg, quantize=True)
     if PM.mesh_factors(mesh_shape)[0] > 1:
-        raise NotImplementedError(f"mesh_shape={mesh_shape}: a data axis is the training "
-                                  "half of multi-device (ROADMAP Queue 1 item 6b)")
+        raise NotImplementedError(f"mesh_shape={mesh_shape}: a data axis is not ported to "
+                                  "serving (ROADMAP Queue 1 item 6b; training runs one)")
     mesh = PM.mesh_for(mesh_shape)
     if params is None:
         params = M.init_params(cfg, seed, device)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import engine
+from repro_torch.parallel.sharding import ambient_state, use_ambient_state
 
 # ---------------------------------------------------------------------------
 # Param helpers
@@ -52,12 +53,15 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...], dtype,
 def remat(fn, *args):
     """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
     nothing inside is stored for backward, which recomputes it. The
-    recomputation runs under the FalconGEMM config ambient now, since
-    backward runs outside the caller's ``falcon.use`` scope."""
+    recomputation runs under the FalconGEMM config, the mesh, the parallel
+    style and the placement ambient now (``sharding.ambient_state``), since
+    backward runs outside the caller's scopes, on the card on another
+    thread."""
     cfg = engine.current_config()
+    state = ambient_state()
 
     def run(*a):
-        with engine.use(cfg):
+        with engine.use(cfg), use_ambient_state(state):
             return fn(*a)
 
     return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)

@@ -29,6 +29,16 @@ vocab shards are all-gathered, the MoE layer runs expert-parallel
 holds whole needs no collective. Which it is, is read from the shapes of
 the leaves against the config.
 
+In training the collectives are differentiable: a column-parallel block's
+input passes Megatron's *f* (identity forward, all-reduce backward), the
+row-parallel all-reduce is *g* (identity backward), the LM head's gather
+gives each rank its vocab slice of the gradient. Leaves placed over
+"data" (ZeRO-3, ``fsdp``) or over ("data", "model") (``fsdp_only``) under
+the ambient placement (``parallel.sharding.use_placement``) are gathered
+at use, a layer's inside its remat function, so a recompute gathers again
+and no whole weight outlives its layer; each gather's backward
+reduce-scatters the gradient back to the shard.
+
 Training: :func:`lm_loss` is the chunked cross-entropy over the LM head
 plus 0.01 times the MoE layers' load-balancing loss. Under autograd each
 layer is recomputed in backward (``cfg.remat``, ``torch.utils.checkpoint``)
@@ -45,7 +55,8 @@ from repro_torch.core.falcon_gemm import FalconConfig
 from repro_torch.core.workloads import layer_capacity
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel.mesh import current_mesh
-from repro_torch.parallel.sharding import attention_sharded
+from repro_torch.parallel.sharding import (attention_sharded, current_placement, gather_param,
+                                           gather_tree, unstack_placement)
 from repro_torch.tree import tree_leaves, tree_map
 from . import layers as L
 from . import moe as MOE
@@ -223,7 +234,7 @@ def _embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None):
     codebook order, each sum rounded to the model's dtype; vlm prepends
     ``patch_embeds`` (B, P, d), cast to the model's dtype. A vocab-sharded
     table looks up across the model axis (:func:`_vocab_lookup`)."""
-    embed = params["embed"]
+    embed = _gathered(params, "embed")
     sharded = embed.shape[-2] != padded_vocab(cfg)
     look = _vocab_lookup if sharded else (lambda t, i: t[i])
     if cfg.frontend == "audio_codebooks":
@@ -237,18 +248,32 @@ def _embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None):
     return x
 
 
+def _gathered(params, name: str):
+    """``params[name]`` whole over the ZeRO-3 axes of the ambient placement
+    (``parallel.sharding.use_placement``): gathered at use."""
+    placement = current_placement()
+    if placement is None:
+        return params[name]
+    return gather_param(params[name], placement[name], current_mesh())
+
+
 def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
            cache_index=None, length_mask=None):
-    """One decoder layer: (x, its MoE load-balancing loss or None)."""
+    """One decoder layer: (x, its MoE load-balancing loss or None). A
+    column-parallel block's input passes Megatron's *f*
+    (``collectives.copy_to_axis``: its gradient summed over the model axis)
+    and its row-parallel output *g* (the all-reduce)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         return x + _ssd(lp, h, cfg, cache_layer, length_mask), None
     hd = cfg.resolved_head_dim
     heads = _width(lp["attn"]["w_q"]) // hd      # the rank's heads: all, or a shard
     dims = L.AttnDims(cfg.d_model, heads, _width(lp["attn"]["w_k"]) // hd, hd)
-    y, _ = L.attn_apply(lp["attn"], h, dims, positions, cfg.rope_theta, window,
+    tp_attn = heads != cfg.num_heads
+    y, _ = L.attn_apply(lp["attn"], C.copy_to_axis(h, current_mesh()) if tp_attn else h,
+                        dims, positions, cfg.rope_theta, window,
                         cache=cache_layer, cache_index=cache_index)
-    if heads != cfg.num_heads:                   # row-parallel w_o: partial sums
+    if tp_attn:                                  # row-parallel w_o: partial sums
         y = C.all_reduce(y, current_mesh())
     if cfg.family == "hybrid":
         # parallel attention and SSD branches on ln1(x), their norms averaged
@@ -264,9 +289,11 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
         y2, aux = MOE.moe_apply(lp["moe"], h2, cfg.experts_per_token, cfg.capacity_factor,
                                 deterministic_capacity=cap, num_experts=cfg.num_experts)
         return x + y2, aux
-    y2 = L.mlp_apply(lp["mlp"], h2)
     if _rows(lp["mlp"]["mlp_down"]) != cfg.d_ff:  # row-parallel mlp_down: partial sums
+        y2 = L.mlp_apply(lp["mlp"], C.copy_to_axis(h2, current_mesh()))
         y2 = C.all_reduce(y2, current_mesh())
+    else:
+        y2 = L.mlp_apply(lp["mlp"], h2)
     return x + y2, None
 
 
@@ -310,6 +337,10 @@ def _forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
         else:
             positions = (int(cache_index) + steps).expand(B, S)
         windows = cfg.layer_windows()
+        mesh, placement = current_mesh(), current_placement()
+        # the ZeRO-3 shards of a layer are gathered inside its (remat)
+        # function, so a recompute gathers again and no whole weight is kept
+        lpl = None if placement is None else unstack_placement(placement["layers"])
         grad = torch.is_grad_enabled() and any(t.requires_grad
                                                for t in tree_leaves(params["layers"]))
         per_layer = (_unbind_layers(params["layers"], len(windows)) if grad else
@@ -322,12 +353,13 @@ def _forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
         aux = None
         for i, window in enumerate(windows):
             cl = None if cache is None else {name: c[i] for name, c in cache.items()}
-            layer = dict(lp=per_layer[i], window=window, cfg=cfg, positions=positions,
+            layer = dict(window=window, cfg=cfg, positions=positions,
                          cache_layer=cl, cache_index=cache_index, length_mask=length_mask)
-            if remat:
-                x, a = L.remat(lambda x_, kw=layer: _layer(x_, **kw), x)
-            else:
-                x, a = _layer(x, **layer)
+
+            def run(x_, lp=per_layer[i], kw=layer):
+                return _layer(x_, gather_tree(lp, lpl, mesh), **kw)
+
+            x, a = L.remat(run, x) if remat else run(x)
             if a is not None:
                 aux = a if aux is None else aux + a
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -342,17 +374,25 @@ def compute_logits(params, cfg: ModelConfig, x):
     """LM head (tied to the embedding unless ``lm_head`` exists), with the
     padded-vocab columns masked to -1e30. Audio runs one head per codebook,
     each its own dense call as in the reference, stacked to (B, S, CB, Vp).
-    A vocab-sharded head's logits are all-gathered over the model axis."""
+    A vocab-sharded head's input passes *f* and its logits are
+    all-gathered over the model axis (backward: this rank's slice, since
+    every rank of the axis computes the same loss from them)."""
     with engine.config_scope(lambda: falcon_config_for(cfg)):
+        Vp = padded_vocab(cfg)
         if cfg.frontend == "audio_codebooks":
-            logits = torch.stack([engine.dense(x, params["lm_head"][c])
+            head = _gathered(params, "lm_head")
+            if _width(head) != Vp:
+                x = C.copy_to_axis(x, current_mesh())
+            logits = torch.stack([engine.dense(x, head[c])
                                   for c in range(cfg.num_codebooks)], dim=2)
         else:
-            w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
+            w = (_gathered(params, "lm_head") if not cfg.tie_embeddings
+                 else _gathered(params, "embed").T)
+            if _width(w) != Vp:
+                x = C.copy_to_axis(x, current_mesh())
             logits = engine.dense(x, w)
-        Vp = padded_vocab(cfg)
         if logits.shape[-1] != Vp:
-            logits = C.all_gather(logits, current_mesh(), dim=-1)
+            logits = C.all_gather(logits, current_mesh(), dim=-1, backward="slice")
         if Vp == cfg.vocab_size:
             return logits
         pad_mask = torch.arange(Vp, device=x.device) < cfg.vocab_size

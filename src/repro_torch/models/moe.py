@@ -20,8 +20,9 @@ back), so a serving step that runs it still captures as one CUDA graph:
 nothing reads the card back.
 
 Under a mesh whose "model" axis divides the experts (``parallel.mesh``),
-``moe_apply`` runs expert-parallel (``_moe_ep``, the counterpart of the
-reference's ``_moe_shardmap``): each rank holds ``E / model`` experts and
+``moe_apply`` runs expert-parallel under the ``tp`` style (``_moe_ep``,
+the counterpart of the reference's ``_moe_shardmap``), each data shard
+routing its own tokens: each rank holds ``E / model`` experts and
 the router's matching columns, all-gathers the router logits, dispatches
 its tokens to its own experts only (``e_offset = rank * E_local``), and the
 ranks' outputs are summed. Otherwise (one device, or experts that do not
@@ -35,6 +36,7 @@ from repro_torch.core import engine
 from repro_torch.core.workloads import moe_capacity
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel.mesh import current_mesh
+from repro_torch.parallel.sharding import get_parallel_style
 from .layers import dense_init, silu
 
 __all__ = ["moe_init", "moe_apply"]
@@ -129,17 +131,25 @@ def _moe_dense(p: dict, x: torch.Tensor, top_k: int, C: int):
     return y.reshape(B, S, d), _aux_loss(probs, expert_idx, E)
 
 
-def _moe_ep(p: dict, x: torch.Tensor, top_k: int, C_global: int, mesh, E: int):
+def _moe_ep(p: dict, x: torch.Tensor, top_k: int, C_local: int, mesh, E: int):
     """Expert-parallel MoE over the mesh's "model" axis: this rank's
     ``E / model`` experts and router columns, the router logits
     all-gathered, local dispatch at ``e_offset = rank * E_local``, the
-    ranks' outputs summed. Tokens are not sharded (serving runs data = 1),
-    so the local capacity is the layer's, at least 8, as the reference's
-    ``C_local`` over one data shard."""
+    ranks' outputs summed. ``x`` is this rank's tokens: on a data axis each
+    data shard routes its own, at the capacity of its tokens (the layer
+    stack passes it), at least 8, as the reference's ``C_local``.
+
+    Under autograd the tokens pass Megatron's *f* (each rank's experts and
+    router columns give a partial gradient) and the output's sum is *g*.
+    The routing's gradient is a partial too (a rank's gate values reach the
+    output only through its own experts), so the logits' gather
+    reduce-scatters it; the load-balancing loss, which every rank of the
+    axis computes whole, enters that sum once (:class:`_ShareGrad`)."""
     B, S, d = x.shape
-    E_local = E // mesh.size("model")
-    C_local = max(C_global, 8)       # the reference's max(ceil(C / data shards), 8)
-    xt = x.reshape(B * S, d)
+    nm = mesh.size("model")
+    E_local = E // nm
+    C_local = max(C_local, 8)
+    xt = C.copy_to_axis(x.reshape(B * S, d), mesh)
     logits_loc = xt.float() @ p["router"].float()     # (T, E_local)
     logits = C.all_gather(logits_loc, mesh, dim=1)    # (T, E), rank order
     probs, gate_vals, expert_idx = _route(xt, logits, top_k)
@@ -147,7 +157,24 @@ def _moe_ep(p: dict, x: torch.Tensor, top_k: int, C_global: int, mesh, E: int):
                                   p["moe_up"], p["moe_down"], E_local=E_local,
                                   e_offset=mesh.local_rank("model") * E_local)
     y = C.all_reduce(y, mesh)     # each token's k expert contributions over the ranks
-    return y.reshape(B, S, d), _aux_loss(probs, expert_idx, E)
+    aux = _aux_loss(probs, expert_idx, E)
+    if torch.is_grad_enabled() and aux.requires_grad:
+        aux = _ShareGrad.apply(aux, nm)
+    return y.reshape(B, S, d), aux
+
+
+class _ShareGrad(torch.autograd.Function):
+    """The identity, whose gradient is divided among ``n`` ranks that each
+    compute the value whole and sum their gradients later."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
 
 
 def moe_apply(p: dict, x: torch.Tensor, top_k: int, capacity_factor: float,
@@ -171,14 +198,11 @@ def moe_apply(p: dict, x: torch.Tensor, top_k: int, capacity_factor: float,
     C_ = deterministic_capacity or moe_capacity(B * S, top_k, E, capacity_factor)
     mesh = current_mesh()
     nm = 1 if mesh is None else mesh.size("model")
-    ep = nm > 1 and E % nm == 0
+    ep = nm > 1 and E % nm == 0 and get_parallel_style() == "tp"
     held = p["router"].shape[-1]
     if held != (E // nm if ep else E):
         raise ValueError(f"moe_apply: the router holds {held} of {E} experts; on a "
                          f"{nm}-way model axis this rank holds {E // nm if ep else E}")
     if ep:
-        if mesh.size("data") > 1:
-            raise NotImplementedError("moe_apply: tokens over a data axis are the training "
-                                      "half of multi-device (ROADMAP Queue 1 item 6b)")
         return _moe_ep(p, x, top_k, C_, mesh, E)
     return _moe_dense(p, x, top_k, C_)

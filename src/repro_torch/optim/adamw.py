@@ -49,12 +49,35 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _global_norm(grads) -> torch.Tensor:
+def _global_norm(grads, mesh=None, placement=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in tree order) of each leaf's f32 sum of
-    squares; None leaves count as zero."""
-    sq = None
-    for g in tree_leaves(grads):
+    squares; None leaves count as zero. On a ``mesh`` with the leaves'
+    ``placement`` (``parallel.sharding.param_sharding``, mirroring
+    ``grads``) the norm is the whole tree's: the sums of the leaves split
+    over the same axes are added, and each such partial sum is all-reduced
+    over those axes (one collective per set of axes, in a fixed order on
+    every rank); a leaf held whole counts once. The reference's GSPMD
+    gives it this for free."""
+    if mesh is None or placement is None:
+        sq = None
+        for g in tree_leaves(grads):
+            s = torch.sum(torch.square(g.float()))
+            sq = s if sq is None else sq + s
+        return torch.sqrt(sq) if sq is not None else torch.zeros(())
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.mesh import AXES
+    from repro_torch.parallel.sharding import gathered_axes
+    parts: dict[tuple, torch.Tensor] = {}
+
+    def add(g, where):
+        axes = tuple(a for a in AXES if a in gathered_axes(where) and mesh.size(a) > 1)
         s = torch.sum(torch.square(g.float()))
+        parts[axes] = s if axes not in parts else parts[axes] + s
+
+    tree_map(add, grads, placement)
+    sq = None
+    for axes in sorted(parts):
+        s = C.all_reduce(parts[axes], mesh, axes) if axes else parts[axes]
         sq = s if sq is None else sq + s
     return torch.sqrt(sq) if sq is not None else torch.zeros(())
 
@@ -63,22 +86,26 @@ def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, mesh=None, placement=None):
     """(grads scaled so their global norm is at most ``max_norm``, each
-    rounded back to its dtype; the norm before clipping)."""
-    gnorm = _global_norm(grads)
+    rounded back to its dtype; the norm before clipping). On a ``mesh``,
+    the norm of the whole tree of which ``grads`` are this rank's shards
+    (:func:`_global_norm`)."""
+    gnorm = _global_norm(grads, mesh, placement)
     scale = _clip_scale(gnorm, max_norm)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0, mesh=None,
+                 placement=None):
     """One AdamW step with global-norm clipping: returns (params, state,
     metrics), the first two updated in place (the same objects). ``grads``
     mirrors ``params``; a None gradient counts as zeros, as the reference's
     gradient of an unused leaf is (weight decay still applies). Non-float
-    leaves (int8 B̃q) pass through."""
-    gnorm = _global_norm(grads)
+    leaves (int8 B̃q) pass through. On a ``mesh`` each rank updates its
+    shards in place, clipped by the whole tree's norm (``placement``)."""
+    gnorm = _global_norm(grads, mesh, placement)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     state["step"] += 1
     step = state["step"].float()

@@ -40,7 +40,8 @@ from repro_torch.core.workloads import _mesh_factors
 from .collectives import CollectiveStats
 
 __all__ = ["AXES", "Mesh", "mesh_factors", "choose_backend", "init_mesh", "world_mesh",
-           "mesh_for", "use_mesh", "current_mesh", "shutdown", "run_ranks"]
+           "mesh_for", "use_mesh", "current_mesh", "shutdown", "run_ranks",
+           "make_local_mesh", "make_production_mesh", "production_mesh_shape"]
 
 AXES = ("data", "model")
 
@@ -81,13 +82,34 @@ class Mesh:
         """Whether collectives on this rank's tensors cross host memory."""
         return self.backend == "gloo" and self.device.type == "cuda"
 
-    def size(self, axis: str = "model") -> int:
+    def size(self, axis="model") -> int:
+        """Ranks along ``axis``: one axis name, or a tuple of them (their
+        product)."""
+        if isinstance(axis, tuple):
+            return math.prod(self.shape[a] for a in axis)
         return self.shape[axis]
 
-    def local_rank(self, axis: str = "model") -> int:
+    def local_rank(self, axis="model") -> int:
+        """This rank's index along ``axis``; along a tuple of axes, the
+        row-major index over them (``("data", "model")``: the global rank)."""
+        if isinstance(axis, tuple):
+            idx = 0
+            for a in axis:
+                idx = idx * self.shape[a] + self.device_mesh.get_local_rank(a)
+            return idx
         return self.device_mesh.get_local_rank(axis)
 
-    def group(self, axis: str = "model"):
+    def group(self, axis="model"):
+        """The process group of ``axis``; of a tuple of axes, the group of
+        the sub-mesh they span (both axes: the whole world)."""
+        if isinstance(axis, tuple):
+            axes = tuple(a for a in axis if self.shape.get(a, 1) > 1) or axis[:1]
+            if len(axes) == 1:
+                return self.device_mesh.get_group(axes[0])
+            if axes != AXES:
+                raise ValueError(f"group: axes {axis}; a joint group spans "
+                                 f"{AXES} in that order")
+            return dist.group.WORLD
         return self.device_mesh.get_group(axis)
 
     def summary(self) -> dict:
@@ -159,6 +181,35 @@ def init_mesh(mesh_shape, backend: str | None = None, init_method: str = "env://
                           mesh_dim_names=AXES)
     _WORLD = Mesh({"data": d, "model": m}, backend, device, rank, dm)
     return _WORLD
+
+
+def make_local_mesh(backend: str | None = None, init_method: str = "env://",
+                    device="cuda") -> Mesh:
+    """Every rank of the process group as a (data, model=1) mesh: the
+    reference's ``make_local_mesh`` (whatever devices exist). The world
+    size is ``WORLD_SIZE``'s."""
+    n = int(os.environ["WORLD_SIZE"])
+    return init_mesh({"data": n, "model": 1}, backend, init_method, device=device)
+
+
+def production_mesh_shape(world: int, multi_pod: bool = False) -> dict:
+    """The reference's production mesh as a (data, model) shape: 16 x 16 =
+    256 ranks a pod; with ``multi_pod`` two pods, 512 ranks (the pod axis
+    folds into "data", as the workload registry reads it). A world of
+    another size raises and names the rank count the mesh needs."""
+    need = 512 if multi_pod else 256
+    if int(world) != need:
+        raise ValueError(f"the production mesh ({'2 x ' if multi_pod else ''}16 x 16) needs "
+                         f"{need} ranks; this process group has {world}")
+    return {"data": 32 if multi_pod else 16, "model": 16}
+
+
+def make_production_mesh(*, multi_pod: bool = False, backend: str | None = None,
+                         init_method: str = "env://", device="cuda") -> Mesh:
+    """Join the process group (``WORLD_SIZE`` ranks) as the reference's
+    production mesh (:func:`production_mesh_shape`)."""
+    shape = production_mesh_shape(int(os.environ["WORLD_SIZE"]), multi_pod)
+    return init_mesh(shape, backend, init_method, device=device)
 
 
 def world_mesh() -> Mesh | None:

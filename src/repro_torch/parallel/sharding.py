@@ -26,6 +26,7 @@ mapping, or a plain ``{axis: size}`` dict.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import math
@@ -36,7 +37,9 @@ import torch
 __all__ = ["ShardingRules", "batch_axes", "param_sharding", "activation_specs",
            "make_rules", "layouts_for_mesh", "shard_params", "shard_act",
            "attention_sharded", "BATCH", "set_parallel_style", "get_parallel_style",
-           "resolve_batch_axes"]
+           "use_parallel_style", "resolve_batch_axes", "shard_leaf", "gather_param",
+           "gather_tree", "unstack_placement", "use_placement", "current_placement",
+           "fsdp_dims", "gathered_axes", "ambient_state", "use_ambient_state", "loss_axes"]
 
 
 def _sizes(mesh) -> dict[str, int]:
@@ -59,6 +62,7 @@ class ShardingRules:
     batch: tuple[str, ...]
     axis_sizes: tuple[tuple[str, int], ...] = ()
     seq_shard: bool = False
+    style: str = "tp"
 
     def _fits(self, dim: int, axis) -> bool:
         sizes = dict(self.axis_sizes)
@@ -95,7 +99,7 @@ def make_rules(mesh, fsdp: bool = False, seq_shard: bool = False,
             (r"embed|lm_head|w_q|w_qkv|w_k|w_v|w_o|mlp_|moe_|router|ssm_in|ssm_out|frontend",
              (fs2, None)),
         ]
-        return ShardingRules(tuple(table), b, axis_sizes, seq_shard)
+        return ShardingRules(tuple(table), b, axis_sizes, seq_shard, style)
     b = batch_axes(mesh)
     fs = "data" if fsdp else None
     # NOTE: order matters — first match wins.
@@ -133,51 +137,61 @@ def attention_sharded(num_heads: int, num_kv_heads: int, model: int) -> bool:
 
 def param_sharding(params, mesh, rules: ShardingRules, cfg) -> dict:
     """Each leaf's placement: a tuple of ``(dim, axis)`` pairs, one per
-    sharded dim (empty: held whole on every rank), in the tree's structure.
-    The table's spec (:meth:`ShardingRules.spec_for` on the leaf's path,
-    ``layers/attn/w_q``), except that an attention block whose heads do not
-    divide the model axis and every SSD mixer stay whole (module
-    docstring). ``cfg`` gives the head counts."""
+    sharded dim (empty: held whole on every rank; ``axis`` one mesh axis or
+    a tuple of them), in the tree's structure. The table's spec
+    (:meth:`ShardingRules.spec_for` on the leaf's path, ``layers/attn/w_q``),
+    except that under tensor parallelism an attention block whose heads do
+    not divide the model axis and every SSD mixer are not split over
+    "model" (module docstring); their placements over "data" (FSDP) stay.
+    ``cfg`` gives the head counts."""
     whole_attn = not attention_sharded(cfg.num_heads, cfg.num_kv_heads,
                                        _sizes(mesh).get("model", 1))
+    tp = rules.style == "tp"
 
     def place(tree, path):
         if isinstance(tree, dict):
             return {k: place(v, f"{path}/{k}" if path else k) for k, v in tree.items()}
         parts = path.split("/")
-        if "ssm" in parts or (whole_attn and "attn" in parts):
-            return ()
         spec = rules.spec_for(path, tuple(tree.shape))
-        return tuple((i, a) for i, a in enumerate(spec) if a is not None)
+        whole = tp and ("ssm" in parts or (whole_attn and "attn" in parts))
+        return tuple((i, a) for i, a in enumerate(spec)
+                     if a is not None and not (whole and a == "model"))
 
     return place(params, "")
+
+
+def _axes(axis) -> tuple[str, ...]:
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+def shard_leaf(t: torch.Tensor, where, mesh) -> torch.Tensor:
+    """This rank's part of the whole tensor ``t`` under the placement
+    ``where`` (``(dim, axis)`` pairs): a contiguous copy, or ``t`` itself
+    where nothing is sharded over more than one rank."""
+    cut = False
+    sizes = _sizes(mesh)
+    for dim, axis in where:
+        n = math.prod(sizes[a] for a in _axes(axis))
+        if n <= 1:
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(f"shard_leaf: dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {n} ranks of {axis}")
+        size = t.shape[dim] // n
+        t = t.narrow(dim, mesh.local_rank(axis) * size, size)
+        cut = True
+    return t.contiguous() if cut else t
 
 
 def shard_params(params, cfg, mesh, rules: ShardingRules | None = None) -> dict:
     """This rank's shard of every leaf (raw tensors, before precombining),
     placed by :func:`param_sharding` under ``rules`` (default: the
     tensor-parallel table of ``mesh``). Each shard is a contiguous copy, so
-    the full tree can be freed. Serving shards over "model" only: a
-    placement on another axis of more than one device is the training half
-    of multi-device (ROADMAP Queue 1 item 6b) and raises."""
+    the full tree can be freed. A placement over "data" (``fsdp``) or over
+    ``("data", "model")`` (``fsdp_only``) is a ZeRO-3 shard: the model
+    gathers it at use (:func:`gather_param`) under :func:`use_placement`."""
     rules = rules or make_rules(mesh)
-    sizes = _sizes(mesh)
     placement = param_sharding(params, mesh, rules, cfg)
-
-    def cut(t, where):
-        for dim, axis in where:
-            axes = axis if isinstance(axis, tuple) else (axis,)
-            if axes != ("model",):
-                if math.prod(sizes[a] for a in axes) > 1:
-                    raise NotImplementedError(
-                        f"a placement over {axes}: sharding over data-parallel axes "
-                        "(fsdp, fsdp_only) is the training half of multi-device "
-                        "(ROADMAP Queue 1 item 6b)")
-                continue
-            n = sizes["model"]
-            size = t.shape[dim] // n
-            t = t.narrow(dim, mesh.local_rank("model") * size, size)
-        return t.contiguous() if where else t
 
     def walk(tree, where):
         if isinstance(tree, dict):
@@ -185,9 +199,70 @@ def shard_params(params, cfg, mesh, rules: ShardingRules | None = None) -> dict:
         if not isinstance(tree, torch.Tensor):
             raise TypeError(f"shard_params takes raw tensors (shard before precombining); "
                             f"got {type(tree).__name__}")
-        return cut(tree, where)
+        return shard_leaf(tree, where, mesh)
 
     return walk(params, placement)
+
+
+def fsdp_dims(where) -> tuple:
+    """The ZeRO-3 part of a placement: its pairs over any axis but "model"
+    alone (tensor parallelism's, which the model reads from the shapes)."""
+    return tuple((d, a) for d, a in where if a != "model")
+
+
+def gathered_axes(where) -> set[str]:
+    """The mesh axes a leaf placed by ``where`` is split over."""
+    return {a for _, axis in where for a in _axes(axis)}
+
+
+def gather_param(t: torch.Tensor, where, mesh) -> torch.Tensor:
+    """The FSDP weight at use: ``t`` all-gathered over each ZeRO-3 pair of
+    its placement (:func:`fsdp_dims`), whose backward reduce-scatters the
+    gradient back to this rank's shard. ``t`` itself where there is none."""
+    from .collectives import all_gather
+    for dim, axis in fsdp_dims(where):
+        if mesh.size(axis) > 1:
+            t = all_gather(t, mesh, axis, dim=dim)
+    return t
+
+
+def gather_tree(tree, where, mesh):
+    """:func:`gather_param` of every leaf of ``tree`` (``where`` mirrors it)."""
+    if where is None or mesh is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, where[k], mesh) for k, v in tree.items()}
+    return gather_param(tree, where, mesh)
+
+
+def unstack_placement(where):
+    """The placement of one layer's slice of a stacked per-layer tree: each
+    pair's dim less the leading layer dim."""
+    if isinstance(where, dict):
+        return {k: unstack_placement(v) for k, v in where.items()}
+    if any(d == 0 for d, _ in where):
+        raise ValueError(f"a placement {where} splits the stacked layer dim")
+    return tuple((d - 1, a) for d, a in where)
+
+
+_PLACEMENT_CTX = contextvars.ContextVar("repro_torch_placement", default=None)
+
+
+@contextlib.contextmanager
+def use_placement(placement):
+    """Make ``placement`` (:func:`param_sharding` of the whole tree) the
+    ambient one inside the block: the model gathers every ZeRO-3 shard of
+    its params by it at use. None: nothing is gathered."""
+    token = _PLACEMENT_CTX.set(placement)
+    try:
+        yield placement
+    finally:
+        _PLACEMENT_CTX.reset(token)
+
+
+def current_placement():
+    """The ambient placement (:func:`use_placement`), or None."""
+    return _PLACEMENT_CTX.get()
 
 
 _STYLE_CTX = contextvars.ContextVar("repro_torch_parallel_style", default="tp")
@@ -207,10 +282,45 @@ def get_parallel_style() -> str:
     return _STYLE_CTX.get()
 
 
+@contextlib.contextmanager
+def use_parallel_style(style: str):
+    """:func:`set_parallel_style` inside the block."""
+    token = set_parallel_style(style)
+    try:
+        yield style
+    finally:
+        _STYLE_CTX.reset(token)
+
+
 def resolve_batch_axes() -> tuple[str, ...]:
     if _STYLE_CTX.get() == "fsdp_only":
         return ("pod", "data", "model")
     return ("pod", "data")
+
+
+def loss_axes(style: str | None = None) -> tuple[str, ...]:
+    """The mesh axes the global batch splits over under ``style`` (default:
+    the ambient one): "data", and "model" too under ``fsdp_only``. A train
+    step's loss is the mean over these ranks."""
+    style = style or get_parallel_style()
+    return ("data", "model") if style == "fsdp_only" else ("data",)
+
+
+def ambient_state():
+    """What the model reads from its thread's context: the ambient mesh,
+    the parallel style and the placement. :func:`use_ambient_state`
+    re-installs it where the context is not the forward's (a recompute in
+    backward, on the autograd engine's thread)."""
+    from .mesh import current_mesh
+    return current_mesh(), get_parallel_style(), current_placement()
+
+
+@contextlib.contextmanager
+def use_ambient_state(state):
+    from .mesh import use_mesh
+    mesh, style, placement = state
+    with use_parallel_style(style), use_mesh(mesh), use_placement(placement):
+        yield
 
 
 def layouts_for_mesh(mesh=None, style: str | None = None):

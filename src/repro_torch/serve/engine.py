@@ -107,9 +107,10 @@ class ServeEngine:
     Combine B runs on each rank's shard; the cache holds the rank's KV heads;
     ``warm()`` plans the local shapes each rank contracts. A gloo mesh's
     collectives on the card cross host memory, which a CUDA graph cannot
-    capture: such an engine needs ``cuda_graphs=False``. A data axis over
-    one device is the training half of multi-device (ROADMAP Queue 1 item
-    6b) and raises, as does a process outside a mesh of that shape.
+    capture: such an engine needs ``cuda_graphs=False``. A data axis of more
+    than one rank (replicas that split the requests) is not ported to
+    serving (ROADMAP Queue 1 item 6b; training runs one) and raises, as
+    does a process outside a mesh of that shape.
     """
 
     def __init__(self, model_cfg: ModelConfig, params=None, *,
@@ -132,8 +133,8 @@ class ServeEngine:
         data, _ = PM.mesh_factors(mesh_shape)
         if data > 1:
             raise NotImplementedError(
-                f"mesh_shape={mesh_shape}: a data axis over {data} devices is the training "
-                "half of multi-device (ROADMAP Queue 1 item 6b); serving shards over "
+                f"mesh_shape={mesh_shape}: a data axis over {data} devices is not ported to "
+                "serving (ROADMAP Queue 1 item 6b; training runs one); serving shards over "
                 "'model' only")
         self.device = torch.device(device)
         self.mesh = PM.mesh_for(mesh_shape)

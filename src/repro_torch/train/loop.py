@@ -16,6 +16,10 @@ Behaviours (each tested with injected faults):
 
 Checkpoints hold ``{"params", "opt_state"}`` in the reference's format, so
 a run the reference's loop checkpointed resumes here (and the reverse).
+On a mesh (``mesh``, ``rules``, the model's ``model_cfg`` and the params'
+``placement``) the shards are gathered whole to rank 0 for each save, and
+a restore narrows the whole arrays to this rank's placement under
+``rules``: a run saved on 2 x 1 resumes on 1 x 2 or on one device.
 The train step updates the parameters and optimizer state in place; a
 failure inside it leaves them as far as it got, and the restore replaces
 them.
@@ -33,7 +37,7 @@ from typing import Callable
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 log = logging.getLogger(__name__)
 
@@ -68,7 +72,8 @@ class FaultInjector:
 class TrainLoop:
     def __init__(self, cfg: TrainLoopConfig, train_step: Callable, data, params,
                  opt_state, fault_injector: FaultInjector | None = None,
-                 warm_fn: Callable | None = None):
+                 warm_fn: Callable | None = None, mesh=None, placement=None, rules=None,
+                 model_cfg=None):
         self.cfg = cfg
         self.train_step = train_step
         self.data = data
@@ -79,7 +84,12 @@ class TrainLoop:
         # pre-plans the forward and backward shapes, so the first step's
         # Decision-Module queries are plan-cache hits.
         self.warm_fn = warm_fn
-        self.ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep_checkpoints)
+        self.rules, self.model_cfg = rules, model_cfg
+        pl = placement if placement is not None else tree_map(lambda _: (), params)
+        state_placement = None if mesh is None else {
+            "params": pl, "opt_state": {"m": pl, "v": pl, "step": ()}}
+        self.ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep_checkpoints,
+                                      mesh=mesh, placement=state_placement)
         self.metrics_history: list[dict] = []
         self.stragglers = 0
         self.restarts = 0
@@ -109,7 +119,8 @@ class TrainLoop:
             self.ckpt.wait()
 
     def _restore(self) -> int:
-        state, step, _ = self.ckpt.restore_latest(self._state(), device=self._device())
+        state, step, _ = self.ckpt.restore_latest(self._state(), device=self._device(),
+                                                  rules=self.rules, cfg=self.model_cfg)
         self.params, self.opt_state = state["params"], state["opt_state"]
         return step
 

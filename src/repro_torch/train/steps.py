@@ -15,48 +15,112 @@ ambient config (``falcon.use``), else the model's own.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import engine
+from repro_torch.core import decision, engine, workloads
+from repro_torch.core.falcon_gemm import plan_sharded
 from repro_torch.models import model as M
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
+from repro_torch.parallel import collectives as C, sharding as SH
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["make_train_step", "make_eval_step", "loss_and_grads", "warm_train",
+__all__ = ["make_train_step", "make_compressed_dp_train_step", "make_eval_step",
+           "loss_and_grads", "warm_train",
            "make_prefill_step",
            "make_serve_prefill_step", "make_chunk_prefill_step", "make_decode_step",
            "make_verify_step"]
 
 
-def warm_train(cfg: ModelConfig, batch: int, seq: int) -> int:
+def warm_train(cfg: ModelConfig, batch: int, seq: int, mesh_shape: dict | None = None) -> int:
     """Pre-plan the forward AND backward shapes of every contraction of
     ``cfg`` at (batch, seq): dense projections, grouped MoE expert FFNs,
     attention score/value contractions and SSD chunk contractions, all from
     the workload registry (``core.workloads.contraction_set``). Run once
     before the first train step, every Decision-Module query of the step
     (the forward contractions and each planned core's backward pair) is a
-    plan-cache hit. Returns the number of ``plan()`` calls made."""
+    plan-cache hit. ``mesh_shape`` plans instead the shapes one rank of
+    that mesh contracts in a step of the global batch ``batch`` under
+    ``cfg.parallel_style`` (``workloads.resolve_contractions(local=True,
+    train=True)``), and under the ``shard_map_local`` backend also the
+    sharded decisions its hook prices. Returns the number of ``plan()``
+    calls made."""
     fc = engine.active_config() or M.falcon_config_for(cfg)
-    return engine.warm_buckets(fc, cfg, [(batch, seq)], dtype=str(cfg.dtype), train=True)
+    mesh_shape = mesh_shape if mesh_shape and math.prod(mesh_shape.values()) > 1 else None
+    n = engine.warm_buckets(fc, cfg, [(batch, seq)], dtype=str(cfg.dtype), train=True,
+                            mesh_shape=mesh_shape)
+    if mesh_shape and fc.backend == "shard_map_local" and cfg.parallel_style == "fsdp_only":
+        n += warm_shard_map_local(fc, cfg, batch, seq, mesh_shape)
+    return n
 
 
-def loss_and_grads(params, cfg: ModelConfig, batch: dict):
+def warm_shard_map_local(fc, cfg: ModelConfig, batch: int, seq: int, mesh_shape: dict) -> int:
+    """Plan the sharded decision (``plan_sharded``) the ``shard_map_local``
+    hook makes for each dense contraction of a step of the global batch on
+    a ``mesh_shape`` mesh under ``fsdp_only``."""
+    nb = math.prod(mesh_shape.values())
+    n = 0
+    for c in workloads.resolve_contractions(cfg, batch, seq):
+        if c.kind == "dense":
+            plan_sharded(c.m, c.k, c.n, dataclasses.replace(fc, shards=(1, 1, 1)),
+                         str(cfg.dtype), n_devices=nb, layouts=decision.fsdp_layouts())
+            n += 1
+    return n
+
+
+def loss_and_grads(params, cfg: ModelConfig, batch: dict, mesh=None, placement=None):
     """(loss, metrics, grads): ``grads`` mirrors ``params`` (zeros where a
     float leaf does not reach the loss, as the reference's gradient is;
-    None for int8 B̃q). Every float leaf is made to require grad."""
+    None for int8 B̃q). Every float leaf is made to require grad.
+
+    On a ``mesh`` (``params`` this rank's shards, ``placement`` their
+    ``param_sharding``, ``batch`` this rank's rows) the loss is the mean
+    over the ranks the batch splits over (``sharding.loss_axes`` of
+    ``cfg.parallel_style``): each rank differentiates its local mean over
+    their number n, so a ZeRO-3 shard's gradient, reduce-scattered by its
+    gather's backward, is already the global one, and a leaf held whole
+    over those ranks has its gradient summed over them. The loss and the
+    metrics returned are the means over those ranks."""
     leaves = [p for p in tree_leaves(params) if p.is_floating_point()]
     for p in leaves:
         p.requires_grad_(True)
-    loss, metrics = M.lm_loss(params, cfg, batch)
-    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    if mesh is None:
+        loss, metrics = M.lm_loss(params, cfg, batch)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    else:
+        axes = SH.loss_axes(cfg.parallel_style)
+        n = mesh.size(axes)
+        with SH.use_parallel_style(cfg.parallel_style), SH.use_placement(placement):
+            loss, metrics = M.lm_loss(params, cfg, batch)
+            gs = torch.autograd.grad(loss / n, leaves, allow_unused=True)
     by_id = {id(p): torch.zeros_like(p) if g is None else g for p, g in zip(leaves, gs)}
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-        tree_map(lambda p: by_id.get(id(p)), params)
+    grads = tree_map(lambda p: by_id.get(id(p)), params)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    loss = loss.detach()
+    if mesh is not None:
+        grads = _sum_replicated(grads, placement, mesh, axes)
+        names = sorted(metrics)
+        red = C.all_reduce(torch.stack([loss, *(metrics[k] for k in names)]), mesh, axes) / n
+        loss, metrics = red[0], dict(zip(names, red[1:]))
+    return loss, metrics, grads
+
+
+def _sum_replicated(grads, placement, mesh, axes):
+    """Each gradient summed over those of ``axes`` (of more than one rank)
+    its leaf is not split over: ZeRO-3 shards are already reduced."""
+    def red(g, where):
+        held = SH.gathered_axes(where) if placement is not None else set()
+        over = tuple(a for a in axes if a not in held and mesh.size(a) > 1)
+        return C.all_reduce(g, mesh, over) if over else g
+
+    return tree_map(red, grads, placement)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 10_000,
-                    warmup: int = 100, microbatches: int = 1):
+                    warmup: int = 100, microbatches: int = 1, mesh=None, placement=None):
     """Forward + planned backward + AdamW: ``train_step(params, opt_state,
     batch, step) -> (params, opt_state, metrics)``. The parameters and the
     optimizer state are updated in place (the reference's jitted step
@@ -64,11 +128,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 1
     updated raw weight (``refresh_planned_params``). ``microbatches > 1``
     accumulates gradients over that many slices of the batch in float32:
     activation memory scales with the slice while the optimizer sees the
-    whole batch."""
+    whole batch.
+
+    On a ``mesh`` the step runs on this rank's shards (``placement``:
+    their ``param_sharding``; None, every leaf whole) and its rows of the
+    global batch, the gradients and loss as :func:`loss_and_grads` gives
+    them, clipped by the whole tree's norm, each rank updating its shards
+    and its part of the optimizer state."""
+
+    def grads_of(params, batch):
+        return loss_and_grads(params, cfg, batch, mesh=mesh, placement=placement)
 
     def train_step(params, opt_state, batch, step):
         if microbatches == 1:
-            loss, metrics, grads = loss_and_grads(params, cfg, batch)
+            loss, metrics, grads = grads_of(params, batch)
         else:
             n = microbatches
             for v in batch.values():
@@ -78,7 +151,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 1
             gacc = lsum = None
             for i in range(n):
                 mb = {k: v.chunk(n)[i] for k, v in batch.items()}
-                loss_i, _, g = loss_and_grads(params, cfg, mb)
+                loss_i, _, g = grads_of(params, mb)
                 gacc = (tree_map(lambda t: t.float(), g) if gacc is None
                         else tree_map(lambda a, b: a + b.float(), gacc, g))
                 lsum = loss_i if lsum is None else lsum + loss_i
@@ -86,9 +159,37 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 1
             loss, metrics = lsum / n, {}
         lr_scale = cosine_schedule(step, warmup, total_steps)
         params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg,
-                                             lr_scale=lr_scale)
+                                             lr_scale=lr_scale, mesh=mesh, placement=placement)
         # planned gradients landed on each PlannedWeight's raw weight (B̃'s
         # is zero): re-derive B̃ so the next forward reads a consistent one
+        params = engine.refresh_planned_params(params)
+        return params, opt_state, {"loss": loss, "lr_scale": lr_scale, **metrics, **om}
+
+    return train_step
+
+
+def make_compressed_dp_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
+                                  bits: int = 8, total_steps: int = 10_000,
+                                  warmup: int = 100):
+    """Pure-DP train step with the int``bits``-compressed gradient mean
+    (``parallel.compression.compressed_psum_mean``), the reference's
+    ``make_compressed_dp_train_step``: parameters replicated on every rank,
+    the batch over the DP axes (this rank's rows), each rank's local
+    gradients mean-reduced compressed, the loss the mean over the DP ranks;
+    then AdamW on the (identical) replicated tree and
+    ``refresh_planned_params``. The exact all-reduce never runs in its
+    place."""
+    from repro_torch.parallel.compression import compressed_psum_mean
+    dp_axes = ("data",)
+
+    def train_step(params, opt_state, batch, step):
+        loss, metrics, grads = loss_and_grads(params, cfg, batch)
+        grads = compressed_psum_mean(grads, mesh, dp_axes, bits=bits)
+        n = mesh.size(dp_axes)
+        loss = C.all_reduce(loss, mesh, dp_axes) / n
+        lr_scale = cosine_schedule(step, warmup, total_steps)
+        params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg,
+                                             lr_scale=lr_scale)
         params = engine.refresh_planned_params(params)
         return params, opt_state, {"loss": loss, "lr_scale": lr_scale, **metrics, **om}
 

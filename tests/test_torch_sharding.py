@@ -167,10 +167,50 @@ def test_shard_params_slices_each_ranks_part(m):
 
 
 def test_shard_params_refuses_data_parallel_placements():
+    """ZeRO-3 placements over "data" (``fsdp``) and over ("data", "model")
+    (``fsdp_only``) shard now (they raised before multi-device training):
+    on a 2 x 2 mesh every rank's shard of every leaf has the shape the
+    reference's ``spec_for`` gives it, and the ranks' shards of ``w_q`` put
+    together are the leaf. What ``shard_params`` still refuses is a leaf
+    that is not a tensor."""
     cfg = smoke_config("granite_3_2b")
     params = TM.init_params(cfg, 0, "cpu")
-    mesh = _Rank(shape={"data": 2, "model": 2}, rank=0)
-    with pytest.raises(NotImplementedError, match="6b"):
-        tsh.shard_params(params, cfg, mesh, tsh.make_rules(mesh.shape, fsdp=True))
+    jmesh, tmesh = _meshes((2, 2))
+    for style, fsdp in (("tp", True), ("fsdp_only", False)):
+        jr = jsh.make_rules(jmesh, fsdp=fsdp, style=style)
+        parts = [tsh.shard_params(params, cfg, _Rank2(tmesh, r),
+                                  tsh.make_rules(tmesh, fsdp=fsdp, style=style))
+                 for r in range(4)]
+        for path, shape in _leaves(params):
+            spec = tuple(jr.spec_for(path, shape))
+            want = tuple(n // (4 if isinstance(a, tuple) else 2 if a else 1)
+                         for n, a in zip(shape, spec + (None,) * len(shape)))
+            for part in parts:
+                got = part
+                for k in path.split("/"):
+                    got = got[k]
+                assert tuple(got.shape) == want, (style, path, spec)
+        w_q = [p["layers"]["attn"]["w_q"] for p in parts]
+        if style == "tp":       # K over data, N over model
+            whole = torch.cat([torch.cat(w_q[d * 2:d * 2 + 2], dim=2) for d in range(2)], dim=1)
+        else:                   # K over data x model
+            whole = torch.cat(w_q, dim=1)
+        torch.testing.assert_close(whole, params["layers"]["attn"]["w_q"], rtol=0, atol=0)
     with pytest.raises(TypeError, match="before precombining"):
-        tsh.shard_params({"w": np.zeros((2, 2))}, cfg, mesh)
+        tsh.shard_params({"w": np.zeros((2, 2))}, cfg, _Rank2(tmesh, 0))
+
+
+class _Rank2:
+    """Rank ``r`` of a (data, model) mesh, row-major, as ``shard_params``
+    reads it: its index along one axis or a tuple of them."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, shape, r):
+        self.shape, self.idx = shape, {"data": r // shape["model"], "model": r % shape["model"]}
+
+    def local_rank(self, axis):
+        idx = 0
+        for a in (axis if isinstance(axis, tuple) else (axis,)):
+            idx = idx * self.shape[a] + self.idx[a]
+        return idx

@@ -20,6 +20,9 @@ packages in float32; the port's kernels run their plain versions.
   backward triples.
 """
 import dataclasses
+import os
+import subprocess
+import sys
 import time
 
 import jax
@@ -47,6 +50,8 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update, clip_by_gl
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.train import FaultInjector, TrainLoop, TrainLoopConfig, make_train_step
 from repro_torch.train.steps import loss_and_grads, make_eval_step
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 TRAJ_TOL = dict(rtol=5e-3, atol=5e-4)       # tests/test_grads.py's trajectory tolerance
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -481,8 +486,21 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
                       "--checkpoint-every", "2"])
     assert out["final_step"] == 3 and len(out["history"]) == 3
     assert "done: 3 steps" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="compressed-dp"):
-        train.main(["--arch", "granite_3_2b", "--device", "cpu", "--compressed-dp"])
+    # --compressed-dp on a 2 x 1 mesh of CPU ranks (gloo; the launcher
+    # spawns them), and --production-mesh refused on 2 ranks, naming 256
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"), "TMPDIR": str(tmp_path),
+           "OMP_NUM_THREADS": "1"}
+    env.pop("RANK", None)
+    o = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                        "granite_3_2b", "--device", "cpu", "--mesh", "2,1", "--dist-backend",
+                        "gloo", "--compressed-dp", "--steps", "3", "--batch", "4", "--seq",
+                        "16", "--checkpoint-dir", str(tmp_path / "mesh")],
+                       capture_output=True, text=True, env=env, timeout=120)
+    assert o.returncode == 0, o.stderr[-2000:]
+    assert o.stdout.count("done: 3 steps") == 1 and "all_reduce_max" in o.stdout
+    with pytest.raises(ValueError, match="256"):
+        train.main(["--arch", "granite_3_2b", "--device", "cpu", "--mesh", "2,1",
+                    "--production-mesh"])
 
 
 @pytest.fixture
