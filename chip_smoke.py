@@ -116,7 +116,17 @@ written out apart from the port; every rank's launches of #1-#4 (forward and
 backward, ``@fsdp`` / ``@tp_train``) to checked shapes, its m/v bytes to
 the reckoning from its shards, and its plan misses after warm_train to 0;
 per rank it prints ms a step, tokens/s, peak bytes and the collectives by
-operation, forward and backward. Any failure raises, so the exit code is non-zero and the final
+operation, forward and backward. The same 2 x 1 ranks then serve granite
+over the data axis (``serve_data`` lines: each rank half the rows, one
+gather a step; the one-shot at published depth in gemm, auto and forced
+strassen, at 2 layers in float32, the 8-layer engine), held to one device
+as the 1 x 2 runs are, every launch at a checked shape (``@dp`` cases).
+Last, the static tools and the host: ``calibrate_cpu`` on this machine's
+host CPU, ``repro_torch.tools.check --all --hardware h100_sxm`` in this
+process (it must report 0 errors), and two dry-run cells (granite
+``train_4k`` on 16 x 16, kimi_k2_1t ``decode_32k`` on 2 x 16 x 16: rank 0
+of a fake process group on the meta device), whose processes start on
+the host before the build. Any failure raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
 """
@@ -127,10 +137,12 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import itertools
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -157,8 +169,8 @@ from repro_torch.checkpoint import gather_state, restore_checkpoint, save_checkp
 from repro_torch.core.autotune import measure_collective_bw  # noqa: E402
 from repro_torch.core.decision import effective_tflops, predicted_effective_tflops  # noqa: E402
 from repro_torch.launch.serve import oneshot_inputs, run_oneshot  # noqa: E402
-from repro_torch.models import model as M  # noqa: E402
-from repro_torch.parallel import mesh as PM, sharding as SH  # noqa: E402
+from repro_torch.models import model as M, moe as MOE  # noqa: E402
+from repro_torch.parallel import collectives as C, mesh as PM, sharding as SH  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve.buckets import BucketPolicy, next_pow2  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMData  # noqa: E402
@@ -2040,7 +2052,9 @@ def forced_logits(cfg, params, batch: int, prompt: int, tokens: torch.Tensor,
     patches) with every decode step fed the next token of ``tokens`` (batch,
     gen[, CB]) instead of its own: the last-position logits of the prefill
     and of each decode step, each (batch[, CB], Vp) on the host. With
-    ``mesh_shape``, on this rank of its mesh (``params`` sharded here)."""
+    ``mesh_shape``, on this rank of its mesh (``params`` sharded here); over
+    a data axis the rank runs its rows, as ``run_oneshot`` does, and each
+    step's logits are gathered over "data"."""
     prompts, patches, pos0 = oneshot_inputs(cfg, batch, prompt, seed, DEV)
     prefill = make_prefill_step(cfg, max_len=pos0 + tokens.shape[1])
     decode = make_decode_step(cfg)
@@ -2048,13 +2062,26 @@ def forced_logits(cfg, params, batch: int, prompt: int, tokens: torch.Tensor,
     mesh = PM.mesh_for(mesh_shape)
     if mesh is not None:
         params = SH.shard_params(params, cfg, mesh)
-    with falcon.use(fcfg), PM.use_mesh(mesh), torch.inference_mode():
+    data = 1 if mesh is None else mesh.size("data")
+    if data > 1:
+        _, mine = mesh.data_rows(batch)
+        prompts, tokens = prompts[mine], tokens[mine]
+        patches = None if patches is None else patches[mine]
+
+    def last(logits):
+        lg = logits[:, -1]
+        if data > 1:
+            lg = C.all_gather_rows({"logits": lg}, mesh, "data")["logits"]
+        return lg.float().cpu()
+
+    with falcon.use(fcfg), PM.use_mesh(mesh), MOE.route_over_data(batch), \
+            torch.inference_mode():
         p, _ = falcon.precombine_params(params, m_hint=batch * prompt)
         logits, cache = prefill(p, prompts, patches)
-        out = [logits[:, -1].float().cpu()]
+        out = [last(logits)]
         for i in range(tokens.shape[1] - 1):
             logits, _ = decode(p, cache, tokens[:, i:i + 1].to(DEV), pos0 + i)
-            out.append(logits[:, -1].float().cpu())
+            out.append(last(logits))
     return out
 
 
@@ -2548,7 +2575,6 @@ def moe_layer_run(cfg, p, x, mode: str) -> dict:
     their ``launch_state``), the peak bytes, and the device time per call
     (:func:`time_ms`)."""
     from repro_torch.core import engine as core_engine
-    from repro_torch.models import moe as MOE
     C = workloads.layer_capacity(cfg, x.shape[0] * x.shape[1])
     seen = {"calls": []}
     route, grouped = MOE._route, core_engine.grouped_matmul
@@ -2598,7 +2624,6 @@ def phase_moe_layer() -> None:
     GB of experts). Each forced projection's error against the GEMM of its
     own operands is printed beside strassen's static error bound, a reading
     only. Every launch must be at a shape phase_kernels checked."""
-    from repro_torch.models import moe as MOE
     from repro_torch.models.moe_ref import eager_moe_apply, lcma_expert_ffn, loop_moe_apply
     l = alg.get("strassen")
     bound = l.stability.error_bound("bfloat16")
@@ -2665,7 +2690,6 @@ def route_tape(replay: list | None = None):
     (probs, gate values, expert_idx), to the yielded list; with ``replay``
     (another run's list, call for call) each call returns replay's entry
     instead, so the run dispatches on that run's routes and gate values."""
-    from repro_torch.models import moe as MOE
     route, tape = MOE._route, []
 
     def taped(*args):
@@ -3775,27 +3799,33 @@ def mesh_moe_capacity(cfg) -> int:
 
 def tp_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
     """(kernel, scheme, dtype, shape fields, check) of every call of #1-#4
-    one rank of the mesh makes (:func:`planned_launches` at the shapes a
-    rank contracts): granite's one-shot in auto mode and forced strassen
-    and its 8-layer engine forced (bf16), the float32 one-shot at 2 layers
-    and engine at 8, forced; and the expert-parallel dbrx layer's grouped calls at 8 experts
-    a rank: Combine B of each rank's expert stacks and Combine A of the
-    activations at its capacity (#2), the grouped product against
-    per-expert B̃ (#4)."""
+    one rank of the meshes that serve granite makes (:func:`planned_launches`
+    at the shapes a rank contracts: ``@tp`` the 1 x 2 mesh's shards, ``@dp``
+    the 2 x 1 mesh's rows, phase train_mesh's data runs): granite's one-shot
+    in auto mode and forced strassen and its 8-layer engine forced (bf16),
+    the float32 one-shot at 2 layers and engine at 8, forced; and the
+    expert-parallel dbrx layer's grouped calls at 8 experts a rank: Combine
+    B of each rank's expert stacks and Combine A of the activations at its
+    capacity (#2), the grouped product against per-expert B̃ (#4)."""
     base = get_config(MESH_ARCH)
     ctx = mesh_contexts(base)
-    bf16 = set().union(*(planned_launches(base, mode, ctx["oneshot"], mesh_shape=MESH)
-                         for mode in ("auto", "strassen")))
-    bf16 |= planned_launches(dataclasses.replace(base, num_layers=TWIN_LAYERS), "strassen",
-                             ctx["engine"], mesh_shape=MESH)
-    f32 = planned_launches(dataclasses.replace(base, num_layers=MESH_F32_LAYERS,
-                                               dtype="float32"), "strassen", ctx["oneshot"],
-                           mesh_shape=MESH)
-    f32 |= planned_launches(dataclasses.replace(base, num_layers=TWIN_LAYERS, dtype="float32"),
-                            "strassen", ctx["engine"], mesh_shape=MESH)
-    out = [(name, scheme, dt, {**fields, "tp": MESH["model"]}, check)
-           for name, scheme, dt, fields, check in launch_kernel_cases(
-               {f"{MESH_ARCH}@tp": bf16, f"{MESH_ARCH}@tp_f32": f32})]
+    keys = {}
+    for tag, shape in (("tp", MESH), ("dp", DP_MESH)):
+        bf16 = set().union(*(planned_launches(base, mode, ctx["oneshot"], mesh_shape=shape)
+                             for mode in ("auto", "strassen")))
+        bf16 |= planned_launches(dataclasses.replace(base, num_layers=TWIN_LAYERS),
+                                 "strassen", ctx["engine"], mesh_shape=shape)
+        f32 = planned_launches(dataclasses.replace(base, num_layers=MESH_F32_LAYERS,
+                                                   dtype="float32"), "strassen",
+                               ctx["oneshot"], mesh_shape=shape)
+        f32 |= planned_launches(dataclasses.replace(base, num_layers=TWIN_LAYERS,
+                                                    dtype="float32"),
+                                "strassen", ctx["engine"], mesh_shape=shape)
+        keys.update({f"{MESH_ARCH}@{tag}": bf16, f"{MESH_ARCH}@{tag}_f32": f32})
+    out = [(name, scheme, dt,
+            {**fields, **({"dp": DP_MESH["data"]} if "@dp" in fields["arch"]
+                          else {"tp": MESH["model"]})}, check)
+           for name, scheme, dt, fields, check in launch_kernel_cases(keys)]
     l = alg.get("strassen")
     cfg = get_config(MESH_MOE)
     E, d, ff = cfg.num_experts // MESH["model"], cfg.d_model, cfg.d_ff
@@ -3817,13 +3847,15 @@ def tp_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
 
 def mesh_engine(dtype: str, mesh=None) -> dict:
     """granite's ServeEngine at TWIN_LAYERS layers, forced strassen, eager
-    steps, in ``dtype``, on one device or, with ``mesh``, on this rank:
+    steps, in ``dtype``, on one device or, with ``mesh``, on this rank of
+    its mesh (1 x 2: tensor parallel; 2 x 1: the data axis):
     phase serve_engine's 16 requests served after warm, with their launch
     counts (set to 0 after warm) and the plan misses serving added."""
     cfg = dataclasses.replace(get_config(MESH_ARCH), num_layers=TWIN_LAYERS,
                               falcon_mode="strassen", dtype=dtype)
     engine = ServeEngine(cfg, M.init_params(cfg, 0, DEV), device=DEV, cuda_graphs=False,
-                         record_logits=True, mesh_shape=MESH if mesh is not None else None,
+                         record_logits=True,
+                         mesh_shape=dict(mesh.shape) if mesh is not None else None,
                          **ENGINE)
     warm = engine.warm()
     misses = plan_cache.stats().misses
@@ -3849,7 +3881,6 @@ def mesh_moe_layer(cfg, mode: str, mesh=None) -> dict:
     input drawn from seed 0, as phase moe_layer's) under ``mode``, on one
     device or, with ``mesh``, expert-parallel on this rank: its output, the
     routes, launches and launch_state, and the device ms per call."""
-    from repro_torch.models import moe as MOE
     gen = torch.Generator(device=DEV).manual_seed(0)
     p = MOE.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, torch.bfloat16, DEV)
     x = randn(4, MOE_LAYER_T // 4, cfg.d_model, dtype=torch.bfloat16, gen=gen)
@@ -3882,27 +3913,31 @@ def mesh_moe_layer(cfg, mode: str, mesh=None) -> dict:
             "state": state, "ms": t, "held": p["router"].shape[-1]}
 
 
-def mesh_rank(mesh, refs: dict) -> dict:
-    """One rank of the mesh (spawned by phase serve_mesh): every run the
-    phase holds to one device, on this rank's shard, each with its launch
-    counts set to 0 just before it and read just after."""
+def serve_runs(mesh, refs: dict) -> dict:
+    """granite's serving runs on this rank of ``mesh`` (1 x 2 in phase
+    serve_mesh, 2 x 1 in phase train_mesh's spawn), each held to one device
+    by :func:`check_serve_runs`: the one-shot at published depth in
+    MESH_MODES (with a 2-token warm-up serve, and teacher-forced on the
+    one-device tokens ``refs["oneshot"]``), at MESH_F32_LAYERS in float32,
+    and the TWIN_LAYERS engine in both dtypes. Each run's launch counts are
+    set to 0 just before it and read just after."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    shape = dict(mesh.shape)
     out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend,
            "oneshot": {}, "f32": {}}
-    # ``refs``: the one-device one-shot's tokens per mode, fed back to the
-    # teacher-forced runs
     base = get_config(MESH_ARCH)
     params = M.init_params(base, 0, DEV)
     for mode in MESH_MODES:
         cfg = dataclasses.replace(base, falcon_mode=mode)
         run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=2, seed=0, device=DEV,
-                    params=params, mesh_shape=MESH)             # warm-up
+                    params=params, mesh_shape=shape)            # warm-up
         free_memory()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         mesh.stats.reset()
         res = run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, device=DEV,
-                          params=params, mesh_shape=MESH)
+                          params=params, mesh_shape=shape)
         counts, state = kernels.launch_counts(), dict(kernels.launch_state())
         out["oneshot"][mode] = {
             "tokens": res["tokens"], "logits": [lg.float().cpu() for lg in res["logits"]],
@@ -3911,7 +3946,7 @@ def mesh_rank(mesh, refs: dict) -> dict:
             "n_precombined": res["n_precombined"],
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "forced": forced_logits(cfg, params, BATCH, PROMPT, refs["oneshot"][mode],
-                                    mesh_shape=MESH)}
+                                    mesh_shape=shape)}
         free_memory()
     del params
     free_memory()
@@ -3921,13 +3956,23 @@ def mesh_rank(mesh, refs: dict) -> dict:
         kernels.reset_launch_counts()
         res = run_oneshot(dataclasses.replace(f32, falcon_mode=mode), batch=BATCH,
                           prompt_len=PROMPT, gen=GEN, seed=0, device=DEV, params=params,
-                          mesh_shape=MESH)
+                          mesh_shape=shape)
         out["f32"][mode] = {"tokens": res["tokens"],
                             "logits": [lg.float().cpu() for lg in res["logits"]],
                             "state": dict(kernels.launch_state())}
     del params
     free_memory()
     out["engine"] = {dt: mesh_engine(dt, mesh) for dt in ("float32", "bfloat16")}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_rank(mesh, refs: dict) -> dict:
+    """One rank of the 1 x 2 mesh (spawned by phase serve_mesh): the serving
+    runs (:func:`serve_runs`), then one dbrx MoE layer expert-parallel, the
+    collective probe and phase train_mesh's tensor-parallel jobs, each with
+    its launch counts set to 0 just before it and read just after."""
+    out = serve_runs(mesh, refs)
     moe = get_config(MESH_MOE)
     out["moe"] = {mode: mesh_moe_layer(moe, mode, mesh) for mode in ("gemm", "strassen")}
     free_memory()
@@ -3958,10 +4003,136 @@ def mesh_check(what: str, got: dict, want: dict, vocab: int) -> tuple[float, flo
     pre, compared, agreement = logit_error(per_request(got), per_request(want), vocab)
     forced = forced_err(got["forced"], want, vocab)
     if compared < len(want["tokens"]) or not max(pre, forced) <= QUALITY_TOL:
-        raise AssertionError(f"serve_mesh/{what}: logit error against one device {pre} "
+        raise AssertionError(f"{what}: logit error against one device {pre} "
                              f"(prefix, {compared} steps), {forced} (teacher-forced), "
                              f"tolerance {QUALITY_TOL}")
     return pre, forced, agreement
+
+
+MESH_SINGLES: dict = {}
+
+
+def mesh_singles() -> dict:
+    """One device's runs that :func:`serve_runs` is held to (computed once,
+    phase train_mesh's data runs and phase serve_mesh share them): the
+    one-shot per mode at published depth (with its 2-token warm-up serve),
+    the float32 one-shot's logits at MESH_F32_LAYERS, and the engine's
+    outputs in both dtypes."""
+    if MESH_SINGLES:
+        return MESH_SINGLES
+    base = get_config(MESH_ARCH)
+    singles = {}
+    params = M.init_params(base, 0, DEV)
+    for mode in MESH_MODES:
+        cfg = dataclasses.replace(base, falcon_mode=mode)
+        run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=2, seed=0, device=DEV,
+                    params=params)                              # warm-up
+        res = run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, device=DEV,
+                          params=params)
+        singles[mode] = {"tokens": res["tokens"], "timings": res["timings"],
+                         "logits": [lg.float().cpu() for lg in res["logits"]]}
+        free_memory()
+    del params
+    f32 = dataclasses.replace(base, num_layers=MESH_F32_LAYERS, dtype="float32")
+    params = M.init_params(f32, 0, DEV)
+    f32_single = {mode: run_oneshot(dataclasses.replace(f32, falcon_mode=mode), batch=BATCH,
+                                    prompt_len=PROMPT, gen=GEN, seed=0, device=DEV,
+                                    params=params)["logits"]
+                  for mode in ("gemm", "strassen")}
+    del params
+    engine_single = {dt: mesh_engine(dt)["outputs"] for dt in ("float32", "bfloat16")}
+    free_memory()
+    MESH_SINGLES.update(oneshot=singles, f32=f32_single, engine=engine_single)
+    return MESH_SINGLES
+
+
+def check_serve_runs(line: str, ranks: list, mesh_shape: dict, label: str) -> None:
+    """Hold each rank's :func:`serve_runs` to one device
+    (:func:`mesh_singles`): every launch of #1-#4 at a checked shape and
+    every rank serving the same tokens; the one-shot per mode prefix-matched
+    and teacher-forced within QUALITY_TOL (forced strassen through #1-#4 on
+    every rank), in float32 within MESH_F32_TOL; the engine in float32 to
+    equal tokens and MESH_F32_TOL, in bf16 prefix-matched within
+    QUALITY_TOL, with no plan missed after warm. Lines ``<line>``,
+    ``<line>_f32``, ``<line>_engine``; each one-shot line gives per rank
+    the prefill ms, decode ms a step, tokens/s of the whole batch, staged
+    bytes and the collectives' ms and calls."""
+    one = mesh_singles()
+    base = get_config(MESH_ARCH)
+    V = base.vocab_size
+    r0 = ranks[0]
+    # (a) one-shot granite, each mode against one device
+    for mode in MESH_MODES:
+        runs = [r["oneshot"][mode] for r in ranks]
+        for i, run in enumerate(runs):
+            check_covered(f"{line}/{mode}/rank{i}", collections.Counter(run["state"]))
+            if not torch.equal(run["tokens"], runs[0]["tokens"]):
+                raise AssertionError(f"{line}/{mode}: rank {i}'s tokens differ from rank 0's")
+        run = runs[0]
+        pre, forced, agreement = mesh_check(f"{line}/{mode}", run, one["oneshot"][mode], V)
+        emit(line, arch=MESH_ARCH, layers=base.num_layers, dtype=base.dtype, mode=mode,
+             mesh=mesh_shape, label=label, backend=r0["backend"], batch=BATCH,
+             prompt_len=PROMPT, new_tokens=GEN, n_precombined=run["n_precombined"],
+             rel_logit_err=pre, forced_rel_logit_err=forced, token_agreement=agreement,
+             tol=QUALITY_TOL, **run["timings"],
+             single_device=one["oneshot"][mode]["timings"],
+             timings_by_rank=[r["timings"] for r in runs],
+             launches_by_rank=[r["launches"] for r in runs],
+             launches_by_phase=run["launches_by_phase"],
+             staged_bytes=run["mesh"]["staged_bytes"],
+             collective_ms=run["mesh"]["collective_ms"],
+             collective_calls=run["mesh"]["collective_calls"],
+             staged_bytes_by_rank=[r["mesh"]["staged_bytes"] for r in runs],
+             collective_ms_by_rank=[r["mesh"]["collective_ms"] for r in runs],
+             collective_calls_by_rank=[r["mesh"]["collective_calls"] for r in runs],
+             collectives_by_phase=run["mesh"]["collectives"],
+             peak_bytes_by_rank=[r["peak_bytes"] for r in runs])
+        if mode == "strassen" and min(r["launches"][k] for r in runs
+                                      for k in ENGINE_FP_KERNELS) <= 0:
+            raise AssertionError(f"{line}/strassen: a rank launched no #1-#4: "
+                                 f"{[r['launches'] for r in runs]}")
+    # ... and in float32 at 2 layers
+    for mode in ("gemm", "strassen"):
+        got, want = r0["f32"][mode]["logits"], one["f32"][mode]
+        for i, r in enumerate(ranks):
+            check_covered(f"{line}/f32/{mode}/rank{i}",
+                          collections.Counter(r["f32"][mode]["state"]))
+        scale = max(w[..., :V].abs().max().item() for w in want)
+        d = max((g[..., :V] - w[..., :V].float().cpu()).abs().max().item()
+                for g, w in zip(got, want)) / scale
+        emit(f"{line}_f32", arch=MESH_ARCH, layers=MESH_F32_LAYERS, mode=mode,
+             mesh=mesh_shape, rel_err=d, tol=MESH_F32_TOL)
+        if not d <= MESH_F32_TOL:
+            raise AssertionError(f"{line}/f32/{mode}: {d} > {MESH_F32_TOL}")
+    # (b) the engine: in float32 the ranks cannot flip a greedy token (tokens
+    # equal, logits within MESH_F32_TOL); in bf16 a rank's rounding differs
+    # from one device's (its partial sums on a model axis, its rows' GEMM
+    # shapes on a data axis), so tokens may part where two logits nearly
+    # tie: held prefix-matched
+    for dt in ("float32", "bfloat16"):
+        e = r0["engine"][dt]
+        for i, r in enumerate(ranks):
+            check_covered(f"{line}/engine/{dt}/rank{i}",
+                          collections.Counter(r["engine"][dt]["state"]))
+            if [o[0] for o in r["engine"][dt]["outputs"]] != [o[0] for o in e["outputs"]]:
+                raise AssertionError(f"{line}/engine/{dt}: rank {i}'s tokens differ "
+                                     "from rank 0's")
+        single = one["engine"][dt]
+        same = all(g[0] == s_[0] for g, s_ in zip(e["outputs"], single))
+        worst, compared, agreement = logit_error(e["outputs"], single, V)
+        misses = [r["engine"][dt]["misses_after_warm"] for r in ranks]
+        tol = MESH_F32_TOL if dt == "float32" else QUALITY_TOL
+        emit(f"{line}_engine", arch=MESH_ARCH, layers=TWIN_LAYERS, dtype=dt,
+             mode="strassen", mesh=mesh_shape, requests=ENGINE_REQUESTS, cuda_graphs=False,
+             tokens_equal=same, token_agreement=agreement, rel_logit_err=worst,
+             steps_compared=compared, tol=tol, misses_after_warm=misses,
+             seconds=e["seconds"], seconds_by_rank=[r["engine"][dt]["seconds"] for r in ranks],
+             warm=e["warm"], launches=e["launches"], summary=e["summary"])
+        if (dt == "float32" and not same) or compared < len(single) or \
+                not worst <= tol or any(misses):
+            raise AssertionError(f"{line}/engine/{dt}: tokens equal {same}, logit error "
+                                 f"{worst} over {compared} steps, misses after warm {misses}")
+    emit(f"{line}_seconds", mesh=mesh_shape, seconds_by_rank=[r["seconds"] for r in ranks])
 
 
 def phase_serve_mesh() -> dict:
@@ -3973,35 +4144,15 @@ def phase_serve_mesh() -> dict:
     MESH_F32_TOL; the 8-layer ServeEngine (forced strassen, eager: a
     host-staged collective cannot be captured) on 16 ragged requests held to
     the one-device engine, in float32 to equal tokens and MESH_F32_TOL, in
-    bf16 prefix-matched (QUALITY_TOL); one full-width dbrx MoE layer
-    expert-parallel (8 experts a rank), gemm and forced strassen, held to
-    the one-device layer; and the collective probe on those ranks. Every
-    rank launch of #1-#4 must be at a shape phase_kernels checked. Returns
-    rank 0's launch counts of the forced one-shot (``@tp``) and of the
-    forced MoE layer (``@ep``)."""
-    base = get_config(MESH_ARCH)
-    refs = {"oneshot": {}, "train": TRAIN_MESH_REFS.get("jobs", [])}
-    singles = {}
-    params = M.init_params(base, 0, DEV)
-    for mode in MESH_MODES:
-        cfg = dataclasses.replace(base, falcon_mode=mode)
-        run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=2, seed=0, device=DEV,
-                    params=params)                              # warm-up
-        res = run_oneshot(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, device=DEV,
-                          params=params)
-        singles[mode] = {"tokens": res["tokens"], "timings": res["timings"],
-                         "logits": [lg.float().cpu() for lg in res["logits"]]}
-        refs["oneshot"][mode] = res["tokens"]
-        free_memory()
-    del params
-    f32 = dataclasses.replace(base, num_layers=MESH_F32_LAYERS, dtype="float32")
-    params = M.init_params(f32, 0, DEV)
-    f32_single = {mode: run_oneshot(dataclasses.replace(f32, falcon_mode=mode), batch=BATCH,
-                                    prompt_len=PROMPT, gen=GEN, seed=0, device=DEV,
-                                    params=params)["logits"]
-                  for mode in ("gemm", "strassen")}
-    del params
-    engine_single = {dt: mesh_engine(dt)["outputs"] for dt in ("float32", "bfloat16")}
+    bf16 prefix-matched (QUALITY_TOL) (:func:`check_serve_runs`); one
+    full-width dbrx MoE layer expert-parallel (8 experts a rank), gemm and
+    forced strassen, held to the one-device layer; and the collective probe
+    on those ranks. Every rank launch of #1-#4 must be at a shape
+    phase_kernels checked. Returns rank 0's launch counts of the forced
+    one-shot (``@tp``) and of the forced MoE layer (``@ep``)."""
+    one = mesh_singles()
+    refs = {"oneshot": {mode: one["oneshot"][mode]["tokens"] for mode in MESH_MODES},
+            "train": TRAIN_MESH_REFS.get("jobs", [])}
     moe = get_config(MESH_MOE)
     moe_single = {mode: mesh_moe_layer(moe, mode) for mode in ("gemm", "strassen")}
     free_memory()
@@ -4010,72 +4161,8 @@ def phase_serve_mesh() -> dict:
     ranks = PM.run_ranks(mesh_rank, MESH, refs, backend="gloo", device=DEV, workdir=MESH_DIR,
                          timeout=600)
     spawn_s = time.perf_counter() - t0
-    V = base.vocab_size
     r0 = ranks[0]
-    # (a) one-shot granite, each mode against one device
-    for mode in MESH_MODES:
-        runs = [r["oneshot"][mode] for r in ranks]
-        for i, run in enumerate(runs):
-            check_covered(f"serve_mesh/{mode}/rank{i}", collections.Counter(run["state"]))
-            if not torch.equal(run["tokens"], runs[0]["tokens"]):
-                raise AssertionError(f"serve_mesh/{mode}: rank {i}'s tokens differ from rank 0's")
-        run = runs[0]
-        pre, forced, agreement = mesh_check(mode, run, singles[mode], V)
-        emit("serve_mesh", arch=MESH_ARCH, layers=base.num_layers, dtype=base.dtype, mode=mode,
-             mesh=MESH, label=MESH_LABEL, backend=r0["backend"], batch=BATCH,
-             prompt_len=PROMPT, new_tokens=GEN, n_precombined=run["n_precombined"],
-             rel_logit_err=pre, forced_rel_logit_err=forced, token_agreement=agreement,
-             tol=QUALITY_TOL, **run["timings"],
-             single_device=singles[mode]["timings"],
-             launches_by_rank=[r["oneshot"][mode]["launches"] for r in ranks],
-             launches_by_phase=run["launches_by_phase"],
-             staged_bytes=run["mesh"]["staged_bytes"],
-             collective_ms=run["mesh"]["collective_ms"],
-             collective_calls=run["mesh"]["collective_calls"],
-             collectives_by_phase=run["mesh"]["collectives"],
-             peak_bytes_by_rank=[r["oneshot"][mode]["peak_bytes"] for r in ranks])
-        if mode == "strassen" and min(r["oneshot"][mode]["launches"][k]
-                                      for r in ranks for k in ENGINE_FP_KERNELS) <= 0:
-            raise AssertionError(f"serve_mesh/strassen: a rank launched no #1-#4: "
-                                 f"{[r['oneshot'][mode]['launches'] for r in ranks]}")
-    # ... and in float32 at 2 layers
-    for mode in ("gemm", "strassen"):
-        got, want = r0["f32"][mode]["logits"], f32_single[mode]
-        check_covered(f"serve_mesh/f32/{mode}", collections.Counter(r0["f32"][mode]["state"]))
-        scale = max(w[..., :V].abs().max().item() for w in want)
-        d = max((g[..., :V] - w[..., :V].float().cpu()).abs().max().item()
-                for g, w in zip(got, want)) / scale
-        emit("serve_mesh_f32", arch=MESH_ARCH, layers=MESH_F32_LAYERS, mode=mode, mesh=MESH,
-             rel_err=d, tol=MESH_F32_TOL)
-        if not d <= MESH_F32_TOL:
-            raise AssertionError(f"serve_mesh/f32/{mode}: {d} > {MESH_F32_TOL}")
-    # (b) the engine: in float32 the ranks' partial sums cannot flip a
-    # greedy token (tokens equal, logits within MESH_F32_TOL); in bf16 each
-    # rank rounds its partial sum where one device rounds once, so tokens
-    # may part where two logits nearly tie: held prefix-matched
-    for dt in ("float32", "bfloat16"):
-        e = r0["engine"][dt]
-        for i, r in enumerate(ranks):
-            check_covered(f"serve_mesh/engine/{dt}/rank{i}",
-                          collections.Counter(r["engine"][dt]["state"]))
-            if [o[0] for o in r["engine"][dt]["outputs"]] != [o[0] for o in e["outputs"]]:
-                raise AssertionError(f"serve_mesh/engine/{dt}: rank {i}'s tokens differ "
-                                     "from rank 0's")
-        single = engine_single[dt]
-        same = all(g[0] == s_[0] for g, s_ in zip(e["outputs"], single))
-        worst, compared, agreement = logit_error(e["outputs"], single, V)
-        misses = [r["engine"][dt]["misses_after_warm"] for r in ranks]
-        tol = MESH_F32_TOL if dt == "float32" else QUALITY_TOL
-        emit("serve_mesh_engine", arch=MESH_ARCH, layers=TWIN_LAYERS, dtype=dt,
-             mode="strassen", mesh=MESH, requests=ENGINE_REQUESTS, cuda_graphs=False,
-             tokens_equal=same, token_agreement=agreement, rel_logit_err=worst,
-             steps_compared=compared, tol=tol, misses_after_warm=misses,
-             seconds=e["seconds"], warm=e["warm"], launches=e["launches"],
-             summary=e["summary"])
-        if (dt == "float32" and not same) or compared < len(single) or \
-                not worst <= tol or any(misses):
-            raise AssertionError(f"serve_mesh/engine/{dt}: tokens equal {same}, logit error "
-                                 f"{worst} over {compared} steps, misses after warm {misses}")
+    check_serve_runs("serve_mesh", ranks, MESH, MESH_LABEL)
     # (c) the expert-parallel MoE layer
     for mode in ("gemm", "strassen"):
         got, want = r0["moe"][mode], moe_single[mode]
@@ -4512,6 +4599,7 @@ TRAIN_MESH_LAYERS = 4           # of 40: every collective is staged through host
 TRAIN_MESH_GRAD_LAYERS = 2      # the float32 gradient check
 TRAIN_MESH_STEPS = 3            # steps 1-3 (step 0's lr is 0)
 DP_MESH = {"data": 2, "model": 1}
+DP_LABEL = "gloo, 2 data ranks sharing one card"
 # (run, mesh, modes): each run's losses at steps 1-3 (compressed_dp's at
 # step 1) within TRAIN_MESH_LOSS_TOL of one device (relative), its float32
 # gradient (in TRAIN_MESH_GRAD_MODE) within TRAIN_MESH_GRAD_TOL (relative
@@ -4768,10 +4856,11 @@ def train_mesh_grad_job(mesh, run: str) -> dict:
 
 
 def train_mesh_jobs(mesh, jobs: list) -> list:
-    """Phase train_mesh's jobs on this rank: ("train", run, mode) and
-    ("grad", run)."""
-    return [train_mesh_job(mesh, *j[1:]) if j[0] == "train" else train_mesh_grad_job(mesh, *j[1:])
-            for j in jobs]
+    """Phase train_mesh's jobs on this rank: ("train", run, mode), ("grad",
+    run) and ("serve", refs), the data axis's serving runs
+    (:func:`serve_runs`)."""
+    run = {"train": train_mesh_job, "grad": train_mesh_grad_job, "serve": serve_runs}
+    return [run[j[0]](mesh, *j[1:]) for j in jobs]
 
 
 def one_device_train(cfg, batch: dict) -> dict:
@@ -4935,7 +5024,11 @@ def phase_train_mesh() -> dict:
     serve_mesh's ranks, which this phase hands its jobs to). Each is held
     to one device on the same weights and batch (:func:`check_train_mesh`),
     and its float32 gradient, cut to TRAIN_MESH_GRAD_LAYERS, to one
-    device's. Returns rank 0's launch counts of the forced fsdp run."""
+    device's. The same 2 x 1 ranks then serve granite over the data axis
+    (:func:`serve_runs`: the one-shot at published depth in MESH_MODES, at
+    2 layers in float32, the 8-layer engine), held to one device by
+    :func:`check_serve_runs` (``serve_data`` lines). Returns rank 0's
+    launch counts of the forced fsdp run."""
     os.makedirs(TRAIN_MESH_DIR, exist_ok=True)
     b, s = TRAIN
     base = get_config(TRAIN_ARCH)
@@ -4960,11 +5053,18 @@ def phase_train_mesh() -> dict:
     jobs = [("train", run, mode) for run, mesh, modes in TRAIN_MESH_RUNS if mesh == DP_MESH
             for mode in modes]
     jobs += [("grad", run) for run, mesh, _ in TRAIN_MESH_RUNS if mesh == DP_MESH]
+    # serving's data axis rides in this 2 x 1 spawn, after the training jobs
+    one = mesh_singles()
+    jobs.append(("serve", {"oneshot": {mode: one["oneshot"][mode]["tokens"]
+                                       for mode in MESH_MODES}}))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ranks = PM.run_ranks(train_mesh_jobs, DP_MESH, jobs, backend="gloo", device=DEV,
                          workdir=TRAIN_MESH_DIR, timeout=600)
-    emit("train_mesh_spawn", mesh=DP_MESH, jobs=jobs, seconds=time.perf_counter() - t0)
+    emit("train_mesh_spawn", mesh=DP_MESH, jobs=[list(j[:1] if j[0] == "serve" else j)
+                                                  for j in jobs],
+         seconds=time.perf_counter() - t0)
+    check_serve_runs("serve_data", [r.pop() for r in ranks], DP_MESH, DP_LABEL)
     return check_train_mesh(ranks, TRAIN_MESH_REFS)["fsdp"]
 
 
@@ -5076,6 +5176,93 @@ def phase_serve_tuned(fp_auto: dict, plans: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The static tools and the host: calibrate_cpu, falcon-check, the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+DRYRUN_CELLS = (("granite_3_2b", "train_4k", "single"), ("kimi_k2_1t", "decode_32k", "multi"))
+
+
+def phase_calibrate_cpu() -> None:
+    """``hardware.calibrate_cpu()`` on this machine's host CPU: the host's
+    (FLOPS_x, FLOPS_+, beta) from torch.matmul at 1024^3, Strassen's Combine
+    A through the generated "torch" backend and the 7-batched product."""
+    from repro_torch.core import hardware
+    t = time.perf_counter()
+    p = hardware.calibrate_cpu()
+    emit("calibrate_cpu", name=p.name, flops_mul=p.flops_mul, flops_add=p.flops_add,
+         beta=p.beta, lcma_gemm_efficiency=p.lcma_gemm_efficiency,
+         threads=torch.get_num_threads(), seconds=time.perf_counter() - t)
+    if not all(math.isfinite(v) and v > 0 for v in (p.flops_mul, p.flops_add, p.beta)):
+        raise AssertionError(f"calibrate_cpu: {p}")
+
+
+def phase_check() -> None:
+    """``repro_torch.tools.check --all --hardware h100_sxm`` in this
+    process: every scheme's Brent equations and bounds, the plan lint of
+    every candidate and every arch's contractions against the H100's
+    budgets, the codegen lint, a round-tripped cache's audit. It must
+    report 0 errors."""
+    from repro_torch.tools import check as check_cli
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = check_cli.main(["--all", "--hardware", "h100_sxm"])
+    last = buf.getvalue().strip().splitlines()[-1]
+    n = [int(x) for x in re.findall(r"(\d+) ", last)]
+    emit("check", argv=["--all", "--hardware", "h100_sxm"], exit=rc, findings=n[0],
+         errors=n[1], warnings=n[2], summary=last, seconds=time.perf_counter() - t)
+    if rc != 0 or n[1] != 0:
+        raise AssertionError(f"check: exit {rc}: {buf.getvalue()[-3000:]}")
+
+
+def start_dryruns() -> list:
+    """``python -m repro_torch.launch.dryrun`` of each DRYRUN_CELLS cell, one
+    process each on the host (no card visible to it), started at once, its
+    output in ``<cell>.log`` beside its record: (cell, process)."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for cell in DRYRUN_CELLS:
+        with open(os.path.join(DRYRUN_DIR, "__".join(cell) + ".log"), "w") as log:
+            procs.append((cell, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0],
+                 "--shape", cell[1], "--mesh", cell[2], "--out-dir", DRYRUN_DIR],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def phase_dryrun(procs: list) -> None:
+    """Each dry-run cell's record: rank 0 of the production mesh traced on
+    the meta device over the fake backend; its argument bytes, traced FLOPs
+    and bytes, collective bytes and seconds. A cell that is not ``ok``
+    fails."""
+    for (arch, shape, mesh), proc in procs:
+        proc.wait(timeout=300)
+        path = os.path.join(DRYRUN_DIR, f"{arch}__{shape}__{mesh}.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            with open(os.path.join(DRYRUN_DIR, f"{arch}__{shape}__{mesh}.log")) as f:
+                out = f.read()
+            raise AssertionError(f"dryrun {arch} {shape} {mesh}: exit {proc.returncode}\n"
+                                 f"{out[-3000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} {shape} {mesh}: {rec.get('error')}")
+        emit("dryrun", arch=arch, shape=shape, mesh=mesh, chips=rec["roofline"]["chips"],
+             n_params=rec["n_params"], n_active_params=rec["n_active_params"],
+             argument_bytes=rec["argument_bytes"], argument_bytes_by=rec["argument_bytes_by"],
+             traced_flops=rec["traced_flops"], traced_bytes=rec["traced_bytes"],
+             collective_bytes=rec["collective_bytes"],
+             collective_calls=rec["collective_calls"],
+             analytic={k: rec["analytic"][k] for k in ("flops_dev", "hbm_bytes_dev",
+                                                       "coll_bytes_dev", "bottleneck",
+                                                       "step_time")},
+             seconds=rec["seconds"])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5088,6 +5275,25 @@ def main() -> None:
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
+    # the dry runs need no card: two processes on the host, started now,
+    # waited for before the first timed phase and read at the end (stopped
+    # on the way out, whatever happens)
+    dry = start_dryruns()
+    try:
+        run_phases(dry, t0)
+    finally:
+        for _, proc in dry:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+def run_phases(dry: list, t0: float) -> None:
+    """Every phase in order, then the ``total`` and ``kernels`` lines."""
     emit("build", seconds=build.build_all(), wall=time.perf_counter() - t0)
     emit("ptxas", kernels={**{name: build.ptxas_report(name)
                               for name in ("tiled_matmul", "group_combine")},
@@ -5107,6 +5313,13 @@ def main() -> None:
     run(phase_quant_kernels)
     run(phase_tiled_kernels)
     run(phase_ops)
+    # the dry runs overlap the build and the checks above; no timed phase
+    # runs beside them
+    t = time.perf_counter()
+    for _, proc in dry:
+        proc.wait(timeout=300)
+    dry_done = {"dryruns_done_at": time.perf_counter() - t0,
+                "dryruns_waited": time.perf_counter() - t}
     times = run(phase_times)
     run(phase_parity)
     counts, fp_forced = run(phase_serve)
@@ -5135,7 +5348,10 @@ def main() -> None:
     fsdp_counts = run(phase_train_mesh)
     mesh_counts = run(phase_serve_mesh)
     mesh_counts.update({f"{k}@fsdp": v for k, v in fsdp_counts.items()})
-    emit("total", seconds=time.perf_counter() - t0, phases=phases)
+    run(phase_calibrate_cpu)
+    run(phase_check)
+    run(phase_dryrun, dry)
+    emit("total", seconds=time.perf_counter() - t0, phases=phases, **dry_done)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": counts[k], "max_abs_err": times[k]["max_abs_err"],
@@ -5199,10 +5415,6 @@ def main() -> None:
         for tag in ("@fsdp", "@tp_train")
         for k in (f"group_combine{tag}", f"batched_group_combine{tag}",
                   f"fused_gemm_combine_h{tag}", f"batched_fused_gemm_combine_h{tag}")]}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -153,16 +153,20 @@ def gather_state(tree, placement, mesh):
 
 
 def restore_checkpoint(directory: str, tree_like, step: int | None = None,
-                       device="cpu", verify: bool = True, mesh=None, rules=None, cfg=None):
+                       device="cuda", verify: bool = True, mesh=None, rules=None, cfg=None):
     """Restore into the structure of ``tree_like`` (its leaves only name the
-    keys: tensors, arrays, anything), as tensors on ``device``. The latest
-    step unless ``step`` is given. Returns (tree, step, extra).
+    keys: tensors, arrays, anything), as tensors on ``device`` ("cuda"
+    unless the caller asks for the CPU; without a card that raises). The
+    latest step unless ``step`` is given. Returns (tree, step, extra).
 
     With a ``mesh`` (``parallel.mesh.Mesh``) each whole array is narrowed
     to this rank's part under ``rules`` (``parallel.sharding.make_rules``
     of that mesh; ``cfg`` gives the head counts its placement reads) and
     placed on the mesh's device: a run saved on any mesh, or on one device,
     resumes on this one."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("restore_checkpoint: no CUDA device (pass device='cpu' to "
+                           "restore onto the host)")
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -251,7 +255,7 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, tree_like, device="cpu", rules=None, cfg=None):
+    def restore_latest(self, tree_like, device="cuda", rules=None, cfg=None):
         return restore_checkpoint(self.directory, tree_like, device=device, mesh=self.mesh,
                                   rules=rules, cfg=cfg)
 

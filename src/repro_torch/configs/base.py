@@ -1,9 +1,9 @@
-"""Model configuration dataclass (the fields the decoder reads)."""
+"""Model and shape-cell configuration dataclasses."""
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig", "FAMILIES"]
+__all__ = ["ModelConfig", "FAMILIES", "ShapeCell", "SHAPE_CELLS"]
 
 # The model families the port runs: all of the reference's.
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -80,3 +80,25 @@ class ModelConfig:
             0 if (i + 1) % self.global_every == 0 else self.sliding_window
             for i in range(self.num_layers)
         ]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (sequence length, global batch, step kind) cell of the dry run
+    and the roofline (``launch/dryrun.py``, ``roofline/analytic.py``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPE_CELLS = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}

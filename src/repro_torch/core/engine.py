@@ -335,10 +335,11 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
     one warm pass at ``buckets=[(batch, seq)]`` makes a whole train step,
     forward and planned backward, run against a hot plan cache.
     ``mesh_shape`` warms the shapes each rank of that mesh contracts
-    (``workloads.resolve_contractions(..., local=True)``: tensor-parallel
-    projections at their shard's K or N, attention over the local heads,
-    the expert group and capacity of one shard), so a multi-device engine's
-    ranks serve on plan hits too.
+    (``workloads.resolve_contractions(..., local=True)``: a data rank's
+    ``ceil(b / d)`` rows of each bucket, tensor-parallel projections at
+    their shard's K or N, attention over the local heads, the expert group
+    and capacity of one shard), so a multi-device engine's ranks serve on
+    plan hits too.
     """
     cfg = _resolve(cfg)
     dtype = dtype or str(getattr(arch, "dtype", "bfloat16"))

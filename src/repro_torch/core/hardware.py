@@ -16,10 +16,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 
 __all__ = ["HardwareProfile", "H100_SXM", "CPU_HOST", "get_profile",
            "register_profile", "profile_dir", "profile_path",
-           "save_profile", "load_profile", "ENV_PROFILE_DIR"]
+           "save_profile", "load_profile", "ENV_PROFILE_DIR", "calibrate_cpu"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,3 +156,60 @@ def get_profile(name: str) -> HardwareProfile:
         return load_profile(path)
     raise KeyError(f"unknown hardware profile {name!r} "
                    f"(no built-in and no {path})")
+
+
+_CPU_CAL_CACHE: dict = {}
+
+
+def calibrate_cpu(size: int = 1024, dtype="float32") -> HardwareProfile:
+    """Measure the host's (FLOPS_x, FLOPS_+, beta) for decisions made on
+    the CPU, and register the result as ``cpu_host_calibrated``.
+
+    It times ``torch.matmul`` at ``size`` cubed, a real Group Combine A of
+    Strassen through the generated ``"torch"`` backend
+    (``codegen.generate(...).combine_a``) and the 7-batched product at
+    ``size / 2``, on the host's CPU tensors, and fits the reference's
+    formulas: ``flops_mul`` from the product, ``beta`` from the combine's
+    bytes (M·K reads and R·(M/2)·(K/2) writes) over its time, ``flops_add``
+    as one add per element at that rate, ``lcma_gemm_efficiency`` as the
+    batched product's rate over the single one's (at most 1). Measuring
+    the host is this function's purpose, so unlike the port's entry points
+    it does not default to the card. Cached on ``(size, dtype)``.
+    """
+    key = (size, str(dtype))
+    if key in _CPU_CAL_CACHE:
+        return _CPU_CAL_CACHE[key]
+    import torch
+    from repro_torch.core import algorithms as _alg, codegen as _cg
+
+    dt = getattr(torch, str(dtype))
+    a = torch.ones((size, size), dtype=dt)
+    b = torch.ones((size, size), dtype=dt)
+    comb = _cg.generate(_alg.get("strassen")).combine_a
+
+    def best(f, *args, reps=3):
+        f(*args)
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            f(*args)
+            ts.append(time.perf_counter() - t0)
+        return min(ts)
+
+    with torch.inference_mode():
+        t_mm = best(torch.matmul, a, b)
+        t_comb = best(comb, a)
+        h = size // 2
+        t_bmm = best(torch.bmm, torch.ones((7, h, h), dtype=dt), torch.ones((7, h, h), dtype=dt))
+    flops_mul = 2 * size**3 / t_mm
+    # batched-GEMM efficiency: the LCMA GEMM stage is an R-batched matmul
+    eff = min(2 * 7 * h**3 / t_bmm / flops_mul, 1.0)
+    itemsize = a.element_size()
+    # Combine A moves M·K reads + R·(M/2)·(K/2) writes at the effective rate
+    beta = (size * size + 7 * h * h) * itemsize / t_comb
+    prof = dataclasses.replace(
+        CPU_HOST, flops_mul=flops_mul, flops_add=beta / itemsize, beta=beta,
+        lcma_gemm_efficiency=eff, name="cpu_host_calibrated")
+    _CPU_CAL_CACHE[key] = prof
+    _PROFILES[prof.name] = prof  # resolvable via FalconConfig.hardware
+    return prof

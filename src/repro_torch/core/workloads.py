@@ -366,25 +366,35 @@ def resolve_contractions(arch, batch: int, seq: int, *, train: bool = False,
     shape (granite's ``w_q`` and ``w_o``) can shard on different dims.
     There ``batch`` is the global batch, split over the data axis (under
     the config's ``parallel_style="fsdp_only"``: over data x model, with
-    no tensor parallelism, every weight gathered whole), so with
+    no tensor parallelism, every weight gathered whole); a serving step
+    pads its rows to the local bucket, ``ceil(batch / data)``
+    (``parallel.mesh.data_rows``), and its MoE capacity stays the whole
+    batch's (each data rank routes as one device would); a train step's
+    batch must split evenly, and each data rank routes its own tokens. So with
     ``train=True`` each rank's forward, dA and dB shapes under TP, FSDP
     (a ZeRO-3 weight is gathered to its TP shard before use) and
     ``fsdp_only``.
     """
     paper = isinstance(arch, str) and arch in _PAPER_PROJECTIONS
+    whole = batch
     if local and not paper:
+        from repro_torch.parallel.mesh import data_rows
         nd, nm = _mesh_factors(mesh_shape)
         if getattr(_resolve_arch(arch), "parallel_style", "tp") == "fsdp_only":
             nd, nm = nd * nm, 1
-        if batch % nd:
+        if train and batch % nd:
             raise ValueError(f"resolve_contractions: a batch of {batch} does not split over "
                              f"{nd} ranks")
-        batch //= nd
+        batch = data_rows(batch, nd)[0]
         mesh_shape = {"data": 1, "model": nm}
     specs = contraction_set(arch, mesh_shape=mesh_shape)
     env = {"tokens": batch * seq} if paper else _shape_env(
         _resolve_arch(arch), batch, seq, kv_len=kv_len, decode=decode,
         mesh_shape=mesh_shape, spec_verify=spec_verify)
+    if local and not train and "capacity" in env:
+        # a serving step's data ranks route as one device routes the whole
+        # batch (models.moe.route_over_data): the capacity is the batch's
+        env["capacity"] = layer_capacity(_resolve_arch(arch), whole * env["seq"])
 
     def val(x):
         return env[x] if isinstance(x, str) else x

@@ -1,5 +1,10 @@
 """The hand-written CUDA kernels of the LCMA pipeline, the plain tiled GEMM,
-and their wrappers."""
+and their wrappers.
+
+A wrapper given CUDA tensors launches its kernel or raises. CPU tensors take
+its plain version (``ref``), as do ``meta`` tensors, which carry shapes only
+(the dry run traces the model on them): the plain version is exact in shape.
+No CUDA tensor ever takes a plain version."""
 from collections import Counter
 from collections.abc import Mapping
 

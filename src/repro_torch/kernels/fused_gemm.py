@@ -25,7 +25,7 @@ leave the card idle), the rest (f32, unaligned bf16) on the SIMT kernel
 (``tuning.plan_tiled_matmul_blocks``). The wrapper counts launches per
 route in ``tiled_matmul.routes``.
 
-A tensor on the CPU takes the plain version (``ref.fused_gemm_combine_h_ref``,
+A tensor on the CPU (or meta) takes the plain version (``ref.fused_gemm_combine_h_ref``,
 ``ref.tiled_matmul_ref``); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
@@ -60,7 +60,7 @@ def _check(at, bt, w, out_dtype, at_ndim, what):
     if at.dtype not in _DTYPES or bt.dtype != at.dtype or out_dtype not in _DTYPES:
         raise TypeError(f"{what}: dtypes {at.dtype}/{bt.dtype} -> {out_dtype} "
                         f"not supported (float32 and bfloat16 are)")
-    if at.device != bt.device or at.device.type not in ("cpu", "cuda"):
+    if at.device != bt.device or at.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"{what}: operands on {at.device} and {bt.device}")
     if at.device.type == "cuda" and not (at.is_contiguous() and bt.is_contiguous()):
         raise ValueError(f"{what}: the CUDA kernel needs contiguous operands")
@@ -103,7 +103,7 @@ def fused_gemm_combine_h(at: torch.Tensor, bt: torch.Tensor, w: np.ndarray,
     """(R, X, Y) x (R, Y, Z) --W--> C parts (m, n, X, Z) in ``out_dtype``."""
     out_dtype = out_dtype or at.dtype
     _check(at, bt, w, out_dtype, 3, "fused_gemm_combine_h")
-    if at.device.type == "cpu":
+    if at.device.type != "cuda":
         return ref.fused_gemm_combine_h_ref(at, bt, w, out_dtype)
     out = _launch(at[None], bt, w, out_dtype)[0]
     fused_gemm_combine_h.launches += 1
@@ -122,7 +122,7 @@ def batched_fused_gemm_combine_h(at: torch.Tensor, bt: torch.Tensor,
     """
     out_dtype = out_dtype or at.dtype
     _check(at, bt, w, out_dtype, 4, "batched_fused_gemm_combine_h")
-    if at.device.type == "cpu":
+    if at.device.type != "cuda":
         bt_b = bt if bt.ndim == 4 else bt[None]
         return ref.fused_gemm_combine_h_ref(at, bt_b, w, out_dtype)
     out = _launch(at, bt, w, out_dtype)
@@ -143,9 +143,9 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
     if a.dtype not in _DTYPES or b.dtype != a.dtype or out_dtype not in _DTYPES:
         raise TypeError(f"tiled_matmul: dtypes {a.dtype}/{b.dtype} -> {out_dtype} "
                         f"not supported (float32 and bfloat16 are)")
-    if a.device != b.device or a.device.type not in ("cpu", "cuda"):
+    if a.device != b.device or a.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"tiled_matmul: operands on {a.device} and {b.device}")
-    if a.device.type == "cpu":
+    if a.device.type != "cuda":
         return ref.tiled_matmul_ref(a, b, out_dtype)
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("tiled_matmul: the CUDA kernel needs contiguous operands")

@@ -13,7 +13,7 @@ in f32 over the scheme's coefficient table (staged in shared memory) and
 rounded once. Where Y or a pointer rules out 16-byte access the same kernel
 moves single elements; ``tuning.plan_combine`` decides before the launch.
 
-A tensor on the CPU takes the plain version (``ref.group_combine_ref``); a
+A tensor on the CPU (or meta) takes the plain version (``ref.group_combine_ref``); a
 CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
@@ -81,7 +81,7 @@ def _check(x: torch.Tensor, coeff: np.ndarray, ndim: int, what: str):
     if M % d1 or K % d2:
         raise ValueError(f"{what}: input {tuple(x.shape)} is not divisible by "
                          f"the coefficient grid ({d1}, {d2}) — pad first")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError(f"{what}: the CUDA kernel needs a contiguous input")
@@ -122,7 +122,7 @@ def group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
     (``repro_torch.kernels.ops``).
     """
     R, d1, d2, X, Y = _check(x, coeff, 2, "group_combine")
-    if x.device.type == "cpu":
+    if x.device.type != "cuda":
         return ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff)
     out = _launch(x[None], coeff, R, d1, d2, X, Y)[0]
     group_combine.launches += 1
@@ -133,7 +133,7 @@ def group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
 def batched_group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
     """Group Combine over a group: (G, d1*X, d2*Y) -> (G, R, X, Y)."""
     R, d1, d2, X, Y = _check(x, coeff, 3, "batched_group_combine")
-    if x.device.type == "cpu":
+    if x.device.type != "cuda":
         return ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff)
     out = _launch(x, coeff, R, d1, d2, X, Y)
     batched_group_combine.launches += 1

@@ -22,8 +22,8 @@ in ``csrc/quant_combine.cu``:
 no Pallas kernel of its own: it is the ``group_combine`` kernel at the
 weight's dtype, then the blockwise absmax and rounding in plain PyTorch.
 
-A tensor on the CPU takes the plain version (``ref.*_quant_ref``); a CUDA
-tensor launches the kernel or raises.
+A tensor on the CPU (or the shape-only ``meta`` device) takes the plain
+version (``ref.*_quant_ref``); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -44,12 +44,13 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _on_card(*ts: torch.Tensor, what: str) -> bool:
-    """True for CUDA operands (contiguous, one device), False for CPU ones."""
+    """True for CUDA operands (contiguous, one device), False for CPU or meta
+    ones."""
     refuse_grad(what, *ts)
     devs = {t.device for t in ts}
-    if len(devs) != 1 or next(iter(devs)).type not in ("cpu", "cuda"):
+    if len(devs) != 1 or next(iter(devs)).type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"{what}: operands on {sorted(map(str, devs))}")
-    if ts[0].device.type == "cpu":
+    if ts[0].device.type != "cuda":
         return False
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{what}: the CUDA kernel needs contiguous operands")

@@ -17,12 +17,12 @@ Combine B via ``PlannedWeight``, persistent plan cache):
     python -m repro_torch.launch.serve --arch granite_3_2b --full [--quant]
         [--plan-cache PATH] [--layers N] [--continuous --requests 32 [--speculate 2]
         [--prefix-cache] [--prefill-chunk 16] [--no-cuda-graphs]]
-        [--mesh 1,2 [--dist-backend gloo]]
+        [--mesh 2,1 [--dist-backend gloo]]
 
 runs on the card (``--device cuda``, the default) or, with ``--device cpu``,
-through the kernels' plain versions. ``--mesh DATA,MODEL`` (DATA = 1)
-serves tensor- and expert-parallel over MODEL ranks, one-shot or
-``--continuous``: the launcher starts one process per rank itself
+through the kernels' plain versions. ``--mesh DATA,MODEL`` serves tensor-
+and expert-parallel over MODEL ranks and splits each batch's rows over
+DATA replicas, one-shot or ``--continuous``: the launcher starts one process per rank itself
 (``parallel.mesh.run_ranks``), unless ``RANK``/``WORLD_SIZE`` say it is one
 already (``torchrun``); ``--dist-backend`` is ``nccl`` (a card per rank) or
 ``gloo`` (ranks sharing a card, or on the CPU), chosen by the visible cards
@@ -51,8 +51,8 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan_cache
 from repro_torch.core.engine import PlannedWeight, active_config
-from repro_torch.models import model as M
-from repro_torch.parallel import mesh as PM, sharding as SH
+from repro_torch.models import model as M, moe as MOE
+from repro_torch.parallel import collectives as C, mesh as PM, sharding as SH
 from repro_torch.serve import ServeEngine, StepLoop
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -110,9 +110,14 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
     carry int8 B̃q) and ``n_quantized``, ``timings`` (host clock,
     synchronized) and ``launches`` (kernel launches per phase).
 
-    ``mesh_shape`` ({"model": m}, m > 1) serves on this rank of this
-    process's mesh (``parallel.mesh``): ``params`` (the full tree, or the
-    seed's) are sharded by the rule table before precombining, and the
+    ``mesh_shape`` ({"data": d, "model": m}, more than one rank) serves on
+    this rank of this process's mesh (``parallel.mesh``): ``params`` (the
+    full tree, or the seed's) are sharded over "model" by the rule table
+    (replicated over "data") before precombining. Over "data" each rank
+    prefills and decodes its ``batch / d`` rows of the prompts (its MoE
+    layers routing as one device routes the batch), and one
+    all-gather a step over "data" brings every rank the whole batch's next
+    tokens and logits, so every rank returns what one device returns. The
     result adds ``mesh`` (the mesh, its backend, and its collectives'
     counters per phase under ``collectives``).
     """
@@ -123,15 +128,21 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
     fcfg = active_config() or M.falcon_config_for(cfg)
     if quantize:
         fcfg = dataclasses.replace(fcfg, quantize=True)
-    if PM.mesh_factors(mesh_shape)[0] > 1:
-        raise NotImplementedError(f"mesh_shape={mesh_shape}: a data axis is not ported to "
-                                  "serving (ROADMAP Queue 1 item 6b; training runs one)")
     mesh = PM.mesh_for(mesh_shape)
+    data = 1 if mesh is None else mesh.size("data")
+    if batch % data:
+        raise ValueError(f"run_oneshot: a batch of {batch} does not split over {data} "
+                         "data ranks")
     if params is None:
         params = M.init_params(cfg, seed, device)
     if mesh is not None:
         params = SH.shard_params(params, cfg, mesh)
     prompts, patches, pos0 = oneshot_inputs(cfg, batch, prompt_len, seed, device)
+    if data > 1:
+        # this data rank's rows of the prompts
+        _, mine = mesh.data_rows(batch)
+        prompts = prompts[mine]
+        patches = None if patches is None else patches[mine]
     prefill = make_prefill_step(cfg, max_len=pos0 + gen)
     decode = make_decode_step(cfg)
     launches, collectives = {}, {}
@@ -151,7 +162,9 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
                                  ("payload_bytes", "staged_bytes", "collective_ms")}
         return out, time.perf_counter() - t0
 
-    with falcon.use(fcfg), PM.use_mesh(mesh), torch.inference_mode():
+    # a data rank's MoE layers route as one device routes the whole batch
+    with falcon.use(fcfg), PM.use_mesh(mesh), MOE.route_over_data(batch), \
+            torch.inference_mode():
         n_planned = 0
         t_pre = 0.0
         if precombine:
@@ -162,17 +175,23 @@ def run_oneshot(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
                     params, m_hint=batch * prompt_len))
         (logits, cache), t_prefill = phase("prefill",
                                            lambda: prefill(params, prompts, patches))
-        all_logits = [logits[:, -1]]
-        out_tokens = []
+        all_logits, out_tokens = [], []
 
         def decode_all():
             nonlocal logits
             for i in range(gen):
                 nxt = torch.argmax(logits[:, -1], dim=-1)     # (B,), or (B, CB)
-                out_tokens.append(nxt)
+                last = logits[:, -1]
+                if data > 1:
+                    # the whole batch's next tokens and logits, one gather
+                    got = C.all_gather_rows({"nxt": nxt, "logits": last}, mesh, "data")
+                    out_tokens.append(got["nxt"])
+                    all_logits.append(got["logits"])
+                else:
+                    out_tokens.append(nxt)
+                    all_logits.append(last)
                 if i + 1 < gen:
                     logits, _ = decode(params, cache, nxt[:, None], pos0 + i)
-                    all_logits.append(logits[:, -1])
 
         _, t_decode = phase("decode", decode_all)
     n_steps = max(gen - 1, 1)
@@ -252,9 +271,10 @@ def main(argv=None) -> None:
                     help="print the first request's tokens as they are "
                          "emitted (--continuous)")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="serve tensor- and expert-parallel over a (data, model) "
-                         "mesh, e.g. --mesh 1,2: one process per rank, started by "
-                         "the launcher unless RANK/WORLD_SIZE are set (torchrun)")
+                    help="serve over a (data, model) mesh, e.g. --mesh 2,1 (batch "
+                         "rows over 2 data ranks) or 1,2 (tensor- and expert-parallel "
+                         "over 2 ranks): one process per rank, started by the launcher "
+                         "unless RANK/WORLD_SIZE are set (torchrun)")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                     help="the process group's backend (--mesh): nccl where every "
                          "rank has a card, gloo where ranks share one or run on the "

@@ -30,8 +30,11 @@ def normal_init(gen: torch.Generator, shape: tuple[int, ...], scale, dtype,
     tensor, so the float32 draw of a whole stacked leaf (or embedding) never
     exists. A 4-D leaf (layers, experts, d_in, d_out) is drawn one (layer,
     expert) slice at a time: one layer of kimi_k2_1t's expert stack would
-    be a 22.5 GB float32 transient, one expert is 58.7 MB."""
+    be a 22.5 GB float32 transient, one expert is 58.7 MB. On the ``meta``
+    device (shapes only) nothing is drawn."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out          # shapes only: nothing to draw
     parts = (out[i, j] for i in range(shape[0]) for j in range(shape[1])) \
         if len(shape) == 4 else (out[i:i + rows] for i in range(0, shape[0], rows))
     for part in parts:

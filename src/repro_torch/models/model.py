@@ -101,7 +101,10 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
     ``embed`` (CB, Vp, d) is drawn in blocks of rows over all codebooks, its
     ``lm_head`` (CB, d, Vp) one codebook at a time, Normal(0, 1/d)."""
     _check_family(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # the meta device (shapes only, the dry run) has no generator: a CPU one
+    # stands in, and nothing is drawn there
+    gen = torch.Generator(device="cpu" if torch.device(device).type == "meta" else device)
+    gen.manual_seed(seed)
     dt = getattr(torch, cfg.dtype)
     Lc, d = cfg.num_layers, cfg.d_model
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -283,9 +286,10 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
     x = x + y
     h2 = h if cfg.parallel_block else L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        # the shard-rounded capacity of the layer's B*S tokens, as the
-        # reference's layer stack serves it (the grouped plan keys embed C)
-        cap = layer_capacity(cfg, h2.shape[0] * h2.shape[1])
+        # the shard-rounded capacity of the layer's B*S tokens (a data-split
+        # serving step's: the whole step's), as the reference's layer stack
+        # serves it (the grouped plan keys embed C)
+        cap = layer_capacity(cfg, MOE.capacity_rows(h2.shape[0]) * h2.shape[1])
         y2, aux = MOE.moe_apply(lp["moe"], h2, cfg.experts_per_token, cfg.capacity_factor,
                                 deterministic_capacity=cap, num_experts=cfg.num_experts)
         return x + y2, aux

@@ -27,8 +27,18 @@ the router's matching columns, all-gathers the router logits, dispatches
 its tokens to its own experts only (``e_offset = rank * E_local``), and the
 ranks' outputs are summed. Otherwise (one device, or experts that do not
 divide the axis) it takes the dense path with every expert on every rank.
+
+A serving step split over a "data" axis (each data rank computes its
+contiguous share of the step's rows) routes as one device routes the whole
+batch, inside :func:`route_over_data`: the capacity is the whole batch's,
+and each rank offsets its slot positions by the tokens that the data ranks
+before it routed to each expert (one all-gather of per-expert counts over
+"data" a layer), so the same tokens drop as on one device, on either path.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -39,7 +49,57 @@ from repro_torch.parallel.mesh import current_mesh
 from repro_torch.parallel.sharding import get_parallel_style
 from .layers import dense_init, silu
 
-__all__ = ["moe_init", "moe_apply"]
+__all__ = ["moe_init", "moe_apply", "route_over_data", "capacity_rows"]
+
+# the whole step's rows while a data rank routes as one device (route_over_data)
+_DATA_ROWS: contextvars.ContextVar[int | None] = contextvars.ContextVar("moe_data_rows",
+                                                                        default=None)
+
+
+@contextlib.contextmanager
+def route_over_data(rows: int):
+    """Within this context, on a mesh with a "data" axis of more than one
+    rank, each data rank's MoE layers route as one device routes the step's
+    whole batch of ``rows`` rows, of which the rank holds its contiguous
+    share in rank order (``parallel.mesh.data_rows``): the capacity counts
+    all ``rows``, and a token's slot in its expert counts the tokens of the
+    data ranks before this one. Rows past ``rows`` (the padding of the last
+    shares) come after every real row, so they never take a real token's
+    slot. The serving engine and ``run_oneshot`` enter it around a step on
+    a data mesh."""
+    token = _DATA_ROWS.set(rows)
+    try:
+        yield
+    finally:
+        _DATA_ROWS.reset(token)
+
+
+def _data_mesh():
+    """The ambient mesh where :func:`route_over_data` is active and its data
+    axis spans more than one rank, else None."""
+    mesh = current_mesh()
+    if _DATA_ROWS.get() is None or mesh is None or mesh.size("data") == 1:
+        return None
+    return mesh
+
+
+def _slots_before(flat: torch.Tensor) -> torch.Tensor | None:
+    """Under :func:`route_over_data` on a data mesh: per expert, the
+    (token, choice) pairs that the data ranks before this one route there
+    (``flat``: this rank's pairs, one-hot over the experts), from one
+    all-gather of every rank's counts over "data"; else None."""
+    mesh = _data_mesh()
+    if mesh is None:
+        return None
+    counts = C.all_gather(flat.sum(0)[None], mesh, "data", dim=0)     # (data, E_local)
+    return counts[:mesh.local_rank("data")].sum(0)
+
+
+def capacity_rows(rows: int) -> int:
+    """The rows an MoE layer of ``rows`` local rows takes its capacity at:
+    the whole step's under :func:`route_over_data` on a data mesh, else its
+    own."""
+    return rows if _data_mesh() is None else _DATA_ROWS.get()
 
 
 def moe_init(gen: torch.Generator, d: int, d_ff: int, num_experts: int, dtype,
@@ -89,7 +149,9 @@ def _dispatch_compute_combine(xt, probs, gate_vals, expert_idx, C: int, p_gate, 
     add zeros at slot C-1, as in the reference). A per-choice loop (k is
     small), so no (T*k, d) replication of the tokens is materialized.
     ``ffn`` is the expert FFN (the plain per-expert loop of
-    ``models.moe_ref`` in its tests).
+    ``models.moe_ref`` in its tests). Under :func:`route_over_data` on a
+    data mesh, each expert's slots start past those that the data ranks
+    before this one filled.
     """
     T, d = xt.shape
     top_k = expert_idx.shape[1]
@@ -101,6 +163,9 @@ def _dispatch_compute_combine(xt, probs, gate_vals, expert_idx, C: int, p_gate, 
     flat = oh.reshape(T * top_k, E_local)
     pos_all = torch.cumsum(flat, dim=0) - flat
     pos = (pos_all * flat).sum(-1).reshape(T, top_k)
+    before = _slots_before(flat)
+    if before is not None:
+        pos = pos + before[e_rel]
     keep = local & (pos < C)
     # each (token, choice) pair's row in the flattened (E_local * C, d) buffer
     rows = e_rel * C + torch.where(keep, pos, C - 1)
@@ -137,7 +202,9 @@ def _moe_ep(p: dict, x: torch.Tensor, top_k: int, C_local: int, mesh, E: int):
     all-gathered, local dispatch at ``e_offset = rank * E_local``, the
     ranks' outputs summed. ``x`` is this rank's tokens: on a data axis each
     data shard routes its own, at the capacity of its tokens (the layer
-    stack passes it), at least 8, as the reference's ``C_local``.
+    stack passes it), at least 8, as the reference's ``C_local``; under
+    :func:`route_over_data` they are its share of the step's, routed as one
+    device routes them, at the capacity of the step's tokens.
 
     Under autograd the tokens pass Megatron's *f* (each rank's experts and
     router columns give a partial gradient) and the output's sum is *g*.

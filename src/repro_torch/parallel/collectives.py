@@ -5,7 +5,8 @@ vocab-sharded embedding, the expert-parallel MoE output) or takes its
 maximum (``op="max"``), ``all_gather`` concatenates shards (the LM head's
 vocab shards, the MoE router's logits, an FSDP weight at use) and
 ``reduce_scatter`` gives this rank its slice of a sum (an FSDP weight's
-gradient), each over the process group of one axis of a
+gradient), ``all_gather_rows`` concatenates the rows of several tensors in
+one message (what a serving step's data rank wrote), each over the process group of one axis of a
 :class:`~repro_torch.parallel.mesh.Mesh`, or of several axes together
 (``("data", "model")``: the whole mesh). On a gloo mesh a CUDA tensor
 crosses through a pinned host buffer: ``torch.distributed`` documents only
@@ -13,7 +14,9 @@ crosses through a pinned host buffer: ``torch.distributed`` documents only
 gloo also gathers CUDA tensors), and gloo's CUDA path copies through host
 memory itself, so one staged path serves every operation on every version
 and its bytes are counted. A collective that fails raises; nothing
-retries on another backend.
+retries on another backend. On ``meta`` tensors (the dry run, whose process
+group is the fake backend) there is no data: a collective counts its
+payload, stages nothing and returns a meta tensor of its result's shape.
 
 Under autograd the collectives are differentiable where a backward
 exists (Megatron's *f* and *g*, ZeRO-3's gather):
@@ -48,7 +51,8 @@ import time
 import torch
 import torch.distributed as dist
 
-__all__ = ["CollectiveStats", "all_reduce", "all_gather", "reduce_scatter", "copy_to_axis"]
+__all__ = ["CollectiveStats", "all_reduce", "all_gather", "all_gather_rows", "reduce_scatter",
+           "copy_to_axis"]
 
 
 @dataclasses.dataclass
@@ -59,25 +63,27 @@ class CollectiveStats:
     payload_bytes: int = 0      # each rank's input bytes
     staged_bytes: int = 0       # bytes copied between the card and pinned host buffers
     ms: float = 0.0             # host clock inside the collectives, staging included
-    # per operation (``calls``' keys): [payload bytes, staged bytes, ms]
+    # per operation (``calls``' keys): [payload bytes, staged bytes, ms,
+    # result bytes (the roofline's traffic measure)]
     by_op: dict = dataclasses.field(default_factory=dict)
 
-    def add(self, op: str, payload: int, staged: int, ms: float) -> None:
+    def add(self, op: str, payload: int, staged: int, ms: float, result: int = 0) -> None:
         self.calls[op] += 1
         self.payload_bytes += payload
         self.staged_bytes += staged
         self.ms += ms
-        row = self.by_op.setdefault(op, [0, 0, 0.0])
+        row = self.by_op.setdefault(op, [0, 0, 0.0, 0])
         row[0] += payload
         row[1] += staged
         row[2] += ms
+        row[3] += result
 
     def as_dict(self) -> dict:
         return {"collective_calls": dict(self.calls), "payload_bytes": self.payload_bytes,
                 "staged_bytes": self.staged_bytes, "collective_ms": self.ms,
                 "by_op": {op: {"calls": self.calls[op], "payload_bytes": p,
-                               "staged_bytes": s, "ms": t}
-                          for op, (p, s, t) in self.by_op.items()}}
+                               "staged_bytes": s, "ms": t, "result_bytes": r}
+                          for op, (p, s, t, r) in self.by_op.items()}}
 
     def reset(self) -> None:
         self.calls.clear()
@@ -91,7 +97,9 @@ def _raw_all_reduce(x: torch.Tensor, mesh, axis, op: str, name: str) -> torch.Te
     nbytes = x.numel() * x.element_size()
     red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
     staged = 0
-    if mesh.staged:
+    if x.is_meta:                   # shapes only (the dry run): nothing moves
+        out = torch.empty_like(x)
+    elif mesh.staged:
         buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         buf.copy_(x)
         dist.all_reduce(buf, op=red, group=mesh.group(axis))
@@ -100,7 +108,7 @@ def _raw_all_reduce(x: torch.Tensor, mesh, axis, op: str, name: str) -> torch.Te
     else:
         out = x.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=red, group=mesh.group(axis))
-    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3)
+    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3, nbytes)
     return out
 
 
@@ -109,7 +117,9 @@ def _raw_all_gather(x: torch.Tensor, mesh, axis, dim: int, name: str) -> torch.T
     n = mesh.size(axis)
     nbytes = x.numel() * x.element_size()
     staged = 0
-    if mesh.staged:
+    if x.is_meta:
+        parts = torch.empty((n, *x.shape), dtype=x.dtype, device="meta")
+    elif mesh.staged:
         buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         buf.copy_(x)
         parts = torch.empty((n, *x.shape), dtype=x.dtype, pin_memory=True)
@@ -121,7 +131,7 @@ def _raw_all_gather(x: torch.Tensor, mesh, axis, dim: int, name: str) -> torch.T
         dist.all_gather(list(parts.unbind(0)), x.detach().contiguous(),
                         group=mesh.group(axis))
     out = torch.cat(parts.unbind(0), dim=dim)
-    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3)
+    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3, n * nbytes)
     return out
 
 
@@ -142,7 +152,9 @@ def _raw_reduce_scatter(x: torch.Tensor, mesh, axis, dim: int, name: str) -> tor
     front = x.detach().movedim(dim, 0)
     shape = (front.shape[0] // n, *front.shape[1:])
     staged = 0
-    if mesh.staged:
+    if x.is_meta:
+        out = torch.empty(shape, dtype=x.dtype, device="meta")
+    elif mesh.staged:
         buf = torch.empty(front.shape, dtype=x.dtype, pin_memory=True)
         buf.copy_(front)
         out = torch.empty(shape, dtype=x.dtype, pin_memory=True)
@@ -153,7 +165,7 @@ def _raw_reduce_scatter(x: torch.Tensor, mesh, axis, dim: int, name: str) -> tor
         out = torch.empty(shape, dtype=x.dtype, device=x.device)
         dist.reduce_scatter_tensor(out, front.contiguous(), group=mesh.group(axis))
     out = out.movedim(0, dim).contiguous()
-    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3)
+    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3, nbytes // n)
     return out
 
 
@@ -247,3 +259,26 @@ def reduce_scatter(x: torch.Tensor, mesh, axis="model", dim: int = 0) -> torch.T
     if _grad(x):
         raise NotImplementedError("reduce_scatter: no backward (it is all_gather's)")
     return _raw_reduce_scatter(x, mesh, axis, dim % x.ndim, "reduce_scatter")
+
+
+def all_gather_rows(parts: dict, mesh, axis="data") -> dict:
+    """Each tensor of ``parts`` (name -> tensor; all with the same number
+    of rows, dim 0, any dtypes) concatenated along dim 0 in rank order of
+    ``axis``, as ONE all-gather: every row's bytes of every tensor packed
+    into one uint8 message, unpacked after. Counted under ``all_gather``.
+    No backward."""
+    if any(_grad(t) for t in parts.values()):
+        raise NotImplementedError("all_gather_rows: no backward")
+    rows = {t.shape[0] for t in parts.values()}
+    if len(rows) != 1:
+        raise ValueError(f"all_gather_rows: the tensors' row counts differ: {sorted(rows)}")
+    n = rows.pop()
+    flat = [t.detach().reshape(n, -1).contiguous().view(torch.uint8) for t in parts.values()]
+    got = _raw_all_gather(torch.cat(flat, dim=1), mesh, axis, 0, "all_gather")
+    out, offset = {}, 0
+    for (name, t), f in zip(parts.items(), flat):
+        width = f.shape[1]
+        out[name] = got[:, offset:offset + width].contiguous().view(t.dtype).reshape(
+            (-1, *t.shape[1:]))
+        offset += width
+    return out

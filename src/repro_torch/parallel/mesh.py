@@ -39,7 +39,7 @@ from repro_torch.core.workloads import _mesh_factors
 
 from .collectives import CollectiveStats
 
-__all__ = ["AXES", "Mesh", "mesh_factors", "choose_backend", "init_mesh", "world_mesh",
+__all__ = ["AXES", "Mesh", "mesh_factors", "data_rows", "choose_backend", "init_mesh", "world_mesh",
            "mesh_for", "use_mesh", "current_mesh", "shutdown", "run_ranks",
            "make_local_mesh", "make_production_mesh", "production_mesh_shape"]
 
@@ -55,6 +55,16 @@ def mesh_factors(mesh_shape) -> tuple[int, int]:
         raise ValueError(f"mesh_shape {mesh_shape}: unknown axes "
                          f"{sorted(set(mesh_shape) - {'pod', *AXES})}")
     return _mesh_factors(mesh_shape)
+
+
+def data_rows(batch: int, data: int = 1, rank: int = 0) -> tuple[int, slice]:
+    """How a ``batch``-row step splits over ``data`` ranks: the rows each
+    rank computes, ``ceil(batch / data)`` (its local bucket), and data rank
+    ``rank``'s contiguous slice of the batch padded to ``data`` times that,
+    the padding after every real row. The one policy of the serving engine,
+    ``run_oneshot`` and the workload registry's local shapes."""
+    lb = -(-batch // data)
+    return lb, slice(rank * lb, (rank + 1) * lb)
 
 
 @dataclasses.dataclass(eq=False)
@@ -98,6 +108,11 @@ class Mesh:
                 idx = idx * self.shape[a] + self.device_mesh.get_local_rank(a)
             return idx
         return self.device_mesh.get_local_rank(axis)
+
+    def data_rows(self, batch: int) -> tuple[int, slice]:
+        """This rank's local bucket and row slice of a ``batch``-row step
+        (:func:`data_rows` over the data axis)."""
+        return data_rows(batch, self.size("data"), self.local_rank("data"))
 
     def group(self, axis="model"):
         """The process group of ``axis``; of a tuple of axes, the group of

@@ -61,8 +61,8 @@ import torch
 import repro_torch.api as falcon
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine as core_engine, plan_cache
-from repro_torch.models import model as M
-from repro_torch.parallel import mesh as PM, sharding as SH
+from repro_torch.models import model as M, moe as MOE
+from repro_torch.parallel import collectives as C, mesh as PM, sharding as SH
 from repro_torch.train.steps import make_chunk_prefill_step, make_decode_step, make_verify_step
 
 from .buckets import BucketPolicy, next_pow2
@@ -98,19 +98,26 @@ class ServeEngine:
     version); with ``cuda_graphs`` (the default) each bucket's step on the
     card is a captured CUDA graph, without it the same steps run eagerly.
 
-    ``mesh_shape={"data": 1, "model": m}`` with m > 1 serves tensor- and
-    expert-parallel over the m ranks of this process's mesh
-    (``parallel.mesh.init_mesh``; ``launch.serve --mesh`` starts them):
-    every rank builds the same engine, gets the same requests and runs the
-    same steps. The weights are sharded by the rule table
-    (``parallel.sharding.shard_params``) before precombining, so offline
-    Combine B runs on each rank's shard; the cache holds the rank's KV heads;
-    ``warm()`` plans the local shapes each rank contracts. A gloo mesh's
-    collectives on the card cross host memory, which a CUDA graph cannot
-    capture: such an engine needs ``cuda_graphs=False``. A data axis of more
-    than one rank (replicas that split the requests) is not ported to
-    serving (ROADMAP Queue 1 item 6b; training runs one) and raises, as
-    does a process outside a mesh of that shape.
+    ``mesh_shape={"data": d, "model": m}`` spanning more than one rank
+    serves on this process's mesh (``parallel.mesh.init_mesh``;
+    ``launch.serve --mesh`` starts the ranks): every rank builds the same
+    engine, gets the same requests and schedules the same steps. The
+    weights are replicated over "data" and sharded over "model" by the rule
+    table (``parallel.sharding.shard_params``) before precombining, so
+    offline Combine B runs on each rank's shard; the cache holds the rank's
+    KV heads. Over "data" the cache stays replicated and each step's writes
+    are gathered (the reference's "replicated-then-gathered"): the step's
+    rows split over the d ranks, each computes its share padded to its
+    local bucket of ``ceil(b / d)`` rows (:meth:`_run_rows`), then one
+    all-gather over "data" carries what every rank wrote (the K/V of its
+    rows at the positions the step wrote, in every layer, the SSM state
+    rows, the greedy tokens and, recording, the logits), so every rank
+    holds every slot again, and the prefix cache, chunked prefill and
+    speculation (whose draft runs the whole micro-batch on every rank) see
+    what one device sees. ``warm()`` plans the local shapes each rank
+    contracts. A gloo mesh's collectives on the card cross host memory,
+    which a CUDA graph cannot capture: such an engine needs
+    ``cuda_graphs=False``. A process outside a mesh of that shape raises.
     """
 
     def __init__(self, model_cfg: ModelConfig, params=None, *,
@@ -130,14 +137,10 @@ class ServeEngine:
                 f"ServeEngine serves token-stream decoders; got "
                 f"frontend={model_cfg.frontend!r} (bucketed prefill assumes "
                 "one int token stream)")
-        data, _ = PM.mesh_factors(mesh_shape)
-        if data > 1:
-            raise NotImplementedError(
-                f"mesh_shape={mesh_shape}: a data axis over {data} devices is not ported to "
-                "serving (ROADMAP Queue 1 item 6b; training runs one); serving shards over "
-                "'model' only")
         self.device = torch.device(device)
         self.mesh = PM.mesh_for(mesh_shape)
+        self.data = 1 if self.mesh is None else self.mesh.size("data")
+        self.data_rank = 0 if self.mesh is None else self.mesh.local_rank("data")
         if self.mesh is not None and self.device.type == "cuda" and cuda_graphs:
             raise ValueError(
                 f"ServeEngine: cuda_graphs=True on a {self.mesh.backend} mesh: a collective "
@@ -345,12 +348,19 @@ class ServeEngine:
                 self.fcfg, self.cfg, grid, dtype=str(self.cfg.dtype),
                 kv_len=self.max_len, spec_gamma=self.gamma or None,
                 mesh_shape=self.mesh_shape if self.mesh is not None else None)
+            if self.data > 1 and self.draft is not None:
+                # the draft runs each whole micro-batch on every data rank
+                n_plans += core_engine.warm_buckets(
+                    self.fcfg, self.cfg, grid, dtype=str(self.cfg.dtype),
+                    kv_len=self.max_len, spec_gamma=self.gamma,
+                    mesh_shape={"data": 1, "model": self.mesh.size("model")})
             t_plan = time.perf_counter() - t0
             captured = self.graphs.seconds
             for (b, s) in self.policy.prefill_shapes():
-                self._make_step(("prefill", b, s))
+                self._make_step(("prefill", PM.data_rows(b, self.data)[0], s))
+            kind = "spec" if self.gamma else "decode"
             for b in self.policy.decode_batch:
-                self._make_step(("spec", b) if self.gamma else ("decode", b))
+                self._make_step((kind, PM.data_rows(b, self.data)[0]))
             if self.draft is not None:
                 self.draft.warm(self.policy, self.gamma)
         self.stats.warm_plans = n_plans
@@ -394,9 +404,69 @@ class ServeEngine:
         return (greedy.cpu().numpy(),
                 logits.float().cpu().numpy() if self.record_logits else None)
 
+    def _run_rows(self, key: tuple, slots, last_only: bool, **arrays):
+        """Run the step ``key`` = (kind, b, ...) on a micro-batch of ``b``
+        rows whose first rows are the real ones, of ``slots``; ``arrays``
+        are the step's host inputs, ``b`` rows each. Returns the greedy
+        tokens and, recording, the logits on the host, ``b`` rows (the last
+        position only where ``last_only``).
+
+        Over a data axis of d ranks the rows are padded to ``d * lb``
+        (``lb = ceil(b / d)``, repeating the last row; ``parallel.mesh.
+        data_rows``), each rank runs its ``lb`` of them through its local
+        step (pad rows, and a rank with no real row, gather the last real
+        slot and scatter into the spare one), its MoE layers routing as one
+        device routes the ``b`` rows (``models.moe.route_over_data``), and
+        one all-gather over "data" returns what every rank wrote, which
+        every rank then writes into its cache: the K/V at the positions
+        ``[index, index + width)`` of its rows, the SSM state rows, the
+        greedy tokens and the logits."""
+        b = key[1]
+        lb, mine = PM.data_rows(b, self.data, self.data_rank)
+        n = lb * self.data
+        if n > b:
+            arrays = {name: np.concatenate([a, np.repeat(a[-1:], n - b, axis=0)])
+                      for name, a in arrays.items()}
+        gidx, sidx = slot_index(slots, n, self.spare)
+        step = self._note_shape((key[0], lb, *key[2:]))
+        step.load(**{name: a[mine] for name, a in arrays.items()},
+                  gidx=gidx[mine], sidx=sidx[mine])
+        with MOE.route_over_data(b):
+            greedy, logits = step()
+        if self.data > 1:
+            greedy, logits = self._gather_rows((greedy, logits), step.inputs,
+                                               arrays["index"], sidx)
+        if last_only:
+            greedy, logits = greedy[:, -1], logits[:, -1]
+        return self._read(greedy[:b], logits[:b])
+
+    def _gather_rows(self, out, inputs: dict, index: np.ndarray, sidx: np.ndarray):
+        """After a data rank's step: one all-gather over "data" of what each
+        rank computed (its greedy tokens, its logits when recorded, and the
+        cache entries its rows wrote), written into this rank's cache.
+        Returns the greedy tokens and logits of all ranks' rows."""
+        greedy, logits = out
+        width = inputs["tokens"].shape[1]
+        cols = torch.arange(width, device=self.device)
+        rows, pos = inputs["sidx"], inputs["index"][:, None] + cols
+        parts = {"greedy": greedy}
+        if self.record_logits:
+            parts["logits"] = logits
+        for name, c in self.cache.items():
+            parts[name] = (c[:, rows] if name == "state" else c[:, rows[:, None], pos]).movedim(1, 0)
+        got = C.all_gather_rows(parts, self.mesh, "data")
+        rows = torch.as_tensor(sidx, device=self.device)
+        pos = torch.as_tensor(index, device=self.device)[:, None] + cols
+        for name, c in self.cache.items():
+            if name == "state":
+                c[:, rows] = got[name].movedim(0, 1)
+            else:
+                c[:, rows[:, None], pos] = got[name].movedim(0, 1)
+        # not recording, the greedy tokens stand in for the logits (unread)
+        return got["greedy"], got.get("logits", got["greedy"])
+
     def _run_prefill(self, work: PrefillWork) -> None:
         B, S = work.batch_pad, work.seq_pad
-        step = self._note_shape(("prefill", B, S))
         k = len(work.requests)
         # first chunk of a prefix hit: copy the reused KV into the slot
         # before this chunk's rows are gathered
@@ -411,13 +481,11 @@ class ServeEngine:
             toks[i, :n] = r.prompt[work.starts[i]:work.starts[i] + n]
             last[i] = n - 1
             start[i] = work.starts[i]
-        gidx, sidx = slot_index(work.slots, B, self.spare)
         t0 = time.perf_counter()
-        step.load(tokens=toks, index=start, last=last, gidx=gidx, sidx=sidx)
-        greedy, logits = step()
         if self.draft is not None:
             self.draft.prefill_chunk(toks, start, last, work.slots, k)
-        greedy, logits = self._read(greedy[:, -1], logits[:, -1])
+        greedy, logits = self._run_rows(("prefill", B, S), work.slots, True,
+                                        tokens=toks, index=start, last=last)
         now = time.perf_counter()
         self.stats.t_prefill += now - t0
         self.stats.prefill_steps += 1
@@ -471,18 +539,14 @@ class ServeEngine:
     # -- decode --------------------------------------------------------------
 
     def _run_decode(self, work: DecodeWork) -> None:
-        k = len(work.slots)
         b = work.batch_pad
-        step = self._note_shape(("decode", b))
-        gidx, sidx = slot_index(work.slots, b, self.spare)
         toks = np.zeros((b, 1), np.int64)
         pos = np.zeros((b,), np.int64)
         for i, r in enumerate(work.requests):
             toks[i, 0] = r.generated[-1]
             pos[i] = self.pos[work.slots[i]]
         t0 = time.perf_counter()
-        step.load(tokens=toks, index=pos, gidx=gidx, sidx=sidx)
-        greedy, logits = self._read(*(t[:, -1] for t in step()))
+        greedy, logits = self._run_rows(("decode", b), work.slots, True, tokens=toks, index=pos)
         self.stats.t_decode += time.perf_counter() - t0
         self.stats.decode_steps += 1
         self.stats.generated_tokens += work.real_tokens
@@ -506,8 +570,7 @@ class ServeEngine:
         k = len(work.slots)
         b = work.batch_pad
         g = self.gamma
-        step = self._note_shape(("spec", b))
-        gidx, sidx = slot_index(work.slots, b, self.spare)
+        gidx, _ = slot_index(work.slots, b, self.spare)
         last2 = np.zeros((b, 2), np.int64)
         pos = np.zeros((b,), np.int64)
         for i, r in enumerate(work.requests):
@@ -518,8 +581,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         drafts = self.draft.propose(gidx, last2, pos, g, k)      # (b, γ)
         verify = np.concatenate([last2[:, 1:], drafts], axis=1)
-        step.load(tokens=verify, index=pos, gidx=gidx, sidx=sidx)
-        greedy, logits = self._read(*step())                     # (b, γ+1[, V])
+        greedy, logits = self._run_rows(("spec", b), work.slots, False,
+                                        tokens=verify, index=pos)  # (b, γ+1[, V])
         self.stats.t_decode += time.perf_counter() - t0
         self.stats.verify_steps += 1
         self.stats.drafted_tokens += g * k

@@ -34,7 +34,7 @@ def engine_run(mesh, cfg, np_params, requests, kw):
     served (tokens, per-step logits, plan misses after warm, summary)."""
     plan_cache.reset()
     engine = ServeEngine(cfg, params_from_numpy(np_params, cfg, device="cpu"), device="cpu",
-                         mesh_shape={"data": 1, "model": mesh.size("model")}, **kw)
+                         mesh_shape=dict(mesh.shape), **kw)
     engine.warm()
     misses = plan_cache.stats().misses
     reqs = [engine.submit(p, max_new_tokens=n) for p, n in requests]
@@ -45,9 +45,59 @@ def engine_run(mesh, cfg, np_params, requests, kw):
             "summary": engine.summary()}
 
 
+def serve_waves(engine, waves):
+    """Serve ``waves`` of (prompt, max_new_tokens) requests, each wave
+    submitted after the previous one drained (so later waves can hit the
+    prefix cache); -> the requests in submission order."""
+    reqs = []
+    for wave in waves:
+        reqs += [engine.submit(p, max_new_tokens=n) for p, n in wave]
+        engine.run()
+    return reqs
+
+
+def engine_waves_run(mesh, cfg, np_params, waves, kw):
+    """The continuous engine on this rank of its mesh, warmed, serving
+    ``waves``: tokens, per-step logits, plan misses after warm, the step
+    shapes run, summary."""
+    plan_cache.reset()
+    engine = ServeEngine(cfg, params_from_numpy(np_params, cfg, device="cpu"), device="cpu",
+                         mesh_shape=dict(mesh.shape), **kw)
+    engine.warm()
+    misses = plan_cache.stats().misses
+    run, note = [], engine._note_shape
+    engine._note_shape = lambda key: (run.append(key), note(key))[1]
+    reqs = serve_waves(engine, waves)
+    return {"tokens": [r.generated for r in reqs],
+            "logits": [np.stack(r.logits) for r in reqs],
+            "misses_after_warm": plan_cache.stats().misses - misses,
+            "steps": sorted(set(run)), "summary": engine.summary()}
+
+
+def gather_rows_run(mesh):
+    """``all_gather_rows`` over "data" of an int64, a bf16 and an f32
+    tensor of this rank's rows."""
+    r = mesh.local_rank("data")
+    parts = {"i": torch.arange(3, dtype=torch.long) + 10 * r,
+             "b": torch.full((3, 2, 5), r + 0.5, dtype=torch.bfloat16),
+             "f": torch.full((3, 4), -r - 0.25)}
+    got = collectives.all_gather_rows(parts, mesh, "data")
+    return {k: (str(v.dtype), v.float().numpy()) for k, v in got.items()}
+
+
+def oneshot_refused(mesh, cfg):
+    """``run_oneshot`` of a batch that does not split over the data axis:
+    the message it raises."""
+    try:
+        run_oneshot(cfg, device="cpu", batch=3, gen=1, mesh_shape=dict(mesh.shape))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def oneshot_run(mesh, cfg, kw):
-    """``run_oneshot`` on this rank of a ``{"model": m}`` mesh."""
-    res = run_oneshot(cfg, device="cpu", mesh_shape={"model": mesh.size("model")}, **kw)
+    """``run_oneshot`` on this rank of its mesh."""
+    res = run_oneshot(cfg, device="cpu", mesh_shape=dict(mesh.shape), **kw)
     return {"tokens": res["tokens"].numpy(),
             "logits": [lg.float().numpy() for lg in res["logits"]],
             "n_precombined": res["n_precombined"], "mesh": res["mesh"]}
@@ -256,7 +306,8 @@ def checkpoint_restore_run(mesh, cfg, np_params, directory):
     whole again: (whole tree, the local shapes)."""
     like = {"params": params_from_numpy(np_params, cfg, device="cpu")}
     rules = sharding.make_rules(mesh, fsdp=True)
-    tree, step, _ = restore_checkpoint(directory, like, mesh=mesh, rules=rules, cfg=cfg)
+    tree, step, _ = restore_checkpoint(directory, like, device="cpu", mesh=mesh, rules=rules,
+                                     cfg=cfg)
     placement = sharding.param_sharding(like, mesh, rules, cfg)
     whole = gather_state(tree, placement, mesh)
     return {"step": step, "tree": _np(whole),

@@ -47,7 +47,7 @@ def _leaves(tree):
 def test_roundtrip_with_bf16(tmp_path):
     t = _tree()
     save_checkpoint(str(tmp_path), 7, t, extra={"note": "x"})
-    got, step, extra = restore_checkpoint(str(tmp_path), t)
+    got, step, extra = restore_checkpoint(str(tmp_path), t, device="cpu")
     assert step == 7 and extra["note"] == "x"
     assert list(got) == list(t) and list(got["nested"]) == list(t["nested"])
     for a, b in zip(_leaves(t), _leaves(got)):
@@ -71,7 +71,7 @@ def test_integrity_detects_corruption(tmp_path):
     data[len(data) // 2] ^= 0xFF
     path.write_bytes(bytes(data))
     with pytest.raises(IOError, match="integrity"):
-        restore_checkpoint(str(tmp_path), _tree())
+        restore_checkpoint(str(tmp_path), _tree(), device="cpu")
 
 
 def test_structure_mismatch_rejected(tmp_path):
@@ -80,7 +80,7 @@ def test_structure_mismatch_rejected(tmp_path):
              "nested": {"b": torch.zeros((3,), dtype=torch.bfloat16),
                         "WRONG": torch.zeros((5,), dtype=torch.int32)}}
     with pytest.raises(ValueError, match="mismatch"):
-        restore_checkpoint(str(tmp_path), other)
+        restore_checkpoint(str(tmp_path), other, device="cpu")
 
 
 def test_crash_mid_save_never_corrupts_latest(tmp_path):
@@ -89,7 +89,7 @@ def test_crash_mid_save_never_corrupts_latest(tmp_path):
     os.makedirs(tmp_path / "step_0000000009.tmp")
     (tmp_path / "step_0000000009.tmp" / "arrays.npz").write_bytes(b"garbage")
     assert latest_step(str(tmp_path)) == 5
-    _, step, _ = restore_checkpoint(str(tmp_path), _tree())
+    _, step, _ = restore_checkpoint(str(tmp_path), _tree(), device="cpu")
     assert step == 5
 
 
@@ -100,7 +100,7 @@ def test_async_save_waits(tmp_path):
     t["a"].zero_()                  # the manager copied the tree at save()
     mgr.wait()
     assert latest_step(str(tmp_path)) == 1
-    got, _, _ = mgr.restore_latest(_tree())
+    got, _, _ = mgr.restore_latest(_tree(), device="cpu")
     assert torch.equal(got["a"], _tree()["a"])
 
 
@@ -157,7 +157,7 @@ def test_same_tree_gives_the_reference_keys_and_digest(tmp_path):
 def test_port_restores_reference_checkpoint(tmp_path):
     t = _np_tree(1)
     j_save(str(tmp_path), 4, _as_jax(t))
-    got, step, _ = restore_checkpoint(str(tmp_path), _as_torch(_np_tree(2)))
+    got, step, _ = restore_checkpoint(str(tmp_path), _as_torch(_np_tree(2)), device="cpu")
     want = _as_torch(t)
     assert step == 4
     assert got["bf"].dtype == torch.bfloat16
@@ -188,7 +188,7 @@ def test_model_params_cross_load(arch, tmp_path):
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
     pj = j_save(str(tmp_path / "ref"), 1, jp)
     like = TM.init_params(tcfg, 0, device="cpu")
-    got, _, _ = restore_checkpoint(str(tmp_path / "ref"), like)
+    got, _, _ = restore_checkpoint(str(tmp_path / "ref"), like, device="cpu")
     want = params_from_numpy(jax.tree.map(lambda a: np.asarray(a, np.float32), jp), tcfg,
                              device="cpu")
     for a, b in zip(_leaves(want), _leaves(got)):

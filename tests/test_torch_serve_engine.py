@@ -389,11 +389,11 @@ def test_engine_validates_like_the_reference():
         engine.submit(list(range(9)))            # prompt off the bucket grid
     with pytest.raises(ValueError):
         engine.submit([1, 2], max_new_tokens=3)  # exceeds engine cap
-    # a mesh serves only on its ranks (tests/test_torch_mesh.py); a data axis
-    # is the training half of multi-device
+    # a mesh serves only on its ranks (tests/test_torch_mesh.py,
+    # tests/test_torch_serve_data.py), over either axis
     with pytest.raises(RuntimeError, match="belongs to no mesh"):
         tserve.ServeEngine(cfg, device="cpu", mesh_shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+    with pytest.raises(RuntimeError, match="belongs to no mesh"):
         tserve.ServeEngine(cfg, device="cpu", mesh_shape={"data": 2, "model": 1})
     with pytest.raises(NotImplementedError, match="frontend"):
         tserve.ServeEngine(types.SimpleNamespace(frontend="vision_patches"), device="cpu")

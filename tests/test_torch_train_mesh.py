@@ -212,7 +212,7 @@ def test_checkpoint_saved_on_fsdp_restores_anywhere(world):
                 np.testing.assert_array_equal(got[k], want[k])
     assert world["ranks"][(2, 2)][0]["restore"]["local"]["w_q"] == (2, 32, 32)
     like = {"params": params_from_numpy(np_params, cfg, device="cpu")}
-    tree, step, _ = restore_checkpoint(ckpt, like)          # one device
+    tree, step, _ = restore_checkpoint(ckpt, like, device="cpu")          # one device
     got = _flat(tree)
     assert step == 3 and all(np.array_equal(got[k], want[k]) for k in want)
     ref_dir = str(world["work"] / "ref_ckpt")
