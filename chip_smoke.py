@@ -32,8 +32,9 @@ alone and in the engine, with and without the logits' copy to the host;
 then speculation with the prefix cache and chunked prefill); what auto mode
 decides on the
 h100_sxm profile; then the calibration path: ``repro_torch.tools.tune``
-measures the card (through the tiled GEMM), the data-sheet and calibrated
-decisions side by side, and granite served in auto mode under the calibrated
+measures the card (through the tiled GEMM) on the device's clock (CUDA
+events) and on the host's, the profile written from the device's fit, the
+data-sheet and calibrated decisions side by side, and granite served in auto mode under the calibrated
 profile with the warmed plan cache, held to the fp auto run. Then the
 reference's other dense archs at full width (mistral_nemo_12b,
 starcoder2_15b, gemma3_27b): each leaf auto mode plans at a 2048-row
@@ -41,8 +42,10 @@ prefill timed alone on torch.matmul and the "cuda" and generated "torch"
 planned paths, each held to the plain version, beside its predicted
 speedup; each arch served one-shot at that prefill, auto against gemm
 (starcoder2 also on "torch"), depth cut where weights and B̃ exceed the
-card, held to gemm prefix-matched and teacher-forced; each arch's
-ServeEngine at half its published depth, graphs against eager. Offline Combine B
+card, held to gemm prefix-matched and teacher-forced; starcoder2's bf16
+logits against float32 with the tanh GELU rounded as the reference rounds
+it and rounded once (musicgen's likewise, after the frontends); each arch's
+ServeEngine at a quarter of its published depth, graphs against eager. Offline Combine B
 of those leaves (one launch over all served layers) is held to its plain
 version layer by layer among the kernel cases. Last, the MoE family at
 published width: the expert FFN's calls of #2 (Combine B of whole expert
@@ -54,8 +57,8 @@ plain versions and to strassen's static error bound; dbrx served one-shot
 (4 x 512 tokens) gemm, auto and forced, at the depth whose weights and B̃
 fit (9 of 40 layers), held to gemm prefix-matched and teacher-forced; and
 dbrx's ServeEngine at that depth, auto and forced, graphs against eager.
-Then the SSM and hybrid families at published width and half their
-published depth (mamba2_370m 24 of 48 layers, hymba_1_5b 16 of 32): every call of #1-#4 their phases make among
+Then the SSM and hybrid families at published width and a quarter of their
+published depth (mamba2_370m 12 of 48 layers, hymba_1_5b 8 of 32): every call of #1-#4 their phases make among
 the kernel cases (the SSD scan's and decode step's grouped contractions in
 float32, hymba's attention in bf16), the scan's scores contraction timed
 beside torch.bmm; one SSD mixer of each (4 x 2048 tokens) in gemm mode and
@@ -67,9 +70,9 @@ forced, graphs against eager, then with 16-token chunks and with prefix
 snapshots. Every comparison of one engine run with another (graphs
 against eager, speculation, chunked or prefix-cached prefill against whole
 prompts, and the SSM archs' float32 runs) is made at the model's first 8
-layers (gemma3: 6), while the graphed runs serve deeper (published depth,
-or half of it where the run's time asked for it): what those comparisons
-hold does not depend on depth.
+layers (gemma3: 6, mamba2: 4), while the graphed runs serve deeper
+(published depth, or a half or a quarter of it where the run's time asked
+for it): what those comparisons hold does not depend on depth.
 Last, the audio and vlm frontends at full width and published depth:
 musicgen_large (4 x 512 tokens of 4 codebooks, 16 new) in gemm, auto,
 forced strassen (#1/#3 on every projection and each codebook's head, #2/#4
@@ -89,12 +92,15 @@ autograd cores at checked shapes (each backward call among the kernel
 cases); the gradient is held in float32 (granite cut to 4 layers, forced
 within 1e-3 of gemm per leaf) and so is mamba2_370m's through the SSD
 scan's grouped f32 route (one step at published depth, held at its first 4
-layers). Last, multi-device serving on a 1 x 2 mesh whose two ranks are
+layers); and granite forced, two steps each with no remat and the ``full``
+and ``dots`` remat policies: ``dots`` recomputes none of a layer's 2-D
+products (#3's launches against ``full``'s), its forward-and-backward peak
+between the two others', its loss ``full``'s. Last, multi-device serving on a 1 x 2 mesh whose two ranks are
 processes spawned on this one card over gloo (every collective staged
 through pinned host memory, so nothing it times is a link's rate): every
 call of #1-#4 a rank makes among the kernel cases (granite's shards, dbrx's
 8 experts a rank) and timed (``@tp``, ``@ep``); granite_3_2b at full width
-and published depth served tensor-parallel (bf16, 4 x 64 tokens, 16 new;
+and half its published depth (20 of 40 layers) served tensor-parallel (bf16, 4 x 64 tokens, 16 new;
 gemm, auto and forced strassen), each held to one-device serving of the
 same weights prefix-matched and teacher-forced, and at 2 layers in float32
 within 1e-4; the 8-layer ServeEngine on the mesh (eager steps) against the
@@ -118,15 +124,18 @@ the reckoning from its shards, and its plan misses after warm_train to 0;
 per rank it prints ms a step, tokens/s, peak bytes and the collectives by
 operation, forward and backward. The same 2 x 1 ranks then serve granite
 over the data axis (``serve_data`` lines: each rank half the rows, one
-gather a step; the one-shot at published depth in gemm, auto and forced
+gather a step; the one-shot at 20 of 40 layers in gemm, auto and forced
 strassen, at 2 layers in float32, the 8-layer engine), held to one device
 as the 1 x 2 runs are, every launch at a checked shape (``@dp`` cases).
 Last, the static tools and the host: ``calibrate_cpu`` on this machine's
 host CPU, ``repro_torch.tools.check --all --hardware h100_sxm`` in this
-process (it must report 0 errors), and two dry-run cells (granite
-``train_4k`` on 16 x 16, kimi_k2_1t ``decode_32k`` on 2 x 16 x 16: rank 0
-of a fake process group on the meta device), whose processes start on
-the host before the build. Any failure raises, so the exit code is non-zero and the final
+process (it must report 0 errors), and three dry-run cells (granite
+``train_4k`` on 16 x 16 under the ``full`` and the ``dots`` remat policy,
+each with its traced over analytic FLOPs, kimi_k2_1t ``decode_32k`` on 2 x
+16 x 16: rank 0 of a fake process group on the meta device), whose
+processes start on the host before the build. The ``total`` line gives
+each phase's seconds, the depths cut to make room for this run's newer
+checks and those checks' seconds. Any failure raises, so the exit code is non-zero and the final
 ``{"ok": true, ...}`` line is missing. Needs a CUDA card; exits non-zero
 without one.
 """
@@ -217,6 +226,11 @@ REPLACES = {"group_combine": "src/repro/kernels/group_combine.py:47",
             "group_combine_quant": "src/repro/kernels/quant_combine.py:59",
             "fused_gemm_combine_h_quant": "src/repro/kernels/quant_combine.py:125",
             "tiled_matmul": "src/repro/kernels/fused_gemm.py:222"}
+
+
+# seconds of the checks added to the run since its last depth cuts, by name
+# (printed on the ``total`` line beside the cuts)
+ADDED: dict = {}
 
 
 def emit(phase: str, **kw) -> None:
@@ -1719,14 +1733,18 @@ def engine_run(name: str, cfg, params, requests, cuda_graphs: bool, quantize: bo
 # Graphs against eager (and chunked or prefix-cached against whole prefill)
 # at the first layers: what these comparisons hold does not depend on the
 # depth, and eager steps at published depth took most of the engine phases'
-# time
+# time. The pure SSM family runs eight such engines an arch (graphs, eager,
+# f32, chunked, prefix): at TWIN_LAYERS_SSM, to make room in the run's time
 TWIN_LAYERS = 8
+TWIN_LAYERS_SSM = 4
 
 
 def twin_depth(cfg) -> int:
-    """TWIN_LAYERS, in whole periods of the layer pattern (gemma3: 6)."""
+    """TWIN_LAYERS (TWIN_LAYERS_SSM for the pure SSM family), in whole
+    periods of the layer pattern (gemma3: 6, hymba: 8)."""
+    n = TWIN_LAYERS_SSM if cfg.family == "ssm" else TWIN_LAYERS
     p = cfg.global_every or 1
-    return min(cfg.num_layers, max(p, TWIN_LAYERS - TWIN_LAYERS % p))
+    return min(cfg.num_layers, max(p, n - n % p))
 
 
 def cut_depth(cfg, params, layers: int):
@@ -2182,12 +2200,68 @@ def phase_serve_archs() -> None:
             free_memory()
         del params, runs
         free_memory()
+    gelu_rounding("starcoder2_15b")
 
 
-# The depth phase serve_engine_archs serves at: half the published depth
-# (40, 40, 62 layers; gemma3 in whole 6-layer periods), to make room in the
-# run's time for phase serve_mesh
-ENGINE_ARCH_DEPTH = {"mistral_nemo_12b": 20, "starcoder2_15b": 20, "gemma3_27b": 30}
+# The tanh GELU's bf16 rounding (models.layers.gelu): each GELU arch at full
+# width and this depth, a gemm prefill of GELU_PROMPT tokens in float32 and
+# in bf16 (starcoder2 cut to 8 of 40 layers: float32 weights of 40 layers
+# would not fit beside the bf16 ones; musicgen at its published 48)
+GELU_DEPTH = {"starcoder2_15b": 8, "musicgen_large": 48}
+GELU_PROMPT = (4, 512)
+
+
+def gelu_rounding(arch: str) -> None:
+    """``arch``'s bf16 last-position logits against its float32 ones
+    (gemm, weights from seed 0 in float32, cast to bf16: max |bf16 - f32| /
+    max |f32| over the real vocabulary, every codebook), with the port's
+    GELU (``models.layers.gelu``, rounded as ``jax.nn.gelu``) and with
+    ``F.gelu(approximate="tanh")``, which rounds once (the port's GELU
+    before it mirrored the reference's)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    t0 = time.perf_counter()
+    free_memory()
+    cfg32 = dataclasses.replace(get_config(arch), num_layers=GELU_DEPTH[arch], dtype="float32",
+                                falcon_mode="gemm")
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    b, n = GELU_PROMPT
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    shape = (b, n, cfg32.num_codebooks) if cfg32.frontend == "audio_codebooks" else (b, n)
+    tokens = torch.randint(0, cfg32.vocab_size, shape, device=DEV, generator=gen)
+    params = M.init_params(cfg32, 0, DEV)
+
+    def last_logits(cfg, p):
+        with torch.inference_mode(), falcon.use(M.falcon_config_for(cfg)):
+            lg, _ = M.forward(p, cfg, tokens, logits_mode="last")
+        return lg[..., :cfg.vocab_size].float()
+
+    want = last_logits(cfg32, params)
+    params = as_dtype(params, "bfloat16")
+    scale = want.abs().max()
+    rel = {"gelu": float((last_logits(cfg16, params) - want).abs().max() / scale)}
+    port_gelu = L.gelu
+    L.gelu = lambda u: F.gelu(u, approximate="tanh")
+    try:
+        rel["one_rounding"] = float((last_logits(cfg16, params) - want).abs().max() / scale)
+    finally:
+        L.gelu = port_gelu
+    del params, want
+    free_memory()
+    ADDED[f"gelu_rounding/{arch}"] = time.perf_counter() - t0
+    emit("gelu_rounding", arch=arch, layers=cfg32.num_layers, batch=b, tokens=n, mode="gemm",
+         bf16_vs_f32_rel_logit_err=rel["gelu"], one_rounding_bf16_vs_f32_rel_logit_err=rel[
+             "one_rounding"], seconds=ADDED[f"gelu_rounding/{arch}"])
+    if not all(math.isfinite(v) for v in rel.values()):
+        raise AssertionError(f"gelu_rounding/{arch}: {rel}")
+
+
+# The depth phase serve_engine_archs serves at: a quarter of the published
+# depth (40, 40, 62 layers; gemma3 in whole 6-layer periods), to make room in
+# the run's time for phases serve_mesh and train_mesh and the remat,
+# calibration and GELU checks
+ENGINE_ARCH_DEPTH = {"mistral_nemo_12b": 10, "starcoder2_15b": 10, "gemma3_27b": 12}
 
 
 def phase_serve_engine_archs() -> None:
@@ -2929,11 +3003,12 @@ def phase_serve_engine_moe() -> None:
 # ---------------------------------------------------------------------------
 
 SSM_ARCHS = ("mamba2_370m", "hymba_1_5b")
-# The depth the SSM phases serve at: half the published depth (48 and 32
-# layers), at published width, to make room in the run's time for phase
-# serve_mesh (what the comparisons hold does not depend on depth; the SSD
+# The depth the SSM phases serve at: a quarter of the published depth (48
+# and 32 layers), at published width, to make room in the run's time for
+# phases serve_mesh and train_mesh and the remat, calibration and GELU
+# checks (what the comparisons hold does not depend on depth; the SSD
 # mixer's phase runs one full-width mixer either way)
-SSM_DEPTH = {"mamba2_370m": 24, "hymba_1_5b": 16}
+SSM_DEPTH = {"mamba2_370m": 12, "hymba_1_5b": 8}
 SSM_SERVE = (4, 2048)           # one-shot: 4 x 2048 prompt tokens, 8 chunks of 256
 SSM_GEN = 16
 SSD_ROLES = ("ssd.scores", "ssd.y_diag", "ssd.states", "ssd.y_off")
@@ -3693,6 +3768,7 @@ def phase_serve_frontends() -> dict:
             free_memory()
         del params, runs
         free_memory()
+    gelu_rounding("musicgen_large")
     return fe_counts
 
 
@@ -3771,6 +3847,11 @@ MESH = {"data": 1, "model": 2}
 MESH_ARCH = "granite_3_2b"
 MESH_MODES = ("gemm", "auto", "strassen")
 MESH_F32_LAYERS = 2             # the float32 comparison: granite cut to 2 layers
+# The depth of the mesh one-shot runs (serve_mesh's 1 x 2, train_mesh's
+# 2 x 1 data runs) and their one-device references: half of granite's 40
+# layers, to make room in the run's time (each rank's step is host-bound;
+# what the comparisons hold does not depend on depth)
+MESH_LAYERS = 20
 MESH_F32_TOL = 1e-4             # max |mesh - one device| / max |one device|, float32
 MESH_MOE = "dbrx_132b"
 MESH_DIR = os.path.join(ROOT, "build", "mesh")
@@ -3793,6 +3874,11 @@ def mesh_contexts(cfg) -> dict[str, list]:
     return {"oneshot": oneshot, "engine": engine}
 
 
+def mesh_served():
+    """granite at full width and MESH_LAYERS layers: the mesh one-shot's config."""
+    return dataclasses.replace(get_config(MESH_ARCH), num_layers=MESH_LAYERS)
+
+
 def mesh_moe_capacity(cfg) -> int:
     return workloads.layer_capacity(cfg, MOE_LAYER_T)
 
@@ -3807,7 +3893,7 @@ def tp_kernel_cases() -> list[tuple[str, str, torch.dtype, dict, object]]:
     expert-parallel dbrx layer's grouped calls at 8 experts a rank: Combine
     B of each rank's expert stacks and Combine A of the activations at its
     capacity (#2), the grouped product against per-expert B̃ (#4)."""
-    base = get_config(MESH_ARCH)
+    base = mesh_served()
     ctx = mesh_contexts(base)
     keys = {}
     for tag, shape in (("tp", MESH), ("dp", DP_MESH)):
@@ -3916,7 +4002,7 @@ def mesh_moe_layer(cfg, mode: str, mesh=None) -> dict:
 def serve_runs(mesh, refs: dict) -> dict:
     """granite's serving runs on this rank of ``mesh`` (1 x 2 in phase
     serve_mesh, 2 x 1 in phase train_mesh's spawn), each held to one device
-    by :func:`check_serve_runs`: the one-shot at published depth in
+    by :func:`check_serve_runs`: the one-shot at MESH_LAYERS layers in
     MESH_MODES (with a 2-token warm-up serve, and teacher-forced on the
     one-device tokens ``refs["oneshot"]``), at MESH_F32_LAYERS in float32,
     and the TWIN_LAYERS engine in both dtypes. Each run's launch counts are
@@ -3926,7 +4012,7 @@ def serve_runs(mesh, refs: dict) -> dict:
     shape = dict(mesh.shape)
     out = {"rank": mesh.rank, "device": str(mesh.device), "backend": mesh.backend,
            "oneshot": {}, "f32": {}}
-    base = get_config(MESH_ARCH)
+    base = mesh_served()
     params = M.init_params(base, 0, DEV)
     for mode in MESH_MODES:
         cfg = dataclasses.replace(base, falcon_mode=mode)
@@ -4015,12 +4101,12 @@ MESH_SINGLES: dict = {}
 def mesh_singles() -> dict:
     """One device's runs that :func:`serve_runs` is held to (computed once,
     phase train_mesh's data runs and phase serve_mesh share them): the
-    one-shot per mode at published depth (with its 2-token warm-up serve),
+    one-shot per mode at MESH_LAYERS layers (with its 2-token warm-up serve),
     the float32 one-shot's logits at MESH_F32_LAYERS, and the engine's
     outputs in both dtypes."""
     if MESH_SINGLES:
         return MESH_SINGLES
-    base = get_config(MESH_ARCH)
+    base = mesh_served()
     singles = {}
     params = M.init_params(base, 0, DEV)
     for mode in MESH_MODES:
@@ -4058,7 +4144,7 @@ def check_serve_runs(line: str, ranks: list, mesh_shape: dict, label: str) -> No
     the prefill ms, decode ms a step, tokens/s of the whole batch, staged
     bytes and the collectives' ms and calls."""
     one = mesh_singles()
-    base = get_config(MESH_ARCH)
+    base = mesh_served()
     V = base.vocab_size
     r0 = ranks[0]
     # (a) one-shot granite, each mode against one device
@@ -4137,7 +4223,7 @@ def check_serve_runs(line: str, ranks: list, mesh_shape: dict, label: str) -> No
 
 def phase_serve_mesh() -> dict:
     """granite_3_2b served tensor-parallel on a 1 x 2 mesh (full width,
-    published depth, bf16, 4 x 64 prompts, 16 new tokens; gemm, auto and
+    MESH_LAYERS of 40 layers, bf16, 4 x 64 prompts, 16 new tokens; gemm, auto and
     forced strassen), both ranks spawned on this card over gloo, each run
     held to one-device serving of the same weights prefix-matched and
     teacher-forced (QUALITY_TOL); the same at 2 layers in float32 within
@@ -4208,6 +4294,11 @@ GRAD_LAYERS = 4                 # the float32 gradient check: granite cut to 4 l
 GRAD_TOL = 1e-3                 # forced vs gemm, relative Frobenius error of each leaf (f32)
 SSM_TRAIN_ARCH = "mamba2_370m"
 SSM_TRAIN = (4, 512)
+# forced-strassen steps of granite with no remat, the ``full`` policy and
+# ``dots`` (outputs of the 2-D products kept): (name, remat, policy); three
+# steps each, the first held to ``full``'s loss, the others timed
+REMAT_RUNS = (("none", False, "full"), ("full", True, "full"), ("dots", True, "dots"))
+REMAT_STEPS = 3
 TRAIN_CKPT = os.path.join(ROOT, "build", "train_ckpt")
 
 
@@ -4489,7 +4580,8 @@ def phase_train() -> dict:
     first GRAD_LAYERS layers. At published depth they are printed beside
     gemm's own sensitivity to one ulp of its weights: the random-init stack
     amplifies f32 rounding with depth, one ulp of the weights as much as
-    strassen's rounding. Returns forced granite's launch counts."""
+    strassen's rounding. Between them, the remat policies
+    (:func:`remat_check`). Returns forced granite's launch counts."""
     cfg = get_config(TRAIN_ARCH)
     b, s = TRAIN
     emit("train_decisions", arch=cfg.name, batch=b, tokens=s,
@@ -4518,6 +4610,10 @@ def phase_train() -> dict:
               "batched_fused_gemm_combine_h"):
         if not bwd.get(k):
             raise AssertionError(f"train/strassen: no {k} launch in backward: {bwd}")
+    strassen_launches = runs["strassen"]["launches"]
+    del runs
+    free_memory()
+    remat_check(cfg, batch)
     # gradients in float32: granite cut to GRAD_LAYERS layers
     f32 = dataclasses.replace(cfg, dtype="float32", num_layers=GRAD_LAYERS)
     grad_check("granite_f32", f32, batch, GRAD_LAYERS)
@@ -4543,7 +4639,85 @@ def phase_train() -> dict:
     free_memory()
     grad_check("mamba2_f32", dataclasses.replace(scfg, num_layers=GRAD_LAYERS), sbatch,
                GRAD_LAYERS)
-    return runs["strassen"]["launches"]
+    return strassen_launches
+
+
+def remat_memory(cfg, batch: dict) -> tuple[int, int]:
+    """One forward and backward of ``cfg`` from fresh weights, no optimizer
+    state: (the bytes the forward leaves held for backward, the peak bytes
+    of the forward and backward). The held bytes are what a remat policy
+    decides; the peak is reached at the end of the backward, where the
+    gradients (a second copy of the weights, stacked once) dominate, and a
+    train step's peak is the optimizer's."""
+    free_memory()
+    params = M.init_params(cfg, 0, DEV)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params) if p.is_floating_point()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with falcon.use(M.falcon_config_for(cfg)):
+        loss, _ = M.lm_loss(params, cfg, batch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del params, leaves, loss, grads
+    free_memory()
+    return held, peak
+
+
+def remat_check(cfg, batch: dict) -> None:
+    """granite (bf16, full width and published depth, forced strassen)
+    REMAT_STEPS steps each with no remat, ``remat_policy="full"`` and
+    ``"dots"`` (REMAT_RUNS), after ``warm_train``: ms a step, the step's
+    peak bytes, the bytes a forward holds for backward and the peak of a
+    forward and backward alone (:func:`remat_memory`), the launches in all
+    and in the cores' backward. Under ``full`` the recompute runs every
+    layer's 2-D products (#1/#3) again, under ``dots`` none (only the LM
+    head's cross-entropy chunk, a ``full`` block of its own, as with no
+    remat): #3's launches a step under ``full`` less those under ``dots``
+    are the layers' 2-D products, and ``dots`` launches what no remat
+    launches. What ``dots``' forward holds lies between ``full``'s and no
+    remat's, its forward-and-backward peak is no more than no remat's, and
+    its first loss within TRAIN_LOSS_TOL of ``full``'s."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, remat, policy in REMAT_RUNS:
+        rcfg = dataclasses.replace(cfg, falcon_mode="strassen", remat=remat,
+                                   remat_policy=policy)
+        t = time.perf_counter()
+        res = train_run(f"remat_{name}", rcfg, batch, REMAT_STEPS)
+        check_covered(f"train/remat_{name}", res.pop("state"))
+        res.pop("grads")
+        free_memory()
+        res["forward_held_bytes"], res["grads_peak_bytes"] = remat_memory(rcfg, batch)
+        res["seconds"] = time.perf_counter() - t
+        runs[name] = res
+    fused = {n: r["launches"].get("fused_gemm_combine_h", 0) // REMAT_STEPS
+             for n, r in runs.items()}
+    layer_products = cfg.num_layers * (4 + (3 if cfg.mlp_type == "swiglu" else 2))
+    rel = abs(runs["dots"]["losses"][0] - runs["full"]["losses"][0]) / abs(runs["full"]["losses"][0])
+    peaks = {n: r["grads_peak_bytes"] for n, r in runs.items()}
+    held = {n: r["forward_held_bytes"] for n, r in runs.items()}
+    out = {n: {"ms": r["ms"], "ms_steady": r["ms_steady"], "step_peak_bytes": r["peak_bytes"],
+               "forward_held_bytes": r["forward_held_bytes"],
+               "grads_peak_bytes": r["grads_peak_bytes"], "losses": r["losses"],
+               "launches": r["launches"], "backward_launches": r["backward_launches"],
+               "seconds": r["seconds"]} for n, r in runs.items()}
+    ADDED["train_remat"] = time.perf_counter() - t0
+    emit("train_remat", arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, mode="strassen",
+         batch=batch["tokens"].shape[0], tokens=batch["tokens"].shape[1], steps=REMAT_STEPS,
+         runs=out, fused_launches_a_step=fused, layer_2d_products=layer_products,
+         dots_vs_full_loss_rel=rel, tol=TRAIN_LOSS_TOL, seconds=ADDED["train_remat"])
+    if fused["full"] - fused["dots"] != layer_products or fused["dots"] != fused["none"]:
+        raise AssertionError(f"train/remat: #3 launches a step {fused}: the dots recompute "
+                             f"must run none of the {layer_products} layer products again")
+    if not (held["full"] < held["dots"] < held["none"] and peaks["dots"] <= peaks["none"]):
+        raise AssertionError(f"train/remat: the forward's held bytes {held}, the forward-and-"
+                             f"backward peaks {peaks}: dots' not between full's and none's")
+    if not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"train/remat: dots' loss {rel} from full's > {TRAIN_LOSS_TOL}")
 
 
 def ulp_sensitivity(cfg, batch: dict, grads: dict) -> dict:
@@ -5025,7 +5199,7 @@ def phase_train_mesh() -> dict:
     to one device on the same weights and batch (:func:`check_train_mesh`),
     and its float32 gradient, cut to TRAIN_MESH_GRAD_LAYERS, to one
     device's. The same 2 x 1 ranks then serve granite over the data axis
-    (:func:`serve_runs`: the one-shot at published depth in MESH_MODES, at
+    (:func:`serve_runs`: the one-shot at MESH_LAYERS layers in MESH_MODES, at
     2 layers in float32, the 8-layer engine), held to one device by
     :func:`check_serve_runs` (``serve_data`` lines). Returns rank 0's
     launch counts of the forced fsdp run."""
@@ -5076,22 +5250,28 @@ def phase_train_mesh() -> dict:
 TUNED = "h100_sxm_autotuned"
 TUNE_OUT = os.path.join(ROOT, "build", "tune", f"{TUNED}.json")
 TUNE_ARGV = ["--hardware", "h100_sxm", "--backend", "cuda", "--dtype", "bfloat16",
-             "--quant", "--warm-workload", "granite_3_2b",
+             "--quant", "--host-clock", "--warm-workload", "granite_3_2b",
              *(a for mkn in PROBES for a in ("--shape", ",".join(map(str, mkn)))),
              "--out", TUNE_OUT]
 def phase_tune() -> tuple[dict, str]:
     """``python -m repro_torch.tools.tune`` in this process (so the serve
     below resolves the very profile it registers): the probes time the tiled
     GEMM, Group Combine A, the fused kernel, the LCMA pipeline, torch._int_mm
-    and the quant Group Combine on the card; the CLI prints its static vs
-    calibrated table, writes the profile and warms the plan cache. Returns
-    the launch counts of the run and the plan cache's path."""
+    and the quant Group Combine on the card, on the device (CUDA events,
+    ``autotune.device_timer``) and again on the host clock
+    (``--host-clock``); the CLI prints its static vs calibrated table,
+    writes the profile of the device's fit and warms the plan cache. The
+    line prints both fits, and the device-timed tiled GEMM at 4096^3 beside
+    torch.matmul's on the same device timer. Returns the launch counts of
+    the run and the plan cache's path."""
+    from repro_torch.core.autotune import device_timer
     from repro_torch.core.hardware import get_profile
     from repro_torch.tools import tune
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     rc = tune.main(TUNE_ARGV)
     seconds = time.perf_counter() - t0
+    ADDED["tune_device_and_host_clocks"] = seconds
     counts = kernels.launch_counts()
     routes = dict(kernels.tiled_matmul.routes)
     if rc != 0 or counts["tiled_matmul"] <= 0:
@@ -5108,11 +5288,26 @@ def phase_tune() -> tuple[dict, str]:
     static = {"flops_mul": H100_SXM.flops_for("bfloat16"), "flops_add": H100_SXM.flops_add,
               "beta": H100_SXM.beta, "lcma_gemm_efficiency": H100_SXM.lcma_gemm_efficiency,
               "flops_int8": H100_SXM.flops_for("int8"), "beta_quant": None}
-    if not all(np.isfinite(v) and v > 0 for v in cal.values()):
-        raise AssertionError(f"tune: calibrated numbers not finite and positive: {cal}")
+    host = meta["host_clock"]
+    host_cal = {k: host[k] for k in ("flops_mul", "flops_add", "beta", "lcma_gemm_efficiency",
+                                     "flops_int8")}
+    if not all(np.isfinite(v) and v > 0 for v in (*cal.values(), *host_cal.values())):
+        raise AssertionError(f"tune: calibrated numbers not finite and positive: {cal}, "
+                             f"host clock {host_cal}")
+    if meta["clock"] != "device" or host["clock"] != "host":
+        raise AssertionError(f"tune: clocks {meta['clock']}, {host['clock']}")
+    # the tiled GEMM's device-timed 4096^3 probe beside torch.matmul's
+    big = next(p for p in meta["probes"] if (p["M"], p["K"], p["N"]) == (4096, 4096, 4096))
+    a = torch.ones((4096, 4096), dtype=torch.bfloat16, device=DEV)
+    t_lib = device_timer()(torch.matmul, a, a)
+    del a
     plans = os.path.join(os.path.dirname(TUNE_OUT), f"{TUNED}.plans.json")
     emit("tune", argv=TUNE_ARGV, seconds=seconds, profile=TUNE_OUT, plans=plans,
-         static=static, calibrated=cal, model_rel_err=meta["model_rel_err"],
+         clock=meta["clock"], static=static, calibrated=cal, model_rel_err=meta["model_rel_err"],
+         host_clock={"calibrated": host_cal, "model_rel_err": host["model_rel_err"],
+                     "probes": host["probes"]},
+         t_gemm_4096_ms=big["t_gemm"] * 1e3, torch_matmul_4096_ms=t_lib * 1e3,
+         t_gemm_over_torch_matmul=big["t_gemm"] / t_lib,
          probes=meta["probes"], launches=counts,
          tiled_matmul_launches=counts["tiled_matmul"], tiled_matmul_routes=routes)
     return counts, plans
@@ -5181,7 +5376,15 @@ def phase_serve_tuned(fp_auto: dict, plans: str) -> dict:
 # ---------------------------------------------------------------------------
 
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
-DRYRUN_CELLS = (("granite_3_2b", "train_4k", "single"), ("kimi_k2_1t", "decode_32k", "multi"))
+# (arch, shape, mesh, remat policy): granite's train step under both policies
+DRYRUN_CELLS = (("granite_3_2b", "train_4k", "single", "full"),
+                ("granite_3_2b", "train_4k", "single", "dots"),
+                ("kimi_k2_1t", "decode_32k", "multi", "full"))
+
+
+def dryrun_name(arch: str, shape: str, mesh: str, policy: str) -> str:
+    """A cell's file name stem in DRYRUN_DIR (the dry run's ``_emit``)."""
+    return f"{arch}__{shape}__{mesh}" + ("_dots" if policy == "dots" else "")
 
 
 def phase_calibrate_cpu() -> None:
@@ -5226,10 +5429,11 @@ def start_dryruns() -> list:
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "CUDA_VISIBLE_DEVICES": ""}
     procs = []
     for cell in DRYRUN_CELLS:
-        with open(os.path.join(DRYRUN_DIR, "__".join(cell) + ".log"), "w") as log:
+        policy = ["--remat-policy", "dots", "--tag", "dots"] if cell[3] == "dots" else []
+        with open(os.path.join(DRYRUN_DIR, dryrun_name(*cell) + ".log"), "w") as log:
             procs.append((cell, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0],
-                 "--shape", cell[1], "--mesh", cell[2], "--out-dir", DRYRUN_DIR],
+                 "--shape", cell[1], "--mesh", cell[2], "--out-dir", DRYRUN_DIR, *policy],
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
     return procs
 
@@ -5237,13 +5441,16 @@ def start_dryruns() -> list:
 def phase_dryrun(procs: list) -> None:
     """Each dry-run cell's record: rank 0 of the production mesh traced on
     the meta device over the fake backend; its argument bytes, traced FLOPs
-    and bytes, collective bytes and seconds. A cell that is not ``ok``
-    fails."""
-    for (arch, shape, mesh), proc in procs:
+    and bytes, collective bytes and seconds, and traced over analytic FLOPs
+    (granite ``train_4k`` under both remat policies: its 8 KV heads do not
+    split 16 ways, so each rank takes 2 of its 32 q heads with whole K/V).
+    A cell that is not ``ok`` fails."""
+    for (arch, shape, mesh, policy), proc in procs:
         proc.wait(timeout=300)
-        path = os.path.join(DRYRUN_DIR, f"{arch}__{shape}__{mesh}.json")
+        stem = dryrun_name(arch, shape, mesh, policy)
+        path = os.path.join(DRYRUN_DIR, f"{stem}.json")
         if proc.returncode != 0 or not os.path.exists(path):
-            with open(os.path.join(DRYRUN_DIR, f"{arch}__{shape}__{mesh}.log")) as f:
+            with open(os.path.join(DRYRUN_DIR, f"{stem}.log")) as f:
                 out = f.read()
             raise AssertionError(f"dryrun {arch} {shape} {mesh}: exit {proc.returncode}\n"
                                  f"{out[-3000:]}")
@@ -5251,7 +5458,11 @@ def phase_dryrun(procs: list) -> None:
             rec = json.load(f)
         if rec["status"] != "ok":
             raise AssertionError(f"dryrun {arch} {shape} {mesh}: {rec.get('error')}")
-        emit("dryrun", arch=arch, shape=shape, mesh=mesh, chips=rec["roofline"]["chips"],
+        if policy == "dots":
+            ADDED["dryrun_dots"] = rec["seconds"]
+        emit("dryrun", arch=arch, shape=shape, mesh=mesh, remat_policy=rec["remat_policy"],
+             layers=rec["num_layers"], chips=rec["roofline"]["chips"],
+             traced_over_analytic_flops=rec["traced_flops"] / rec["analytic"]["flops_dev"],
              n_params=rec["n_params"], n_active_params=rec["n_active_params"],
              argument_bytes=rec["argument_bytes"], argument_bytes_by=rec["argument_bytes_by"],
              traced_flops=rec["traced_flops"], traced_bytes=rec["traced_bytes"],
@@ -5292,6 +5503,19 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+# The depths cut to make room in the run's time for the checks in ADDED:
+# (depth before, depth now, the phases the cut shortens; their seconds in
+# this run go on the ``total`` line)
+DEPTH_CUTS = {"SSM_DEPTH": ({"mamba2_370m": 24, "hymba_1_5b": 16}, SSM_DEPTH,
+                            ("phase_serve_ssm", "phase_serve_engine_ssm")),
+              "TWIN_LAYERS_SSM": (TWIN_LAYERS, TWIN_LAYERS_SSM,
+                                  ("phase_serve_ssm", "phase_serve_engine_ssm")),
+              "ENGINE_ARCH_DEPTH": ({"mistral_nemo_12b": 20, "starcoder2_15b": 20,
+                                     "gemma3_27b": 30}, ENGINE_ARCH_DEPTH,
+                                    ("phase_serve_engine_archs",)),
+              "MESH_LAYERS": (40, MESH_LAYERS, ("phase_serve_mesh", "phase_train_mesh"))}
+
+
 def run_phases(dry: list, t0: float) -> None:
     """Every phase in order, then the ``total`` and ``kernels`` lines."""
     emit("build", seconds=build.build_all(), wall=time.perf_counter() - t0)
@@ -5303,10 +5527,13 @@ def run_phases(dry: list, t0: float) -> None:
     phases = {}
 
     def run(phase, *args):
-        """``phase(*args)``, its seconds kept for the ``total`` line."""
+        """``phase(*args)``, its seconds kept for the ``total`` line and
+        printed as it ends (a run cut short still says where its time went)."""
         t = time.perf_counter()
         out = phase(*args)
         phases[phase.__name__] = time.perf_counter() - t
+        emit("phase_done", name=phase.__name__, seconds=phases[phase.__name__],
+             at=time.perf_counter() - t0)
         return out
 
     run(phase_kernels)
@@ -5351,7 +5578,10 @@ def run_phases(dry: list, t0: float) -> None:
     run(phase_calibrate_cpu)
     run(phase_check)
     run(phase_dryrun, dry)
-    emit("total", seconds=time.perf_counter() - t0, phases=phases, **dry_done)
+    emit("total", seconds=time.perf_counter() - t0, phases=phases, **dry_done,
+         cut={name: {"from": was, "to": now, "phase_seconds": {ph: phases[ph] for ph in phs}}
+              for name, (was, now, phs) in DEPTH_CUTS.items()},
+         added=ADDED)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": counts[k], "max_abs_err": times[k]["max_abs_err"],

@@ -1,9 +1,12 @@
 """FalconGEMM core: scheme library, Decision Module, plan cache, dispatch."""
-from . import algorithms, backends, decision, engine, hardware, lcma, plan_cache
+from . import (algorithms, autotune, backends, codegen, decision, discovery,
+               engine, hardware, lcma, plan_cache)
 from .backends import available_backends, get_backend, register_backend
-from .engine import PlannedWeight, plan_weight, use
-from .falcon_gemm import FalconConfig
+from .engine import FalconEngine, PlannedWeight, plan_weight, use
+from .falcon_gemm import FalconConfig, falcon_dense, falcon_matmul
 
-__all__ = ["algorithms", "backends", "decision", "engine", "hardware", "lcma",
-           "plan_cache", "FalconConfig", "PlannedWeight", "plan_weight", "use",
+__all__ = ["algorithms", "autotune", "backends", "codegen", "decision",
+           "discovery", "engine", "hardware", "lcma", "plan_cache",
+           "FalconConfig", "falcon_dense", "falcon_matmul",
+           "FalconEngine", "PlannedWeight", "plan_weight", "use",
            "register_backend", "get_backend", "available_backends"]

@@ -26,12 +26,18 @@ of the static one:
     the reference leaves to XLA) into ``dtype_flops["int8"]``, and the
     quantizing Combine A's bandwidth ``beta_quant`` (metadata only).
 
-Each probe is timed best-of-``reps`` after warm-up on the host clock, every
-call bracketed by ``torch.cuda.synchronize()``: a calibration prices what a
-call costs its caller. Fits take the median across probes, so one noisy
-probe cannot skew the profile. The clock is injectable (``timer=``) so tests
-calibrate deterministically; with ``device="cpu"`` the kernel wrappers run
-their plain versions.
+On a card each probe is timed on the device (:func:`device_timer`: CUDA
+events around ``iters`` back-to-back calls, the median of ``reps``
+readings), the kernels' own time wherever the host enqueues them faster
+than the card runs them; on the CPU best-of-``reps`` on the host clock
+(:func:`best_of_timer`, which on a card brackets every call by
+``torch.cuda.synchronize()`` and so times the launches and the Python
+around them as well: at granite's probe shapes a product takes ~0.014 ms
+on the device). Fits take the median across probes, so one noisy probe
+cannot skew the profile. The clock is injectable (``timer=``) so tests
+calibrate deterministically, and the report names the clock that fitted
+it (``CalibrationReport.clock``); with ``device="cpu"`` the kernel wrappers
+run their plain versions.
 
 ``python -m repro_torch.tools.tune`` is the CLI that writes the profile JSON
 (with per-scheme block plans from ``kernels.tuning``) and warms the plan
@@ -53,7 +59,8 @@ from .hardware import HardwareProfile, get_profile, register_profile, save_profi
 from .lcma import LCMA
 
 __all__ = ["ProbeMeasurement", "CalibrationReport", "autotune", "calibrate",
-           "default_probe_shapes", "best_of_timer", "measure_collective_bw"]
+           "default_probe_shapes", "best_of_timer", "device_timer", "timer_clock",
+           "measure_collective_bw"]
 
 log = logging.getLogger(__name__)
 
@@ -98,7 +105,41 @@ def best_of_timer(reps: int = 3, warmup: int = 1, device="cuda") -> Callable:
             ts.append(time.perf_counter() - t0)
         return min(ts)
 
+    timer.clock = "host"
     return timer
+
+
+def device_timer(reps: int = 5, iters: int = 20, warmup: int = 1, device="cuda") -> Callable:
+    """Device timer: CUDA events around ``iters`` back-to-back calls, the
+    median of ``reps`` such readings, in seconds a call (``PERF.md``'s
+    **E** readings). Where the host enqueues a call more slowly than the
+    card runs it, the events time the host's rate instead."""
+    device = torch.device(device)
+
+    def timer(fn, *args) -> float:
+        for _ in range(warmup):
+            fn(*args)
+        torch.cuda.synchronize(device)
+        ts = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn(*args)
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) / 1e3 / iters)
+        return statistics.median(ts)
+
+    timer.clock = "device"
+    return timer
+
+
+def timer_clock(timer: Callable) -> str:
+    """The clock a timer reads: ``"device"``, ``"host"``, or for an injected
+    one its name."""
+    return getattr(timer, "clock", None) or getattr(timer, "__name__", type(timer).__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +198,8 @@ class CalibrationReport:
     collective_bw: float | None = None
     collective_backend: str | None = None
     collective_recorded: bool = False
+    # the clock that timed the probes (``timer_clock``)
+    clock: str | None = None
 
     @property
     def max_rel_err(self) -> float | None:
@@ -175,6 +218,7 @@ class CalibrationReport:
             "collective_bw": self.collective_bw,
             "collective_backend": self.collective_backend,
             "collective_recorded": self.collective_recorded,
+            "clock": self.clock,
         }
 
 
@@ -338,6 +382,9 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
     records it as the profile's ``collective_bw``, unless the mesh is gloo
     ranks sharing a card (staged through host memory): that figure is
     reported and left out of the profile.
+
+    The default ``timer`` is :func:`device_timer` on a card and
+    :func:`best_of_timer` on the CPU; ``report.clock`` names the one used.
     """
     base_prof = get_profile(base) if isinstance(base, str) else base
     _check_backend(backend)
@@ -346,7 +393,9 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
         raise RuntimeError("autotune: no CUDA device (pass device='cpu' to run the "
                            "kernels' plain versions)")
     shapes = list(shapes) if shapes is not None else default_probe_shapes(backend)
-    timer = timer or best_of_timer(reps=reps, warmup=warmup, device=device)
+    if timer is None:
+        timer = (device_timer(reps=reps, warmup=warmup, device=device) if device.type == "cuda"
+                 else best_of_timer(reps=reps, warmup=warmup, device=device))
     l = algorithms.get(scheme)
 
     with torch.inference_mode():
@@ -368,7 +417,8 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
     measured = None
     if collectives:
         from repro_torch.parallel.mesh import world_mesh
-        measured = measure_collective_bw(reps=reps, warmup=warmup, timer=timer)
+        # host-synchronized collectives: timed on the host clock
+        measured = measure_collective_bw(reps=reps, warmup=warmup)
         if measured is not None:
             mesh = world_mesh()
             coll_backend = mesh.backend
@@ -416,20 +466,37 @@ def autotune(base: str | HardwareProfile = "h100_sxm", backend: str = "cuda",
                              eff_grouped_predicted=eff_grouped_pred,
                              flops_int8=flops_int8, beta_quant=beta_quant,
                              collective_bw=measured, collective_backend=coll_backend,
-                             collective_recorded=recorded)
+                             collective_recorded=recorded, clock=timer_clock(timer))
 
 
 def calibrate(path: str | None = None, block_plan_shapes: bool = True,
-              **kw) -> tuple[CalibrationReport, str]:
+              host_clock: bool = False, **kw) -> tuple[CalibrationReport, str]:
     """``autotune`` + persist the profile JSON (the one-call convenience).
 
     The saved metadata embeds the probe measurements and, when requested,
     every candidate's Hopper block plans (``kernels.tuning.block_plans``) at
     a representative 4096^3 problem, the budget clamped to the profile's
     per-block shared memory — so a deploy host can inspect what the tuner saw.
+    ``host_clock=True`` also fits the probes on :func:`best_of_timer` and
+    records that fit beside the profile's (metadata ``host_clock``: its
+    fitted numbers, ``model_rel_err`` and probes), registered as
+    ``<name>_hostclock`` and not written: the profile is the first fit's.
     """
     report = autotune(**kw)
     meta = report.metadata()
+    if host_clock:
+        hkw = {k: v for k, v in kw.items() if k != "timer"}
+        host = autotune(**{**hkw, "name": f"{report.profile.name}_hostclock",
+                           "timer": best_of_timer(reps=kw.get("reps", 3),
+                                                  warmup=kw.get("warmup", 1),
+                                                  device=kw.get("device", "cuda"))})
+        hp = host.profile
+        meta["host_clock"] = {"clock": host.clock, "flops_mul": hp.flops_mul,
+                              "flops_add": hp.flops_add, "beta": hp.beta,
+                              "lcma_gemm_efficiency": hp.lcma_gemm_efficiency,
+                              "model_rel_err": host.model_rel_err,
+                              "flops_int8": host.flops_int8,
+                              "probes": [p.as_dict() for p in host.probes]}
     if block_plan_shapes:
         from repro_torch.kernels import tuning
         M, K, N = 4096, 4096, 4096

@@ -46,11 +46,12 @@ from .falcon_gemm import (FalconConfig, _pad2, plan, plan_batched, plan_training
                           precombine_weights)
 from .lcma import LCMA
 
-__all__ = ["use", "current_config", "active_config", "config_scope",
+__all__ = ["use", "current_config", "active_config", "config_scope", "maybe_use",
+           "warn_deprecated_fcfg", "deprecated_fcfg",
            "matmul", "dense", "dot_general", "einsum", "grouped_matmul",
            "PlannedWeight", "plan_weight", "precombine_params",
            "refresh_planned_params", "warm_buckets", "projection_shapes",
-           "grouped_expert_shapes", "FalconEngine"]
+           "grouped_expert_shapes", "FalconEngine", "KeptProducts", "keep_products"]
 
 
 # ---------------------------------------------------------------------------
@@ -90,11 +91,106 @@ def _resolve(cfg: FalconConfig | None) -> FalconConfig:
 
 
 @contextlib.contextmanager
-def config_scope(default_factory):
-    """Model-entry config resolution: the ambient config, else
-    ``default_factory()`` (e.g. the model's own ``falcon_config_for``)."""
-    with use(active_config() or default_factory()):
-        yield
+def maybe_use(cfg: FalconConfig | None):
+    """``use(cfg)`` when cfg is not None; no-op otherwise (shim helper)."""
+    if cfg is None:
+        yield None
+    else:
+        with use(cfg) as c:
+            yield c
+
+
+def warn_deprecated_fcfg(where: str, stacklevel: int = 3) -> None:
+    warnings.warn(
+        f"{where}: passing a FalconConfig argument is deprecated; wrap "
+        f"the call in `with falcon.use(cfg):` instead",
+        DeprecationWarning, stacklevel=stacklevel)
+
+
+def deprecated_fcfg(fcfg: FalconConfig | None, where: str):
+    """Deprecation shim for the legacy per-call ``fcfg`` parameter: a
+    context manager that installs ``fcfg`` (warning once, at the caller's
+    call site) or does nothing when ``fcfg`` is None, so the port's own
+    paths, which never pass one, stay warning-free under ``-W
+    error::DeprecationWarning``."""
+    if fcfg is not None:
+        warn_deprecated_fcfg(where, stacklevel=4)
+    return maybe_use(fcfg)
+
+
+@contextlib.contextmanager
+def config_scope(fcfg: FalconConfig | None, where: str, default_factory):
+    """Model-entry config resolution: deprecated override, ambient, default.
+
+    The ordering is load-bearing: the deprecated ``fcfg`` (if any) is
+    installed, with a DeprecationWarning naming ``where``, *before*
+    ``active_config()`` is consulted, so an explicit legacy argument still
+    overrides the ambient context; absent both, the config comes from
+    ``default_factory()`` (e.g. the model's own ``falcon_config_for``). The
+    port's own callers pass ``fcfg=None``, which warns nothing."""
+    with deprecated_fcfg(fcfg, where):
+        with use(active_config() or default_factory()):
+            yield
+
+
+# ---------------------------------------------------------------------------
+# Kept products (the "dots" remat policy)
+# ---------------------------------------------------------------------------
+
+class KeptProducts:
+    """The outputs of the 2-D products of one remat block under
+    ``remat_policy="dots"`` (the reference's
+    ``dots_with_no_batch_dims_saveable``; ``models.layers.remat``): the
+    block's first pass records each product's output in call order, and
+    every later pass (the recompute in backward) takes them back in the
+    same order instead of computing them again. Only the products autograd
+    records through this module's 2-D cores are kept (``_PlannedCore``,
+    the PlannedWeight cores, and ``_GemmCore`` for the GEMM route); grouped
+    and batched contractions are recomputed."""
+
+    def __init__(self):
+        self.outputs: list[torch.Tensor] = []
+        self.passes = 0         # 0: the first pass, which records
+        self.at = 0             # the next output a replaying pass takes
+
+    def take(self, compute, shape) -> torch.Tensor:
+        if self.passes == 0:
+            out = compute()
+            self.outputs.append(out.detach())
+            return out
+        if self.at >= len(self.outputs) or tuple(self.outputs[self.at].shape) != tuple(shape):
+            raise RuntimeError(f"remat 'dots': the recompute's product {self.at} of shape "
+                               f"{tuple(shape)} is not the first pass's")
+        out = self.outputs[self.at].detach()
+        self.at += 1
+        return out
+
+
+_KEPT: contextvars.ContextVar[KeptProducts | None] = \
+    contextvars.ContextVar("falcon_kept_products", default=None)
+
+
+@contextlib.contextmanager
+def keep_products(kept: KeptProducts | None):
+    """Record into (first pass) or replay from (later passes) ``kept``
+    inside the block; None keeps nothing (a nested block of another
+    policy)."""
+    if kept is not None:
+        kept.at = 0
+    token = _KEPT.set(kept)
+    try:
+        yield kept
+    finally:
+        _KEPT.reset(token)
+        if kept is not None:
+            kept.passes += 1
+
+
+def _kept(compute, shape) -> torch.Tensor:
+    """``compute()``, a 2-D product of output ``shape``: kept by the
+    ambient :class:`KeptProducts`, or handed back from it, if any."""
+    kept = _KEPT.get()
+    return compute() if kept is None else kept.take(compute, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +497,7 @@ def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
     gradient to the raw weight (or, dropped, to B̃ itself)."""
     *lead, K = x.shape
     if pw.algo is None:
-        return torch.matmul(x, pw.w)
+        return _gemm(x, pw.w)
     hook = backends.get_backend(cfg.backend).dense_hook
     if hook is not None and pw.w is not None:
         # a layer-level placement (shard_map_local's rank-local product)
@@ -427,7 +523,7 @@ def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
         use_pre = d.use_lcma
         use_quant = pw.quantized and d.quantized
     if not use_pre:
-        return torch.matmul(x, pw.w)
+        return _gemm(x, pw.w)
     be = backends.get_backend(cfg.backend)
     train = cfg.planned_vjp and _grad_needed(x2, pw.w, pw.bt)
     if use_quant and be.apply_quant is not None:
@@ -541,7 +637,7 @@ class _PlannedCore(torch.autograd.Function):
         plan_training(a2.shape[0], a2.shape[1], b2.shape[1], cfg, _dtype_name(a2))
         ctx.cfg = cfg
         ctx.save_for_backward(a2, b2)
-        return _dispatch2d(a2, b2, cfg)
+        return _kept(lambda: _dispatch2d(a2, b2, cfg), (a2.shape[0], b2.shape[1]))
 
     @staticmethod
     def backward(ctx, g):
@@ -608,7 +704,8 @@ class _PlannedWeightCore(torch.autograd.Function):
         plan_training(x2.shape[0], x2.shape[1], n_logical, cfg, _dtype_name(x2))
         ctx.cfg = cfg
         ctx.save_for_backward(x2, w, bt)
-        return backends.get_backend(cfg.backend).apply_precombined(x2, bt, l, n_logical, cfg)
+        return _kept(lambda: backends.get_backend(cfg.backend).apply_precombined(
+            x2, bt, l, n_logical, cfg), (x2.shape[0], n_logical))
 
     @staticmethod
     def backward(ctx, g):
@@ -707,7 +804,8 @@ class _PlannedWeightRotatedCore(torch.autograd.Function):
         ctx.save_for_backward(x, bt)
         be = backends.get_backend(cfg.backend)
         if x.ndim == 2:
-            return be.apply_precombined(x, bt, l, n_logical, cfg)
+            return _kept(lambda: be.apply_precombined(x, bt, l, n_logical, cfg),
+                         (x.shape[0], n_logical))
         return be.apply_grouped_precombined(x, bt, l, n_logical, cfg)
 
     @staticmethod
@@ -730,8 +828,8 @@ class _PlannedWeightQuantCore(torch.autograd.Function):
         plan_training(x2.shape[0], x2.shape[1], n_logical, cfg, _dtype_name(x2))
         ctx.cfg = cfg
         ctx.save_for_backward(x2, w, b_scales)
-        return backends.get_backend(cfg.backend).apply_quant(x2, bq, b_scales, l,
-                                                             n_logical, cfg)
+        return _kept(lambda: backends.get_backend(cfg.backend).apply_quant(
+            x2, bq, b_scales, l, n_logical, cfg), (x2.shape[0], n_logical))
 
     @staticmethod
     def backward(ctx, g):
@@ -740,6 +838,34 @@ class _PlannedWeightQuantCore(torch.autograd.Function):
         dx = _dispatch2d(g, w.T, ctx.cfg).to(x2.dtype) if need_x else None
         dw = _dispatch2d(x2.T, g, ctx.cfg).to(w.dtype) if need_w else None
         return dx, dw, None, _zeros_like_if(need_s, b_scales), None, None, None
+
+
+class _GemmCore(torch.autograd.Function):
+    """``torch.matmul`` of a2 (M, K) @ b2 (K, N) with matmul's own backward
+    (dA = g b2ᵀ, dB = a2ᵀ g): the GEMM route of a 2-D product that
+    autograd records inside a ``"dots"`` remat block, so that its output
+    is kept (:class:`KeptProducts`)."""
+
+    @staticmethod
+    def forward(ctx, a2, b2):
+        ctx.save_for_backward(a2, b2)
+        return _kept(lambda: torch.matmul(a2, b2), (a2.shape[0], b2.shape[1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, b2 = ctx.saved_tensors
+        need_a, need_b = ctx.needs_input_grad
+        return (torch.matmul(g, b2.T) if need_a else None,
+                torch.matmul(a2.T, g) if need_b else None)
+
+
+def _gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(x, w)`` of x (..., K) and a 2-D w; inside a ``"dots"``
+    remat block, where autograd records it, through :class:`_GemmCore`."""
+    if _KEPT.get() is None or w.ndim != 2 or not _grad_needed(x, w):
+        return torch.matmul(x, w)
+    *lead, K = x.shape
+    return _GemmCore.apply(x.reshape(-1, K), w).reshape(*lead, w.shape[1])
 
 
 def _contract2d(a2: torch.Tensor, b2: torch.Tensor, cfg: FalconConfig) -> torch.Tensor:
@@ -753,7 +879,7 @@ def _contract2d(a2: torch.Tensor, b2: torch.Tensor, cfg: FalconConfig) -> torch.
     if cfg.planned_vjp and _grad_needed(a2, b2):
         if plan(a2.shape[0], a2.shape[1], b2.shape[1], cfg, _dtype_name(a2)).use_lcma:
             return _PlannedCore.apply(a2, b2, cfg)
-        return torch.matmul(a2, b2)
+        return _gemm(a2, b2)
     return _dispatch2d(a2, b2, cfg)
 
 

@@ -470,17 +470,21 @@ def _localize(c: Contraction, cfg, mesh_shape) -> Contraction:
     ``w_k``, ``w_v``, ``mlp_gate``, ``mlp_up``, the vocab-sharded LM head)
     contracts N / model, a row-parallel one (``w_o``, ``mlp_down``) K /
     model, the attention einsums run over the local heads' groups. An
-    attention block shards only where both head counts divide the model
-    axis, the MLP only where d_ff does; the SSD mixer stays whole, and the
-    expert group and capacity are already the shard's. The reference
-    instead prices every leaf at full K and N / model
-    (``falcon_config_for``'s ``shards``): its GSPMD traces global shapes."""
+    attention block splits by whole heads (``sharding.attention_split``):
+    ``w_q``, ``w_o`` and the einsums where the q heads divide the model
+    axis, ``w_k``/``w_v`` only where the KV heads do too (else whole); the
+    MLP only where d_ff does; the SSD mixer stays whole, and the expert
+    group and capacity are already the shard's. The reference instead
+    prices every leaf at full K and N / model (``falcon_config_for``'s
+    ``shards``): its GSPMD traces global shapes."""
+    from repro_torch.parallel.sharding import attention_split
     _, nm = _mesh_factors(mesh_shape)
     if nm <= 1:
         return c
-    attn = cfg.num_heads % nm == 0 and cfg.num_kv_heads % nm == 0
+    q_ways, kv_ways = attention_split(cfg.num_heads, cfg.num_kv_heads, nm)
+    attn, kv = q_ways > 1, kv_ways > 1
     mlp = cfg.d_ff % nm == 0
-    col = {"attn.w_q": attn, "attn.w_k": attn, "attn.w_v": attn, "mlp.gate": mlp,
+    col = {"attn.w_q": attn, "attn.w_k": kv, "attn.w_v": kv, "mlp.gate": mlp,
            "mlp.up": mlp, "lm_head": (-(-cfg.vocab_size // 256) * 256) % nm == 0}
     row = {"attn.w_o": attn, "mlp.down": mlp}
     if col.get(c.role):

@@ -97,8 +97,14 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: str | None,
              parallel_block: int | None = None, opt_dtype: str | None = None,
              remat_policy: str | None = None, capacity_factor: float | None = None,
              microbatches: int = 1, batch_scale: int = 1,
-             falcon_backend: str | None = None, tag: str = "", notes: str = "") -> dict:
+             falcon_backend: str | None = None, tag: str = "", notes: str = "",
+             layers: int | None = None) -> dict:
+    """One cell's record (module docstring). ``layers`` cuts the depth (the
+    analytic terms are then those of the same depth); every other override
+    replaces the config's field of that name."""
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     if falcon_mode is not None:
         cfg = dataclasses.replace(cfg, falcon_mode=falcon_mode, use_falcon=falcon_mode != "off")
     for name, v in (("fsdp", fsdp), ("remat", remat), ("parallel_block", parallel_block)):
@@ -113,7 +119,8 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: str | None,
         cell = dataclasses.replace(cell, global_batch=cell.global_batch * batch_scale)
     opt_dtype = opt_dtype or "float32"
     rec: dict = {"arch": arch, "shape": shape, "mesh": mesh_name, "tag": tag,
-                 "opt_dtype": opt_dtype,
+                 "opt_dtype": opt_dtype, "num_layers": cfg.num_layers,
+                 "remat_policy": cfg.remat_policy,
                  "falcon_mode": cfg.falcon_mode if cfg.use_falcon else "off"}
     ok, why = SP.cell_applicable(cfg, cell)
     if not ok:
@@ -203,6 +210,7 @@ def main(argv=None) -> int:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--batch-scale", type=int, default=1)
     ap.add_argument("--falcon-backend", default=None)
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
     ap.add_argument("--tag", default="", help="suffix for the output record")
     ap.add_argument("--notes", default="")
     args = ap.parse_args(argv)
@@ -223,7 +231,7 @@ def main(argv=None) -> int:
                                microbatches=args.microbatches,
                                batch_scale=args.batch_scale,
                                falcon_backend=args.falcon_backend,
-                               tag=args.tag, notes=args.notes)
+                               tag=args.tag, notes=args.notes, layers=args.layers)
                 print(json.dumps({k: rec.get(k) for k in
                                   ("arch", "shape", "mesh", "status", "n_params",
                                    "argument_bytes", "traced_flops", "collective_bytes",

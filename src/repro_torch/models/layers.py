@@ -9,6 +9,7 @@ so the two agree in float32 up to summation order.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 
 import torch
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import engine
+from repro_torch.core.falcon_gemm import FalconConfig
 from repro_torch.parallel.sharding import ambient_state, use_ambient_state
 
 # ---------------------------------------------------------------------------
@@ -53,18 +55,34 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...], dtype,
                        rows=shape[0] if len(shape) == 2 else 1)
 
 
-def remat(fn, *args):
-    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
-    nothing inside is stored for backward, which recomputes it. The
-    recomputation runs under the FalconGEMM config, the mesh, the parallel
-    style and the placement ambient now (``sharding.ambient_state``), since
-    backward runs outside the caller's scopes, on the card on another
-    thread."""
+REMAT_POLICIES = ("full", "dots")
+
+
+def remat(fn, *args, policy: str = "full"):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant),
+    recomputed in backward. The recomputation runs under the FalconGEMM
+    config, the mesh, the parallel style and the placement ambient now
+    (``sharding.ambient_state``), since backward runs outside the caller's
+    scopes, on the card on another thread.
+
+    ``policy="full"`` stores nothing inside and recomputes all of it.
+    ``policy="dots"`` is the reference's
+    ``dots_with_no_batch_dims_saveable``: the outputs of the products with
+    no batch dims (every 2-D planned core and dense product,
+    ``engine.KeptProducts``) are kept from the first pass and handed back,
+    in call order, to the recompute, which reruns everything else
+    (elementwise ops, norms, and the grouped or batched contractions:
+    attention scores, MoE expert stacks, SSD contractions). A
+    selective-checkpoint policy of ``torch.utils.checkpoint`` cannot do
+    this: it sees aten ops, and the planned cores' kernels are not."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r}: the port runs {REMAT_POLICIES}")
     cfg = engine.current_config()
     state = ambient_state()
+    kept = engine.KeptProducts() if policy == "dots" else None
 
     def run(*a):
-        with engine.use(cfg), use_ambient_state(state):
+        with engine.use(cfg), use_ambient_state(state), engine.keep_products(kept):
             return fn(*a)
 
     return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
@@ -78,6 +96,25 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     to 4x the reference's own bf16 rounding error at 4 layers
     (``tests/test_torch_ssm.py::test_bf16_rounding_matches_reference``)."""
     return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+_GELU_C = math.sqrt(2 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU rounded where the reference's ``jax.nn.gelu`` rounds:
+    ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x**3))))`` with each
+    primitive rounded to ``x``'s dtype and both constants taken in it
+    (``c = sqrt(2/pi)``; the cube as ``x * x * x``). In float32 it is
+    ``F.gelu(approximate="tanh")``, unchanged. ``F.gelu`` rounds once,
+    which moves ~1,500 of the bf16 values in [-10, 10] by up to ~1%
+    (``tests/test_torch_frontends.py::test_bf16_gelu_rounds_as_jax``)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    # the constants rounded to x's dtype, as host floats: a device tensor
+    # made here would be a host-to-device copy inside a CUDA graph capture
+    c, k = (torch.tensor(v, dtype=x.dtype).item() for v in (_GELU_C, 0.044715))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -117,17 +154,30 @@ def _mask(qpos, kpos, window: int):
     return m
 
 
+def _kv_for_q(t, kv_index):
+    """K or V (B, S, Hkv, hd) for each q head: (B, S, len(kv_index), hd),
+    head j being ``t``'s head ``kv_index[j]`` (consecutive q heads read
+    non-decreasing KV heads, so this is a few expanded slices)."""
+    runs = [(h, len(list(g))) for h, g in itertools.groupby(kv_index)]
+    parts = [t[:, :, h:h + 1].expand(-1, -1, n, -1) for h, n in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+
+
 def attention_scores(q, k, v, qpos, kpos, window: int, kv_valid=None,
-                     ragged: bool = False):
+                     ragged: bool = False, kv_index=None):
     """Direct attention. q: (B,Sq,H,hd) k,v: (B,Sk,Hkv,hd) -> (B,Sq,H,hd).
 
-    GQA repeats K/V up to H heads. ``ragged=True`` builds the mask per batch
-    row (positions differ across the batch); the uniform path keeps one
-    (Sq, Sk) mask. The two contractions go through the planned einsum.
+    GQA repeats K/V up to H heads; ``kv_index`` (one entry per q head)
+    names the KV head each q head reads instead, where the q heads are a
+    rank's shard and K/V are whole. ``ragged=True`` builds the mask per
+    batch row (positions differ across the batch); the uniform path keeps
+    one (Sq, Sk) mask. The two contractions go through the planned einsum.
     """
     hd = q.shape[-1]
     rep = q.shape[2] // k.shape[2]
-    if rep > 1:
+    if kv_index is not None:
+        k, v = _kv_for_q(k, kv_index), _kv_for_q(v, kv_index)
+    elif rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
     logits = engine.einsum("bqhd,bkhd->bhqk", q, k).float()
@@ -148,7 +198,7 @@ def attention_scores(q, k, v, qpos, kpos, window: int, kv_valid=None,
 
 
 def flash_attention(q, k, v, qpos, kpos, window: int, kv_valid=None,
-                    q_chunk: int = 512, ragged: bool = False):
+                    q_chunk: int = 512, ragged: bool = False, kv_index=None):
     """Memory-bounded attention: a loop over query chunks keeps the score
     tensor at (B, H, q_chunk, Sk). Under autograd each chunk is recomputed
     in backward (``torch.utils.checkpoint``), so no chunk's scores are
@@ -156,14 +206,14 @@ def flash_attention(q, k, v, qpos, kpos, window: int, kv_valid=None,
     Sq = q.shape[1]
     if Sq <= q_chunk:
         return attention_scores(q, k, v, qpos, kpos, window, kv_valid=kv_valid,
-                                ragged=ragged)
+                                ragged=ragged, kv_index=kv_index)
     if Sq % q_chunk:
         raise ValueError(f"flash_attention: {Sq} queries are not a multiple "
                          f"of the chunk {q_chunk}")
 
     def chunk_attn(qi, pi, kk, vv):
         return attention_scores(qi, kk, vv, pi, kpos, window, kv_valid=kv_valid,
-                                ragged=ragged)
+                                ragged=ragged, kv_index=kv_index)
 
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     outs = []
@@ -179,10 +229,14 @@ class AttnDims:
     num_heads: int
     num_kv_heads: int
     head_dim: int
+    # the KV head each of the ``num_heads`` q heads reads, where the q heads
+    # are a rank's shard and K/V are held whole; None: the GQA repeat
+    kv_index: tuple[int, ...] | None = None
 
 
 def attn_apply(p: dict, x: torch.Tensor, dims: AttnDims, positions, theta: float,
-               window: int, cache: dict | None = None, cache_index=None):
+               window: int, fcfg: FalconConfig | None = None, cache: dict | None = None,
+               cache_index=None):
     """Attention with optional KV cache.
 
     prefill/train: cache=None -> self-attention over x.
@@ -193,7 +247,15 @@ def attn_apply(p: dict, x: torch.Tensor, dims: AttnDims, positions, theta: float
     ``cache_index`` is an int (all rows at the same offset — the one-shot
     serve path) or a (B,) tensor of per-row offsets (K/V writes, validity
     and the causal mask are then applied per row).
+
+    Dispatch policy comes from the context config; ``fcfg`` is a deprecated
+    per-call override.
     """
+    with engine.deprecated_fcfg(fcfg, "attn_apply"):
+        return _attn_apply(p, x, dims, positions, theta, window, cache, cache_index)
+
+
+def _attn_apply(p, x, dims: AttnDims, positions, theta, window, cache, cache_index):
     B, S, _ = x.shape
     H, Hkv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
     q = engine.dense(x, p["w_q"]).reshape(B, S, H, hd)
@@ -202,7 +264,7 @@ def attn_apply(p: dict, x: torch.Tensor, dims: AttnDims, positions, theta: float
     q = rope(q, positions, theta)
     k = rope(k, positions, theta)
     if cache is None:
-        out = flash_attention(q, k, v, positions, positions, window)
+        out = flash_attention(q, k, v, positions, positions, window, kv_index=dims.kv_index)
     else:
         ck, cv = cache["k"], cache["v"]
         S_max = ck.shape[1]
@@ -220,19 +282,22 @@ def attn_apply(p: dict, x: torch.Tensor, dims: AttnDims, positions, theta: float
             cv[:, i:i + S] = v.to(cv.dtype)
             kv_valid = kpos < i + S
         out = flash_attention(q, ck, cv, positions, kpos, window,
-                              kv_valid=kv_valid, ragged=ragged)
+                              kv_valid=kv_valid, ragged=ragged, kv_index=dims.kv_index)
     out = engine.dense(out.reshape(B, S, H * hd), p["w_o"])
     return out, cache
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU or tanh GELU)
 # ---------------------------------------------------------------------------
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    u = engine.dense(x, p["mlp_up"])
-    if "mlp_gate" in p:
-        h = silu(engine.dense(x, p["mlp_gate"])) * u
-    else:
-        h = F.gelu(u, approximate="tanh")
-    return engine.dense(h, p["mlp_down"])
+def mlp_apply(p: dict, x: torch.Tensor, fcfg: FalconConfig | None = None) -> torch.Tensor:
+    """SwiGLU (``mlp_gate`` present) or the tanh GELU MLP; ``fcfg`` is a
+    deprecated per-call override of the context config."""
+    with engine.deprecated_fcfg(fcfg, "mlp_apply"):
+        u = engine.dense(x, p["mlp_up"])
+        if "mlp_gate" in p:
+            h = silu(engine.dense(x, p["mlp_gate"])) * u
+        else:
+            h = gelu(u)
+        return engine.dense(h, p["mlp_down"])

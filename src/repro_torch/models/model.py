@@ -21,13 +21,14 @@ families, the recurrent ``state``; every entry is written in place.
 On a mesh (``parallel.mesh.use_mesh``; params sharded by
 ``parallel.sharding.shard_params``) every rank runs this code on its
 shard: the vocab-sharded embedding looks up the ids in its range and sums
-over the model axis, an attention block over the local heads (where they
-divide the axis) and the MLP over the local d_ff each end in one
+over the model axis, an attention block over the local q heads (where they
+divide the axis; with whole K/V where the KV heads do not, each q head
+reading its own KV head) and the MLP over the local d_ff each end in one
 all-reduce after the row-parallel ``w_o`` / ``mlp_down``, the LM head's
 vocab shards are all-gathered, the MoE layer runs expert-parallel
-(``models.moe``), and the cache holds the local KV heads. What a layer
-holds whole needs no collective. Which it is, is read from the shapes of
-the leaves against the config.
+(``models.moe``), and the cache holds the KV heads the rank holds. What a
+layer holds whole needs no collective. Which it is, is read from the shapes
+of the leaves against the config.
 
 In training the collectives are differentiable: a column-parallel block's
 input passes Megatron's *f* (identity forward, all-reduce backward), the
@@ -37,13 +38,17 @@ gives each rank its vocab slice of the gradient. Leaves placed over
 the ambient placement (``parallel.sharding.use_placement``) are gathered
 at use, a layer's inside its remat function, so a recompute gathers again
 and no whole weight outlives its layer; each gather's backward
-reduce-scatters the gradient back to the shard.
+reduce-scatters the gradient back to the shard. Whole ``w_k``/``w_v``
+beside a rank's q heads pass *f* too: each rank's gradient of them covers
+only the KV heads its q heads read, and *f* sums it over the model axis.
 
 Training: :func:`lm_loss` is the chunked cross-entropy over the LM head
 plus 0.01 times the MoE layers' load-balancing loss. Under autograd each
-layer is recomputed in backward (``cfg.remat``, ``torch.utils.checkpoint``)
-and the stacked leaves are unbound once per forward, so autograd stacks
-their gradients once.
+layer is recomputed in backward (``cfg.remat``, ``torch.utils.checkpoint``;
+``cfg.remat_policy="dots"`` keeps its 2-D products' outputs,
+``layers.remat``) and the stacked leaves are unbound once per forward, so
+autograd stacks their gradients once. A layer with ``d_ff == 0`` has no MLP
+and adds zeros, as the reference's does.
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ from repro_torch.core.falcon_gemm import FalconConfig
 from repro_torch.core.workloads import layer_capacity
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel.mesh import current_mesh
-from repro_torch.parallel.sharding import (attention_sharded, current_placement, gather_param,
+from repro_torch.parallel.sharding import (attention_split, current_placement, gather_param,
                                            gather_tree, unstack_placement)
 from repro_torch.tree import tree_leaves, tree_map
 from . import layers as L
@@ -125,6 +130,8 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> dict:
         if cfg.family == "moe":
             layers["moe"] = MOE.moe_init(gen, d, cfg.d_ff, cfg.num_experts, dt, device,
                                          lead=(Lc,))
+        elif cfg.d_ff == 0:
+            pass                            # no MLP: the layer adds zeros
         elif cfg.mlp_type == "gelu":
             layers["mlp"] = {"mlp_up": dense(Lc, d, cfg.d_ff),
                              "mlp_down": dense(Lc, cfg.d_ff, d)}
@@ -170,12 +177,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
                dtype=None) -> dict:
     """Zeroed cache: attention K/V (L, B, max_len, Hkv, hd) for every family
     with attention, the recurrent SSD ``state`` (L, B, H, N, P) for the SSM
-    and hybrid ones. Under a mesh whose model axis shards attention, Hkv is
-    the rank's local KV heads."""
+    and hybrid ones. Under a mesh whose model axis splits the KV heads, Hkv
+    is the rank's local KV heads (where it splits only the q heads, all of
+    them: a rank's q heads read them from its whole K/V)."""
     dt = getattr(torch, dtype or cfg.dtype)
     cache = {}
     if cfg.family != "ssm":
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads // _attn_shards(cfg),
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads // _attn_split(cfg)[1],
                  cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=dt, device=device)
         cache["v"] = torch.zeros(shape, dtype=dt, device=device)
@@ -199,11 +207,29 @@ def _ssd(lp, h, cfg: ModelConfig, cache_layer, length_mask):
     return y
 
 
-def _attn_shards(cfg: ModelConfig) -> int:
-    """How many ways the ambient mesh splits this config's attention heads."""
+def _attn_split(cfg: ModelConfig) -> tuple[int, int]:
+    """How many ways the ambient mesh splits this config's q heads and its
+    KV heads (``sharding.attention_split``)."""
     mesh = current_mesh()
     m = 1 if mesh is None else mesh.size("model")
-    return m if attention_sharded(cfg.num_heads, cfg.num_kv_heads, m) else 1
+    return attention_split(cfg.num_heads, cfg.num_kv_heads, m)
+
+
+def _local_attention(p: dict, cfg: ModelConfig, mesh):
+    """(params, AttnDims) of this rank's attention. Its q heads are all of
+    them or a shard (read from ``w_q``'s width); where they are a shard and
+    K/V whole, q head j of rank r (global head r * H_l + j) reads KV head
+    (r * H_l + j) * Hkv // H, the reference's GQA grouping, and ``w_k``/
+    ``w_v`` pass *f*: this rank's gradient of them is its q heads' part."""
+    hd = cfg.resolved_head_dim
+    heads, kv_heads = _width(p["w_q"]) // hd, _width(p["w_k"]) // hd
+    kv_index = None
+    if heads != cfg.num_heads and kv_heads == cfg.num_kv_heads:
+        first = mesh.local_rank("model") * heads
+        kv_index = tuple((first + j) * kv_heads // cfg.num_heads for j in range(heads))
+        p = {**p, **{n: C.copy_to_axis(p[n], mesh) for n in ("w_k", "w_v")
+                     if isinstance(p[n], torch.Tensor)}}
+    return p, L.AttnDims(cfg.d_model, heads, kv_heads, hd, kv_index)
 
 
 def _width(w) -> int:
@@ -269,11 +295,9 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         return x + _ssd(lp, h, cfg, cache_layer, length_mask), None
-    hd = cfg.resolved_head_dim
-    heads = _width(lp["attn"]["w_q"]) // hd      # the rank's heads: all, or a shard
-    dims = L.AttnDims(cfg.d_model, heads, _width(lp["attn"]["w_k"]) // hd, hd)
-    tp_attn = heads != cfg.num_heads
-    y, _ = L.attn_apply(lp["attn"], C.copy_to_axis(h, current_mesh()) if tp_attn else h,
+    attn, dims = _local_attention(lp["attn"], cfg, current_mesh())
+    tp_attn = dims.num_heads != cfg.num_heads    # the rank's q heads: a shard
+    y, _ = L.attn_apply(attn, C.copy_to_axis(h, current_mesh()) if tp_attn else h,
                         dims, positions, cfg.rope_theta, window,
                         cache=cache_layer, cache_index=cache_index)
     if tp_attn:                                  # row-parallel w_o: partial sums
@@ -293,6 +317,8 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
         y2, aux = MOE.moe_apply(lp["moe"], h2, cfg.experts_per_token, cfg.capacity_factor,
                                 deterministic_capacity=cap, num_experts=cfg.num_experts)
         return x + y2, aux
+    if "mlp" not in lp:                           # d_ff == 0: no MLP, zeros added
+        return x + torch.zeros_like(x), None
     if _rows(lp["mlp"]["mlp_down"]) != cfg.d_ff:  # row-parallel mlp_down: partial sums
         y2 = L.mlp_apply(lp["mlp"], C.copy_to_axis(h2, current_mesh()))
         y2 = C.all_reduce(y2, current_mesh())
@@ -302,7 +328,8 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
 
 
 def forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
-            cache_index=None, logits_mode: str = "none", length_mask=None):
+            cache_index=None, fcfg: FalconConfig | None = None, logits_mode: str = "none",
+            length_mask=None):
     """Run the decoder stack on ``tokens`` (B, S), or (B, S, CB) for audio.
 
     logits_mode: "none" (return hidden), "last" (logits of the final
@@ -313,11 +340,12 @@ def forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
     only: the image prefix, at positions 0..P-1 (the text follows, so a
     decode step after it runs at ``cache_index = P + S``). Returns (out,
     cache). FalconGEMM policy is the ambient config, else this model's
-    ``falcon_config_for``.
+    ``falcon_config_for``; ``fcfg`` is a deprecated per-call override.
     """
-    out, cache, _ = _forward(params, cfg, tokens, patch_embeds=patch_embeds, cache=cache,
-                             cache_index=cache_index, logits_mode=logits_mode,
-                             length_mask=length_mask)
+    with engine.config_scope(fcfg, "forward", lambda: falcon_config_for(cfg)):
+        out, cache, _ = _forward(params, cfg, tokens, patch_embeds=patch_embeds, cache=cache,
+                                 cache_index=cache_index, logits_mode=logits_mode,
+                                 length_mask=length_mask)
     return out, cache
 
 
@@ -328,9 +356,10 @@ def _forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
 
     Under autograd the stacked leaves are unbound once, and without a cache
     each layer runs under ``torch.utils.checkpoint`` when ``cfg.remat`` is
-    set (recomputed in backward, as the reference's ``jax.checkpoint``)."""
+    set (recomputed in backward, as the reference's ``jax.checkpoint``,
+    under ``cfg.remat_policy``: ``layers.remat``)."""
     _check_family(cfg)
-    with engine.config_scope(lambda: falcon_config_for(cfg)):
+    with engine.config_scope(None, "forward", lambda: falcon_config_for(cfg)):
         x = _embed_tokens(params, cfg, tokens, patch_embeds)   # (B, S, d)
         B, S = x.shape[:2]
         steps = torch.arange(S, device=x.device)
@@ -350,10 +379,6 @@ def _forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
         per_layer = (_unbind_layers(params["layers"], len(windows)) if grad else
                      [layer_params(params["layers"], i) for i in range(len(windows))])
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
-        if remat and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r}: a selective checkpoint policy sees "
-                f"aten ops, not the planned cores' kernel outputs; the port runs 'full'")
         aux = None
         for i, window in enumerate(windows):
             cl = None if cache is None else {name: c[i] for name, c in cache.items()}
@@ -363,7 +388,7 @@ def _forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
             def run(x_, lp=per_layer[i], kw=layer):
                 return _layer(x_, gather_tree(lp, lpl, mesh), **kw)
 
-            x, a = L.remat(run, x) if remat else run(x)
+            x, a = L.remat(run, x, policy=cfg.remat_policy) if remat else run(x)
             if a is not None:
                 aux = a if aux is None else aux + a
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -374,14 +399,15 @@ def _forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
         return compute_logits(params, cfg, x), cache, aux
 
 
-def compute_logits(params, cfg: ModelConfig, x):
+def compute_logits(params, cfg: ModelConfig, x, fcfg: FalconConfig | None = None):
     """LM head (tied to the embedding unless ``lm_head`` exists), with the
     padded-vocab columns masked to -1e30. Audio runs one head per codebook,
     each its own dense call as in the reference, stacked to (B, S, CB, Vp).
     A vocab-sharded head's input passes *f* and its logits are
     all-gathered over the model axis (backward: this rank's slice, since
-    every rank of the axis computes the same loss from them)."""
-    with engine.config_scope(lambda: falcon_config_for(cfg)):
+    every rank of the axis computes the same loss from them). ``fcfg`` is a
+    deprecated per-call override."""
+    with engine.config_scope(fcfg, "compute_logits", lambda: falcon_config_for(cfg)):
         Vp = padded_vocab(cfg)
         if cfg.frontend == "audio_codebooks":
             head = _gathered(params, "lm_head")
@@ -416,14 +442,16 @@ def _chunk_loss(params, cfg: ModelConfig, h, lab):
     return torch.sum(logz - gold)
 
 
-def chunked_xent(params, cfg: ModelConfig, hidden, labels, chunk: int = 512):
+def chunked_xent(params, cfg: ModelConfig, hidden, labels,
+                 fcfg: FalconConfig | None = None, chunk: int = 512):
     """hidden (B, S, d), labels (B, S[, CB]) -> mean cross-entropy (f32).
 
     The sequence runs in chunks of at most ``chunk`` positions (the largest
     divisor of S not above it); under autograd each chunk's logits are
     recomputed in backward (``torch.utils.checkpoint``), so no (B, chunk,
-    V) logits are stored for it."""
-    with engine.config_scope(lambda: falcon_config_for(cfg)):
+    V) logits are stored for it. ``fcfg`` is a deprecated per-call
+    override."""
+    with engine.config_scope(fcfg, "chunked_xent", lambda: falcon_config_for(cfg)):
         S = hidden.shape[1]
         chunk = min(chunk, S)
         while S % chunk:
@@ -439,13 +467,14 @@ def chunked_xent(params, cfg: ModelConfig, hidden, labels, chunk: int = 512):
         return total / labels.numel()
 
 
-def lm_loss(params, cfg: ModelConfig, batch: dict):
+def lm_loss(params, cfg: ModelConfig, batch: dict, fcfg: FalconConfig | None = None):
     """batch: {'tokens', 'labels'[, 'patch_embeds']} -> (loss, metrics).
 
     The loss is the chunked cross-entropy plus 0.01 times the MoE layers'
     summed load-balancing loss; a vlm's covers its text positions only.
-    ``metrics`` holds ``xent`` and ``aux`` (f32 scalars)."""
-    with engine.config_scope(lambda: falcon_config_for(cfg)):
+    ``metrics`` holds ``xent`` and ``aux`` (f32 scalars). ``fcfg`` is a
+    deprecated per-call override."""
+    with engine.config_scope(fcfg, "lm_loss", lambda: falcon_config_for(cfg)):
         hidden, _, aux = _forward(params, cfg, batch["tokens"],
                                   patch_embeds=batch.get("patch_embeds"), logits_mode="none")
         labels = batch["labels"]

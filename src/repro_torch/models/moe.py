@@ -43,6 +43,7 @@ import contextvars
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core.falcon_gemm import FalconConfig
 from repro_torch.core.workloads import moe_capacity
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel.mesh import current_mesh
@@ -245,7 +246,8 @@ class _ShareGrad(torch.autograd.Function):
 
 
 def moe_apply(p: dict, x: torch.Tensor, top_k: int, capacity_factor: float,
-              deterministic_capacity: int | None = None, num_experts: int | None = None):
+              fcfg: FalconConfig | None = None, deterministic_capacity: int | None = None,
+              num_experts: int | None = None):
     """x: (B, S, d) -> (y, aux_loss). Token-drop capacity MoE (Switch-style).
 
     ``p``: ``router`` (d, E) and the stacks ``moe_gate``/``moe_up`` (E, d,
@@ -258,8 +260,13 @@ def moe_apply(p: dict, x: torch.Tensor, top_k: int, capacity_factor: float,
     Under the ambient mesh the layer runs expert-parallel where the axis
     divides E (:func:`_moe_ep`), as the reference's ``_moe_shardmap``;
     otherwise the dense path. Dispatch policy comes from the context
-    config.
+    config; ``fcfg`` is a deprecated per-call override.
     """
+    with engine.deprecated_fcfg(fcfg, "moe_apply"):
+        return _moe_apply(p, x, top_k, capacity_factor, deterministic_capacity, num_experts)
+
+
+def _moe_apply(p, x, top_k, capacity_factor, deterministic_capacity, num_experts):
     B, S, _ = x.shape
     E = num_experts or p["router"].shape[-1]
     C_ = deterministic_capacity or moe_capacity(B * S, top_k, E, capacity_factor)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import engine
+from repro_torch.core.falcon_gemm import FalconConfig
 from .layers import dense_init, silu
 
 __all__ = ["ssd_init", "ssd_apply", "ssd_decode_step", "ssd_scan", "carry_states",
@@ -157,14 +158,21 @@ def ssd_init(gen: torch.Generator, d_model: int, ssm_state: int, n_heads: int,
     }
 
 
-def ssd_apply(p: dict, x: torch.Tensor, cfg, state=None, decode: bool = False,
-              length_mask=None):
+def ssd_apply(p: dict, x: torch.Tensor, cfg, fcfg: FalconConfig | None = None,
+              state=None, decode: bool = False, length_mask=None):
     """x: (B, L, d_model) -> (y, new_state).
 
     ``length_mask`` (B, L) zeroes dt on padded positions (dt=0 => decay 1,
     no state contribution: the scan's own tail-padding rule), so a
-    right-padded serve prefill ends in the exact unpadded state.
+    right-padded serve prefill ends in the exact unpadded state. Dispatch
+    policy comes from the context config; ``fcfg`` is a deprecated
+    per-call override.
     """
+    with engine.deprecated_fcfg(fcfg, "ssd_apply"):
+        return _ssd_apply(p, x, cfg, state, decode, length_mask)
+
+
+def _ssd_apply(p, x, cfg, state, decode, length_mask):
     B, L, _ = x.shape
     H, Pd, G, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
     proj = engine.dense(x, p["ssm_in"])

@@ -40,7 +40,8 @@ Each mesh counts its collectives (:class:`CollectiveStats`): calls by
 operation (a backward's under ``<op>/bwd``), payload and staged bytes,
 and milliseconds on the host clock (the staged copies included; a gloo
 collective returns when it is done, an nccl one when it is queued), in
-all and by operation.
+all and by operation and group size (from which ``roofline.analysis``
+derives each operation's result bytes).
 """
 from __future__ import annotations
 
@@ -63,27 +64,31 @@ class CollectiveStats:
     payload_bytes: int = 0      # each rank's input bytes
     staged_bytes: int = 0       # bytes copied between the card and pinned host buffers
     ms: float = 0.0             # host clock inside the collectives, staging included
-    # per operation (``calls``' keys): [payload bytes, staged bytes, ms,
-    # result bytes (the roofline's traffic measure)]
+    # per (operation (``calls``' keys), ranks of its group): [calls,
+    # payload bytes, staged bytes, ms]
     by_op: dict = dataclasses.field(default_factory=dict)
 
-    def add(self, op: str, payload: int, staged: int, ms: float, result: int = 0) -> None:
+    def add(self, op: str, payload: int, staged: int, ms: float, ranks: int = 1) -> None:
         self.calls[op] += 1
         self.payload_bytes += payload
         self.staged_bytes += staged
         self.ms += ms
-        row = self.by_op.setdefault(op, [0, 0, 0.0, 0])
-        row[0] += payload
-        row[1] += staged
-        row[2] += ms
-        row[3] += result
+        row = self.by_op.setdefault((op, ranks), [0, 0, 0, 0.0])
+        row[0] += 1
+        row[1] += payload
+        row[2] += staged
+        row[3] += ms
 
     def as_dict(self) -> dict:
+        ops: dict = {}
+        for (op, _), (_, p, s, t) in self.by_op.items():
+            row = ops.setdefault(op, {"calls": self.calls[op], "payload_bytes": 0,
+                                      "staged_bytes": 0, "ms": 0.0})
+            row["payload_bytes"] += p
+            row["staged_bytes"] += s
+            row["ms"] += t
         return {"collective_calls": dict(self.calls), "payload_bytes": self.payload_bytes,
-                "staged_bytes": self.staged_bytes, "collective_ms": self.ms,
-                "by_op": {op: {"calls": self.calls[op], "payload_bytes": p,
-                               "staged_bytes": s, "ms": t, "result_bytes": r}
-                          for op, (p, s, t, r) in self.by_op.items()}}
+                "staged_bytes": self.staged_bytes, "collective_ms": self.ms, "by_op": ops}
 
     def reset(self) -> None:
         self.calls.clear()
@@ -108,7 +113,7 @@ def _raw_all_reduce(x: torch.Tensor, mesh, axis, op: str, name: str) -> torch.Te
     else:
         out = x.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=red, group=mesh.group(axis))
-    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3, nbytes)
+    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3, mesh.size(axis))
     return out
 
 
@@ -131,7 +136,7 @@ def _raw_all_gather(x: torch.Tensor, mesh, axis, dim: int, name: str) -> torch.T
         dist.all_gather(list(parts.unbind(0)), x.detach().contiguous(),
                         group=mesh.group(axis))
     out = torch.cat(parts.unbind(0), dim=dim)
-    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3, n * nbytes)
+    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3, n)
     return out
 
 
@@ -165,7 +170,7 @@ def _raw_reduce_scatter(x: torch.Tensor, mesh, axis, dim: int, name: str) -> tor
         out = torch.empty(shape, dtype=x.dtype, device=x.device)
         dist.reduce_scatter_tensor(out, front.contiguous(), group=mesh.group(axis))
     out = out.movedim(0, dim).contiguous()
-    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3, nbytes // n)
+    mesh.stats.add(name, nbytes, staged, (time.perf_counter() - t0) * 1e3, n)
     return out
 
 

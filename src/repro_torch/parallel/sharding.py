@@ -16,10 +16,15 @@ The port runs SPMD with explicit collectives instead: :func:`param_sharding`
 places each leaf by the table and :func:`shard_params` slices each rank's
 shard, so every rank holds and contracts local shapes. Two placements
 differ from the table's, because explicit tensor parallelism cannot split
-what GSPMD can: an attention block is sharded only where its query and KV
-head counts both divide the model axis (the reference shards ``w_q`` on
-H*hd wherever that divides, which splits hymba's 25 heads of 64 across
-2 ranks), else every rank holds it whole; and an SSD mixer is held whole
+what GSPMD can. An attention block is split by whole heads
+(:func:`attention_split`): where the query and KV head counts both divide
+the model axis, each rank takes its share of both; where only the query
+heads do (granite's 8 KV heads on 16 ranks), each rank takes its q heads
+(``w_q``'s columns, ``w_o``'s rows) and holds ``w_k``/``w_v`` whole, as the
+reference's activation spec gives every rank the whole K/V there; where
+the query heads do not divide (the reference shards ``w_q`` on H*hd
+wherever that divides, which splits hymba's 25 heads of 64 across 2
+ranks), every rank holds the block whole. And an SSD mixer is held whole
 (its in-projection concatenates z, x, B, C and dt, which a column split
 does not separate). A mesh is anything with ``axis_names`` and a ``shape``
 mapping, or a plain ``{axis: size}`` dict.
@@ -36,7 +41,7 @@ import torch
 
 __all__ = ["ShardingRules", "batch_axes", "param_sharding", "activation_specs",
            "make_rules", "layouts_for_mesh", "shard_params", "shard_act",
-           "attention_sharded", "BATCH", "set_parallel_style", "get_parallel_style",
+           "attention_split", "BATCH", "set_parallel_style", "get_parallel_style",
            "use_parallel_style", "resolve_batch_axes", "shard_leaf", "gather_param",
            "gather_tree", "unstack_placement", "use_placement", "current_placement",
            "fsdp_dims", "gathered_axes", "ambient_state", "use_ambient_state", "loss_axes"]
@@ -129,10 +134,16 @@ def make_rules(mesh, fsdp: bool = False, seq_shard: bool = False,
     return ShardingRules(tuple(table), b, axis_sizes, seq_shard)
 
 
-def attention_sharded(num_heads: int, num_kv_heads: int, model: int) -> bool:
-    """Whether an attention block shards over a ``model``-way axis: only
-    whole heads, so both head counts must divide it."""
-    return model > 1 and num_heads % model == 0 and num_kv_heads % model == 0
+def attention_split(num_heads: int, num_kv_heads: int, model: int) -> tuple[int, int]:
+    """How many ways an attention block's query heads and its KV heads
+    split over a ``model``-way axis, whole heads only: ``(model, model)``
+    where both head counts divide it; ``(model, 1)`` where only the query
+    heads do (each rank its q heads, K/V whole: the KV heads a rank's q
+    heads read are not an even shard of them); ``(1, 1)`` otherwise (the
+    block whole)."""
+    if model <= 1 or num_heads % model:
+        return 1, 1
+    return model, (model if num_kv_heads % model == 0 else 1)
 
 
 def param_sharding(params, mesh, rules: ShardingRules, cfg) -> dict:
@@ -140,12 +151,13 @@ def param_sharding(params, mesh, rules: ShardingRules, cfg) -> dict:
     sharded dim (empty: held whole on every rank; ``axis`` one mesh axis or
     a tuple of them), in the tree's structure. The table's spec
     (:meth:`ShardingRules.spec_for` on the leaf's path, ``layers/attn/w_q``),
-    except that under tensor parallelism an attention block whose heads do
-    not divide the model axis and every SSD mixer are not split over
-    "model" (module docstring); their placements over "data" (FSDP) stay.
-    ``cfg`` gives the head counts."""
-    whole_attn = not attention_sharded(cfg.num_heads, cfg.num_kv_heads,
-                                       _sizes(mesh).get("model", 1))
+    except that under tensor parallelism attention is split by whole heads
+    (:func:`attention_split`: ``w_k``/``w_v`` whole where only the query
+    heads split, the whole block where they do not) and every SSD mixer is
+    not split over "model" (module docstring); their placements over
+    "data" (FSDP) stay. ``cfg`` gives the head counts."""
+    q_ways, kv_ways = attention_split(cfg.num_heads, cfg.num_kv_heads,
+                                      _sizes(mesh).get("model", 1))
     tp = rules.style == "tp"
 
     def place(tree, path):
@@ -153,7 +165,8 @@ def param_sharding(params, mesh, rules: ShardingRules, cfg) -> dict:
             return {k: place(v, f"{path}/{k}" if path else k) for k, v in tree.items()}
         parts = path.split("/")
         spec = rules.spec_for(path, tuple(tree.shape))
-        whole = tp and ("ssm" in parts or (whole_attn and "attn" in parts))
+        ways = (kv_ways if parts[-1] in ("w_k", "w_v") else q_ways) if "attn" in parts else 0
+        whole = tp and ("ssm" in parts or ways == 1)
         return tuple((i, a) for i, a in enumerate(spec)
                      if a is not None and not (whole and a == "model"))
 

@@ -14,7 +14,9 @@ reference's :class:`RooflineReport`:
   * bytes from :class:`BytesCounterMode`: every aten op's tensor operands
     and results (views excluded), the counterpart of XLA's "bytes accessed";
   * collective bytes by operation from the mesh's ``CollectiveStats.by_op``:
-    each operation's result bytes with the reference's traffic multipliers
+    each operation's result bytes, derived from its payload and group size
+    n (an all-reduce's result is its payload, an all-gather's n times it, a
+    reduce-scatter's 1/n), with the reference's traffic multipliers
     (all-reduce 2x for its reduce-scatter and all-gather ring phases, the
     others 1x). A backward's collectives (``<op>/bwd``) count under their
     operation.
@@ -40,6 +42,10 @@ _MULTIPLIER = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
 # the port's operation names (``parallel.collectives``) -> the reference's kinds
 _KIND = {"all_reduce": "all-reduce", "all_reduce_max": "all-reduce",
          "all_gather": "all-gather", "reduce_scatter": "reduce-scatter"}
+
+# a kind's result bytes over its payload, on a group of n ranks
+_RESULT = {"all-reduce": lambda n: 1.0, "all-gather": lambda n: float(n),
+           "reduce-scatter": lambda n: 1.0 / n}
 
 
 class BytesCounterMode(TorchDispatchMode):
@@ -75,10 +81,10 @@ def collective_traffic(stats) -> dict:
     from a mesh's ``CollectiveStats``."""
     out = {k: 0.0 for k in _COLLECTIVES}
     counts = {k: 0 for k in _COLLECTIVES}
-    for op, (_, _, _, result) in stats.by_op.items():
+    for (op, ranks), (calls, payload, _, _) in stats.by_op.items():
         kind = _KIND[op.split("/")[0]]
-        out[kind] += result * _MULTIPLIER[kind]
-        counts[kind] += stats.calls[op]
+        out[kind] += payload * _RESULT[kind](ranks) * _MULTIPLIER[kind]
+        counts[kind] += calls
     out["_counts"] = counts
     return out
 

@@ -10,7 +10,11 @@ does three things:
      a probe grid (``--backend torch``: ``torch.matmul``, the generated
      Combine A and batched product, and the grouped stage) and fits
      effective ``(FLOPS_x, FLOPS_+, beta, lcma_gemm_efficiency)``;
-     ``--quant`` adds the int8 GEMM and the quantizing Combine A;
+     ``--quant`` adds the int8 GEMM and the quantizing Combine A. On a card
+     the probes are timed on the device (``autotune.device_timer``), on the
+     CPU on the host clock; ``--host-clock`` also fits them on the host
+     clock (``autotune.best_of_timer``) and prints that fit beside the
+     written one;
   2. writes the calibrated :class:`HardwareProfile` as JSON (default:
      ``~/.cache/falcon_gemm/profiles/<name>.json``, override with
      ``FALCON_PROFILE_DIR`` or ``--out``) with the probe measurements and
@@ -87,6 +91,10 @@ def main(argv: list[str] | None = None) -> int:
                          "process group of this rank's mesh (collective_bw, priced "
                          "by the sharded decision tier); skipped on a world of one, "
                          "and not recorded where gloo ranks share a card")
+    ap.add_argument("--host-clock", action="store_true",
+                    help="also fit the probes on the host clock (best of --reps, each "
+                         "call synchronized) and print that fit beside the profile's; "
+                         "the profile written is the first fit's")
     ap.add_argument("--quick", action="store_true",
                     help="smoke run: small probe shapes, one rep, reduced "
                          "plan-cache warm grid")
@@ -127,21 +135,32 @@ def main(argv: list[str] | None = None) -> int:
         path=args.out, base=args.hardware, backend=args.backend,
         shapes=args.shape, dtype=args.dtype, scheme=args.scheme,
         reps=args.reps, warmup=args.warmup, name=args.name,
-        quant=args.quant, device=args.device, collectives=args.collectives)
+        quant=args.quant, device=args.device, collectives=args.collectives,
+        host_clock=args.host_clock)
     prof = report.profile
+    host = None
+    if args.host_clock:
+        import json
+        with open(path) as f:
+            host = json.load(f)["_metadata"]["host_clock"]
 
     def tera(x):
         return f"{x / 1e12:8.3f}T"
 
-    print(f"wrote {path}")
-    print(f"  {'quantity':24s} {'static':>10s} {'calibrated':>10s}")
+    def hcol(key, fmt=tera):
+        return f" {fmt(host[key])}" if host else ""
+
+    print(f"wrote {path} (probes timed on the {report.clock} clock)")
+    print(f"  {'quantity':24s} {'static':>10s} {'calibrated':>10s}"
+          + (f" {'host clock':>10s}" if host else ""))
     print(f"  {'FLOPS_x (matmul)':24s} {tera(base.flops_for(args.dtype))} "
-          f"{tera(prof.flops_mul)}")
+          f"{tera(prof.flops_mul)}{hcol('flops_mul')}")
     print(f"  {'FLOPS_+ (elementwise)':24s} {tera(base.flops_add)} "
-          f"{tera(prof.flops_add)}")
-    print(f"  {'beta (bytes/s)':24s} {tera(base.beta)} {tera(prof.beta)}")
+          f"{tera(prof.flops_add)}{hcol('flops_add')}")
+    print(f"  {'beta (bytes/s)':24s} {tera(base.beta)} {tera(prof.beta)}{hcol('beta')}")
     print(f"  {'lcma_gemm_efficiency':24s} {base.lcma_gemm_efficiency:10.3f} "
-          f"{prof.lcma_gemm_efficiency:10.3f}")
+          f"{prof.lcma_gemm_efficiency:10.3f}"
+          f"{hcol('lcma_gemm_efficiency', lambda v: f'{v:10.3f}')}")
     if args.quant and report.flops_int8 is not None:
         print(f"  {'FLOPS_int8 (quant GEMM)':24s} "
               f"{tera(base.flops_for('int8'))} {tera(report.flops_int8)}")
@@ -163,7 +182,9 @@ def main(argv: list[str] | None = None) -> int:
               f"vs eff_B model {report.eff_grouped_predicted:.3f}")
     if report.max_rel_err is not None:
         print(f"  model-vs-measured pipeline rel.err: "
-              f"max {report.max_rel_err:.1%} over {len(report.model_rel_err)} probes")
+              f"max {report.max_rel_err:.1%} over {len(report.model_rel_err)} probes"
+              + (f" (host clock: max {max(host['model_rel_err']):.1%})"
+                 if host and host["model_rel_err"] else ""))
 
     if args.warm:
         # next to the profile JSON, wherever --out put it

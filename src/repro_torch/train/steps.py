@@ -11,11 +11,13 @@ can be captured as a CUDA graph. The train step differentiates
 :func:`~repro_torch.models.model.lm_loss` with autograd: every LCMA-routed
 contraction runs through a planned core (``core.engine``), whose backward
 is two planned contractions on the same kernels. FalconGEMM policy is the
-ambient config (``falcon.use``), else the model's own.
+ambient config (``falcon.use``), else the model's own; each factory's
+``fcfg`` keyword survives as a deprecated override, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -33,6 +35,21 @@ __all__ = ["make_train_step", "make_compressed_dp_train_step", "make_eval_step",
            "make_prefill_step",
            "make_serve_prefill_step", "make_chunk_prefill_step", "make_decode_step",
            "make_verify_step"]
+
+
+def _under(fcfg):
+    """A step decorator: the step runs under ``fcfg`` (``engine.maybe_use``:
+    nothing when None), the factories' deprecated override."""
+    def wrap(step):
+        if fcfg is None:
+            return step
+
+        @functools.wraps(step)
+        def run(*args, **kwargs):
+            with engine.maybe_use(fcfg):
+                return step(*args, **kwargs)
+        return run
+    return wrap
 
 
 def warm_train(cfg: ModelConfig, batch: int, seq: int, mesh_shape: dict | None = None) -> int:
@@ -120,7 +137,8 @@ def _sum_replicated(grads, placement, mesh, axes):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 10_000,
-                    warmup: int = 100, microbatches: int = 1, mesh=None, placement=None):
+                    warmup: int = 100, fcfg=None, microbatches: int = 1, mesh=None,
+                    placement=None):
     """Forward + planned backward + AdamW: ``train_step(params, opt_state,
     batch, step) -> (params, opt_state, metrics)``. The parameters and the
     optimizer state are updated in place (the reference's jitted step
@@ -135,10 +153,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 1
     global batch, the gradients and loss as :func:`loss_and_grads` gives
     them, clipped by the whole tree's norm, each rank updating its shards
     and its part of the optimizer state."""
+    if fcfg is not None:
+        engine.warn_deprecated_fcfg("make_train_step")
 
     def grads_of(params, batch):
         return loss_and_grads(params, cfg, batch, mesh=mesh, placement=placement)
 
+    @_under(fcfg)
     def train_step(params, opt_state, batch, step):
         if microbatches == 1:
             loss, metrics, grads = grads_of(params, batch)
@@ -169,7 +190,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, total_steps: int = 1
 
 
 def make_compressed_dp_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
-                                  bits: int = 8, total_steps: int = 10_000,
+                                  bits: int = 8, fcfg=None, total_steps: int = 10_000,
                                   warmup: int = 100):
     """Pure-DP train step with the int``bits``-compressed gradient mean
     (``parallel.compression.compressed_psum_mean``), the reference's
@@ -180,8 +201,11 @@ def make_compressed_dp_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
     ``refresh_planned_params``. The exact all-reduce never runs in its
     place."""
     from repro_torch.parallel.compression import compressed_psum_mean
+    if fcfg is not None:
+        engine.warn_deprecated_fcfg("make_compressed_dp_train_step")
     dp_axes = ("data",)
 
+    @_under(fcfg)
     def train_step(params, opt_state, batch, step):
         loss, metrics, grads = loss_and_grads(params, cfg, batch)
         grads = compressed_psum_mean(grads, mesh, dp_axes, bits=bits)
@@ -196,10 +220,13 @@ def make_compressed_dp_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig):
+def make_eval_step(cfg: ModelConfig, fcfg=None):
     """``eval_step(params, batch) -> {'loss', 'xent', 'aux'}``, no gradients."""
+    if fcfg is not None:
+        engine.warn_deprecated_fcfg("make_eval_step")
 
     @torch.no_grad()
+    @_under(fcfg)
     def eval_step(params, batch):
         loss, metrics = M.lm_loss(params, cfg, batch)
         return {"loss": loss, **metrics}
@@ -207,12 +234,15 @@ def make_eval_step(cfg: ModelConfig):
     return eval_step
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int):
+def make_prefill_step(cfg: ModelConfig, max_len: int, fcfg=None):
     """Single-pass prefill: fills a fresh KV cache AND returns last-token
     logits. The cache lives on the tokens' device. ``patch_embeds`` (B, P, d)
     is a vlm's image prefix; ``max_len`` must then count its P positions."""
+    if fcfg is not None:
+        engine.warn_deprecated_fcfg("make_prefill_step")
 
     @torch.inference_mode()
+    @_under(fcfg)
     def prefill_step(params, tokens, patch_embeds=None):
         cache = M.init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
         return M.forward(params, cfg, tokens, patch_embeds=patch_embeds, cache=cache,
@@ -235,7 +265,7 @@ def _last_logits(params, cfg: ModelConfig, hidden, last_index):
     return M.compute_logits(params, cfg, h_last)
 
 
-def make_serve_prefill_step(cfg: ModelConfig, max_len: int):
+def make_serve_prefill_step(cfg: ModelConfig, max_len: int, fcfg=None):
     """Prefill for bucketed serving: right-padded prompts, per-row last index.
 
     ``last_index`` (B,) selects each request's true final prompt position
@@ -245,8 +275,11 @@ def make_serve_prefill_step(cfg: ModelConfig, max_len: int):
     state exact under the right padding (dt = 0 on pad positions). Returns
     (logits (B, 1, V), cache) with the cache sized to ``max_len``.
     """
+    if fcfg is not None:
+        engine.warn_deprecated_fcfg("make_serve_prefill_step")
 
     @torch.inference_mode()
+    @_under(fcfg)
     def prefill_step(params, tokens, last_index):
         cache = M.init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
         hidden, cache = M.forward(params, cfg, tokens, cache=cache, cache_index=0,
@@ -257,7 +290,7 @@ def make_serve_prefill_step(cfg: ModelConfig, max_len: int):
     return prefill_step
 
 
-def make_chunk_prefill_step(cfg: ModelConfig):
+def make_chunk_prefill_step(cfg: ModelConfig, fcfg=None):
     """One prefill *chunk* against existing slot-cache rows.
 
     A chunk resumes at per-row offset ``start`` (B,) in ``cache`` rows
@@ -275,8 +308,11 @@ def make_chunk_prefill_step(cfg: ModelConfig):
     ``last_index`` picks each row's true last position for the LM head.
     Returns (logits (B, 1, V), cache rows).
     """
+    if fcfg is not None:
+        engine.warn_deprecated_fcfg("make_chunk_prefill_step")
 
     @torch.inference_mode()
+    @_under(fcfg)
     def chunk_step(params, cache, tokens, start, last_index):
         if "state" in cache:
             st = cache["state"]
@@ -289,11 +325,14 @@ def make_chunk_prefill_step(cfg: ModelConfig):
     return chunk_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, fcfg=None):
     """One-token decode against a KV cache at position ``index`` (an int, or
     a (B,) tensor of per-row positions). The cache is updated in place."""
+    if fcfg is not None:
+        engine.warn_deprecated_fcfg("make_decode_step")
 
     @torch.inference_mode()
+    @_under(fcfg)
     def decode_step(params, cache, tokens, index):
         return M.forward(params, cfg, tokens, cache=cache, cache_index=index,
                          logits_mode="last")
@@ -301,7 +340,7 @@ def make_decode_step(cfg: ModelConfig):
     return decode_step
 
 
-def make_verify_step(cfg: ModelConfig):
+def make_verify_step(cfg: ModelConfig, fcfg=None):
     """Speculative verify: score γ+1 tokens in one forward, logits per row.
 
     ``tokens`` (B, γ+1) is ``[t_last, d_1 .. d_γ]`` per row, decoded against
@@ -312,8 +351,11 @@ def make_verify_step(cfg: ModelConfig):
     positions stay in the cache and are overwritten before validity admits
     them.
     """
+    if fcfg is not None:
+        engine.warn_deprecated_fcfg("make_verify_step")
 
     @torch.inference_mode()
+    @_under(fcfg)
     def verify_step(params, cache, tokens, index):
         return M.forward(params, cfg, tokens, cache=cache, cache_index=index,
                          logits_mode="all")

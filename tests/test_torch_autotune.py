@@ -155,6 +155,28 @@ def test_autotune_checks_backend_device_and_int8_shapes():
                                           (4096, 4096, 4096)]
 
 
+def test_report_names_the_clock_that_fitted_it(isolated_profiles):
+    """The report records its timer's clock: ``best_of_timer`` reads the
+    host's, an injected stub its own name; the default on the CPU is the
+    host clock. ``calibrate(host_clock=True)`` writes the profile of the
+    first fit and records a host-clock fit beside it. The device timer
+    itself (CUDA events) runs only on a card (``chip_smoke.py``'s ``tune``)."""
+    kw = dict(base="cpu_host", shapes=PROBES[:1], validate=True, device="cpu", reps=1, warmup=0)
+    host = tat.autotune(timer=tat.best_of_timer(reps=1, warmup=0, device="cpu"), **kw)
+    stub = tat.autotune(timer=model_timer, name="stub_fit", **kw)
+    default = tat.autotune(name="default_fit", **kw)
+    assert (host.clock, stub.clock, default.clock) == ("host", "model_timer", "host")
+    assert host.metadata()["clock"] == "host"
+    assert tat.timer_clock(tat.device_timer()) == "device"
+    report, path = tat.calibrate(path=str(isolated_profiles / "fit.json"), timer=model_timer,
+                                 host_clock=True, block_plan_shapes=False, name="fit", **kw)
+    meta = json.load(open(path))["_metadata"]
+    assert meta["clock"] == "model_timer" and meta["host_clock"]["clock"] == "host"
+    assert meta["host_clock"]["flops_mul"] > 0 and len(meta["host_clock"]["model_rel_err"]) == 1
+    assert thw.get_profile("fit") is report.profile                    # the first fit's
+    assert thw.get_profile("fit_hostclock").flops_mul == meta["host_clock"]["flops_mul"]
+
+
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_warm_grid_matches_reference(workload):
     assert twl.warm_shapes(workload) == jwl.warm_shapes(workload)

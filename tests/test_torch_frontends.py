@@ -353,3 +353,76 @@ def test_launcher_serves_the_frontends_on_cpu(capsys):
     with pytest.raises(NotImplementedError, match="frontend"):
         tlaunch.main(["--arch", "pixtral_12b", "--device", "cpu", "--continuous",
                       "--requests", "2"])
+
+
+# ---------------------------------------------------------------------------
+# the tanh GELU (musicgen's and starcoder2's MLP) in bf16
+# ---------------------------------------------------------------------------
+
+def test_bf16_gelu_rounds_as_jax():
+    """``models.layers.gelu`` on every finite bf16 value in [-10, 10]
+    against ``jax.nn.gelu``: equal bit for bit on all but the values whose
+    result is subnormal (|x| < 2^-125), which the reference's XLA on the
+    CPU flushes to zero. Those differ from it by at most 2^-126, the
+    smallest normal: one ulp of a format that flushes, the gap at zero.
+    ``F.gelu(approximate="tanh")``, which rounds once, moves ~1,500 values.
+    In float32 the port's GELU is ``F.gelu`` itself."""
+    import ml_dtypes
+    from repro_torch.models.layers import gelu
+
+    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    vals = bits.view(ml_dtypes.bfloat16).astype(np.float32)
+    xs = np.unique(vals[np.isfinite(vals) & (np.abs(vals) <= 10)])
+    want = np.asarray(jax.nn.gelu(jnp.asarray(xs, jnp.bfloat16))).astype(np.float32)
+    x = torch.tensor(xs, dtype=torch.bfloat16)
+    got = gelu(x).float().numpy()
+    differ = got != want
+    tiny = 2.0 ** -126
+    assert differ.sum() <= 512, int(differ.sum())
+    assert (np.abs(xs[differ]) < 2 * tiny).all() and (want[differ] == 0).all()
+    assert (np.abs(got[differ]) <= tiny).all()
+    once = torch.nn.functional.gelu(x, approximate="tanh").float().numpy()
+    assert (once != want).sum() > 1000
+    xf = torch.tensor(xs)
+    assert torch.equal(gelu(xf), torch.nn.functional.gelu(xf, approximate="tanh"))
+
+
+def test_bf16_gelu_mlp_layer_matches_reference():
+    """A starcoder2-shaped bf16 GELU MLP (its 1 : 4 ratio of d_model to
+    d_ff, at a quarter of its width: 1536 x 6144) on 64 rows, gemm, one
+    numpy f32 weight set cast to each dtype: as
+    ``tests/test_torch_ssm.py::test_bf16_rounding_matches_reference``
+    allows, the port's bf16 output sits no further from its f32 output than
+    1.5x the reference's own bf16-vs-f32 gap, and no further from the
+    reference's bf16 output than that gap; in f32 the packages agree within
+    1e-4 (relative, max |diff| / max |ref|)."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+
+    d, ff = 1536, 6144
+    rng = np.random.default_rng(0)
+    p = {"mlp_up": (rng.standard_normal((d, ff)) / np.sqrt(d)).astype(np.float32),
+         "mlp_down": (rng.standard_normal((ff, d)) / np.sqrt(ff)).astype(np.float32)}
+    h = rng.standard_normal((1, 64, d)).astype(np.float32)
+
+    def ref(dtype):
+        with jfalcon.use(jfalcon.FalconConfig(mode="gemm", backend="jnp")):
+            f = jax.jit(lambda pp, x: JL.mlp_apply(pp, x))
+            out = f({k: jnp.asarray(v, dtype) for k, v in p.items()}, jnp.asarray(h, dtype))
+        return np.asarray(out, np.float32)
+
+    def port(dtype):
+        dt = getattr(torch, dtype)
+        with tfalcon.use(tfalcon.FalconConfig(mode="gemm")):
+            out = TL.mlp_apply({k: torch.tensor(v, dtype=dt) for k, v in p.items()},
+                               torch.tensor(h, dtype=dt))
+        return out.float().numpy()
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    r32, r16, t32, t16 = ref("float32"), ref("bfloat16"), port("float32"), port("bfloat16")
+    gap = rel(r16, r32)
+    assert rel(t32, r32) < 1e-4
+    assert rel(t16, t32) <= 1.5 * gap, (rel(t16, t32), gap)
+    assert rel(t16, r16) <= gap, (rel(t16, r16), gap)

@@ -172,3 +172,37 @@ def test_norm_rope_mlp_match_reference(rng):
         TL.mlp_apply({k: torch.tensor(v) for k, v in p.items()}, torch.tensor(h)).numpy(),
         np.asarray(JL.mlp_apply({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(h))),
         rtol=1e-5, atol=1e-5)
+
+
+def test_layer_without_mlp_matches_reference():
+    """A smoke granite with ``d_ff = 0``: no MLP params in either package,
+    each layer adds zeros in place of the MLP; prefill logits and the
+    lm_loss agree with the reference's (f32, the reference's weights) at
+    1e-5, prefill + one decode step through the cache too."""
+    from repro.configs.registry import smoke_config as js
+    from repro_torch.configs import smoke_config as ts
+    jcfg = dataclasses.replace(js("granite_3_2b"), d_ff=0, falcon_backend="jnp")
+    tcfg = dataclasses.replace(ts("granite_3_2b"), d_ff=0)
+    np_params = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0)))
+    tparams = TM.init_params(tcfg, 0, "cpu")
+    assert "mlp" not in np_params["layers"] and "mlp" not in tparams["layers"]
+    params = params_from_numpy(np_params, tcfg, device="cpu")
+    prompt = np.random.default_rng(0).integers(0, jcfg.vocab_size, (B, S))
+    with jfalcon.use(JM.falcon_config_for(jcfg)):
+        jp = jax.tree.map(jnp.asarray, np_params)
+        want, jcache = make_prefill_step(jcfg, max_len=S + 1)(jp, jnp.asarray(prompt))
+        nxt = jnp.argmax(want[:, -1], -1)[:, None]
+        want2, _ = make_decode_step(jcfg)(jp, jcache, nxt, S)
+        jloss, _ = JM.lm_loss(jp, jcfg, {"tokens": jnp.asarray(prompt),
+                                        "labels": jnp.asarray(np.roll(prompt, -1, 1))})
+    with torch.no_grad():
+        cache = TM.init_cache(tcfg, B, S + 1, device="cpu")
+        got, cache = TM.forward(params, tcfg, torch.from_numpy(prompt), cache=cache,
+                                cache_index=0, logits_mode="last")
+        got2, _ = TM.forward(params, tcfg, torch.tensor(np.asarray(nxt)), cache=cache,
+                             cache_index=S, logits_mode="last")
+        tloss, _ = TM.lm_loss(params, tcfg, {"tokens": torch.from_numpy(prompt),
+                                             "labels": torch.from_numpy(np.roll(prompt, -1, 1))})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got2.numpy(), np.asarray(want2), rtol=1e-5, atol=1e-5)
+    assert abs(float(tloss) - float(jloss)) <= 1e-5 * abs(float(jloss))

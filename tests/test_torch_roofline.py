@@ -137,9 +137,8 @@ def test_dry_run_cell(records, name):
 
 def tree_bytes_meta(cfg, b, S, model):
     """The decode cache's bytes on a rank: K/V of the rank's KV heads (whole
-    where the heads do not split over the model axis), the SSD state."""
-    kv = cfg.num_kv_heads // model if SH.attention_sharded(cfg.num_heads, cfg.num_kv_heads,
-                                                           model) else cfg.num_kv_heads
+    where the KV heads do not split over the model axis), the SSD state."""
+    kv = cfg.num_kv_heads // SH.attention_split(cfg.num_heads, cfg.num_kv_heads, model)[1]
     isz = 2 if cfg.dtype == "bfloat16" else 4
     total = 0
     if cfg.family != "ssm":
@@ -147,6 +146,26 @@ def tree_bytes_meta(cfg, b, S, model):
     if cfg.family in ("ssm", "hybrid"):
         total += cfg.num_layers * b * cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * isz
     return total
+
+
+def test_granite_train_4k_traces_near_its_analytic_flops():
+    """granite ``train_4k`` on 16 x 16 cut to 2 layers: its 8 KV heads do
+    not split 16 ways, so each rank takes 2 of the 32 q heads with whole
+    K/V (``sharding.attention_split``) and traces at most 2x the analytic
+    FLOPs of the same depth (with attention whole on every rank, replayed
+    by remat, it traced ~7x at published depth). ``remat_policy="dots"``
+    runs, and its recompute skips the 2-D products: fewer FLOPs than
+    ``full``, within 2x of its own analytic figure (fwd x 3.15)."""
+    recs = {pol: dryrun.run_cell("granite_3_2b", "train_4k", "single", None, layers=2,
+                                 remat_policy=pol) for pol in ("full", "dots")}
+    plan_cache.reset()
+    for pol, rec in recs.items():
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["num_layers"] == 2 and rec["remat_policy"] == pol
+        ratio = rec["traced_flops"] / rec["analytic"]["flops_dev"]
+        assert 1.0 < ratio <= 2.0, (pol, ratio)
+    assert recs["dots"]["traced_flops"] < recs["full"]["traced_flops"]
+    assert recs["dots"]["collective_bytes"] == recs["full"]["collective_bytes"]
 
 
 def test_the_dry_run_leaves_no_process_group(records):

@@ -112,14 +112,15 @@ def test_attention_is_placed_by_whole_heads():
     reference's table shards ``w_q`` (1,600 columns) on 2 ranks, splitting
     a head; the port holds the attention block whole there and shards its
     MLP. Where both head counts divide the axis (granite's 32 and 8 on 2 or
-    8 ranks) attention shards."""
+    8 ranks) attention shards; where only the q heads do (granite on 16),
+    the q heads shard and K/V stay whole."""
     hymba = get_config("hymba_1_5b")
     assert (hymba.num_heads, hymba.num_kv_heads, hymba.resolved_head_dim) == (25, 5, 64)
     jr = jsh.make_rules(AbstractMesh((1, 2), ("data", "model")))
     assert tuple(jr.spec_for("layers/attn/w_q", (32, 1600, 1600))) == (None, None, "model")
-    assert not tsh.attention_sharded(25, 5, 2)
-    assert tsh.attention_sharded(32, 8, 2) and tsh.attention_sharded(32, 8, 8)
-    assert not tsh.attention_sharded(32, 8, 16) and not tsh.attention_sharded(32, 8, 1)
+    assert tsh.attention_split(25, 5, 2) == (1, 1)
+    assert tsh.attention_split(32, 8, 2) == (2, 2) and tsh.attention_split(32, 8, 8) == (8, 8)
+    assert tsh.attention_split(32, 8, 16) == (16, 1) and tsh.attention_split(32, 8, 1) == (1, 1)
     # a small tree with hymba's head structure (5 heads of 16): the same rule
     cfg = dataclasses.replace(smoke_config("hymba_1_5b"), num_heads=5, num_kv_heads=5,
                               head_dim=16)

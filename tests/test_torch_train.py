@@ -227,8 +227,16 @@ def test_remat_on_and_off_give_equal_grads():
     assert float(l0) == float(l1)
     for k, v in _flat(g0).items():
         assert torch.equal(_flat(g1)[k], v), k
-    with pytest.raises(NotImplementedError, match="dots"):
-        loss_and_grads(tp, dataclasses.replace(tcfg, remat=True, remat_policy="dots"), tb)
+    # "dots" keeps the 2-D products' outputs and recomputes the rest: the
+    # same arithmetic, so the same numbers
+    with tfalcon.use(TConfig(mode="strassen")):
+        l2, _, g2 = loss_and_grads(tp, dataclasses.replace(tcfg, remat=True,
+                                                           remat_policy="dots"), tb)
+    assert float(l0) == float(l2)
+    for k, v in _flat(g0).items():
+        assert torch.equal(_flat(g2)[k], v), k
+    with pytest.raises(ValueError, match="remat policy"):
+        loss_and_grads(tp, dataclasses.replace(tcfg, remat=True, remat_policy="offload"), tb)
 
 
 def test_train_step_trajectory_matches_reference():
