@@ -5,7 +5,8 @@
 Phases, one JSON line each: device, build (nvcc for sm_90a from
 src/repro_torch/csrc, one process per source, all at once; then ptxas's
 registers, shared memory and spills of the tiled GEMM's, the Group
-Combine's and the quantizing Combine A's kernels), every kernel entry
+Combine's, the quantizing Combine A's and the f32 fused kernels, the last
+held to no spills where their accumulators are in registers), every kernel entry
 point against its plain PyTorch version (six schemes x f32/bf16 x ragged
 shapes, ragged decode rows whose reduction the tensor-core fused kernels split
 across blocks, and every shape the served model gives the kernel, the
@@ -60,8 +61,9 @@ dbrx's ServeEngine at that depth, auto and forced, graphs against eager.
 Then the SSM and hybrid families at published width and a quarter of their
 published depth (mamba2_370m 12 of 48 layers, hymba_1_5b 8 of 32): every call of #1-#4 their phases make among
 the kernel cases (the SSD scan's and decode step's grouped contractions in
-float32, hymba's attention in bf16), the scan's scores contraction timed
-beside torch.bmm; one SSD mixer of each (4 x 2048 tokens) in gemm mode and
+float32, hymba's attention in bf16), the scan's scores and y_diag
+products timed beside torch.bmm, and the f32 auto run's largest leaf
+(hymba's s444 mlp_up) beside torch.matmul; one SSD mixer of each (4 x 2048 tokens) in gemm mode and
 forced strassen, held to the plain float32 scan, its four contractions
 timed on torch.matmul and on #2/#4 beside the chunk loop; each arch served
 one-shot (4 x 2048 tokens, 16 new) gemm, auto and forced, held to gemm
@@ -931,8 +933,12 @@ def time_ms(fn, launches=LAUNCHES) -> dict:
 
 
 def fused_plan(plan) -> dict:
-    """The tile, ring depth and split of a tensor-core fused plan."""
-    return {k: plan.as_dict()[k] for k in ("bx", "bz", "bk", "stages", "splits", "blocks")}
+    """The tile, ring depth and split of a tensor-core fused plan; of an f32
+    one (``tuning.FusedF32Plan``) also its micro-tile and kernel."""
+    d = plan.as_dict()
+    keys = ("bx", "bz", "bk", "stages", "splits", "blocks") + (
+        ("tm", "threads", "pair") if "pair" in d else ())
+    return {k: d[k] for k in keys}
 
 
 def combine_library(x: torch.Tensor, coeff: np.ndarray):
@@ -1195,9 +1201,10 @@ def phase_times() -> dict:
         free_memory()
     # The SSD scan's scores contraction (mamba2, 4 x 2048 tokens: G = 4 x 8
     # chunks x 32 heads = 1,024 groups of (256, 128) @ (128, 256), forced
-    # strassen, float32, the SIMT route): Combine A of C (#2) and the
+    # strassen, float32, the FP32 route): Combine A of C (#2) and the
     # grouped product against per-group B̃ (#4), with torch.bmm of the same
-    # 7,168 products as its library call
+    # 7,168 products as its library call; and the product of y_diag, the
+    # Z = 32 leaf, (256, 256) @ (256, 64) a group
     f32, it32 = torch.float32, 4
     cfg = get_config("mamba2_370m")
     c, N = cfg.ssm_chunk, cfg.ssm_state
@@ -1209,17 +1216,41 @@ def phase_times() -> dict:
            G * 2.0 * l.nnz_u * X * Y, G * (4 + l.R) * X * Y * it32, fa, (c, N, c, G),
            library=combine_library(x3, l.U), plan=launch_plan(x3, l.U).as_dict(), dtype=f32)
     del x3
-    at4 = randn(G, l.R, X, Y, dtype=f32, gen=gen)
-    bt4 = randn(G, l.R, Y, Z, dtype=f32, gen=gen)
-    bx, bz, bk = tuning.plan_fused_gemm_blocks(X, 2, 2)
-    record("batched_fused_gemm_combine_h@ssd",
-           lambda: kernels.batched_fused_gemm_combine_h(at4, bt4, l.W),
-           lambda: ref.fused_gemm_combine_h_ref(at4, bt4, l.W),
-           G * 2.0 * l.R * X * Y * Z, G * (l.R * (X * Y + Y * Z) + 4 * X * Z) * it32, fa,
-           (c, N, c, G),
-           library=lambda: torch.bmm(at4.view(G * l.R, X, Y), bt4.view(G * l.R, Y, Z)),
-           plan={"route": "simt", "bx": bx, "bz": bz, "bk": bk}, dtype=f32, launches=10)
-    del at4, bt4
+    for tag, (X, Y, Z), logical in (("@ssd", (c // 2, N // 2, c // 2), (c, N, c, G)),
+                                    ("@ssd_ydiag", (c // 2, c // 2, cfg.ssm_head_dim // 2),
+                                     (c, c, cfg.ssm_head_dim, G))):
+        at4 = randn(G, l.R, X, Y, dtype=f32, gen=gen)
+        bt4 = randn(G, l.R, Y, Z, dtype=f32, gen=gen)
+        record("batched_fused_gemm_combine_h" + tag,
+               lambda: kernels.batched_fused_gemm_combine_h(at4, bt4, l.W),
+               lambda: ref.fused_gemm_combine_h_ref(at4, bt4, l.W),
+               G * 2.0 * l.R * X * Y * Z, G * (l.R * (X * Y + Y * Z) + 4 * X * Z) * it32, fa,
+               logical,
+               library=lambda: torch.bmm(at4.view(G * l.R, X, Y), bt4.view(G * l.R, Y, Z)),
+               plan=fused_plan(tuning.plan_fused_f32(G, X, Y, Z, l.R, 2, 2)), dtype=f32,
+               launches=10)
+        del at4, bt4
+        free_memory()
+    # The f32 serve of phase serve_ssm in auto mode (hymba on float32
+    # weights): the largest leaf it plans an LCMA for at the one-shot's
+    # prefill rows, on #3 against its offline B̃, beside torch.matmul of the
+    # whole leaf in f32 (TF32 off)
+    cfg = dataclasses.replace(get_config("hymba_1_5b"), dtype=SSM_HELD, falcon_mode="auto")
+    Mq = math.prod(SSM_SERVE)
+    _, (Kq, Nq, d) = max(planned_leaves(cfg, Mq).items(),
+                         key=lambda kv: (kv[1][0] * kv[1][1], kv[0]))
+    lf = d.algo
+    X, Y, Z = cdiv(Mq, lf.m), cdiv(Kq, lf.k), cdiv(Nq, lf.n)
+    at = randn(lf.R, X, Y, dtype=f32, gen=gen)
+    bt = randn(lf.R, Y, Z, dtype=f32, gen=gen)
+    record("fused_gemm_combine_h@f32", lambda: kernels.fused_gemm_combine_h(at, bt, lf.W),
+           lambda: ref.fused_gemm_combine_h_ref(at, bt, lf.W),
+           2.0 * lf.R * X * Y * Z, (lf.R * (X * Y + Y * Z) + lf.m * lf.n * X * Z) * it32, fa,
+           (Mq, Kq, Nq, 1),
+           plan={"scheme": lf.name,
+                 **fused_plan(tuning.plan_fused_f32(1, X, Y, Z, lf.R, lf.m, lf.n))},
+           dtype=f32, launches=5)
+    del at, bt
     free_memory()
     # Training (granite, forced strassen, bf16): the backward of mlp_up, its
     # largest leaf (2048 x 2048 -> 8192). dA = g (2048, 8192) @ w.T (8192,
@@ -3365,7 +3396,8 @@ def phase_serve_ssm() -> dict:
     prefix-matched and teacher-forced. Every
     launch is at a shape phase_kernels checked. Returns the bf16 forced
     mamba2 run's launches of #1-#4 at prefill and decode (#2 and #4's are
-    all SSD contractions)."""
+    all SSD contractions), and under ``fused_gemm_combine_h@f32`` the f32
+    auto hymba run's launches of #3 (all on the f32 route)."""
     b, s = SSM_SERVE
     ssd_counts = {}
     modes = (("gemm", "gemm"), ("auto", "auto"), ("forced", "strassen"))
@@ -3421,6 +3453,13 @@ def phase_serve_ssm() -> dict:
         for name, mode in modes:
             cfg = dataclasses.replace(gemm_held, falcon_mode=mode)
             runs[name] = ssm_serve(arch, f"{name}_{SSM_HELD}", cfg, held_params)
+            if arch == "hymba_1_5b" and name == "auto":
+                ssd_counts["fused_gemm_combine_h@f32"] = sum(
+                    runs[name]["launches"][ph]["fused_gemm_combine_h"]
+                    for ph in ("prefill", "decode"))
+                if not ssd_counts["fused_gemm_combine_h@f32"]:
+                    raise AssertionError(f"serve_ssm/{arch}/{name}_{SSM_HELD}: no launch of "
+                                         f"#3 on the f32 route")
             if name != "gemm":
                 ssm_vs_gemm(arch, f"{name}_{SSM_HELD}", cfg, held_params, runs[name],
                             runs["gemm"], gated=True)
@@ -5503,6 +5542,20 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+def check_f32_ptxas() -> list[dict]:
+    """The f32 fused kernels as ptxas built them (csrc/fused_gemm.cu,
+    namespace f32): registers, shared memory, spills. Fails if a kernel
+    that keeps its accumulators in registers (the pair kernel, and the
+    one-lane kernel's ``true`` instantiations) spills."""
+    rep = [k for k in build.ptxas_report("fused_gemm") if k["kernel"].startswith("_ZN3f32")]
+    spilled = [k["kernel"] for k in rep
+               if ("pair" in k["kernel"] or k["kernel"].endswith("Lb1EEEvNS_4ArgsE"))
+               and (k.get("spill_stores") or k.get("spill_loads"))]
+    if not rep or spilled:
+        raise AssertionError(f"ptxas: f32 fused kernels {len(rep)}, spilling {spilled}")
+    return rep
+
+
 # The depths cut to make room in the run's time for the checks in ADDED:
 # (depth before, depth now, the phases the cut shortens; their seconds in
 # this run go on the ``total`` line)
@@ -5523,7 +5576,8 @@ def run_phases(dry: list, t0: float) -> None:
                               for name in ("tiled_matmul", "group_combine")},
                            "group_combine_quant": [
                                k for k in build.ptxas_report("quant_combine")
-                               if "group_combine_quant" in k["kernel"]]})
+                               if "group_combine_quant" in k["kernel"]],
+                           "fused_gemm_f32": check_f32_ptxas()})
     phases = {}
 
     def run(phase, *args):
@@ -5597,13 +5651,16 @@ def run_phases(dry: list, t0: float) -> None:
         for k in ("batched_group_combine@moe_b", "batched_group_combine@moe_a",
                   "batched_fused_gemm_combine_h@moe", "batched_fused_gemm_combine_h@moe_decode")] + [
         # the SSD scan's contractions (mamba2, forced strassen, f32), launches
-        # from serve_ssm
+        # from serve_ssm; hymba's largest f32 leaf in auto mode, launches
+        # from serve_ssm's f32 auto run
         {"name": k, "route": "cuda", "source": SOURCES[k.split("@")[0]],
-         "replaces": REPLACES[k.split("@")[0]], "launches": ssd_counts[k.split("@")[0]],
+         "replaces": REPLACES[k.split("@")[0]],
+         "launches": ssd_counts[k] if k in ssd_counts else ssd_counts[k.split("@")[0]],
          "max_abs_err": times[k]["max_abs_err"], "ms": times[k]["ms"],
          "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
          "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"]}
-        for k in ("batched_group_combine@ssd", "batched_fused_gemm_combine_h@ssd")] + [
+        for k in ("batched_group_combine@ssd", "batched_fused_gemm_combine_h@ssd",
+                  "batched_fused_gemm_combine_h@ssd_ydiag", "fused_gemm_combine_h@f32")] + [
         # musicgen's codebook heads at decode (forced strassen, and --quant),
         # launches from serve_frontends
         {"name": k, "route": "cuda", "source": SOURCES[k.split("@")[0]],

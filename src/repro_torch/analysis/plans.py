@@ -8,19 +8,20 @@ enforce, so a plan that would not launch is rejected offline, without
 compiling or launching a kernel:
 
   * each stage's shared memory, recomputed through ``tuning``'s own
-    ``combine_smem``, ``fused_gemm_smem``, ``fused_tc_smem`` and
+    ``combine_smem``, ``fused_f32_smem``, ``fused_tc_smem`` and
     ``quant_combine_smem`` (the report cross-checked), against
     min(plan budget, ``hw.vmem_bytes``): 232,448 B a block on ``h100_sxm``;
   * registers per thread (``combine_regs``, ``quant_combine_regs``,
-    ``fused_gemm_regs``, ``fused_tc_regs``) within ``REGS_PER_THREAD`` and a
+    ``fused_f32_regs``, ``fused_tc_regs``) within ``REGS_PER_THREAD`` and a
     block's within an SM's ``REGS_PER_SM``;
   * threads per block within 1,024, grid y and z within 65,535 and x within
     2^31 - 1, as each launcher lays its grid out;
-  * tensor-core tiles among ``TC_TILES``, SIMT fused tiles among
-    ``FUSED_TILES``, ``wgmma`` tiles among ``TILED_WG_TILES`` and multiples
-    of ``hw.mxu_align``;
+  * tensor-core tiles among ``TC_TILES``, f32 fused tiles among
+    ``F32_TILES`` (with the stage depth Y calls for and the ring the kernel
+    has), ``wgmma`` tiles among ``TILED_WG_TILES`` and multiples of
+    ``hw.mxu_align``;
   * the int8 scale block dividing Y and a split's ranges covering its
-    reduction units;
+    reduction units (tensor-core and f32 fused plans);
   * dtype legality per port backend (:data:`BACKEND_DTYPES`).
 
 The reference lints VMEM footprints and MXU alignment of its Pallas plans;
@@ -161,6 +162,17 @@ def _check_tc(findings, subject, stage, p: dict, G, X, Y, Z, R, mn, quant, by, l
     if int(p["units"]) != units:
         findings.append(Finding(PASS, ERROR, subject,
                                 f"{stage} reduces {p['units']} units; R and Y give {units}"))
+    _check_splits(findings, subject, stage, splits, units)
+    smem = tuning.fused_tc_smem(bx, bz, mn, quant)
+    regs = tuning.fused_tc_regs(bx, bz, mn, quant)
+    grid = (-(-Z // bz), -(-X // bx), G * max(splits, 1))
+    _check_stage(findings, subject, stage, smem, (p.get("smem_bytes"), *reported), limit, hw,
+                 regs, tuning.TC_THREADS, grid)
+
+
+def _check_splits(findings, subject, stage, splits, units):
+    """``splits`` contiguous, non-empty ranges covering ``units`` steps."""
+    from repro_torch.kernels import tuning
     ranges = tuning.split_ranges(units, splits) if splits >= 1 else []
     if not ranges or ranges[0][0] != 0 or ranges[-1][1] != units or \
             any(b >= e for b, e in ranges) or \
@@ -168,11 +180,43 @@ def _check_tc(findings, subject, stage, p: dict, G, X, Y, Z, R, mn, quant, by, l
         findings.append(Finding(PASS, ERROR, subject,
                                 f"{stage}: {splits} splits do not cover {units} units with "
                                 f"non-empty contiguous ranges"))
-    smem = tuning.fused_tc_smem(bx, bz, mn, quant)
-    regs = tuning.fused_tc_regs(bx, bz, mn, quant)
+
+
+def _check_f32(findings, subject, stage, p: dict, G, X, Y, Z, R, mn, limit, hw, reported=()):
+    """An f32 fused plan: tile and micro-tile, stage depth and ring,
+    accumulators, steps and splits, shared memory, registers and grid."""
+    from repro_torch.kernels import tuning
+    bx, bz, tm, bk = (int(p[k]) for k in ("bx", "bz", "tm", "bk"))
+    if (bx, bz, tm) not in tuning.F32_TILES:
+        findings.append(Finding(PASS, ERROR, subject,
+                                f"{stage} tile {bx}x{bz} (tm {tm}) is not an f32 fused tile "
+                                f"{list(tuning.F32_TILES)}"))
+        return
+    acc_regs = mn <= tuning.F32_ACC_REGS
+    want_bk = tuning.fused_f32_bk(Y, tuning.fused_f32_pair(tm, acc_regs))
+    if (bk, int(p["stages"])) != (want_bk, tuning.F32_STAGES):
+        findings.append(Finding(PASS, ERROR, subject,
+                                f"{stage} ring {p['stages']} x {bk} is not the kernel's "
+                                f"{tuning.F32_STAGES} x {want_bk} for Y = {Y}"))
+    threads = tuning.fused_f32_threads(bx, bz, tm)
+    if int(p["threads"]) != threads:
+        findings.append(Finding(PASS, ERROR, subject,
+                                f"{stage} names {p['threads']} threads; its tile has {threads}"))
+    if bool(p["acc_in_regs"]) != acc_regs:
+        findings.append(Finding(PASS, ERROR, subject,
+                                f"{stage} keeps the {mn} output accumulators "
+                                f"{'in registers' if p['acc_in_regs'] else 'in shared memory'}"
+                                f"; the kernel does so only for m*n <= {tuning.F32_ACC_REGS}"))
+    units = R * -(-Y // bk)
+    if int(p["units"]) != units:
+        findings.append(Finding(PASS, ERROR, subject,
+                                f"{stage} reduces {p['units']} steps; R and Y give {units}"))
+    splits = int(p["splits"])
+    _check_splits(findings, subject, stage, splits, units)
     grid = (-(-Z // bz), -(-X // bx), G * max(splits, 1))
-    _check_stage(findings, subject, stage, smem, (p.get("smem_bytes"), *reported), limit, hw,
-                 regs, tuning.TC_THREADS, grid)
+    _check_stage(findings, subject, stage, tuning.fused_f32_smem(bx, bz, tm, bk, mn, R),
+                 (p.get("smem_bytes"), *reported), limit, hw, tuning.fused_f32_regs(tm, mn),
+                 threads, grid)
 
 
 def _check_combine(findings, subject, stage, p: dict, X, Y, coeff, isz, limit, hw,
@@ -268,16 +312,8 @@ def _lint_plan(plan, l: LCMA, hw, dtype, backend, subject, findings):
                    hw, (plan["combine_a_smem_bytes"],))
     _check_combine(findings, subject, "combine_b", plan["combine_b"], Y, Z, l.V, isz, limit,
                    hw, (plan["combine_b_smem_bytes"],))
-    bx, bz, bk = (int(v) for v in plan["fused_gemm"])
-    if (bx, bz) not in tuning.FUSED_TILES or bk != tuning.FUSED_BK:
-        findings.append(Finding(PASS, ERROR, subject,
-                                f"fused_gemm tile {bx}x{bz}x{bk} is not a SIMT fused tile "
-                                f"{list(tuning.FUSED_TILES)} x {tuning.FUSED_BK}"))
-    else:
-        _check_stage(findings, subject, "fused_gemm", tuning.fused_gemm_smem(bx, bz, m, n, bk),
-                     (plan["fused_gemm_smem_bytes"],), limit, hw,
-                     tuning.fused_gemm_regs(bx, bz), tuning.THREADS,
-                     (-(-Z // bz), -(-X // bx), 1))
+    _check_f32(findings, subject, "fused_gemm", plan["fused_gemm"], 1, X, Y, Z, R, m * n,
+               limit, hw, (plan["fused_gemm_smem_bytes"],))
     _check_tc(findings, subject, "fused_gemm_tc", plan["fused_gemm_tc"], 1, X, Y, Z, R, m * n,
               False, None, limit, hw, (plan["fused_gemm_tc_smem_bytes"],))
     by = tuning.scale_block(Y)
@@ -333,19 +369,27 @@ def lint_tiled_plan(M: int, K: int, N: int, hw: HardwareProfile, *,
 def lint_grouped_plan(l: LCMA, G: int, M: int, K: int, N: int, hw: HardwareProfile, *,
                       shared_b: bool = False, dtype: str = "bfloat16",
                       subject: str | None = None) -> list[Finding]:
-    """A grouped contraction's tensor-core fused plan
-    (``plan_fused_tc(G, ...)``): G groups ride blockIdx.z with the splits."""
+    """A grouped contraction's fused plan: the tensor-core one
+    (``plan_fused_tc(G, ...)``) for bf16, the f32 one (``plan_fused_f32(G,
+    ...)``) for float32 (the SSD contractions); G groups ride blockIdx.z
+    with the splits."""
     from repro_torch.kernels import tuning
     subject = subject or f"{l.name}@g{G}x{M}x{K}x{N}/{dtype}"
     findings: list[Finding] = []
     X, Y, Z = -(-M // l.m), -(-K // l.k), -(-N // l.n)
     limit = min(tuning.SMEM_BUDGET, int(hw.vmem_bytes))
+    f32 = str(dtype) == "float32"
+    plan = tuning.plan_fused_f32 if f32 else tuning.plan_fused_tc
     try:
-        p = tuning.plan_fused_tc(G, X, Y, Z, l.R, l.m, l.n, shared_b=shared_b, budget=limit)
+        p = plan(G, X, Y, Z, l.R, l.m, l.n, shared_b=shared_b, budget=limit)
     except ValueError as e:
         return [Finding(PASS, ERROR, subject, f"no grouped fused plan: {e}")]
-    _check_tc(findings, subject, "grouped fused_gemm_tc", p.as_dict(), G, X, Y, Z, l.R,
-              l.m * l.n, False, None, limit, hw)
+    if f32:
+        _check_f32(findings, subject, "grouped fused_gemm", p.as_dict(), G, X, Y, Z, l.R,
+                   l.m * l.n, limit, hw)
+    else:
+        _check_tc(findings, subject, "grouped fused_gemm_tc", p.as_dict(), G, X, Y, Z, l.R,
+                  l.m * l.n, False, None, limit, hw)
     return findings
 
 
@@ -439,9 +483,11 @@ def lint_workload(arch, hw: HardwareProfile, *, batch: int = 8, seq: int = 512,
     contraction ``arch`` issues at (batch, seq); for each unique shape the
     Decision Module picks its scheme (``decide``, or ``decide_batched`` for
     a grouped contraction) and that scheme's plans are linted: the block
-    plans of a 2-D contraction, the grouped tensor-core plan
-    (``plan_fused_tc(G, ...)``) of a grouped one, and the tiled GEMM of a
-    contraction the decision leaves on GEMM. ``all_candidates=True`` lints
+    plans of a 2-D contraction, the grouped fused plan of a grouped one
+    (``lint_grouped_plan``), and the tiled GEMM of a contraction the
+    decision leaves on GEMM. The SSD contractions run in float32 whatever
+    ``dtype`` is (``workloads.F32_KINDS``), so they are decided and linted
+    in float32. ``all_candidates=True`` lints
     every candidate scheme per shape instead (a scheme the decision would
     never pick may legitimately fail there: triage, not CI gating). With
     ``quantize=True`` the int8 pipeline of each weight-static 2-D
@@ -449,7 +495,7 @@ def lint_workload(arch, hw: HardwareProfile, *, batch: int = 8, seq: int = 512,
     ``ModelConfig``.
     """
     from repro_torch.core import algorithms, decision
-    from repro_torch.core.workloads import _resolve_arch, resolve_contractions
+    from repro_torch.core.workloads import F32_KINDS, _resolve_arch, resolve_contractions
 
     cfg = _resolve_arch(arch)
     name = getattr(cfg, "name", str(arch))
@@ -460,30 +506,31 @@ def lint_workload(arch, hw: HardwareProfile, *, batch: int = 8, seq: int = 512,
             continue
         m, k, n = c.shape
         grouped = c.group != 1
+        cdt = "float32" if c.kind in F32_KINDS else dtype
         if all_candidates:
             schemes = list(algorithms.candidates())
         elif grouped:
-            d = decision.decide_batched(c.group, m, n, k, hw, dtype, shared_b=c.shared_b)
+            d = decision.decide_batched(c.group, m, n, k, hw, cdt, shared_b=c.shared_b)
             schemes = [d.algo] if d.use_lcma else []
         else:
-            d = decision.decide(m, n, k, hw, dtype)
+            d = decision.decide(m, n, k, hw, cdt)
             schemes = [d.algo] if d.use_lcma else []
         where = f"{name}:{c.role}"
         if not schemes and not grouped:
-            findings.extend(lint_tiled_plan(m, k, n, hw, dtype=dtype,
-                                            subject=f"{where}:gemm@{m}x{k}x{n}/{dtype}"))
+            findings.extend(lint_tiled_plan(m, k, n, hw, dtype=cdt,
+                                            subject=f"{where}:gemm@{m}x{k}x{n}/{cdt}"))
         for l in schemes:
             if grouped:
                 findings.extend(lint_grouped_plan(
-                    l, c.group, m, k, n, hw, shared_b=c.shared_b, dtype=dtype,
-                    subject=f"{where}:{l.name}@g{c.group}x{m}x{k}x{n}/{dtype}"))
+                    l, c.group, m, k, n, hw, shared_b=c.shared_b, dtype=cdt,
+                    subject=f"{where}:{l.name}@g{c.group}x{m}x{k}x{n}/{cdt}"))
                 continue
-            subject = f"{where}:{l.name}@{m}x{k}x{n}/{dtype}"
-            for f in lint_scheme_plans(l, [(m, k, n)], hw, dtype=dtype, backend=backend):
+            subject = f"{where}:{l.name}@{m}x{k}x{n}/{cdt}"
+            for f in lint_scheme_plans(l, [(m, k, n)], hw, dtype=cdt, backend=backend):
                 findings.append(Finding(f.pass_name, f.severity, subject, f.message))
             if quantize:
                 findings.extend(lint_quant_plans(l, [(m, k, n)], hw, backend=backend,
-                                                 dtype=dtype))
+                                                 dtype=cdt))
     return findings
 
 

@@ -42,9 +42,9 @@ _SIGNATURES = {
     },
     "fused_gemm": {
         # device, at, bt, out, ws, table, in_dtype, out_dtype, G, R, mn, X, Y,
-        # Z, bt_group_stride, vec, bx, bz, splits, smem_bytes, stream
+        # Z, bt_group_stride, vec, bx, bz, bk, splits, smem_bytes, stream
         "falcon_fused_gemm_combine_h": [_I] + [_P] * 5 + [_I] * 8
-        + [ctypes.c_longlong] + [_I] * 5 + [_P],
+        + [ctypes.c_longlong] + [_I] * 6 + [_P],
     },
     "quant_combine": {
         # device, in, q, scales, table, table_len, dtype, R, d1, d2, X, Y, by,

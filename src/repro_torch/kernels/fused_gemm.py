@@ -5,16 +5,28 @@ Replaces the Pallas TPU kernels ``fused_gemm_combine_h`` and
 ``batched_fused_gemm_combine_h`` (``src/repro/kernels/fused_gemm.py``). One
 CUDA kernel, ``csrc/fused_gemm.cu``, serves both: its grid carries the
 group, with G = 1 for the 2-D form, and a shared ``bt`` has group stride 0.
-On the H100 it is bound by bytes at the served shapes (a stream over B̃).
-The Pallas design keeps R f32 accumulators per output tile, which does not
-fit a Hopper SM for high-R schemes; this kernel finishes one H_r at a time
-and folds it into the m*n output accumulators (Combine H is linear), so H
-never reaches memory and every scheme up to s555 gets a tile. bf16 operands
-run on the tensor cores through a cp.async ring, and where the output tiles
-alone leave the card idle (decode rows) the (rank, K) reduction is split
-across blocks and summed by a second, fixed-order pass
-(``tuning.plan_fused_tc``); f32 operands run the SIMT kernel
-(``tuning.plan_fused_gemm_blocks``), since TF32 would not meet f32 accuracy.
+On the H100 it is bound by bytes at the served bf16 shapes (a stream over
+B̃). The Pallas design keeps R f32 accumulators per output tile, which does
+not fit a Hopper SM for high-R schemes; this kernel finishes one H_r at a
+time and folds it into the m*n output accumulators (Combine H is linear), so
+H never reaches memory and every scheme up to s555 gets a tile. bf16
+operands run on the tensor cores through a cp.async ring
+(``tuning.plan_fused_tc``). f32 operands run FP32 FMAs (TF32 would not meet
+f32 accuracy) in kernels of their own (``tuning.plan_fused_f32``): at
+their costliest shape, mamba2's SSD scores (1,024 groups x 7 products of
+128x64 . 64x128), the bytes bound and the FP32 operations bound are equal
+(0.220 and 0.224 ms), so they overlap the two. One cp.async ring runs
+through every (rank, K-stage) step of a block, so a rank's first tiles
+arrive while the previous rank's product and Combine H run. For m*n <= 4
+(strassen, the SSD scan's scheme) a pair of lanes shares an 8 x 8 block of
+H_r, each summing every other pair of K steps: one FMA per byte read from
+shared memory, with H and all four output accumulators in registers.
+Other schemes keep their accumulators in shared memory (every scheme up to
+s555 gets a tile). The tiles follow the shapes: 32 wide for the SSD
+leaves' Z = 32, stages 8 deep where K is, 8 rows for decode. For both
+dtypes, where the output tiles alone leave the card idle (decode rows) the
+(rank, K) reduction is split across blocks and summed by a second,
+fixed-order pass.
 
 ``tiled_matmul`` replaces the Pallas ``tiled_matmul``, the non-LCMA
 baseline the autotuner times for FLOPS_x (``csrc/tiled_matmul.cu``). It has
@@ -37,7 +49,7 @@ import torch
 
 from . import build, ref
 from .group_combine import coeff_table, refuse_grad
-from .tuning import (plan_fused_gemm_blocks, plan_fused_tc, plan_tiled_matmul_blocks,
+from .tuning import (plan_fused_f32, plan_fused_tc, plan_tiled_matmul_blocks,
                      plan_tiled_wgmma, tiled_route)
 
 __all__ = ["fused_gemm_combine_h", "batched_fused_gemm_combine_h", "tiled_matmul"]
@@ -68,18 +80,16 @@ def _check(at, bt, w, out_dtype, at_ndim, what):
 
 def _launch(at4: torch.Tensor, bt: torch.Tensor, w: np.ndarray,
             out_dtype: torch.dtype) -> torch.Tensor:
-    """bf16 operands go to the tensor-core kernel (split at decode, with an
-    f32 workspace for the partials), f32 ones to the SIMT kernel: the C
-    entry point dispatches on the dtype."""
+    """bf16 operands go to the tensor-core kernel, f32 ones to the FP32
+    kernel, each with its planner's tile and split (an f32 workspace for the
+    partials where it splits): the C entry point dispatches on the dtype."""
     R, m, n = w.shape
     G, _, X, Y = at4.shape
     Z = bt.shape[-1]
     out = torch.empty((G, m, n, X, Z), dtype=out_dtype, device=at4.device)
-    if at4.dtype == torch.bfloat16:
-        plan = plan_fused_tc(G, X, Y, Z, R, m, n, shared_b=bt.ndim == 3)
-        bx, bz, splits, smem = plan.bx, plan.bz, plan.splits, plan.smem_bytes
-    else:
-        (bx, bz, _), splits, smem = plan_fused_gemm_blocks(X, m, n), 1, 0
+    planner = plan_fused_tc if at4.dtype == torch.bfloat16 else plan_fused_f32
+    plan = planner(G, X, Y, Z, R, m, n, shared_b=bt.ndim == 3)
+    splits = plan.splits
     ws = (torch.empty((splits, G, m * n, X, Z), dtype=torch.float32, device=at4.device)
           if splits > 1 else None)
     vec = int(Y % 8 == 0 and Z % 8 == 0 and at4.data_ptr() % 16 == 0
@@ -92,8 +102,8 @@ def _launch(at4: torch.Tensor, bt: torch.Tensor, w: np.ndarray,
         coeff_table(w, at4.device).data_ptr(),
         codes[str(at4.dtype).removeprefix("torch.")],
         codes[str(out_dtype).removeprefix("torch.")],
-        G, R, m * n, X, Y, Z, R * Y * Z if bt.ndim == 4 else 0, vec, bx, bz, splits,
-        smem, torch.cuda.current_stream(at4.device).cuda_stream)
+        G, R, m * n, X, Y, Z, R * Y * Z if bt.ndim == 4 else 0, vec, plan.bx, plan.bz,
+        plan.bk, splits, plan.smem_bytes, torch.cuda.current_stream(at4.device).cuda_stream)
     build.check(lib, err, "fused_gemm_combine_h")
     return out
 
@@ -175,8 +185,8 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
     return out
 
 
-# Calls that launched the fused kernel, counted by the wrapper; a bf16 call
-# with splits > 1 also launches the reduce pass, which is not counted.
+# Calls that launched the fused kernel, counted by the wrapper; a call with
+# splits > 1 also launches the reduce pass, which is not counted.
 fused_gemm_combine_h.launches = 0
 batched_fused_gemm_combine_h.launches = 0
 # the same launches by operand shapes (at, bt): a per-group B̃ is 4-D

@@ -8,11 +8,13 @@ on-chip memory — cannot occur here: the fused kernels finish one rank at a
 time and keep only the ``m*n`` output accumulators (see
 ``csrc/fused_tc.cuh``), so every scheme of the library gets a tile.
 
-The tensor-core fused kernels (bf16 and int8) also get a split count S:
-where the output tiles alone leave the card idle (decode rows), the
-flattened (rank, K-chunk) reduction is cut into S contiguous ranges, one
-block each, and a second pass sums the S f32 partials in fixed order. The
-tiled GEMM's tensor-core route splits its K range the same way.
+The fused kernels (tensor cores for bf16 and int8, FP32 FMAs for f32)
+also get a split count S: where the output tiles alone leave the card idle
+(decode rows), the flattened (rank, K-chunk) reduction is cut into S
+contiguous ranges, one block each, and a second pass sums the S f32
+partials in fixed order. The tiled GEMM's tensor-core route splits its K
+range the same way. The f32 fused kernel's tile is chosen from the shape
+as well: a 32-wide one where Z = 32, an 8-row one for decode rows.
 
 The Group Combine kernel is a stream of 16-byte accesses; its plan is the
 vector width, the block shape and the rows each thread walks. Its
@@ -28,9 +30,11 @@ from dataclasses import asdict, dataclass
 import numpy as np
 
 __all__ = ["SMEM_BUDGET", "SMEM_PER_SM", "REGS_PER_THREAD", "REGS_PER_SM", "THREADS", "SMS",
-           "FUSED_TILES", "FUSED_BK", "COMBINE_MIN_BLOCKS", "CombinePlan",
-           "combine_smem", "combine_regs", "plan_combine",
-           "fused_gemm_smem", "fused_gemm_regs", "plan_fused_gemm_blocks",
+           "COMBINE_MIN_BLOCKS", "CombinePlan", "combine_smem", "combine_regs", "plan_combine",
+           "F32_TILES", "F32_TN", "F32_BKS", "F32_STAGES", "F32_PAD", "F32_PAD_B",
+           "F32_ACC_REGS", "FusedF32Plan", "fused_f32_pair", "fused_f32_bk",
+           "fused_f32_threads", "fused_f32_smem", "fused_f32_regs", "fused_f32_rate",
+           "plan_fused_f32",
            "TC_THREADS", "TC_TILES", "TC_WARPS", "TC_BK", "TC_STAGES", "TC_ACC_REGS",
            "SPLIT_MIN_BLOCKS", "FusedPlan", "fused_tc_smem", "fused_tc_regs",
            "plan_fused_tc", "split_ranges",
@@ -49,11 +53,22 @@ REGS_PER_SM = 65_536
 THREADS = 256              # threads per block of the SIMT kernels
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 
-# Tile shapes the f32 SIMT kernel of csrc/fused_gemm.cu instantiates, as
-# (bx, bz): 256 threads in a 16 x 16 layout, each owning a (bx/16) x (bz/16)
-# micro-tile.
-FUSED_TILES = ((64, 64), (16, 64))
-FUSED_BK = 16              # K depth of one shared-memory stage (kBK)
+# The f32 fused kernels (csrc/fused_gemm.cu, namespace f32): tiles as (bx,
+# bz, tm), a block of (bx/tm) * (bz/F32_TN) threads. Where m*n <=
+# F32_ACC_REGS the output accumulators stay in registers: at tm = 8 a pair
+# of lanes then shares an 8 x 8 block of H_r (the pair kernel, Bt rows
+# padded by F32_PAD_B floats), below it each lane owns tm x
+# F32_TN of it; otherwise the accumulators are in shared memory and each
+# lane owns tm x F32_TN (the one-lane kernel, At rows padded by F32_PAD
+# floats). A ring of F32_STAGES cp.async stages of bk K steps: 8 where Y <=
+# 8, else 32 for the pair kernel, 16 for the one-lane kernel (F32_BKS).
+F32_TILES = ((64, 64, 8), (128, 32, 8), (32, 64, 4), (64, 32, 4), (8, 64, 2))
+F32_TN = 4                 # kTN
+F32_BKS = (32, 16, 8)      # the stage depths the kernels instantiate
+F32_STAGES = 4             # kStages
+F32_PAD = 4                # kPadA
+F32_PAD_B = 8              # kPadB
+F32_ACC_REGS = 4           # kAccRegs
 
 # The tensor-core fused kernels (csrc/fused_tc.cuh, bf16 and int8): 4 warps;
 # a block owns a bz x bx tile of H^T (z on the MMA's 16-row side, the rows x
@@ -180,46 +195,6 @@ def _plan_combine(G, X, Y, nparts, table_len, itemsize, aligned, budget) -> Comb
     return CombinePlan(vec, ty, tx, rows,
                        combine_smem(nparts, ty * tx, table_len, vec_bytes),
                        blocks(ty, tx, rows))
-
-
-def fused_gemm_smem(bx: int, bz: int, m: int, n: int,
-                    bk: int = FUSED_BK) -> int:
-    """Shared memory of one fused block: ``m*n`` f32 output accumulator
-    tiles plus one f32 stage of the At (padded) and Bt tiles."""
-    return 4 * (m * n * bx * bz + bk * (bx + 1) + bk * bz)
-
-
-def fused_gemm_regs(bx: int, bz: int) -> int:
-    """Registers per thread, estimated: the micro-tile of H_r, one operand
-    fragment of each side, and a fixed allowance for addressing."""
-    tm, tn = bx // 16, bz // 16
-    return tm * tn + tm + tn + 48
-
-
-def _plan_fused_tile(X: int, m: int, n: int, smem, budget: int) -> tuple[int, int]:
-    order = FUSED_TILES if X > 16 else FUSED_TILES[::-1]
-    for bx, bz in order:
-        if smem(bx, bz, m, n) > budget:
-            continue
-        regs = fused_gemm_regs(bx, bz)
-        if regs > REGS_PER_THREAD or regs * THREADS > REGS_PER_SM:
-            continue
-        return bx, bz
-    raise ValueError(f"no fused tile fits m*n={m * n} accumulator tiles in "
-                     f"{budget} bytes of shared memory")
-
-
-@functools.lru_cache(maxsize=4096)
-def plan_fused_gemm_blocks(X: int, m: int, n: int,
-                           budget: int = SMEM_BUDGET) -> tuple[int, int, int]:
-    """Tile ``(bx, bz, bk)`` of the fused GEMM + Combine H kernel.
-
-    Prefers the 64 x 64 tile where it fits both budgets; a short X (decode
-    rows) or a wide m*n (more than 13 accumulator tiles) takes the flat
-    16 x 64 tile. The accumulator state is ``m*n`` tiles whatever R is, so
-    the flat tile fits every scheme up to m*n = 55.
-    """
-    return (*_plan_fused_tile(X, m, n, fused_gemm_smem, budget), FUSED_BK)
 
 
 @dataclass(frozen=True)
@@ -443,6 +418,141 @@ def plan_fused_tc(G: int, X: int, Y: int, Z: int, R: int, m: int, n: int,
                      mn <= TC_ACC_REGS, smem, tiles, split_max)
 
 
+@dataclass(frozen=True)
+class FusedF32Plan:
+    """One launch of the f32 fused kernel: a ``bx`` x ``bz`` output tile
+    (rows of A x columns of B) over ``threads`` threads, ``tm`` its rows of
+    H_r a lane (``pair``: a pair of lanes shares an 8 x 8 block); the
+    reduction over (rank, K) a sequence of ``units`` steps of ``bk`` K
+    elements through a ring of ``stages`` stages, cut into ``splits``
+    contiguous ranges (:func:`split_ranges`), one block each, at most
+    ``split_max``; ``splits > 1`` needs a (splits, G, m*n, X, Z) f32
+    workspace. ``acc_in_regs``: the m*n output accumulators in registers,
+    else in shared memory."""
+    bx: int
+    bz: int
+    tm: int
+    bk: int
+    stages: int
+    threads: int
+    splits: int
+    units: int
+    acc_in_regs: bool
+    smem_bytes: int
+    tiles: int
+    split_max: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def pair(self) -> bool:
+        return fused_f32_pair(self.tm, self.acc_in_regs)
+
+    def as_dict(self) -> dict:
+        return {**asdict(self), "blocks": self.blocks, "pair": self.pair}
+
+
+def fused_f32_pair(tm: int, acc_in_regs: bool) -> bool:
+    """Whether a tile runs the pair kernel: tm = 8 with the accumulators in
+    registers."""
+    return tm == 8 and acc_in_regs
+
+
+def fused_f32_bk(Y: int, pair: bool) -> int:
+    """The stage depth: 8 K steps where Y <= 8, else 32 (pair kernel) or 16."""
+    return F32_BKS[2] if Y <= F32_BKS[2] else F32_BKS[0] if pair else F32_BKS[1]
+
+
+def fused_f32_threads(bx: int, bz: int, tm: int) -> int:
+    return (bx // tm) * (bz // F32_TN)
+
+
+def fused_f32_smem(bx: int, bz: int, tm: int, bk: int, mn: int, R: int) -> int:
+    """Shared memory of one f32 fused block of an R-rank scheme, as
+    ``PairTile::bytes`` and ``Tile::bytes`` in csrc/fused_gemm.cu: the ring,
+    per stage an At tile [bx][bk + F32_PAD] and a Bt tile [bk][bz +
+    F32_PAD_B] (pair kernel, then W as R dense rows of F32_ACC_REGS) or
+    [bk][bz], and the m*n f32 output accumulators where they do not stay in
+    registers."""
+    if fused_f32_pair(tm, mn <= F32_ACC_REGS):
+        ring = F32_STAGES * (bx * (bk + F32_PAD) + bk * (bz + F32_PAD_B))
+        return 4 * (ring + F32_ACC_REGS * R)
+    ring = F32_STAGES * (bx * (bk + F32_PAD) + bk * bz)
+    return 4 * (ring + (0 if mn <= F32_ACC_REGS else mn * bx * bz))
+
+
+def fused_f32_regs(tm: int, mn: int) -> int:
+    """Registers per thread, estimated: a lane's H_r values (the pair
+    kernel: 64, an 8 x 8 block; else tm x F32_TN), its output accumulators
+    where m*n <= F32_ACC_REGS (the pair kernel: half its block, 32, per part;
+    else tm x F32_TN per part), its shared-memory operands (18; 20) and an
+    allowance of 40 for addressing, the ring's cursor and the coefficient
+    walk."""
+    regs_acc = mn <= F32_ACC_REGS
+    if fused_f32_pair(tm, regs_acc):
+        return 64 + 32 * mn + 18 + 40
+    e = tm * F32_TN
+    return e * (1 + (mn if regs_acc else 0)) + 4 * F32_TN + 4 + 40
+
+
+def fused_f32_rate(tm: int, pair: bool) -> float:
+    """FMAs per 16 bytes read from shared memory: the pair kernel's lane,
+    128 FMAs for 128 bytes a group of 2 K steps; a tm x F32_TN lane, 16 * tm
+    FMAs against tm At loads and 4 Bt loads (16 bytes each) per 4 K steps."""
+    return 16.0 if pair else 16 * tm / (tm + 4)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_fused_f32(G: int, X: int, Y: int, Z: int, R: int, m: int, n: int,
+                   shared_b: bool = False, budget: int = SMEM_BUDGET) -> FusedF32Plan:
+    """Tile, stage depth and split of the f32 fused GEMM + Combine H kernel
+    for ``G`` groups of (R, X, Y) x (R, Y, Z); ``shared_b``: one Bt read by
+    every group.
+
+    Of the tiles in ``F32_TILES`` that fit the shared-memory budget (the
+    ring at the stage depth :func:`fused_f32_bk` gives, and the m*n
+    accumulator tiles where m*n > F32_ACC_REGS) and the registers, the one
+    with the least padded work (rows and columns rounded up to whole tiles)
+    per unit of its FMAs per shared load (:func:`fused_f32_rate`); a tie
+    goes to the less padded work, then to the larger tile. So the SSD
+    leaves with Z = 32 take a 32-wide tile, decode rows the 8-row one, and
+    every scheme up to s555 a tile.
+    ``splits`` as :func:`plan_fused_tc` sets it: 1 where the tiles alone
+    reach ``SMS`` blocks, else enough to reach ``SPLIT_MIN_BLOCKS``, at most
+    one step per split and at most as many f32 partials as the operands
+    have bytes.
+    """
+    mn = m * n
+    acc_regs = mn <= F32_ACC_REGS
+    best = None
+    for bx, bz, tm in F32_TILES:
+        pair = fused_f32_pair(tm, acc_regs)
+        bk = fused_f32_bk(Y, pair)
+        threads = fused_f32_threads(bx, bz, tm)
+        regs = fused_f32_regs(tm, mn)
+        smem = fused_f32_smem(bx, bz, tm, bk, mn, R)
+        if smem > budget or regs > REGS_PER_THREAD or regs * threads > REGS_PER_SM:
+            continue
+        padded = -(-X // bx) * bx * -(-Z // bz) * bz
+        cost = (padded / fused_f32_rate(tm, pair), padded, -bx * bz)
+        if best is None or cost < best[0]:
+            best = (cost, bx, bz, tm, bk, threads, smem)
+    if best is None:
+        raise ValueError(f"no f32 fused tile fits m*n={mn} accumulator tiles in "
+                         f"{budget} bytes of shared memory")
+    _, bx, bz, tm, bk, threads, smem = best
+    tiles = G * -(-X // bx) * -(-Z // bz)
+    units = R * -(-Y // bk)
+    operand_bytes = 4 * R * (G * X * Y + (1 if shared_b else G) * Y * Z)
+    split_max = max(1, min(units, operand_bytes // (4 * G * mn * X * Z)))
+    split_max = max(1, min(split_max, 65_535 // G))   # blockIdx.z carries (group, split)
+    splits = 1 if tiles >= SMS else min(-(-SPLIT_MIN_BLOCKS // tiles), split_max)
+    return FusedF32Plan(bx, bz, tm, bk, F32_STAGES, threads, splits, units, acc_regs, smem,
+                        tiles, split_max)
+
+
 def tiled_matmul_smem(bm: int, bn: int, bk: int = TILED_BK) -> int:
     """Shared memory of one SIMT tiled-GEMM block: one f32 stage of the A
     tile (rows padded by one word) and of the B tile."""
@@ -595,7 +705,8 @@ def block_plans(l, M: int, K: int, N: int, dtype: str = "float32",
     the Group Combine plans (vector width, block, rows; 16-byte aligned
     operands assumed), ``quant_combine_a`` the quant Group Combine A plan
     (route, lanes, units per block, rank split; aligned input assumed),
-    ``fused_gemm`` the f32 SIMT kernel's tile,
+    ``fused_gemm`` the f32 kernel's plan (tile, micro-tile, stage depth,
+    split),
     ``fused_gemm_tc`` and ``fused_gemm_quant`` the bf16 and int8
     tensor-core plans (tile, ring depth, split); ``dtype`` is recorded.
     """
@@ -608,7 +719,7 @@ def block_plans(l, M: int, K: int, N: int, dtype: str = "float32",
     isz = 2 if str(dtype) == "bfloat16" else 4
     ca = plan_combine(1, X, Y, l.U, isz, budget=budget)
     cb = plan_combine(1, Y, Z, l.V, isz, budget=budget)
-    fg = plan_fused_gemm_blocks(X, m, n, budget)
+    fg = plan_fused_f32(1, X, Y, Z, R, m, n, budget=budget)
     by = scale_block(Y)
     qc = plan_quant_combine(X, Y, l.U, isz, by, budget=budget)
     ft = plan_fused_tc(1, X, Y, Z, R, m, n, budget=budget)
@@ -616,12 +727,12 @@ def block_plans(l, M: int, K: int, N: int, dtype: str = "float32",
     return {
         "grid": [m, k, n], "R": R, "dtype": str(dtype),
         "padded_shape": [Mp, Kp, Np],
-        "combine_a": ca.as_dict(), "combine_b": cb.as_dict(), "fused_gemm": list(fg),
+        "combine_a": ca.as_dict(), "combine_b": cb.as_dict(), "fused_gemm": fg.as_dict(),
         "fused_gemm_tc": ft.as_dict(),
         "quant_combine_a": qc.as_dict(), "fused_gemm_quant": fq.as_dict(),
         "combine_a_smem_bytes": ca.smem_bytes,
         "combine_b_smem_bytes": cb.smem_bytes,
-        "fused_gemm_smem_bytes": fused_gemm_smem(fg[0], fg[1], m, n),
+        "fused_gemm_smem_bytes": fg.smem_bytes,
         "quant_combine_a_smem_bytes": qc.smem_bytes,
         "fused_gemm_tc_smem_bytes": ft.smem_bytes,
         "fused_gemm_quant_smem_bytes": fq.smem_bytes,

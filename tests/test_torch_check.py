@@ -158,6 +158,39 @@ def test_plan_lint_flags_tiles_and_splits_the_kernels_lack():
     assert any("scale block" in f.message for f in _errors(plan))
 
 
+@pytest.mark.parametrize("field,value,message", [
+    ("bx", 48, "is not an f32 fused tile"),
+    ("tm", 4, "is not an f32 fused tile"),
+    ("bk", 8, "is not the kernel's"),
+    ("stages", 3, "is not the kernel's"),
+    ("threads", 256, "threads; its tile has"),
+    ("acc_in_regs", False, "output accumulators in shared memory"),
+    ("units", 1, "steps; R and Y give"),
+    ("splits", 10 ** 6, "do not cover"),
+    ("smem_bytes", 16, "stale or hand-edited"),
+])
+def test_plan_lint_flags_f32_plans_the_kernels_lack(field, value, message):
+    """The f32 fused plan (``plan_fused_f32``) as ``block_plans`` exports it
+    is held to the kernels' tiles, ring, accumulators, steps, splits and
+    shared memory; a plan that would not launch is an error."""
+    plan = _plan("float32")
+    assert plan["fused_gemm"]["pair"] and not _errors(plan, dtype="float32")
+    plan["fused_gemm"] = {**plan["fused_gemm"], field: value}
+    assert any(message in f.message for f in _errors(plan, dtype="float32")), field
+
+
+@pytest.mark.parametrize("G,M,K,N", [(1024, 256, 128, 256), (1024, 256, 256, 64),
+                                     (1024, 128, 256, 64), (800, 256, 16, 256),
+                                     (800, 16, 256, 64), (128, 1, 128, 64)])
+def test_grouped_f32_plans_lint_clean_at_the_ssd_leaves(G, M, K, N):
+    """The SSD contractions run in float32: their grouped plans are the f32
+    kernel's, within an H100 block's shared memory and registers."""
+    for name in ("strassen", "s444", "s555"):
+        l = alg.get(name)
+        found = analysis.lint_grouped_plan(l, G, M, K, N, H100, dtype="float32")
+        assert not analysis.has_errors(found), (name, found[:3])
+
+
 def test_quant_lint_flags_backend_and_accumulator():
     l = alg.strassen()
     errs = [f for f in analysis.lint_quant_plans(l, SHAPES[:1], H100,

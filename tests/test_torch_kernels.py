@@ -249,14 +249,17 @@ def test_coeff_table_is_csr_of_the_scheme(name):
 def test_planner_fits_every_candidate():
     """Every scheme of candidates(max_grid=5), up to s555, gets a tile that
     fits the shared-memory and register budgets, for prefill and decode
-    rows: the f32 SIMT tile, and the bf16 and int8 tensor-core plans."""
+    rows: the f32 plan, and the bf16 and int8 tensor-core plans."""
     for l in talg.candidates(max_grid=5):
         for X in (2, 16, 17, 128, 1024):
-            bx, bz, bk = tuning.plan_fused_gemm_blocks(X, l.m, l.n)
-            assert (bx, bz) in tuning.FUSED_TILES and bk == tuning.FUSED_BK
-            assert tuning.fused_gemm_smem(bx, bz, l.m, l.n) <= tuning.SMEM_BUDGET
-            assert tuning.fused_gemm_regs(bx, bz) <= tuning.REGS_PER_THREAD
-            assert tuning.fused_gemm_regs(bx, bz) * tuning.THREADS <= tuning.REGS_PER_SM
+            p = tuning.plan_fused_f32(1, X, 1024, 1024, l.R, l.m, l.n)
+            assert (p.bx, p.bz, p.tm) in tuning.F32_TILES
+            assert p.bk == tuning.fused_f32_bk(1024, p.pair)
+            assert p.smem_bytes == tuning.fused_f32_smem(p.bx, p.bz, p.tm, p.bk, l.m * l.n,
+                                                         l.R)
+            assert p.smem_bytes <= tuning.SMEM_BUDGET
+            regs = tuning.fused_f32_regs(p.tm, l.m * l.n)
+            assert regs <= tuning.REGS_PER_THREAD and regs * p.threads <= tuning.REGS_PER_SM
             for by in (None, 128):
                 p = tuning.plan_fused_tc(1, X, 1024, 1024, l.R, l.m, l.n, by=by)
                 assert (p.bx, p.bz) in tuning.TC_TILES
@@ -282,8 +285,8 @@ def test_planner_fits_every_candidate():
                     regs = tuning.combine_regs(p.vec)
                     assert regs <= tuning.REGS_PER_THREAD
                     assert regs * p.threads <= tuning.REGS_PER_SM
-    assert tuning.plan_fused_gemm_blocks(2, 2, 2)[:2] == (16, 64)    # decode rows
-    assert tuning.plan_fused_gemm_blocks(128, 2, 2)[:2] == (64, 64)
+    f32 = lambda X: tuning.plan_fused_f32(1, X, 1024, 4096, 7, 2, 2)  # noqa: E731
+    assert (f32(2).bx, f32(128).bx) == (8, 64)                       # decode rows, prefill
     tc = lambda X: tuning.plan_fused_tc(1, X, 1024, 4096, 7, 2, 2)  # noqa: E731
     assert (tc(2).bx, tc(16).bx, tc(17).bx, tc(128).bx) == (8, 16, 32, 32)
     assert tc(128).splits == 1 and tc(2).splits > 1        # mlp_up: prefill, decode
@@ -587,15 +590,37 @@ def test_block_plans_export_the_quant_combine_plan():
 
 def test_kernel_sources_agree_with_planner():
     """The tile shapes, stage depths and block sizes the planner assumes are
-    the ones csrc/fused_gemm.cu (f32 SIMT), csrc/fused_tc.cuh (bf16 and
-    int8 tensor cores), csrc/tiled_matmul.cu (both routes) and
+    the ones csrc/fused_gemm.cu (f32), csrc/fused_tc.cuh (bf16 and int8
+    tensor cores), csrc/tiled_matmul.cu (both routes) and
     csrc/group_combine.cu instantiate."""
     src = (build.CSRC / "fused_gemm.cu").read_text()
-    tiles = set((int(a), int(b)) for a, b in
-                re.findall(r"if \(bx == (\d+) && bz == (\d+)\)", src))
-    assert tiles == set(tuning.FUSED_TILES)
-    assert f"kBK = {tuning.FUSED_BK};" in src
-    assert f"kThreads = {tuning.THREADS};" in src
+    tiles = re.findall(r"if \(bx == (\d+) && bz == (\d+)\) return launch_acc<(\d+), "
+                       r"(\d+), (\d+), BK>", src)
+    assert all((a, b) == (c, d) for a, b, c, d, _ in tiles)
+    assert set((int(a), int(b), int(t)) for a, b, _, _, t in tiles) == set(tuning.F32_TILES)
+    assert set(int(b) for b in re.findall(r"if \(bk == (\d+)\) return launch_bk<(?:\d+)>",
+                                           src)) == set(tuning.F32_BKS)
+    assert f"kTN = {tuning.F32_TN};" in src
+    assert f"kStages = {tuning.F32_STAGES};" in src
+    assert f"kPadA = {tuning.F32_PAD};" in src and f"kPadB = {tuning.F32_PAD_B};" in src
+    assert set(int(b) for b in re.findall(r"if \(bk == (\d+)\)", src)) == set(tuning.F32_BKS)
+    assert "kRing = kStages * (kStageA + kStageB);" in src.split("struct PairTile")[1]
+    assert "kStageA = BX * kRowA, kStageB = BK * kRowB;" in src
+    assert "kRowA = BK + kPadA;" in src and "kRowB = BZ + kPadB;" in src
+    assert "static size_t bytes(int R) { return 4 * ((size_t)kRing + (size_t)kAccRegs * R); }" \
+        in src
+    assert "kThreads = 2 * kPX * kPZ;" in src and "kPX = BX / 8, kPZ = BZ / 8;" in src
+    assert f"kAccRegs = {tuning.F32_ACC_REGS};" in src
+    assert "kRing = kStages * (kStageA + kStageB);" in src
+    assert "kStageA = BX * kRowA;" in src and "kRowA = BK + kPadA;" in src
+    assert "kStageB = BK * BZ;" in src and "kThreads = kNX * kNZ;" in src
+    assert "return 4 * ((size_t)kRing + (acc_regs ? 0 : (size_t)mn * BX * BZ));" in src
+    assert "if constexpr (TM == 8) {\n    if (p.mn <= kAccRegs) {\n      if constexpr (BK != 16) " \
+        "{\n        using L = PairTile" in src        # the pair kernel: tm 8, m*n <= 4
+    assert "if (p.mn <= kAccRegs)\n      return run(fused_f32_kernel<BX, BZ, TM, BK, true>" in src
+    assert "smem != (size_t)p.smem_bytes" in src     # the launcher holds the planner's bytes
+    body = src[src.index("namespace f32 {"):src.index("}  // namespace f32")]
+    assert "fmaf(" in body and not re.search(r"mma|tf32|asm", body, re.I)  # FP32 FMAs only
     assert '#include "fused_tc.cuh"' in src
     assert '#include "fused_tc.cuh"' in (build.CSRC / "quant_combine.cu").read_text()
     src = (build.CSRC / "fused_tc.cuh").read_text()
