@@ -13,8 +13,8 @@ across blocks, and every shape the served model gives the kernel, the
 continuous engine's bucket steps among them (bf16); the int8
 kernels likewise, the quantizing Combine A bit-equal on both its routes,
 each case's route asserted; the tiled GEMM at ragged, unaligned, probe and decode
-shapes, each case's route asserted: the tensor cores for aligned bf16, the
-SIMT kernel for f32, ragged and misaligned operands), the ops pipelines
+shapes, each case's route asserted: wgmma for aligned bf16, mma.sync for
+ragged and misaligned bf16, the FP32 SGEMM for f32), the ops pipelines
 against torch.matmul at granite shapes, kernel times (CUDA events around 50
 back-to-back launches, or the profiler's device time where the wrapper's host
 cost exceeds the kernel's; each line carries the call's plan: tile, ring
@@ -34,7 +34,8 @@ then speculation with the prefix cache and chunked prefill); what auto mode
 decides on the
 h100_sxm profile; then the calibration path: ``repro_torch.tools.tune``
 measures the card (through the tiled GEMM) on the device's clock (CUDA
-events) and on the host's, the profile written from the device's fit, the
+events) and on the host's, then once more with the CLI's defaults (float32:
+the tiled GEMM's f32 route; the ``tune_f32`` line), the profile written from the device's fit, the
 data-sheet and calibrated decisions side by side, and granite served in auto mode under the calibrated
 profile with the warmed plan cache, held to the fp auto run. Then the
 reference's other dense archs at full width (mistral_nemo_12b,
@@ -276,7 +277,9 @@ def combine_case(l, dtype, shape, which, gen, groups=None):
     x = randn(*(((groups,) if groups else ()) + (d1 * cdiv(rows, d1), d2 * cdiv(cols, d2))),
               dtype=dtype, gen=gen)
     k = kernels.batched_group_combine if groups else kernels.group_combine
-    return (lambda: k(x, coeff),
+    # the route the plan names (narrow where Y is no multiple of 16 bytes of
+    # elements), checked by the wrapper's counts
+    return (lambda: routed(k, launch_plan(x, coeff).route, x, coeff),
             lambda: ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff))
 
 
@@ -549,7 +552,9 @@ def phase_kernels() -> None:
         seconds[name + "@train_mesh"] = (seconds.get(name + "@train_mesh", 0.0)
                                          + time.perf_counter() - t0)
     CHECKED.update(k for k in kernels.launch_state() if isinstance(k, tuple))
-    emit("kernels", cases=n, worst_err=worst, seconds=seconds)
+    emit("kernels", cases=n, worst_err=worst, seconds=seconds,
+         group_combine_routes={k.__name__: dict(k.routes) for k in
+                               (kernels.group_combine, kernels.batched_group_combine)})
 
 
 def quant_combine_err(got, want) -> tuple[int, int, float]:
@@ -574,7 +579,8 @@ def check_quant_combine(what: str, got, want, tol=QUANT_TOL) -> tuple[int, int, 
 
 def routed(kernel, want_route: str, *args, **kw):
     """``kernel(*args, **kw)``, checked by the wrapper's ``routes`` counts to
-    have taken ``want_route`` (the tiled GEMM, the quant Group Combine)."""
+    have taken ``want_route`` (the tiled GEMM, Group Combine, the quant
+    Group Combine)."""
     before = dict(kernel.routes)
     got = kernel(*args, **kw)
     moved = {r: kernel.routes[r] - before[r] for r in before}
@@ -754,10 +760,10 @@ def misaligned(t: torch.Tensor) -> torch.Tensor:
 def phase_tiled_kernels() -> None:
     """The tiled GEMM against its plain version in f32 and bf16, with the
     ``fused`` tolerance of ``TOL``: the same f32 sums in another order, and
-    in bf16 one rounding of each. Aligned bf16 must take the tensor-core
-    route (TMA + wgmma); f32, the ragged shapes and one aligned shape run
-    from operands whose pointers are not 16-byte aligned must take the SIMT
-    kernel."""
+    in bf16 one rounding of each. Aligned bf16 must take the TMA + wgmma
+    route; the ragged shapes and one aligned shape run from operands whose
+    pointers are not 16-byte aligned must take the mma.sync route in bf16;
+    f32 must take the FP32 SGEMM."""
     gen = torch.Generator(device=DEV).manual_seed(5)
     n, worst = 0, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -766,8 +772,8 @@ def phase_tiled_kernels() -> None:
             a, b = randn(M_, K, dtype=dtype, gen=gen), randn(K, N, dtype=dtype, gen=gen)
             if shift:
                 a, b = misaligned(a), misaligned(b)
-            route = ("wgmma" if dtype == torch.bfloat16 and not shift
-                     and (M_, K, N) not in TILED_RAGGED else "simt")
+            route = ("f32" if dtype == torch.float32 else "mma" if shift
+                     or (M_, K, N) in TILED_RAGGED else "wgmma")
             got = routed(kernels.tiled_matmul, route, a, b)
             torch.cuda.synchronize()
             want = ref.tiled_matmul_ref(a, b)
@@ -966,7 +972,9 @@ def phase_times() -> dict:
     the attention scores at prefill, the mlp_up product at prefill (and at
     decode, and the LM head's at decode: the split reduction) and the
     attention scores product at prefill; the int8 kernels at mlp_up; the
-    tiled GEMM at the tune path's three probes and at decode rows."""
+    tiled GEMM at the tune path's three probes and at decode rows, in bf16
+    (wgmma) and f32 (the FP32 SGEMM), and from a misaligned A (mma.sync);
+    Group Combine's narrow route beside its 16-byte route."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     l = alg.get("strassen")
     bf = torch.bfloat16
@@ -1166,6 +1174,51 @@ def phase_times() -> dict:
                (M_ * K + K * N + M_ * N) * it, fx, (M_, K, N, 1),
                plan={"route": "wgmma", **tuning.plan_tiled_wgmma(M_, K, N).as_dict()})
         del a, b
+    # Its f32 route (FP32 FMAs; torch.matmul with TF32 off, main() sets it):
+    # the calibration's default dtype, at the three probes (bound by
+    # operations at 67 TFLOP/s) and decode rows (bound by bytes).
+    t_added = time.perf_counter()
+    f32 = torch.float32
+    for (M_, K, N), tag in (((4096, 4096, 4096), "@f32_4096"), ((256, 2048, 8192), "@f32"),
+                            ((256, 8192, 2048), "@f32_probe2"), ((4, 2048, 8192), "@f32_decode")):
+        a, b = randn(M_, K, dtype=f32, gen=gen), randn(K, N, dtype=f32, gen=gen)
+        routed(kernels.tiled_matmul, "f32", a, b)
+        record("tiled_matmul" + tag, lambda: kernels.tiled_matmul(a, b),
+               lambda: ref.tiled_matmul_ref(a, b), 2.0 * M_ * K * N,
+               (M_ * K + K * N + M_ * N) * 4, fa, (M_, K, N, 1), dtype=f32,
+               launches=10 if M_ == 4096 else LAUNCHES,
+               plan={"route": "f32", **tuning.plan_tiled_f32(M_, K, N).as_dict()})
+        del a, b
+    # Its mma route: bf16 from a misaligned A (TMA cannot address it) at the
+    # first probe, beside torch.matmul on the same views.
+    a, b = misaligned(randn(256, 2048, dtype=bf, gen=gen)), randn(2048, 8192, dtype=bf, gen=gen)
+    routed(kernels.tiled_matmul, "mma", a, b)
+    record("tiled_matmul@mma_misaligned", lambda: kernels.tiled_matmul(a, b),
+           lambda: ref.tiled_matmul_ref(a, b), 2.0 * 256 * 2048 * 8192,
+           (256 * 2048 + 2048 * 8192 + 256 * 8192) * it, fx, (256, 2048, 8192, 1),
+           library=lambda: torch.matmul(a, b),
+           plan={"route": "mma", **tuning.plan_tiled_mma(256, 2048, 8192, vec_a=False,
+                                                           vec_b=True).as_dict()})
+    del a, b
+    # Group Combine's narrow route (bf16): the attention's Combine A at a
+    # padded key count of 66 (Y = 33, 128 groups) at prefill (X = 32) and
+    # decode (X = 1), and dbrx's at 520 keys (Y = 260, 192 groups), each
+    # beside the 16-byte route at the same G and X with Y rounded up to a
+    # multiple of 8 (``...@vector``).
+    for tag, (G, X, Y) in (("@narrow", (128, 32, 33)), ("@narrow_decode", (128, 1, 33)),
+                           ("@narrow_dbrx", (192, 64, 260))):
+        for vtag, y in (("", Y), ("@vector", -(-Y // 8) * 8)):
+            x3 = randn(G, 2 * X, 2 * y, dtype=bf, gen=gen)
+            plan = launch_plan(x3, l.U)
+            routed(kernels.batched_group_combine, "narrow" if y % 8 else "vector", x3, l.U)
+            record("batched_group_combine" + tag + vtag,
+                   lambda: kernels.batched_group_combine(x3, l.U),
+                   lambda: ref.group_combine_ref(ref.split_blocks(x3, 2, 2), l.U),
+                   G * 2.0 * l.nnz_u * X * y, G * (4 + l.R) * X * y * it, fa,
+                   (2 * X, 2 * y, 2 * y, G), library=combine_library(x3, l.U),
+                   plan=plan.as_dict())
+            del x3
+    ADDED["times_f32_mma_narrow"] = time.perf_counter() - t_added
     # The MoE expert FFN (dbrx, forced strassen): Combine B of the gate/up
     # expert stack (16, 6144, 10752), which runs at every call, and Combine A
     # of its activations at the prefill's capacity C = 768 (#2); the grouped
@@ -1472,6 +1525,9 @@ def serve(phase: str, cfg, params, quantize: bool = False, batch: int = BATCH,
                                  for k, v in kernels.group_combine.shapes.items()},
          batched_group_combine_by_shape={"x".join(map(str, k)): v for k, v in
                                          kernels.batched_group_combine.shapes.items()},
+         group_combine_routes={k.__name__: dict(k.routes) for k in
+                               (kernels.group_combine, kernels.batched_group_combine)},
+         narrow_by_shape=narrow_by_shape(),
          logits_finite=finite, sample=tok[0].tolist())
     if not finite or logits.shape[-1] != M.padded_vocab(cfg):
         raise AssertionError(f"{phase}: logits not finite or of the wrong width")
@@ -1479,6 +1535,14 @@ def serve(phase: str, cfg, params, quantize: bool = False, batch: int = BATCH,
     if tok.shape != (batch, gen, *codebooks) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
         raise AssertionError(f"{phase}: tokens out of range: {tok}")
     return res, counts
+
+
+def narrow_by_shape(state=None) -> dict:
+    """Group Combine's narrow-route launches by wrapper and input shape, from
+    ``state`` (a ``kernels.launch_state``) or the counters as they stand."""
+    state = kernels.launch_state() if state is None else state
+    return {f"{k[0].split('/')[0]}:{'x'.join(map(str, k[1]))}": n for k, n in state.items()
+            if isinstance(k, tuple) and k[0].endswith("/narrow") and n}
 
 
 def check_int8_launches(phase: str, res: dict, n_leaves: int, layers: int) -> None:
@@ -1746,7 +1810,7 @@ def engine_run(name: str, cfg, params, requests, cuda_graphs: bool, quantize: bo
          plan_misses_after_warm=plan_misses, acceptance_rate=s["acceptance_rate"],
          prefix_hits=s["prefix_hits"], prefix_tokens_reused=s["prefix_tokens_reused"],
          max_memory_allocated=torch.cuda.max_memory_allocated(), launches=out["counts"],
-         sample=reqs[0].generated)
+         narrow_by_shape=narrow_by_shape(state), sample=reqs[0].generated)
     if plan_misses or s["bucket_misses"] or s["requests_finished"] != len(reqs):
         raise AssertionError(f"serve_engine/{name}: {plan_misses} plan-cache misses after "
                              f"warm, {s['bucket_misses']} bucket misses, "
@@ -2928,6 +2992,8 @@ def phase_serve_moe() -> dict:
                                   gen=MOE_GEN, config=name, planned=planned, reduced=reduced)
         state = kernels.launch_state()
         check_covered(f"serve_moe/{name}", state)
+        counts[name]["batched_group_combine/narrow"] = state[("batched_group_combine/route",
+                                                              "narrow")]
         experts = expert_launches(state, base)
         runs[name] = res
         want = {"batched_group_combine": 6 * Lc * MOE_GEN,
@@ -5315,7 +5381,7 @@ def phase_tune() -> tuple[dict, str]:
     routes = dict(kernels.tiled_matmul.routes)
     if rc != 0 or counts["tiled_matmul"] <= 0:
         raise AssertionError(f"tune: exit {rc}, launches {counts}")
-    if routes != {"wgmma": counts["tiled_matmul"], "simt": 0}:
+    if routes != {"wgmma": counts["tiled_matmul"], "f32": 0, "mma": 0}:
         raise AssertionError(f"tune: the bf16 probes' tiled GEMM calls took routes {routes}, "
                              f"expected all {counts['tiled_matmul']} on wgmma")
     with open(TUNE_OUT) as f:
@@ -5349,7 +5415,41 @@ def phase_tune() -> tuple[dict, str]:
          t_gemm_over_torch_matmul=big["t_gemm"] / t_lib,
          probes=meta["probes"], launches=counts,
          tiled_matmul_launches=counts["tiled_matmul"], tiled_matmul_routes=routes)
+    counts["tiled_matmul@f32"] = tune_f32()
     return counts, plans
+
+
+TUNE_F32_OUT = os.path.join(ROOT, "build", "tune", "h100_sxm_f32.json")
+
+
+def tune_f32() -> int:
+    """The calibration a user gets with the CLI's defaults (``--dtype
+    float32``, the device clock) over the three probes: its GEMM is the
+    tiled GEMM's f32 route, whose fit gives the profile's ``flops_mul`` and
+    ``lcma_gemm_efficiency``. Registered under its own name (the bf16 profile
+    above stays the one served) and without the plan-cache warm-up, which
+    does not enter the fit. Returns the f32 route's launches."""
+    from repro_torch.core.hardware import get_profile
+    from repro_torch.tools import tune
+    argv = [*(a for mkn in PROBES for a in ("--shape", ",".join(map(str, mkn)))),
+            "--name", "h100_sxm_f32", "--no-warm", "--out", TUNE_F32_OUT]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = tune.main(argv)
+    seconds = ADDED["tune_f32"] = time.perf_counter() - t0
+    routes = dict(kernels.tiled_matmul.routes)
+    if rc != 0 or routes["f32"] <= 0 or routes["wgmma"] or routes["mma"]:
+        raise AssertionError(f"tune (f32): exit {rc}, tiled GEMM routes {routes}")
+    with open(TUNE_F32_OUT) as f:
+        meta = json.load(f)["_metadata"]
+    prof = get_profile("h100_sxm_f32")
+    if not (np.isfinite(prof.flops_mul) and prof.flops_mul > 0 and meta["clock"] == "device"):
+        raise AssertionError(f"tune (f32): flops_mul {prof.flops_mul}, clock {meta['clock']}")
+    emit("tune_f32", argv=argv, seconds=seconds, clock=meta["clock"],
+         flops_mul=prof.flops_mul, lcma_gemm_efficiency=prof.lcma_gemm_efficiency,
+         flops_add=prof.flops_add, beta=prof.beta, model_rel_err=meta["model_rel_err"],
+         probes=meta["probes"], tiled_matmul_routes=routes)
+    return routes["f32"]
 
 
 def phase_decisions_tuned() -> None:
@@ -5556,6 +5656,21 @@ def check_f32_ptxas() -> list[dict]:
     return rep
 
 
+def check_tiled_ptxas() -> dict:
+    """The tiled GEMM's f32 and mma kernels as ptxas built them
+    (csrc/tiled_matmul.cu, namespaces sg and mm): registers, spills. Fails
+    if an f32 kernel spills or one of either is missing."""
+    rep = build.ptxas_report("tiled_matmul")
+    out = {"f32": [k for k in rep if k["kernel"].startswith("_ZN2sg")],
+           "mma": [k for k in rep if k["kernel"].startswith("_ZN2mm")]}
+    spilled = [k["kernel"] for k in out["f32"] if k.get("spill_stores") or k.get("spill_loads")]
+    # 4 tiles x 2 output types x 2 copy widths; 2 tiles x 2 output types
+    if len(out["f32"]) != 16 or len(out["mma"]) != 4 or spilled:
+        raise AssertionError(f"ptxas: tiled f32 kernels {len(out['f32'])}, mma "
+                             f"{len(out['mma'])}, f32 spilling {spilled}")
+    return out
+
+
 # The depths cut to make room in the run's time for the checks in ADDED:
 # (depth before, depth now, the phases the cut shortens; their seconds in
 # this run go on the ``total`` line)
@@ -5577,7 +5692,8 @@ def run_phases(dry: list, t0: float) -> None:
                            "group_combine_quant": [
                                k for k in build.ptxas_report("quant_combine")
                                if "group_combine_quant" in k["kernel"]],
-                           "fused_gemm_f32": check_f32_ptxas()})
+                           "fused_gemm_f32": check_f32_ptxas(),
+                           "tiled_matmul_routes": check_tiled_ptxas()})
     phases = {}
 
     def run(phase, *args):
@@ -5612,6 +5728,7 @@ def run_phases(dry: list, t0: float) -> None:
     run(phase_decisions)
     tune_counts, plans = run(phase_tune)
     counts["tiled_matmul"] = tune_counts["tiled_matmul"]
+    counts["tiled_matmul@f32"] = tune_counts["tiled_matmul@f32"]
     run(phase_decisions_tuned)
     run(phase_serve_tuned, fp_auto, plans)
     run(phase_leaf_lcma)
@@ -5642,6 +5759,18 @@ def run_phases(dry: list, t0: float) -> None:
          "ms": times[k]["ms"], "plain_ms": times[k]["plain_ms"],
          "bound_ms": times[k]["bound_ms"], "bound_by": times[k]["bound_by"],
          "library_ms": times[k]["library_ms"]} for k in SOURCES] + [
+        # the tiled GEMM's f32 route, launches from the f32 calibration
+        # (phase tune); Group Combine's narrow route at dbrx's attention,
+        # launches from serve_moe's narrow calls
+        {"name": k, "route": "cuda", "source": SOURCES[k.split("@")[0]],
+         "replaces": REPLACES[k.split("@")[0]],
+         "launches": counts["tiled_matmul@f32"] if k.startswith("tiled")
+         else moe_counts["batched_group_combine/narrow"],
+         "max_abs_err": times[k]["max_abs_err"], "ms": times[k]["ms"],
+         "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
+         "bound_by": times[k]["bound_by"], "library_ms": times[k]["library_ms"]}
+        for k in ("tiled_matmul@f32_4096", "tiled_matmul@f32", "tiled_matmul@f32_probe2",
+                  "tiled_matmul@f32_decode", "batched_group_combine@narrow_dbrx")] + [
         # the expert FFN's calls (dbrx, forced strassen), launches from serve_moe
         {"name": k, "route": "cuda", "source": SOURCES[k.split("@")[0]],
          "replaces": REPLACES[k.split("@")[0]], "launches": moe_counts[k.split("@")[0]],

@@ -8,8 +8,10 @@ enforce, so a plan that would not launch is rejected offline, without
 compiling or launching a kernel:
 
   * each stage's shared memory, recomputed through ``tuning``'s own
-    ``combine_smem``, ``fused_f32_smem``, ``fused_tc_smem`` and
-    ``quant_combine_smem`` (the report cross-checked), against
+    ``combine_smem`` (``combine_narrow_smem`` on Group Combine's narrow
+    route), ``fused_f32_smem``, ``fused_tc_smem``, ``quant_combine_smem``
+    and the tiled GEMM's ``tiled_wgmma_smem``, ``tiled_f32_smem`` and
+    ``tiled_mma_smem`` (the report cross-checked), against
     min(plan budget, ``hw.vmem_bytes``): 232,448 B a block on ``h100_sxm``;
   * registers per thread (``combine_regs``, ``quant_combine_regs``,
     ``fused_f32_regs``, ``fused_tc_regs``) within ``REGS_PER_THREAD`` and a
@@ -18,8 +20,10 @@ compiling or launching a kernel:
     2^31 - 1, as each launcher lays its grid out;
   * tensor-core tiles among ``TC_TILES``, f32 fused tiles among
     ``F32_TILES`` (with the stage depth Y calls for and the ring the kernel
-    has), ``wgmma`` tiles among ``TILED_WG_TILES`` and multiples of
-    ``hw.mxu_align``;
+    has), the tiled GEMM's ``wgmma`` tiles among ``TILED_WG_TILES`` and
+    multiples of ``hw.mxu_align``, its ``f32`` and ``mma`` tiles among
+    ``TILED_F32_TILES`` and ``TILED_MMA_TILES`` with registers within their
+    launch bounds;
   * the int8 scale block dividing Y and a split's ranges covering its
     reduction units (tensor-core and f32 fused plans);
   * dtype legality per port backend (:data:`BACKEND_DTYPES`).
@@ -226,12 +230,27 @@ def _check_combine(findings, subject, stage, p: dict, X, Y, coeff, isz, limit, h
     R, d1, d2 = coeff.shape
     vec, ty, tx, rows = (int(p[k]) for k in ("vec", "ty", "tx", "rows"))
     table = R + 1 + 2 * int(np.count_nonzero(coeff))
-    if vec not in (1, 16 // isz) or (vec > 1 and Y % vec):
+    if p.get("route") == "narrow":
+        # any Y: pieces of xb rows x yb columns (a multiple of 16 bytes where
+        # yb cuts Y), 16-byte stores
+        xb, yb = int(p["xb"]), int(p["yb"])
+        if vec != 16 // isz or (tx, rows) != (1, 1) or xb < 1 or not (
+                yb == Y or (0 < yb < Y and yb % vec == 0)):
+            findings.append(Finding(PASS, ERROR, subject,
+                                    f"{stage} narrow piece {xb} x {yb} (stores of {vec}) does "
+                                    f"not tile the (X, Y) = ({X}, {Y}) plane"))
+            return
+        _check_stage(findings, subject, f"{stage}/narrow",
+                     tuning.combine_narrow_smem(d1 * d2, xb, yb, table, isz),
+                     (p.get("smem_bytes"), *reported), limit, hw, tuning.combine_regs(vec), ty,
+                     (-(-X // xb), -(-Y // yb), 1))
+        return
+    if vec != 16 // isz or Y % vec:
         findings.append(Finding(PASS, ERROR, subject,
                                 f"{stage} vector width {vec} does not tile Y = {Y} in "
                                 f"16-byte accesses"))
         return
-    smem = tuning.combine_smem(d1 * d2, ty * tx, table, vec * isz)
+    smem = tuning.combine_smem(d1 * d2, ty * tx, table, 16)
     grid = (-(-(Y // vec) // ty), -(-X // (tx * rows)), 1)
     _check_stage(findings, subject, stage, smem, (p.get("smem_bytes"), *reported), limit, hw,
                  tuning.combine_regs(vec), ty * tx, grid)
@@ -331,15 +350,19 @@ def _lint_plan(plan, l: LCMA, hw, dtype, backend, subject, findings):
 
 def lint_tiled_plan(M: int, K: int, N: int, hw: HardwareProfile, *,
                     dtype: str = "bfloat16", subject: str | None = None) -> list[Finding]:
-    """The tiled GEMM a plain (GEMM-decided) contraction launches: the
-    ``wgmma`` plan for bf16 (tile among ``TILED_WG_TILES`` and a multiple
-    of ``hw.mxu_align``, shared memory, threads, grid, splits), the SIMT
-    plan otherwise (tile among ``TILED_TILES``, static shared memory)."""
+    """The tiled GEMM a plain (GEMM-decided) contraction launches, on the
+    route ``tuning.tiled_route`` gives aligned operands: the ``wgmma`` plan
+    for bf16 that TMA can address (tile among ``TILED_WG_TILES`` and a
+    multiple of ``hw.mxu_align``), the ``mma`` plan for other bf16 (tile
+    among ``TILED_MMA_TILES``), the ``f32`` plan for f32 (tile among
+    ``TILED_F32_TILES``, registers within its launch bounds); each with its
+    shared memory, threads, grid and splits."""
     from repro_torch.kernels import tuning
     subject = subject or f"tiled@{M}x{K}x{N}/{dtype}"
     findings: list[Finding] = []
     limit = min(tuning.SMEM_BUDGET, int(hw.vmem_bytes))
-    if str(dtype) == "bfloat16" and K % 8 == 0 and N % 8 == 0:
+    route = tuning.tiled_route(str(dtype), K, N, 0, 0)
+    if route == "wgmma":
         p = tuning.plan_tiled_wgmma(M, K, N)
         if (p.bm, p.bn) not in tuning.TILED_WG_TILES:
             findings.append(Finding(PASS, ERROR, subject,
@@ -353,16 +376,26 @@ def lint_tiled_plan(M: int, K: int, N: int, hw: HardwareProfile, *,
                      (p.smem_bytes,), limit, hw, tuning.tiled_wgmma_regs(p.bn),
                      tuning.tiled_wgmma_threads(p.bm),
                      (-(-N // p.bn), -(-M // p.bm), p.splits))
+        return findings
+    if route == "f32":
+        p = tuning.plan_tiled_f32(M, K, N, vec=N % 4 == 0)
+        tiles, smem = tuning.TILED_F32_TILES, tuning.tiled_f32_smem(p.bm, p.bn)
+        min_blocks = tiles.get((p.bm, p.bn), (0,) * 5)[4]
     else:
-        bm, bn, bk = tuning.plan_tiled_matmul_blocks(M, N, limit)
-        if (bm, bn) not in tuning.TILED_TILES:
-            findings.append(Finding(PASS, ERROR, subject,
-                                    f"SIMT tile {bm}x{bn} is not among "
-                                    f"{list(tuning.TILED_TILES)}"))
-        tm, tn = -(-M // bm), -(-N // bn)
-        _check_stage(findings, subject, "tiled_simt", tuning.tiled_matmul_smem(bm, bn, bk), (),
-                     min(limit, tuning.STATIC_SMEM), hw, tuning.tiled_simt_regs(bm, bn),
-                     tuning.THREADS, (max(tm, tn), min(tm, tn), 1))
+        p = tuning.plan_tiled_mma(M, K, N, vec_a=K % 8 == 0, vec_b=N % 8 == 0)
+        tiles, smem = tuning.TILED_MMA_TILES, tuning.tiled_mma_smem(p.bm)
+        min_blocks = tuning.TILED_MMA_MIN_BLOCKS
+    if (p.bm, p.bn) not in tiles:
+        findings.append(Finding(PASS, ERROR, subject,
+                                f"{route} tile {p.bm}x{p.bn} is not among {list(tiles)}"))
+        return findings
+    cap = min(tuning.REGS_PER_THREAD, tuning.REGS_PER_SM // (p.threads * min_blocks))
+    if p.regs > cap:
+        findings.append(Finding(PASS, ERROR, subject,
+                                f"tiled_{route} needs ~{p.regs} registers a thread > the "
+                                f"{cap} its launch bounds ({min_blocks} blocks an SM) allow"))
+    _check_stage(findings, subject, f"tiled_{route}", smem, (p.smem_bytes,), limit, hw, p.regs,
+                 p.threads, (-(-N // p.bn), -(-M // p.bm), p.splits))
     return findings
 
 

@@ -24,10 +24,12 @@ KERNELS = (group_combine, batched_group_combine, fused_gemm_combine_h,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-    tiled_matmul.routes = dict.fromkeys(tiled_matmul.routes, 0)
-    group_combine_quant.routes = dict.fromkeys(group_combine_quant.routes, 0)
+    for k in (tiled_matmul, group_combine_quant, group_combine, batched_group_combine):
+        k.routes = dict.fromkeys(k.routes, 0)
     group_combine.shapes.clear()
     batched_group_combine.shapes.clear()
+    group_combine.narrow.clear()
+    batched_group_combine.narrow.clear()
     group_combine_quant.shapes.clear()
     fused_gemm_combine_h_quant.shapes.clear()
     fused_gemm_combine_h.shapes.clear()
@@ -42,6 +44,10 @@ _SUBCOUNTS = {"tiled_matmul": lambda: tiled_matmul.routes,
               "group_combine_quant": lambda: group_combine_quant.routes,
               "group_combine": lambda: group_combine.shapes,
               "batched_group_combine": lambda: batched_group_combine.shapes,
+              "group_combine/route": lambda: group_combine.routes,
+              "batched_group_combine/route": lambda: batched_group_combine.routes,
+              "group_combine/narrow": lambda: group_combine.narrow,
+              "batched_group_combine/narrow": lambda: batched_group_combine.narrow,
               "fused_gemm_combine_h": lambda: fused_gemm_combine_h.shapes,
               "batched_fused_gemm_combine_h": lambda: batched_fused_gemm_combine_h.shapes,
               "group_combine_quant/shape": lambda: group_combine_quant.shapes,
@@ -52,8 +58,10 @@ def launch_state() -> Counter:
     """Every launch counter in one Counter: each kernel's launches under its
     name, and under ``(name, route or input shape)`` the tiled GEMM's and
     the quantizing Combine A's launches by route, Group Combine's (2-D and
-    batched) by input shape, the fused kernel's (2-D and batched) by its
-    operands' shapes, and the int8 kernels' by their operands' shapes and
+    batched) by input shape (by route under ``"<name>/route"``, the narrow
+    route's by input shape under ``"<name>/narrow"``), the fused kernel's
+    (2-D and batched) by its operands' shapes, and the int8 kernels' by their
+    operands' shapes and
     K-block (the quantizing Combine A's under ``"group_combine_quant/shape"``,
     its routes keeping its own name). ``launch_state() - before`` is what
     ran since ``before``."""

@@ -39,6 +39,9 @@ _SIGNATURES = {
         # device, in, out, table, table_len, dtype, G, R, d1, d2, X, Y, vec, ty,
         # tx, rows, smem_bytes, stream
         "falcon_group_combine": [_I, _P, _P, _P] + [_I] * 13 + [_P],
+        # device, in, out, table, table_len, dtype, G, R, d1, d2, X, Y, xb, yb,
+        # threads, smem_bytes, stream
+        "falcon_group_combine_narrow": [_I, _P, _P, _P] + [_I] * 12 + [_P],
     },
     "fused_gemm": {
         # device, at, bt, out, ws, table, in_dtype, out_dtype, G, R, mn, X, Y,
@@ -55,10 +58,14 @@ _SIGNATURES = {
         "falcon_fused_gemm_quant": [_I] + [_P] * 7 + [_I] * 12 + [_P],
     },
     "tiled_matmul": {
-        # device, a, b, c, in_dtype, out_dtype, M, K, N, bm, bn, stream
-        "falcon_tiled_matmul": [_I] + [_P] * 3 + [_I] * 7 + [_P],
         # device, a, b, c, ws, out_dtype, M, K, N, bm, bn, splits, smem_bytes, stream
         "falcon_tiled_matmul_wgmma": [_I] + [_P] * 4 + [_I] * 8 + [_P],
+        # device, a, b, c, ws, out_dtype, M, K, N, bm, bn, vec, splits, smem_bytes,
+        # stream
+        "falcon_tiled_matmul_f32": [_I] + [_P] * 4 + [_I] * 9 + [_P],
+        # device, a, b, c, ws, out_dtype, M, K, N, bm, vec_a, vec_b, splits,
+        # smem_bytes, stream
+        "falcon_tiled_matmul_mma": [_I] + [_P] * 4 + [_I] * 9 + [_P],
     },
 }
 

@@ -30,12 +30,13 @@ fixed-order pass.
 
 ``tiled_matmul`` replaces the Pallas ``tiled_matmul``, the non-LCMA
 baseline the autotuner times for FLOPS_x (``csrc/tiled_matmul.cu``). It has
-two routes, chosen before the launch by ``tuning.tiled_route``: bf16
-operands that TMA can address run on the tensor cores (TMA ring + wgmma,
-``tuning.plan_tiled_wgmma``, K split across blocks where the tiles alone
-leave the card idle), the rest (f32, unaligned bf16) on the SIMT kernel
-(``tuning.plan_tiled_matmul_blocks``). The wrapper counts launches per
-route in ``tiled_matmul.routes``.
+three routes, chosen before the launch by ``tuning.tiled_route``: bf16
+operands that TMA can address run on the tensor cores through a TMA ring
+and wgmma (``tuning.plan_tiled_wgmma``), other bf16 through mma.sync
+(``tuning.plan_tiled_mma``), f32 on an SGEMM for the FP32 pipe
+(``tuning.plan_tiled_f32``); each splits K across blocks where the tiles
+alone leave the card idle. The wrapper counts launches per route in
+``tiled_matmul.routes``.
 
 A tensor on the CPU (or meta) takes the plain version (``ref.fused_gemm_combine_h_ref``,
 ``ref.tiled_matmul_ref``); a CUDA tensor launches the kernel or raises.
@@ -49,7 +50,7 @@ import torch
 
 from . import build, ref
 from .group_combine import coeff_table, refuse_grad
-from .tuning import (plan_fused_f32, plan_fused_tc, plan_tiled_matmul_blocks,
+from .tuning import (plan_fused_f32, plan_fused_tc, plan_tiled_f32, plan_tiled_mma,
                      plan_tiled_wgmma, tiled_route)
 
 __all__ = ["fused_gemm_combine_h", "batched_fused_gemm_combine_h", "tiled_matmul"]
@@ -168,17 +169,25 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
     route = tiled_route(str(a.dtype).removeprefix("torch."), K, N, a.data_ptr(), b.data_ptr())
     if route == "wgmma":
         plan = plan_tiled_wgmma(M, K, N)
-        ws = (torch.empty((plan.splits, M, N), dtype=torch.float32, device=a.device)
-              if plan.splits > 1 else None)
-        err = lib.falcon_tiled_matmul_wgmma(
-            a.device.index, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            ws.data_ptr() if ws is not None else None, out_code, M, K, N,
-            plan.bm, plan.bn, plan.splits, plan.smem_bytes, stream)
+    elif route == "f32":
+        plan = plan_tiled_f32(M, K, N, vec=N % 4 == 0 and b.data_ptr() % 16 == 0
+                              and out.data_ptr() % 16 == 0)
     else:
-        bm, bn, _ = plan_tiled_matmul_blocks(M, N)
-        err = lib.falcon_tiled_matmul(a.device.index, a.data_ptr(), b.data_ptr(),
-                                      out.data_ptr(), codes[str(a.dtype).removeprefix("torch.")],
-                                      out_code, M, K, N, bm, bn, stream)
+        plan = plan_tiled_mma(M, K, N, vec_a=K % 8 == 0 and a.data_ptr() % 16 == 0,
+                              vec_b=N % 8 == 0 and b.data_ptr() % 16 == 0)
+    ws = (torch.empty((plan.splits, M, N), dtype=torch.float32, device=a.device)
+          if plan.splits > 1 else None)
+    args = (a.device.index, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, out_code, M, K, N)
+    if route == "wgmma":
+        err = lib.falcon_tiled_matmul_wgmma(*args, plan.bm, plan.bn, plan.splits,
+                                            plan.smem_bytes, stream)
+    elif route == "f32":
+        err = lib.falcon_tiled_matmul_f32(*args, plan.bm, plan.bn, int(plan.vec), plan.splits,
+                                          plan.smem_bytes, stream)
+    else:
+        err = lib.falcon_tiled_matmul_mma(*args, plan.bm, int(plan.vec_a), int(plan.vec_b),
+                                          plan.splits, plan.smem_bytes, stream)
     build.check(lib, err, f"tiled_matmul ({route})")
     tiled_matmul.launches += 1
     tiled_matmul.routes[route] += 1
@@ -193,4 +202,4 @@ batched_fused_gemm_combine_h.launches = 0
 fused_gemm_combine_h.shapes = Counter()
 batched_fused_gemm_combine_h.shapes = Counter()
 tiled_matmul.launches = 0
-tiled_matmul.routes = {"wgmma": 0, "simt": 0}   # the same launches, by route
+tiled_matmul.routes = {"wgmma": 0, "f32": 0, "mma": 0}   # the same launches, by route

@@ -10,8 +10,12 @@ elements against ~2 flops per coefficient term. So it is a stream of
 reads its d1*d2 co-located vectors once (in place from the (d1*X, d2*Y)
 input, no relayout) and writes each of the R outputs with one store, summed
 in f32 over the scheme's coefficient table (staged in shared memory) and
-rounded once. Where Y or a pointer rules out 16-byte access the same kernel
-moves single elements; ``tuning.plan_combine`` decides before the launch.
+rounded once. Where Y or a pointer rules out 16-byte loads (odd Y
+included), the narrow route stages a block's rows of every part in shared
+memory and still writes the contiguous output planes with 16-byte stores;
+``tuning.plan_combine`` decides before the launch. Each wrapper counts its
+launches by route (``.routes``: ``vector`` / ``narrow``) and the narrow
+ones by input shape (``.narrow``).
 
 A tensor on the CPU (or meta) takes the plain version (``ref.group_combine_ref``); a
 CUDA tensor launches the kernel or raises.
@@ -91,7 +95,7 @@ def _check(x: torch.Tensor, coeff: np.ndarray, ndim: int, what: str):
 def launch_plan(x: torch.Tensor, coeff: np.ndarray,
                 out: torch.Tensor | None = None) -> CombinePlan:
     """The plan a wrapper launches for ``x`` (2-D, or 3-D with the group
-    first) under ``coeff``: 16-byte access needs ``x`` and ``out`` (the
+    first) under ``coeff``: the vector route needs ``x`` and ``out`` (the
     output it writes, where given; a fresh allocation) 16-byte aligned."""
     R, d1, d2 = coeff.shape
     aligned = x.data_ptr() % 16 == 0 and (out is None or out.data_ptr() % 16 == 0)
@@ -99,19 +103,31 @@ def launch_plan(x: torch.Tensor, coeff: np.ndarray,
                         x.shape[-1] // d2, coeff, x.element_size(), aligned)
 
 
-def _launch(x3: torch.Tensor, coeff: np.ndarray, R, d1, d2, X, Y) -> torch.Tensor:
+def _launch(x3: torch.Tensor, coeff: np.ndarray, R, d1, d2, X, Y) -> tuple[torch.Tensor, str]:
     G = x3.shape[0]
     out = torch.empty((G, R, X, Y), dtype=x3.dtype, device=x3.device)
     tab = coeff_table(coeff, x3.device)
     plan = launch_plan(x3, coeff, out)
     lib = build.library("group_combine")
-    err = lib.falcon_group_combine(
-        x3.device.index, x3.data_ptr(), out.data_ptr(), tab.data_ptr(), tab.numel(),
-        build.DTYPE_CODES[str(x3.dtype).removeprefix("torch.")],
-        G, R, d1, d2, X, Y, plan.vec, plan.ty, plan.tx, plan.rows, plan.smem_bytes,
-        torch.cuda.current_stream(x3.device).cuda_stream)
-    build.check(lib, err, "group_combine")
-    return out
+    args = (x3.device.index, x3.data_ptr(), out.data_ptr(), tab.data_ptr(), tab.numel(),
+            build.DTYPE_CODES[str(x3.dtype).removeprefix("torch.")], G, R, d1, d2, X, Y)
+    stream = torch.cuda.current_stream(x3.device).cuda_stream
+    if plan.route == "vector":
+        err = lib.falcon_group_combine(*args, plan.vec, plan.ty, plan.tx, plan.rows,
+                                       plan.smem_bytes, stream)
+    else:
+        err = lib.falcon_group_combine_narrow(*args, plan.xb, plan.yb, plan.threads,
+                                              plan.smem_bytes, stream)
+    build.check(lib, err, f"group_combine ({plan.route})")
+    return out, plan.route
+
+
+def _count(fn, shape: tuple, route: str) -> None:
+    fn.launches += 1
+    fn.shapes[shape] += 1
+    fn.routes[route] += 1
+    if route == "narrow":
+        fn.narrow[shape] += 1
 
 
 def group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
@@ -124,10 +140,9 @@ def group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
     R, d1, d2, X, Y = _check(x, coeff, 2, "group_combine")
     if x.device.type != "cuda":
         return ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff)
-    out = _launch(x[None], coeff, R, d1, d2, X, Y)[0]
-    group_combine.launches += 1
-    group_combine.shapes[tuple(x.shape)] += 1
-    return out
+    out, route = _launch(x[None], coeff, R, d1, d2, X, Y)
+    _count(group_combine, tuple(x.shape), route)
+    return out[0]
 
 
 def batched_group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
@@ -135,13 +150,13 @@ def batched_group_combine(x: torch.Tensor, coeff: np.ndarray) -> torch.Tensor:
     R, d1, d2, X, Y = _check(x, coeff, 3, "batched_group_combine")
     if x.device.type != "cuda":
         return ref.group_combine_ref(ref.split_blocks(x, d1, d2), coeff)
-    out = _launch(x, coeff, R, d1, d2, X, Y)
-    batched_group_combine.launches += 1
-    batched_group_combine.shapes[tuple(x.shape)] += 1
+    out, route = _launch(x, coeff, R, d1, d2, X, Y)
+    _count(batched_group_combine, tuple(x.shape), route)
     return out
 
 
-group_combine.launches = 0          # kernel launches, counted by the wrapper
-group_combine.shapes = Counter()    # the same launches by input shape
-batched_group_combine.launches = 0
-batched_group_combine.shapes = Counter()
+for _fn in (group_combine, batched_group_combine):
+    _fn.launches = 0                             # kernel launches, counted by the wrapper
+    _fn.shapes = Counter()                       # the same launches by input shape
+    _fn.routes = {"vector": 0, "narrow": 0}      # ... by route
+    _fn.narrow = Counter()                       # the narrow route's, by input shape

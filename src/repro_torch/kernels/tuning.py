@@ -17,7 +17,8 @@ range the same way. The f32 fused kernel's tile is chosen from the shape
 as well: a 32-wide one where Z = 32, an 8-row one for decode rows.
 
 The Group Combine kernel is a stream of 16-byte accesses; its plan is the
-vector width, the block shape and the rows each thread walks. Its
+route (16-byte loads, or the narrow route's staged pieces for any Y and
+alignment), the block shape and the rows each thread or block walks. Its
 quantizing form (Combine A fused with the int8 absmax) is one too; its plan
 is the route, the lanes per K-block, the units per block and the rank
 split.
@@ -30,7 +31,8 @@ from dataclasses import asdict, dataclass
 import numpy as np
 
 __all__ = ["SMEM_BUDGET", "SMEM_PER_SM", "REGS_PER_THREAD", "REGS_PER_SM", "THREADS", "SMS",
-           "COMBINE_MIN_BLOCKS", "CombinePlan", "combine_smem", "combine_regs", "plan_combine",
+           "COMBINE_MIN_BLOCKS", "COMBINE_NARROW_ELEMS", "CombinePlan", "combine_smem",
+           "combine_narrow_smem", "combine_regs", "plan_combine",
            "F32_TILES", "F32_TN", "F32_BKS", "F32_STAGES", "F32_PAD", "F32_PAD_B",
            "F32_ACC_REGS", "FusedF32Plan", "fused_f32_pair", "fused_f32_bk",
            "fused_f32_threads", "fused_f32_smem", "fused_f32_regs", "fused_f32_rate",
@@ -40,8 +42,11 @@ __all__ = ["SMEM_BUDGET", "SMEM_PER_SM", "REGS_PER_THREAD", "REGS_PER_SM", "THRE
            "plan_fused_tc", "split_ranges",
            "QUANT_COMBINE_THREADS", "QUANT_SPLIT_MIN_BLOCKS", "QuantCombinePlan",
            "quant_combine_smem", "quant_combine_regs", "plan_quant_combine",
-           "TILED_TILES", "TILED_BK", "TILED_MIN_BLOCKS", "STATIC_SMEM",
-           "tiled_matmul_smem", "tiled_simt_regs", "plan_tiled_matmul_blocks",
+           "TILED_F32_TILES", "TILED_F32_BK", "TILED_F32_STAGES", "TILED_F32_PAD",
+           "TILED_MMA_TILES", "TILED_MMA_BK", "TILED_MMA_STAGES", "TILED_MMA_PAD",
+           "TILED_MMA_MIN_BLOCKS", "TILED_MIN_BLOCKS", "TiledF32Plan", "TiledMmaPlan",
+           "tiled_f32_smem", "tiled_f32_regs", "plan_tiled_f32", "tiled_mma_smem",
+           "tiled_mma_regs", "plan_tiled_mma",
            "TILED_WG_TILES", "TILED_WG_BK", "TILED_WG_STAGES", "TILED_WG_MIN_KBLOCKS",
            "TiledPlan", "tiled_route", "tiled_wgmma_smem", "tiled_wgmma_threads",
            "tiled_wgmma_regs", "plan_tiled_wgmma", "scale_block", "block_plans"]
@@ -50,7 +55,7 @@ SMEM_BUDGET = 232_448      # bytes of shared memory one block may use
 SMEM_PER_SM = 233_472      # an SM's shared memory for its blocks (1 KB more kept per block)
 REGS_PER_THREAD = 255
 REGS_PER_SM = 65_536
-THREADS = 256              # threads per block of the SIMT kernels
+THREADS = 256              # most threads a Group Combine block holds
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 
 # The f32 fused kernels (csrc/fused_gemm.cu, namespace f32): tiles as (bx,
@@ -81,13 +86,26 @@ TC_STAGES = 3              # depth of the cp.async ring
 TC_PAD = 16                # bytes after every staged row (ldmatrix without bank conflicts)
 TC_ACC_REGS = 4            # m*n up to this: output accumulators in registers
 SPLIT_MIN_BLOCKS = 2 * SMS  # blocks a split grid aims for
-# The tiled GEMM's SIMT route (csrc/tiled_matmul.cu: f32 operands, and bf16
-# ones TMA cannot address): tiles as (bm, bn), largest first, 256 threads in
-# a 16 x 16 layout, each owning a (bm/16) x (bn/16) micro-tile.
-TILED_TILES = ((128, 128), (64, 64), (16, 64))
-TILED_BK = 16              # K depth of one shared-memory stage (kTBK)
+# The tiled GEMM's f32 route (csrc/tiled_matmul.cu, namespace sg: FP32 FMAs
+# only): tiles (bm, bn) -> (wm, wn, gm, gn, min_blocks), wm x wn warps, each
+# lane gm x gn groups of 4 x 4 outputs, min_blocks blocks an SM in the launch
+# bounds; a ring of TILED_F32_STAGES cp.async stages of TILED_F32_BK K steps,
+# A stored K-major with rows padded by TILED_F32_PAD floats. Decode rows take
+# the 8- and 16-row tiles.
+TILED_F32_TILES = {(128, 256): (2, 4, 2, 4, 1), (64, 128): (2, 2, 2, 2, 4),
+                   (16, 256): (1, 4, 1, 2, 4), (8, 256): (1, 4, 1, 1, 4)}
+TILED_F32_BK = 16          # sg::kBK
+TILED_F32_STAGES = 4       # sg::kStages
+TILED_F32_PAD = 4          # sg::kPadA
+# Its mma.sync route (bf16 TMA cannot address, namespace mm): tiles of bm/64
+# warps along m and 4 along n, each warp 64 x 32; a ring of TILED_MMA_STAGES
+# stages of TILED_MMA_BK K steps, rows padded by TILED_MMA_PAD elements.
+TILED_MMA_TILES = ((128, 128), (64, 128))
+TILED_MMA_BK = 32          # mm::kBK
+TILED_MMA_STAGES = 4       # mm::kStages
+TILED_MMA_PAD = 8          # mm::kPad
+TILED_MMA_MIN_BLOCKS = 2   # mma launch bounds: 2 blocks an SM
 TILED_MIN_BLOCKS = 128     # blocks that keep (nearly) all 132 SMs busy
-STATIC_SMEM = 48 * 1024    # cap on a block's static __shared__ arrays (tiled GEMM)
 # Its tensor-core route (bf16, TMA + wgmma): tiles (bm, bn) with bm/64
 # consumer warpgroups and one producer warp, a ring of TILED_WG_STAGES stages
 # of TILED_WG_BK K elements (one 128-byte swizzle row of bf16).
@@ -97,6 +115,7 @@ TILED_WG_STAGES = 4        # kWgStages
 TILED_WG_MIN_KBLOCKS = 4   # K stages a split keeps, at least (fills the ring)
 # Group Combine: the grid a call is spread over before a thread takes more rows
 COMBINE_MIN_BLOCKS = 4 * SMS
+COMBINE_NARROW_ELEMS = 2048  # elements a narrow-route block stages (about)
 # Quant Group Combine A (csrc/quant_combine.cu): most threads a block holds
 # (kQcThreads), and the grid a small call's rank split aims for (~6 blocks
 # an SM: mlp_up's Combine A gets 4 rank groups at prefill, 7 at decode).
@@ -110,38 +129,58 @@ def _pow2_at_least(n: int) -> int:
 
 @dataclass(frozen=True)
 class CombinePlan:
-    """One launch of the Group Combine kernel: a block of ``ty`` x ``tx``
-    threads (``ty`` along y in vectors of ``vec`` elements, ``tx`` along x),
-    each thread walking ``rows`` rows; ``smem_bytes`` as the launcher's
-    layout computes it."""
+    """One launch of the Group Combine kernel.
+
+    The vector route: a block of ``ty`` x ``tx`` threads (``ty`` along y in
+    vectors of ``vec`` elements, 16 bytes; ``tx`` along x), each thread
+    walking ``rows`` rows. The narrow route (``xb`` > 0): a block of ``ty``
+    threads (``tx`` = ``rows`` = 1) stages ``xb`` rows x ``yb`` columns of
+    one group and writes them in 16-byte stores of ``vec`` elements.
+    ``smem_bytes`` as the launcher's layout computes it."""
     vec: int
     ty: int
     tx: int
     rows: int
     smem_bytes: int
     blocks: int
+    xb: int = 0
+    yb: int = 0
+
+    @property
+    def route(self) -> str:
+        return "narrow" if self.xb else "vector"
 
     @property
     def threads(self) -> int:
         return self.ty * self.tx
 
     def as_dict(self) -> dict:
-        return {**asdict(self), "threads": self.threads}
+        return {**asdict(self), "threads": self.threads, "route": self.route}
 
 
 def combine_smem(nparts: int, threads: int, table_len: int, vec_bytes: int) -> int:
-    """Shared memory of one Group Combine block: each thread's ``nparts``
-    slots of one access (``vec_bytes``: 16, or the itemsize on the scalar
-    path), rounded up to 16 bytes, then the scheme's coefficient table of
-    ``table_len`` ints."""
+    """Shared memory of one vector-route Group Combine block: each thread's
+    ``nparts`` slots of one access (``vec_bytes``: 16; the quantizing
+    kernel's scalar route, the itemsize), rounded up to 16 bytes, then the
+    scheme's coefficient table of ``table_len`` ints."""
     return -(-nparts * threads * vec_bytes // 16) * 16 + 4 * table_len
+
+
+def combine_narrow_smem(nparts: int, xb: int, yb: int, table_len: int, itemsize: int) -> int:
+    """Shared memory of one narrow-route block, as ``narrow_smem`` in
+    csrc/group_combine.cu: two 16-byte guards, the parts' ``xb`` x ``yb``
+    pieces, each padded to whole 16-byte vectors, and the coefficient
+    table."""
+    vec = 16 // itemsize
+    return 32 + nparts * -(-xb * yb // vec) * vec * itemsize + 4 * table_len
 
 
 def combine_regs(vec: int) -> int:
     """Registers per thread, estimated: four 16-byte loads in flight (16),
     the f32 sums and one unpacked slot (2 * vec), and a fixed allowance for
     addressing and the table walk. The parts live in shared memory, so the
-    scheme does not change it."""
+    scheme does not change it. The narrow route holds eight loaded elements
+    and ``vec`` sums: less."""
     return 16 + 2 * vec + 48
 
 
@@ -151,14 +190,16 @@ def plan_combine(G: int, X: int, Y: int, coeff, itemsize: int, aligned: bool = T
     (R, X, Y) under ``coeff`` (R, d1, d2): its d1*d2 parts, and its CSR
     table (``group_combine.coeff_table``) of R + 1 + 2*nnz ints.
 
-    ``vec`` is 16 bytes of elements where Y is a multiple of it and both
-    pointers are 16-byte aligned (``aligned``), else 1 (the scalar path).
-    The block covers the y vectors of a row with up to 128 threads and
-    fills up to 256 threads with rows; a call too small for ``SMS`` blocks
-    gets smaller blocks (down to 64 threads), a large one gives each thread
-    up to 8 rows while the grid keeps ``COMBINE_MIN_BLOCKS``. Blocks shrink
-    along x until the slots and the table fit ``budget`` and the block's
-    registers (:func:`combine_regs`) fit an SM.
+    The vector route where Y is a multiple of 16 bytes of elements and both
+    pointers are 16-byte aligned (``aligned``): the block covers the y
+    vectors of a row with up to 128 threads and fills up to 256 threads
+    with rows; a call too small for ``SMS`` blocks gets smaller blocks (down
+    to 64 threads), a large one gives each thread up to 8 rows while the
+    grid keeps ``COMBINE_MIN_BLOCKS``. Blocks shrink along x until the slots
+    and the table fit ``budget`` and the block's registers
+    (:func:`combine_regs`) fit an SM.
+
+    The narrow route otherwise (:func:`_plan_narrow`).
     """
     R, d1, d2 = coeff.shape
     return _plan_combine(G, X, Y, d1 * d2, R + 1 + 2 * int(np.count_nonzero(coeff)),
@@ -167,8 +208,9 @@ def plan_combine(G: int, X: int, Y: int, coeff, itemsize: int, aligned: bool = T
 
 @functools.lru_cache(maxsize=4096)
 def _plan_combine(G, X, Y, nparts, table_len, itemsize, aligned, budget) -> CombinePlan:
-    wide = 16 // itemsize
-    vec = wide if aligned and Y % wide == 0 else 1
+    vec = 16 // itemsize
+    if not aligned or Y % vec:
+        return _plan_narrow(G, X, Y, nparts, table_len, itemsize, budget)
     yv = Y // vec
     ty = min(128, _pow2_at_least(yv))
     tx = min(THREADS // ty, _pow2_at_least(X))
@@ -182,8 +224,7 @@ def _plan_combine(G, X, Y, nparts, table_len, itemsize, aligned, budget) -> Comb
         else:
             ty //= 2
     rows = next((r for r in (8, 4, 2) if blocks(ty, tx, r) >= COMBINE_MIN_BLOCKS), 1)
-    vec_bytes = vec * itemsize
-    while (combine_smem(nparts, ty * tx, table_len, vec_bytes) > budget
+    while (combine_smem(nparts, ty * tx, table_len, 16) > budget
            or combine_regs(vec) * ty * tx > REGS_PER_SM):
         if tx > 1:
             tx //= 2
@@ -192,9 +233,31 @@ def _plan_combine(G, X, Y, nparts, table_len, itemsize, aligned, budget) -> Comb
         else:
             raise ValueError(f"no Group Combine block fits {nparts} parts and a "
                              f"{table_len}-int table in {budget} bytes of shared memory")
-    return CombinePlan(vec, ty, tx, rows,
-                       combine_smem(nparts, ty * tx, table_len, vec_bytes),
+    return CombinePlan(vec, ty, tx, rows, combine_smem(nparts, ty * tx, table_len, 16),
                        blocks(ty, tx, rows))
+
+
+def _plan_narrow(G, X, Y, nparts, table_len, itemsize, budget) -> CombinePlan:
+    """The narrow route's block: ``THREADS`` threads staging about
+    ``COMBINE_NARROW_ELEMS`` elements (the small calls are latency-bound:
+    the more warps a block has, the sooner its one round trip and its sums
+    are done; on the card no smaller block was faster by more than 3%).
+    Whole rows (``yb`` = Y, ``xb`` of them, the nearest whole
+    count) where a row of every part is at most four times that, else one
+    row cut into even ``yb``-column pieces (a multiple of 16 bytes of
+    elements). Shared memory: :func:`combine_narrow_smem`, within
+    ``budget``."""
+    vec = 16 // itemsize
+    if nparts * (Y + vec) <= 4 * COMBINE_NARROW_ELEMS:
+        xb, yb = min(X, max(1, round(COMBINE_NARROW_ELEMS / (nparts * Y)))), Y
+    else:                                  # y cut into even pieces
+        pieces = -(-nparts * Y // COMBINE_NARROW_ELEMS)
+        xb, yb = 1, -(-(-(-Y // pieces)) // vec) * vec
+    smem = combine_narrow_smem(nparts, xb, yb, table_len, itemsize)
+    if smem > budget:
+        raise ValueError(f"no narrow Group Combine block fits {nparts} parts and a "
+                         f"{table_len}-int table in {budget} bytes of shared memory")
+    return CombinePlan(vec, THREADS, 1, 1, smem, -(-X // xb) * -(-Y // yb) * G, xb, yb)
 
 
 @dataclass(frozen=True)
@@ -553,56 +616,175 @@ def plan_fused_f32(G: int, X: int, Y: int, Z: int, R: int, m: int, n: int,
                         tiles, split_max)
 
 
-def tiled_matmul_smem(bm: int, bn: int, bk: int = TILED_BK) -> int:
-    """Shared memory of one SIMT tiled-GEMM block: one f32 stage of the A
-    tile (rows padded by one word) and of the B tile."""
-    return 4 * (bm * (bk + 1) + bk * bn)
-
-
-def tiled_simt_regs(bm: int, bn: int) -> int:
-    """Registers per thread of the SIMT tiled GEMM, estimated: the
-    (bm/16) x (bn/16) f32 micro-tile, one A and one B fragment, one 16-byte
-    load widened to f32 (up to 8 values) and a fixed allowance for
-    addressing."""
-    tm, tn = bm // 16, bn // 16
-    return tm * tn + tm + tn + 8 + 40
-
-
-def plan_tiled_matmul_blocks(M: int, N: int,
-                             budget: int = SMEM_BUDGET) -> tuple[int, int, int]:
-    """Tile ``(bm, bn, bk)`` of the tiled GEMM for a (M, N) output.
-
-    Decode rows (M <= 16) take the flat 16 x 64 tile. Otherwise the largest
-    tile whose grid has at least ``TILED_MIN_BLOCKS`` blocks, so a short-M
-    product still spreads over the card; a problem too small for that takes
-    the tile that gives it the most blocks. The kernel's tiles are static
-    ``__shared__`` arrays, so ``budget`` is capped at ``STATIC_SMEM``.
-    """
-    budget = min(budget, STATIC_SMEM)
-    fits = [(bm, bn) for bm, bn in TILED_TILES
-            if tiled_matmul_smem(bm, bn) <= budget
-            and tiled_simt_regs(bm, bn) <= REGS_PER_THREAD
-            and tiled_simt_regs(bm, bn) * THREADS <= REGS_PER_SM]
-    if not fits:
-        raise ValueError(f"no tiled-GEMM tile fits {budget} bytes of shared memory")
-    blocks = {t: -(-M // t[0]) * -(-N // t[1]) for t in fits}
-    if M <= 16 and (16, 64) in blocks:
-        tile = (16, 64)
-    else:
-        tile = next((t for t in fits if blocks[t] >= TILED_MIN_BLOCKS),
-                    max(fits, key=lambda t: blocks[t]))
-    return (*tile, TILED_BK)
-
-
 def tiled_route(dtype: str, K: int, N: int, a_ptr: int, b_ptr: int) -> str:
     """The tiled GEMM's route, decided before the launch: ``"wgmma"`` for
     bf16 operands TMA can address (K and N multiples of 8, so every row
     stride is a multiple of 16 bytes, and both base pointers 16-byte
-    aligned), ``"simt"`` otherwise (f32, where TF32 would break the f32
-    tolerance, and unaligned bf16)."""
-    ok = (dtype == "bfloat16" and K % 8 == 0 and N % 8 == 0
-          and a_ptr % 16 == 0 and b_ptr % 16 == 0)
-    return "wgmma" if ok else "simt"
+    aligned), ``"mma"`` for other bf16 (tensor cores through mma.sync), and
+    ``"f32"`` for f32 operands (FP32 FMAs: TF32 would break the f32
+    tolerance)."""
+    if dtype != "bfloat16":
+        return "f32"
+    ok = K % 8 == 0 and N % 8 == 0 and a_ptr % 16 == 0 and b_ptr % 16 == 0
+    return "wgmma" if ok else "mma"
+
+
+def _resident(smem: int, min_blocks: int) -> int:
+    """Blocks an SM holds of a tiled-GEMM kernel: as many as its shared
+    memory allows (1 KB more kept per block), at most the ``min_blocks`` its
+    launch bounds guarantee registers for."""
+    return max(1, min(SMEM_PER_SM // (smem + 1024), min_blocks))
+
+
+def _fill_splits(M: int, K: int, N: int, tiles: int, resident: int, bk: int,
+                 itemsize: int) -> int:
+    """K splits of the f32 and mma routes: 1 where the tiles fill the
+    resident blocks of every SM, else as many as fill them, each split
+    keeping at least TILED_WG_MIN_KBLOCKS stages and the f32 partials no
+    more bytes than the operands."""
+    if tiles >= SMS * resident:
+        return 1
+    split_max = max(1, min(-(-K // bk) // TILED_WG_MIN_KBLOCKS,
+                           itemsize * (M * K + K * N) // (4 * M * N), 65_535))
+    return max(1, min(SMS * resident // tiles, split_max))
+
+
+def tiled_f32_smem(bm: int, bn: int) -> int:
+    """Shared memory of one f32 tiled-GEMM block, as ``sg::Tile::kBytes``:
+    TILED_F32_STAGES stages of A^T [bk][bm + pad] and B [bk][bn], f32."""
+    return 4 * TILED_F32_STAGES * TILED_F32_BK * (bm + TILED_F32_PAD + bn)
+
+
+def tiled_f32_regs(bm: int, bn: int) -> int:
+    """Registers per thread of the f32 route, estimated: the lane's gm*4 x
+    gn*4 accumulators, two buffers of its A and B fragments, and 24 for
+    addressing and the ring; the launch bounds cap it at REGS_PER_SM /
+    (threads * min_blocks), at most 255."""
+    _, _, gm, gn, _ = TILED_F32_TILES[(bm, bn)]
+    tm, tn = 4 * gm, 4 * gn
+    return tm * tn + 2 * (tm + tn) + 24
+
+
+@dataclass(frozen=True)
+class TiledF32Plan:
+    """One launch of the tiled GEMM's f32 route: a ``bm`` x ``bn`` tile over
+    ``wm`` x ``wn`` warps, each lane ``tm`` x ``tn`` outputs; a ring of
+    ``stages`` stages of ``bk`` K steps; B copied and C stored 16 bytes at a
+    time where ``vec``; the K range split across ``splits`` blocks per tile
+    (an f32 (splits, M, N) workspace and a fixed-order reduce pass when > 1)."""
+    bm: int
+    bn: int
+    wm: int
+    wn: int
+    tm: int
+    tn: int
+    bk: int
+    stages: int
+    threads: int
+    vec: bool
+    splits: int
+    tiles: int
+    smem_bytes: int
+    regs: int
+    resident: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def as_dict(self) -> dict:
+        return {**asdict(self), "blocks": self.blocks}
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_tiled_f32(M: int, K: int, N: int, vec: bool = True) -> TiledF32Plan:
+    """Tile and split of the f32 tiled GEMM for (M, K) @ (K, N).
+
+    Rows M <= 8 take the 8 x 256 tile, M <= 16 the 16 x 256 one (decode
+    rows: a stream over B with no more wasted rows than the kernel's 4-row
+    groups need), M <= 64 the 64 x 128 one (each lane 8 x 8 outputs), larger
+    M the 128 x 256 one (each lane 8 x 16: 128 FMAs for 6 shared-memory
+    reads). Where the tiles do not fill the resident blocks of every SM
+    (short-M probes, decode rows), K is split (:func:`_fill_splits`).
+    ``vec``: N % 4 == 0 and B and C 16-byte aligned (the wrapper's check)."""
+    if M <= 8:
+        bm, bn = 8, 256
+    elif M <= 16:
+        bm, bn = 16, 256
+    elif M <= 64:
+        bm, bn = 64, 128
+    else:
+        bm, bn = 128, 256
+    wm, wn, gm, gn, min_blocks = TILED_F32_TILES[(bm, bn)]
+    threads = 32 * wm * wn
+    smem = tiled_f32_smem(bm, bn)
+    resident = _resident(smem, min_blocks)
+    tiles = -(-M // bm) * -(-N // bn)
+    splits = _fill_splits(M, K, N, tiles, resident, TILED_F32_BK, 4)
+    return TiledF32Plan(bm, bn, wm, wn, 4 * gm, 4 * gn, TILED_F32_BK, TILED_F32_STAGES, threads,
+                        bool(vec), splits, tiles, smem, tiled_f32_regs(bm, bn), resident)
+
+
+def tiled_mma_smem(bm: int) -> int:
+    """Shared memory of one mma tiled-GEMM block, as ``mm::Layout::kBytes``:
+    TILED_MMA_STAGES ring stages of A [bm][bk + pad] and B [bk][128 + pad],
+    bf16, and one more stage that an operand staged raw is repacked into."""
+    bk, pad = TILED_MMA_BK, TILED_MMA_PAD
+    return 2 * (TILED_MMA_STAGES + 1) * (bm * (bk + pad) + bk * (128 + pad))
+
+
+def tiled_mma_regs(bm: int) -> int:
+    """Registers per thread of the mma route, estimated: 64 accumulators of
+    the warp's 64 x 32 tile, one k16 step's A and B fragments (16 + 8), and
+    32 for addressing and the ring; the launch bounds (TILED_MMA_MIN_BLOCKS
+    blocks an SM) cap it at 128 for 256 threads, 255 for 128."""
+    return 64 + 24 + 32
+
+
+@dataclass(frozen=True)
+class TiledMmaPlan:
+    """One launch of the tiled GEMM's mma route: a ``bm`` x ``bn`` tile of
+    ``threads`` threads, a ring of ``stages`` stages of ``bk`` K steps; A
+    (``vec_a``) and B (``vec_b``) staged by 16-byte copies where their row
+    stride and pointer allow, else by gathered element pairs; the K range
+    split across ``splits`` blocks per tile."""
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    threads: int
+    vec_a: bool
+    vec_b: bool
+    splits: int
+    tiles: int
+    smem_bytes: int
+    regs: int
+    resident: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def as_dict(self) -> dict:
+        return {**asdict(self), "blocks": self.blocks}
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_tiled_mma(M: int, K: int, N: int, vec_a: bool = False,
+                   vec_b: bool = False) -> TiledMmaPlan:
+    """Tile and split of the mma tiled GEMM for bf16 (M, K) @ (K, N) that TMA
+    cannot address: the 64 x 128 tile for M <= 64, else 128 x 128; K split
+    where the tiles do not fill the resident blocks (:func:`_fill_splits`).
+    ``vec_a``/``vec_b``: that operand's row stride is a multiple of 8
+    elements and its pointer 16-byte aligned."""
+    bm, bn = TILED_MMA_TILES[1] if M <= 64 else TILED_MMA_TILES[0]
+    threads = bm // 64 * 128
+    smem = tiled_mma_smem(bm)
+    resident = _resident(smem, TILED_MMA_MIN_BLOCKS)
+    tiles = -(-M // bm) * -(-N // bn)
+    splits = _fill_splits(M, K, N, tiles, resident, TILED_MMA_BK, 2)
+    return TiledMmaPlan(bm, bn, TILED_MMA_BK, TILED_MMA_STAGES, threads, bool(vec_a),
+                        bool(vec_b), splits, tiles, smem, tiled_mma_regs(bm), resident)
 
 
 def tiled_wgmma_smem(bm: int, bn: int) -> int:

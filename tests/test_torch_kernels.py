@@ -277,10 +277,13 @@ def test_planner_fits_every_candidate():
                             (3, 5, 1)):
                 for isz in (2, 4):
                     p = tuning.plan_combine(G, X, Y, coeff, isz)
-                    assert p.vec == (16 // isz if Y % (16 // isz) == 0 else 1)
+                    assert p.vec == 16 // isz
+                    assert p.route == ("vector" if Y % (16 // isz) == 0 else "narrow")
                     assert 1 <= p.threads <= tuning.THREADS and p.rows in (1, 2, 4, 8)
-                    assert p.smem_bytes == tuning.combine_smem(nparts, p.threads, table_len,
-                                                               p.vec * isz)
+                    assert p.smem_bytes == (
+                        tuning.combine_smem(nparts, p.threads, table_len, 16)
+                        if p.route == "vector" else
+                        tuning.combine_narrow_smem(nparts, p.xb, p.yb, table_len, isz))
                     assert p.smem_bytes <= tuning.SMEM_BUDGET
                     regs = tuning.combine_regs(p.vec)
                     assert regs <= tuning.REGS_PER_THREAD
@@ -290,16 +293,19 @@ def test_planner_fits_every_candidate():
     tc = lambda X: tuning.plan_fused_tc(1, X, 1024, 4096, 7, 2, 2)  # noqa: E731
     assert (tc(2).bx, tc(16).bx, tc(17).bx, tc(128).bx) == (8, 16, 32, 32)
     assert tc(128).splits == 1 and tc(2).splits > 1        # mlp_up: prefill, decode
-    # the tiled GEMM's SIMT route (f32, unaligned bf16)
+    # the tiled GEMM's f32 and mma routes (f32, unaligned bf16)
     for M, N in ((4, 8192), (13, 17), (256, 2048), (256, 8192), (4096, 4096)):
-        bm, bn, bk = tuning.plan_tiled_matmul_blocks(M, N)
-        assert (bm, bn) in tuning.TILED_TILES and bk == tuning.TILED_BK
-        assert tuning.tiled_matmul_smem(bm, bn) <= 48 * 1024    # static shared memory
-        assert tuning.tiled_simt_regs(bm, bn) <= tuning.REGS_PER_THREAD
-        assert tuning.tiled_simt_regs(bm, bn) * tuning.THREADS <= tuning.REGS_PER_SM
-    assert tuning.plan_tiled_matmul_blocks(4, 8192)[:2] == (16, 64)     # decode rows
-    assert tuning.plan_tiled_matmul_blocks(256, 2048)[:2] == (64, 64)   # >= 128 blocks
-    assert tuning.plan_tiled_matmul_blocks(4096, 4096)[:2] == (128, 128)
+        p = tuning.plan_tiled_f32(M, 2048, N)
+        assert (p.bm, p.bn) in tuning.TILED_F32_TILES and p.bk == tuning.TILED_F32_BK
+        assert p.smem_bytes == tuning.tiled_f32_smem(p.bm, p.bn) <= tuning.SMEM_BUDGET
+        assert p.regs <= tuning.REGS_PER_THREAD
+        q = tuning.plan_tiled_mma(M, 2048, N)
+        assert (q.bm, q.bn) in tuning.TILED_MMA_TILES and q.bk == tuning.TILED_MMA_BK
+        assert q.smem_bytes == tuning.tiled_mma_smem(q.bm) <= tuning.SMEM_BUDGET
+    assert tuning.plan_tiled_f32(4, 2048, 8192).bm == 8                 # decode rows
+    assert tuning.plan_tiled_f32(256, 2048, 8192).splits > 1            # fills the card
+    assert (tuning.plan_tiled_f32(4096, 4096, 4096).bm,
+            tuning.plan_tiled_f32(4096, 4096, 4096).bn) == (128, 256)
     # its tensor-core route (aligned bf16)
     wg = tuning.plan_tiled_wgmma
     assert (wg(4096, 4096, 4096).bm, wg(4096, 4096, 4096).bn) == (128, 256)
@@ -358,34 +364,41 @@ def test_tiled_wgmma_splits_the_second_probe():
 @pytest.mark.parametrize("dtype,K,N,a_ptr,b_ptr,route", [
     ("bfloat16", 2048, 8192, 0, 1024, "wgmma"),     # the probes, decode rows
     ("bfloat16", 64, 128, 16, 4096, "wgmma"),
-    ("float32", 2048, 8192, 0, 1024, "simt"),       # TF32 would break 1e-4
-    ("bfloat16", 23, 17, 0, 1024, "simt"),          # K, N: row strides not 16 bytes
-    ("bfloat16", 2048, 8196, 0, 1024, "simt"),
-    ("bfloat16", 101, 72, 0, 1024, "simt"),
-    ("bfloat16", 512, 384, 2, 1026, "simt"),        # chip_smoke's misaligned case
-    ("bfloat16", 512, 384, 0, 1026, "simt"),
+    ("float32", 2048, 8192, 0, 1024, "f32"),        # TF32 would break 1e-4
+    ("bfloat16", 23, 17, 0, 1024, "mma"),           # K, N: row strides not 16 bytes
+    ("bfloat16", 2048, 8196, 0, 1024, "mma"),
+    ("bfloat16", 101, 72, 0, 1024, "mma"),
+    ("bfloat16", 512, 384, 2, 1026, "mma"),         # chip_smoke's misaligned case
+    ("bfloat16", 512, 384, 0, 1026, "mma"),
 ])
 def test_tiled_route_rule(dtype, K, N, a_ptr, b_ptr, route):
-    """Aligned bf16 goes to the tensor cores; f32 and bf16 that TMA cannot
-    address to the SIMT kernel, decided before the launch."""
+    """Aligned bf16 goes to wgmma; bf16 that TMA cannot address to the
+    mma.sync route; f32 to the FP32 SGEMM, decided before the launch."""
     assert tuning.tiled_route(dtype, K, N, a_ptr, b_ptr) == route
 
 
-@pytest.mark.parametrize("G,X,Y,isz,aligned,vec", [
-    (1, 1024, 24704, 2, True, 8),      # the LM head's Combine B
-    (1, 1024, 24704, 4, True, 4),
-    (128, 32, 32, 2, True, 8),         # the attention scores' Combine A
-    (1, 2, 1024, 2, True, 8),          # mlp_up Combine A at decode
-    (1, 37, 53, 2, True, 1),           # Y no multiple of 8 bf16 ...
-    (1, 37, 54, 4, True, 1),           # ... or of 4 f32
-    (1, 128, 1024, 2, False, 1),       # a pointer not 16-byte aligned
+@pytest.mark.parametrize("G,X,Y,isz,aligned,route", [
+    (1, 1024, 24704, 2, True, "vector"),      # the LM head's Combine B
+    (1, 1024, 24704, 4, True, "vector"),
+    (128, 32, 32, 2, True, "vector"),         # the attention scores' Combine A
+    (1, 2, 1024, 2, True, "vector"),          # mlp_up Combine A at decode
+    (1, 37, 53, 2, True, "narrow"),           # Y no multiple of 8 bf16 ...
+    (1, 37, 54, 4, True, "narrow"),           # ... or of 4 f32
+    (1, 128, 1024, 2, False, "narrow"),       # a pointer not 16-byte aligned
 ])
-def test_combine_plan_vector_width(G, X, Y, isz, aligned, vec):
-    """16-byte accesses where Y and both pointers allow them, the scalar
-    path otherwise; the grid covers every (group, row, y vector), and small
-    calls are spread over at least SMS blocks where 64-thread blocks can."""
+def test_combine_plan_vector_width(G, X, Y, isz, aligned, route):
+    """16-byte loads where Y and both pointers allow them, the narrow route
+    otherwise (16-byte stores either way); the grid covers every (group,
+    row, y vector) or every (group, row piece, column piece), and small
+    vector calls are spread over at least SMS blocks where 64-thread blocks
+    can."""
     p = tuning.plan_combine(G, X, Y, talg.get("strassen").U, isz, aligned)
-    assert p.vec == vec
+    assert p.route == route and p.vec == 16 // isz
+    if route == "narrow":
+        assert (p.tx, p.rows) == (1, 1) and 64 <= p.threads <= tuning.THREADS
+        assert p.blocks == -(-X // p.xb) * -(-Y // p.yb) * G
+        assert p.yb == Y or p.yb % p.vec == 0
+        return
     yv = Y // p.vec
     assert p.blocks == -(-yv // p.ty) * -(-X // (p.tx * p.rows)) * G
     assert p.ty * p.vec * -(-yv // p.ty) >= Y and p.tx * p.rows * -(-X // (p.tx * p.rows)) >= X
@@ -394,19 +407,20 @@ def test_combine_plan_vector_width(G, X, Y, isz, aligned, vec):
         assert p.blocks >= tuning.COMBINE_MIN_BLOCKS
 
 
-@pytest.mark.parametrize("offset,vec", [(0, 8), (1, 1)], ids=["aligned", "misaligned"])
-def test_launch_plan_reads_the_coefficients_and_the_pointers(offset, vec):
+@pytest.mark.parametrize("offset,route", [(0, "vector"), (1, "narrow")],
+                         ids=["aligned", "misaligned"])
+def test_launch_plan_reads_the_coefficients_and_the_pointers(offset, route):
     """The wrapper's plan comes from the scheme's coefficients and the
     operands' alignment: a view one element into its storage takes the
-    scalar path, and an output that is misaligned does too."""
+    narrow route, and an output that is misaligned does too."""
     U = talg.get("strassen").U
     x = torch.zeros(256 * 2048 + 8, dtype=torch.bfloat16)[offset:offset + 256 * 2048]
     x = x.view(256, 2048)
     p = launch_plan(x, U)
     assert p == tuning.plan_combine(1, 128, 1024, U, 2, aligned=offset == 0)
-    assert p.vec == vec
+    assert p.route == route
     out = torch.zeros(8, dtype=torch.bfloat16)[1:]
-    assert launch_plan(x, U, out).vec == 1
+    assert launch_plan(x, U, out).route == "narrow"
 
 
 def test_combine_plan_shrinks_blocks_to_fit_shared_memory():
@@ -635,11 +649,28 @@ def test_kernel_sources_agree_with_planner():
     assert f"kAccRegs = {tuning.TC_ACC_REGS};" in src
     assert "smem != (size_t)p.smem_bytes" in src     # the launcher holds the planner's bytes
     src = (build.CSRC / "tiled_matmul.cu").read_text()
-    tiles = set((int(a), int(b)) for a, b in re.findall(
-        r"if \(bm == (\d+) && bn == (\d+)\) return launch<Tin, Tout, (?:\d+), (?:\d+)>", src))
-    assert tiles == set(tuning.TILED_TILES)
-    assert f"kTBK = {tuning.TILED_BK};" in src
-    assert f"kTThreads = {tuning.THREADS};" in src
+    # the f32 route: each tile of TILED_F32_TILES launched with its warp and
+    # lane layout and launch bounds; ring depth, stage depth and padding
+    tiles = {(int(a), int(b)): tuple(int(v) for v in rest) for a, b, *rest in re.findall(
+        r"if \(bm == (\d+) && bn == (\d+)\)\s+return launch<Tile<\1, \2, (\d+), (\d+), "
+        r"(\d+), (\d+), (\d+)>, Tout>", src)}
+    assert tiles == tuning.TILED_F32_TILES
+    assert f"kBK = {tuning.TILED_F32_BK};      // TILED_F32_BK" in src
+    assert f"kStages = {tuning.TILED_F32_STAGES};   // TILED_F32_STAGES" in src
+    assert f"kPadA = {tuning.TILED_F32_PAD};" in src
+    assert "kBytes = kStages * kStage * 4;" in src and "kLdA = BM + kPadA;" in src
+    body = src[src.index("namespace sg {"):src.index("}  // namespace sg")]
+    assert "fmaf(" in body and not re.search(r"mma|tf32|wgmma", body, re.I)  # FP32 FMAs only
+    # the mma route: tiles, stage depth, ring depth, padding and launch bounds
+    mm = src[src.index("namespace mm {"):src.index("}  // namespace mm")]
+    assert set((int(b), 128) for b in re.findall(r"if \(bm == (\d+)\)\s+return launch<", mm)) \
+        == set(tuning.TILED_MMA_TILES)
+    assert f"kBK = {tuning.TILED_MMA_BK};" in mm and f"kStages = {tuning.TILED_MMA_STAGES};" in mm
+    assert f"kPad = {tuning.TILED_MMA_PAD};" in mm
+    assert f"kMinBlocks = {tuning.TILED_MMA_MIN_BLOCKS};" in mm
+    assert "kBytes = (kStages + 1) * kStage * 2;" in mm and "mma.sync" not in mm  # via ftc::mma
+    assert "ftc::mma(" in mm and '#include "fused_tc.cuh"' in src
+    assert "falcon_tiled_matmul(" not in src      # the SIMT route is gone
     # the tensor-core route: the tiles TILED_WG_TILES names, each launched
     # with its own template arguments; ring depth, stage depth and layout
     wg = re.findall(r"if \(bm == (\d+) && bn == (\d+)\)\s+return launch_wgmma<Tout, (\d+), "
@@ -659,9 +690,13 @@ def test_kernel_sources_agree_with_planner():
     src = (build.CSRC / "group_combine.cu").read_text()
     for dtype, isz in (("FALCON_F32", 4), ("FALCON_BF16", 2)):
         assert f"dtype == {dtype} && vec == {16 // isz}" in src
-        assert f"dtype == {dtype} && vec == 1" in src
+        assert f"dtype == {dtype} && vec == 1" not in src    # no scalar path left
     assert "smem != (size_t)smem_bytes" in src
     assert "return (slots + 15) / 16 * 16 + (size_t)table_len * 4;" in src
+    # the narrow route: its layout as combine_narrow_smem computes it
+    assert ("return 32 + (size_t)nparts * (((size_t)xb * yb + V - 1) / V * V) * sizeof(T) +\n"
+            "         (size_t)table_len * 4;") in src
+    assert "extern \"C\" int falcon_group_combine_narrow(" in src
     assert "struct Pack<__nv_bfloat16, 8>" in (build.CSRC / "common.cuh").read_text()
     # quant Group Combine A: block size, routes, the smem formula the
     # launcher holds the planner to, and the bit-exact arithmetic

@@ -259,10 +259,11 @@ def test_cuda_quant_kernels_match_plain_versions(name, cuda_device, rng):
 @pytest.mark.parametrize("shape", [(13, 23, 17), (256, 512, 384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_tiled_matmul_matches_plain_version(shape, dtype, cuda_device, rng):
-    """Ragged (the SIMT kernel, element-wise loads, masked edges) and aligned
-    (f32: the SIMT kernel's 16-byte loads; bf16: the tensor-core route)
-    against the plain version on the CPU: f32 sums in another order; in
-    bf16 both round an f32 sum once, so they differ by one bf16 ulp at most."""
+    """Ragged (f32: the SGEMM's 4-byte copies; bf16: the mma.sync route's
+    raw rows, masked edges) and aligned (f32: the SGEMM's 16-byte copies;
+    bf16: the wgmma route) against the plain version on the CPU: f32 sums
+    in another order; in bf16 both round an f32 sum once, so they differ by
+    one bf16 ulp at most."""
     M, K_, N = shape
     a = torch.tensor(rng.standard_normal((M, K_)), dtype=torch.float32).to(dtype)
     b = torch.tensor(rng.standard_normal((K_, N)), dtype=torch.float32).to(dtype)
@@ -316,13 +317,13 @@ def _err(got: torch.Tensor, want: torch.Tensor) -> float:
 @pytest.mark.parametrize("mkn,route", [
     ((256, 2048, 8192), "wgmma"), ((256, 8192, 2048), "wgmma"),   # the tune probes
     ((4096, 4096, 4096), "wgmma"), ((4, 2048, 8192), "wgmma"),    # ... and decode rows
-    ((13, 23, 17), "simt"),                                       # ragged: no TMA
+    ((13, 23, 17), "mma"),                                        # ragged: no TMA
 ], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
 def test_cuda_tiled_matmul_routes(mkn, route, cuda_device):
     """bf16 at the tune probes and decode rows on the tensor-core route (the
     second probe and the decode rows split K across blocks), a ragged shape
-    on the SIMT kernel; each against the plain version on the card, within
-    one bf16 ulp of the largest value."""
+    on the mma.sync route; each against the plain version on the card,
+    within one bf16 ulp of the largest value."""
     M, K_, N = mkn
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     a = torch.randn(M, K_, device=cuda_device, generator=gen).bfloat16()
@@ -334,6 +335,32 @@ def test_cuda_tiled_matmul_routes(mkn, route, cuda_device):
     want = ref.tiled_matmul_ref(a, b)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert _err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(4096, 4096, 4096), (256, 2048, 8192), (256, 8192, 2048),
+                                 (4, 2048, 8192), (13, 23, 17)],
+                         ids=lambda v: "x".join(map(str, v)))
+def test_cuda_tiled_matmul_f32_and_mma_routes(mkn, cuda_device):
+    """f32 at the tune probes, decode rows and a ragged shape on the FP32
+    SGEMM (the same f32 sums in another order: 1e-4), and bf16 from a
+    misaligned A on the mma.sync route (one bf16 ulp), against the plain
+    version on the card; each call's route counted."""
+    M, K_, N = mkn
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a = torch.randn(M, K_, device=cuda_device, generator=gen)
+    b = torch.randn(K_, N, device=cuda_device, generator=gen)
+    flat = torch.empty(M * K_ + 1, dtype=torch.bfloat16, device=cuda_device)
+    shifted = flat[1:].view(M, K_)
+    shifted.copy_(a)
+    for x, y, route, tol in ((a, b, "f32", 1e-4), (shifted, b.bfloat16(), "mma", 1e-2)):
+        before = dict(K.tiled_matmul.routes)
+        got = K.tiled_matmul(x, y)
+        assert {r: K.tiled_matmul.routes[r] - before[r] for r in before} == \
+            {r: int(r == route) for r in before}
+        want = ref.tiled_matmul_ref(x, y)
+        assert got.shape == want.shape and got.dtype == x.dtype
+        assert _err(got, want) <= tol
 
 
 @pytest.mark.cuda
@@ -356,7 +383,9 @@ def test_cuda_group_combine_at_the_lm_head(dtype, cuda_device):
 def test_cuda_batched_group_combine_at_attention(dtype, cuda_device):
     """The attention scores' Combine A at prefill (128 groups of 64 x 64 ->
     7 x 32 x 32: Y = 32, small blocks) and a misaligned copy of it (the
-    scalar path), against the plain version on the card."""
+    narrow route), and at a padded key count of 66 (Y = 33, the narrow
+    route), against the plain version on the card; each call's route
+    counted."""
     tl = talg.get("strassen")
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     x = torch.randn(128, 64, 64, device=cuda_device, generator=gen).to(dtype)
@@ -364,10 +393,15 @@ def test_cuda_batched_group_combine_at_attention(dtype, cuda_device):
     shifted = flat[1:].view(x.shape)
     shifted.copy_(x)
     want = ref.group_combine_ref(ref.split_blocks(x, 2, 2), tl.U)
-    for inp in (x, shifted):
+    odd = torch.randn(128, 64, 66, device=cuda_device, generator=gen).to(dtype)
+    for inp, w, route in ((x, want, "vector"), (shifted, want, "narrow"),
+                          (odd, ref.group_combine_ref(ref.split_blocks(odd, 2, 2), tl.U),
+                           "narrow")):
+        before = dict(K.batched_group_combine.routes)
         got = K.batched_group_combine(inp, tl.U)
-        assert got.shape == want.shape and got.dtype == dtype
-        assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+        assert K.batched_group_combine.routes[route] == before[route] + 1
+        assert got.shape == w.shape and got.dtype == dtype
+        assert _err(got, w) <= (1e-5 if dtype == torch.float32 else 1e-2)
 
 
 def _engine_run(cfg, quantize: bool, cuda_graphs: bool):
