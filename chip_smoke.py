@@ -1765,14 +1765,13 @@ def oneshot_reference(cfg, params, requests) -> list:
 
 
 def engine_run(name: str, cfg, params, requests, cuda_graphs: bool, quantize: bool = False,
-               passes: int = 1, profile: bool = True, **kw) -> dict:
+               passes: int = 1, decode: bool = True, **kw) -> dict:
     """One ServeEngine at full width: warm (planning, then each bucket's
     warm-up run and capture), the launch counts set to 0, the requests
-    served ``passes`` times, the counts read; then (``profile``) 8 requests
-    profiled over 4 decode steps (:func:`profile_engine`). Emits the
-    ``serve_engine`` and ``profile_engine`` lines; returns the outputs
-    (tokens, logits per step, per request and pass), the launch counts and
-    the summary."""
+    served ``passes`` times, the counts read; then (``decode``) the 8-row
+    decode step timed (:func:`decode_engine`). Emits the ``serve_engine``
+    and ``decode_step`` lines; returns the outputs (tokens, logits per step,
+    per request and pass), the launch counts and the summary."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine = ServeEngine(cfg, params, device=DEV, seed=0, quantize=quantize,
@@ -1817,8 +1816,8 @@ def engine_run(name: str, cfg, params, requests, cuda_graphs: bool, quantize: bo
                              f"{s['requests_finished']}/{len(reqs)} requests finished")
     if engine.graphs.enabled != cuda_graphs or (cuda_graphs and warm["graphs"] == 0):
         raise AssertionError(f"serve_engine/{name}: graphs {warm['graphs']}, asked {cuda_graphs}")
-    if profile:
-        profile_engine(name, engine, requests)
+    if decode:
+        decode_engine(name, engine, requests)
     del engine, reqs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1858,7 +1857,7 @@ def twin_check(name: str, cfg, params, requests, quantize: bool = False) -> dict
     eager)."""
     c, p = cut_depth(cfg, params, twin_depth(cfg))
     tag = f"{name}@{c.num_layers}L"
-    graph, eager = (engine_run(tag, c, p, requests, g, quantize, profile=False)
+    graph, eager = (engine_run(tag, c, p, requests, g, quantize, decode=False)
                     for g in (True, False))
     same = all(g[0] == e[0] for g, e in zip(graph["outputs"], eager["outputs"]))
     diff = max(err(torch.as_tensor(np.stack(g[1])), torch.as_tensor(np.stack(e[1])))[1]
@@ -1878,22 +1877,14 @@ def twin_check(name: str, cfg, params, requests, quantize: bool = False) -> dict
     return graph, eager
 
 
-def profile_engine(name: str, engine, requests) -> None:
-    """Where a decode step of the engine goes: 8 requests (full budgets)
-    admitted and prefilled, then 4 decode steps under torch.profiler
-    (:func:`profiled`), then the step timed without it
-    (:func:`time_decode_step`)."""
+def decode_engine(name: str, engine, requests) -> None:
+    """The engine's 8-row decode step: 8 requests (full budgets) admitted
+    and prefilled, then the step timed (:func:`time_decode_step`). Where a
+    step's device time goes is read from the engine's spans and each
+    graph's capture map (``repro_torch.trace``) under a profiler."""
     new = [engine.submit(p, max_new_tokens=ENGINE["max_new_tokens"]) for p, _ in requests[:8]]
     while len(engine.queue) or any(r.prefilled < r.prompt_len for r in new):
         engine.step()
-    steps = engine.stats.decode_steps + engine.stats.verify_steps
-    _, prof = profiled(lambda: [engine.step() for _ in range(4)])
-    done = engine.stats.decode_steps + engine.stats.verify_steps - steps
-    emit("profile_engine", config=name, cuda_graphs=engine.graphs.enabled,
-         window=f"{done} decode steps of 8 requests (profiler on)",
-         ms_per_step=prof["wall_ms"] / 4, **prof)
-    if done != 4:
-        raise AssertionError(f"profile_engine/{name}: the window held {done} decode steps")
     time_decode_step(name, engine)
     engine.run()
 
@@ -1969,7 +1960,7 @@ def phase_serve_engine() -> dict:
     # speculation against the plain engine, at the first layers
     cut, cut_params = cut_depth(forced, params, twin_depth(forced))
     spec = engine_run(f"forced_fp_spec@{cut.num_layers}L", cut, cut_params, requests, True,
-                      passes=2, profile=False, **ENGINE_SPEC)
+                      passes=2, decode=False, **ENGINE_SPEC)
     s = spec["summary"]
     if s["prefix_hits"] != ENGINE_REQUESTS or not s["acceptance_rate"] > 0:
         raise AssertionError(f"serve_engine/forced_fp_spec: {s['prefix_hits']} prefix hits, "
@@ -3061,7 +3052,7 @@ def phase_serve_engine_moe() -> None:
     graphs = {}
     for name, mode in (("auto", "auto"), ("forced", "strassen")):
         cfg = dataclasses.replace(base, falcon_mode=mode)
-        runs = {g: engine_run(f"dbrx_132b/{name}", cfg, params, requests, g, profile=g)
+        runs = {g: engine_run(f"dbrx_132b/{name}", cfg, params, requests, g, decode=g)
                 for g in (True, False)}
         graph, eager = runs[True], runs[False]
         check_covered(f"serve_engine/dbrx_132b/{name}", eager["state"])
@@ -3670,13 +3661,13 @@ def phase_serve_engine_ssm() -> None:
         for name, mode in (("auto", "auto"), ("forced", "strassen")):
             tag = f"{arch}/{name}_{SSM_HELD}@{layers}L"
             run_ = engine_run(tag, dataclasses.replace(held, falcon_mode=mode), p, requests,
-                              True, profile=False)
+                              True, decode=False)
             check_covered(f"serve_engine/{tag}", run_["state"])
             engine_vs(f"serve_engine/{tag}/oneshot", run_["outputs"], one, vocab, gated=True)
             plain = plain or run_["outputs"]
             del run_
         chunked = engine_run(f"{arch}/auto_{SSM_HELD}_chunked@{layers}L", held, p, requests,
-                             True, profile=False, prefill_chunk=ENGINE_SPEC["prefill_chunk"])
+                             True, decode=False, prefill_chunk=ENGINE_SPEC["prefill_chunk"])
         check_covered(f"serve_engine/{arch}/auto_{SSM_HELD}_chunked", chunked["state"])
         prefix = prefix_run(f"{arch}/auto_{SSM_HELD}_prefix@{layers}L", held, p, requests)
         for tag, run_ in (("chunked", chunked), ("prefix", prefix)):

@@ -41,7 +41,10 @@ import warnings
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
+
 from . import algorithms, backends, workloads
+from . import decision as dec
 from .falcon_gemm import (FalconConfig, _pad2, plan, plan_batched, plan_training,
                           precombine_weights)
 from .lcma import LCMA
@@ -490,6 +493,36 @@ def warm_buckets(cfg: FalconConfig | None, arch, buckets, dtype: str | None = No
     return n
 
 
+def _leaf(M: int, K: int, N: int, cfg: FalconConfig, dtype: str, algo: str | None = None,
+          quant: bool = False, d: dec.Decision | None = None, B: int | None = None,
+          shared_b: bool = False, precombined_b: bool = True):
+    """The ``falcon.leaf`` span of one product the dispatch runs: M, K, N
+    (and B, a grouped product's group), its ``path`` (the scheme's name,
+    ``"int8"``, or ``"gemm"``) and the Decision Module's price of that path
+    (``seconds``) beside GEMM's (``gemm_seconds``), from the decision ``d``
+    that chose it. A product that asked no decision (a forced scheme, a
+    GEMM weight) is priced as ``plan`` prices that path forced, outside the
+    plan cache, so GEMM's price is ``decision.gemm_time``."""
+    def attrs():
+        e = d
+        if e is None:
+            forced = dataclasses.replace(cfg, enabled=True, mode=algo or "gemm")
+            e = plan(M, K, N, forced, dtype, precombined_b=precombined_b) if B is None else \
+                plan_batched(B, M, K, N, forced, dtype, precombined_b=precombined_b,
+                             shared_b=shared_b)
+        if algo is None:
+            seconds = e.gemm_seconds
+        elif quant and e.precision != "int8":
+            seconds = dec.estimate_quant(algorithms.get(algo), e.M, e.N, e.K, cfg.profile,
+                                         dtype, precombined_b=precombined_b).time
+        else:
+            seconds = e.lcma_seconds
+        out = {"M": M, "K": K, "N": N, "path": "gemm" if algo is None else "int8" if quant
+               else algo, "seconds": seconds, "gemm_seconds": e.gemm_seconds}
+        return out if B is None else {"B": B, **out}
+    return trace.span_with("falcon.leaf", attrs)
+
+
 def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
                    cfg: FalconConfig) -> torch.Tensor:
     """x (..., K) @ PlannedWeight -> (..., N); serving fast path, and
@@ -497,7 +530,8 @@ def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
     gradient to the raw weight (or, dropped, to B̃ itself)."""
     *lead, K = x.shape
     if pw.algo is None:
-        return _gemm(x, pw.w)
+        with _leaf(x.numel() // max(K, 1), K, pw.n, cfg, _dtype_name(x)):
+            return _gemm(x, pw.w)
     hook = backends.get_backend(cfg.backend).dense_hook
     if hook is not None and pw.w is not None:
         # a layer-level placement (shard_map_local's rank-local product)
@@ -506,7 +540,7 @@ def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
         if out is not None:
             return out
     x2 = x.reshape(-1, K)
-    use_quant = False
+    use_quant, d = False, None
     if cfg.mode == pw.algo or pw.w is None:
         use_pre = True           # forced scheme, or raw weight dropped
         use_quant = pw.quantized and cfg.quantize
@@ -522,22 +556,26 @@ def _apply_planned(x: torch.Tensor, pw: PlannedWeight,
                  _dtype_name(x), precombined_b=True)
         use_pre = d.use_lcma
         use_quant = pw.quantized and d.quantized
+    M, dt = x2.shape[0], _dtype_name(x)
     if not use_pre:
-        return _gemm(x, pw.w)
+        with _leaf(M, K, pw.n, cfg, dt, d=d):
+            return _gemm(x, pw.w)
     be = backends.get_backend(cfg.backend)
     train = cfg.planned_vjp and _grad_needed(x2, pw.w, pw.bt)
-    if use_quant and be.apply_quant is not None:
-        if train and pw.w is not None:
-            out2 = _PlannedWeightQuantCore.apply(x2, pw.w, pw.bq, pw.b_scales, pw.lcma,
-                                                 pw.n, cfg)
+    use_quant = use_quant and be.apply_quant is not None
+    with _leaf(M, K, pw.n, cfg, dt, pw.algo, use_quant, d):
+        if use_quant:
+            if train and pw.w is not None:
+                out2 = _PlannedWeightQuantCore.apply(x2, pw.w, pw.bq, pw.b_scales, pw.lcma,
+                                                     pw.n, cfg)
+            else:
+                out2 = be.apply_quant(x2, pw.bq, pw.b_scales, pw.lcma, pw.n, cfg)
+        elif train and pw.w is not None:
+            out2 = _PlannedWeightCore.apply(x2, pw.w, pw.bt, pw.lcma, pw.n, cfg)
+        elif train:
+            out2 = _PlannedWeightRotatedCore.apply(x2, pw.bt, pw.lcma, pw.n, cfg)
         else:
-            out2 = be.apply_quant(x2, pw.bq, pw.b_scales, pw.lcma, pw.n, cfg)
-    elif train and pw.w is not None:
-        out2 = _PlannedWeightCore.apply(x2, pw.w, pw.bt, pw.lcma, pw.n, cfg)
-    elif train:
-        out2 = _PlannedWeightRotatedCore.apply(x2, pw.bt, pw.lcma, pw.n, cfg)
-    else:
-        out2 = be.apply_precombined(x2, pw.bt, pw.lcma, pw.n, cfg)
+            out2 = be.apply_precombined(x2, pw.bt, pw.lcma, pw.n, cfg)
     return out2.reshape(*lead, pw.n)
 
 
@@ -552,9 +590,12 @@ def _apply_planned_grouped(a3: torch.Tensor, pw: PlannedWeight,
     Trainable as :func:`_apply_planned` is.
     """
     G, M, K = a3.shape
+    dt = _dtype_name(a3)
     if pw.algo is None:
-        return torch.matmul(a3, pw.w)
+        with _leaf(M, K, pw.n, cfg, dt, B=G):
+            return torch.matmul(a3, pw.w)
     stacked = pw.bt.ndim == 4
+    d = None
     if cfg.mode == pw.algo or pw.w is None:
         use_pre = True
     elif not cfg.enabled or cfg.mode == "gemm":
@@ -563,17 +604,19 @@ def _apply_planned_grouped(a3: torch.Tensor, pw: PlannedWeight,
         d = plan_batched(G, M, K, pw.n,
                          dataclasses.replace(cfg, mode="auto",
                                              candidates=(pw.algo,)),
-                         _dtype_name(a3), precombined_b=True,
+                         dt, precombined_b=True,
                          shared_b=not stacked)
         use_pre = d.use_lcma
     if not use_pre:
-        return torch.matmul(a3, pw.w)
-    if cfg.planned_vjp and _grad_needed(a3, pw.w, pw.bt):
-        if pw.w is not None:
-            return _GroupedPlannedWeightCore.apply(a3, pw.w, pw.bt, pw.lcma, pw.n, cfg)
-        return _PlannedWeightRotatedCore.apply(a3, pw.bt, pw.lcma, pw.n, cfg)
-    be = backends.get_backend(cfg.backend)
-    return be.apply_grouped_precombined(a3, pw.bt, pw.lcma, pw.n, cfg)
+        with _leaf(M, K, pw.n, cfg, dt, d=d, B=G, shared_b=not stacked):
+            return torch.matmul(a3, pw.w)
+    with _leaf(M, K, pw.n, cfg, dt, pw.algo, d=d, B=G, shared_b=not stacked):
+        if cfg.planned_vjp and _grad_needed(a3, pw.w, pw.bt):
+            if pw.w is not None:
+                return _GroupedPlannedWeightCore.apply(a3, pw.w, pw.bt, pw.lcma, pw.n, cfg)
+            return _PlannedWeightRotatedCore.apply(a3, pw.bt, pw.lcma, pw.n, cfg)
+        be = backends.get_backend(cfg.backend)
+        return be.apply_grouped_precombined(a3, pw.bt, pw.lcma, pw.n, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -606,10 +649,13 @@ def _dispatch2d(a2: torch.Tensor, b2: torch.Tensor,
     (only ``use_lcma`` is read): int8 operands exist only for PlannedWeights.
     """
     M, K = a2.shape
-    d = plan(M, K, b2.shape[1], cfg, _dtype_name(a2))
-    if d.use_lcma:
-        return backends.get_backend(cfg.backend).apply(a2, b2, d.algo, cfg)
-    return torch.matmul(a2, b2)
+    dt = _dtype_name(a2)
+    d = plan(M, K, b2.shape[1], cfg, dt)
+    with _leaf(M, K, b2.shape[1], cfg, dt, d.algo.name if d.use_lcma else None, d=d,
+               precombined_b=False):
+        if d.use_lcma:
+            return backends.get_backend(cfg.backend).apply(a2, b2, d.algo, cfg)
+        return torch.matmul(a2, b2)
 
 
 def _dispatch_grouped(a3: torch.Tensor, b: torch.Tensor,
@@ -620,11 +666,13 @@ def _dispatch_grouped(a3: torch.Tensor, b: torch.Tensor,
     decision runs the fp grouped LCMA, as in the reference.
     """
     G, M, K = a3.shape
-    d = plan_batched(G, M, K, b.shape[-1], cfg, _dtype_name(a3),
-                     shared_b=b.ndim == 2)
-    if d.use_lcma:
-        return backends.get_backend(cfg.backend).apply_grouped(a3, b, d.algo, cfg)
-    return torch.matmul(a3, b)     # broadcasts the shared-b case
+    dt = _dtype_name(a3)
+    d = plan_batched(G, M, K, b.shape[-1], cfg, dt, shared_b=b.ndim == 2)
+    with _leaf(M, K, b.shape[-1], cfg, dt, d.algo.name if d.use_lcma else None, d=d, B=G,
+               shared_b=b.ndim == 2, precombined_b=False):
+        if d.use_lcma:
+            return backends.get_backend(cfg.backend).apply_grouped(a3, b, d.algo, cfg)
+        return torch.matmul(a3, b)     # broadcasts the shared-b case
 
 
 class _PlannedCore(torch.autograd.Function):

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.core import engine
 from repro_torch.core.falcon_gemm import FalconConfig
 from repro_torch.parallel.sharding import ambient_state, use_ambient_state
@@ -118,9 +119,10 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+    with trace.span("model.norm"):
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
 # ---------------------------------------------------------------------------
@@ -258,32 +260,35 @@ def attn_apply(p: dict, x: torch.Tensor, dims: AttnDims, positions, theta: float
 def _attn_apply(p, x, dims: AttnDims, positions, theta, window, cache, cache_index):
     B, S, _ = x.shape
     H, Hkv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
-    q = engine.dense(x, p["w_q"]).reshape(B, S, H, hd)
-    k = engine.dense(x, p["w_k"]).reshape(B, S, Hkv, hd)
-    v = engine.dense(x, p["w_v"]).reshape(B, S, Hkv, hd)
-    q = rope(q, positions, theta)
-    k = rope(k, positions, theta)
-    if cache is None:
-        out = flash_attention(q, k, v, positions, positions, window, kv_index=dims.kv_index)
-    else:
-        ck, cv = cache["k"], cache["v"]
-        S_max = ck.shape[1]
-        kpos = torch.arange(S_max, device=x.device).expand(B, S_max)
-        ragged = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
-        if ragged:
-            rows = torch.arange(B, device=x.device)[:, None]
-            cols = cache_index[:, None] + torch.arange(S, device=x.device)
-            ck[rows, cols] = k.to(ck.dtype)          # in-place per-row write
-            cv[rows, cols] = v.to(cv.dtype)
-            kv_valid = kpos < cache_index[:, None] + S
-        else:
-            i = int(cache_index)
-            ck[:, i:i + S] = k.to(ck.dtype)          # in-place write
-            cv[:, i:i + S] = v.to(cv.dtype)
-            kv_valid = kpos < i + S
-        out = flash_attention(q, ck, cv, positions, kpos, window,
-                              kv_valid=kv_valid, ragged=ragged, kv_index=dims.kv_index)
-    out = engine.dense(out.reshape(B, S, H * hd), p["w_o"])
+    with trace.span("model.qkv"):
+        q = engine.dense(x, p["w_q"]).reshape(B, S, H, hd)
+        k = engine.dense(x, p["w_k"]).reshape(B, S, Hkv, hd)
+        v = engine.dense(x, p["w_v"]).reshape(B, S, Hkv, hd)
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+        kpos, kv_valid, ragged = positions, None, False
+        if cache is not None:
+            ck, cv = cache["k"], cache["v"]
+            S_max = ck.shape[1]
+            kpos = torch.arange(S_max, device=x.device).expand(B, S_max)
+            ragged = isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1
+            if ragged:
+                rows = torch.arange(B, device=x.device)[:, None]
+                cols = cache_index[:, None] + torch.arange(S, device=x.device)
+                ck[rows, cols] = k.to(ck.dtype)          # in-place per-row write
+                cv[rows, cols] = v.to(cv.dtype)
+                kv_valid = kpos < cache_index[:, None] + S
+            else:
+                i = int(cache_index)
+                ck[:, i:i + S] = k.to(ck.dtype)          # in-place write
+                cv[:, i:i + S] = v.to(cv.dtype)
+                kv_valid = kpos < i + S
+            k, v = ck, cv
+    with trace.span("model.attention"):
+        out = flash_attention(q, k, v, positions, kpos, window, kv_valid=kv_valid,
+                              ragged=ragged, kv_index=dims.kv_index)
+    with trace.span("model.out_proj"):
+        out = engine.dense(out.reshape(B, S, H * hd), p["w_o"])
     return out, cache
 
 
@@ -294,7 +299,7 @@ def _attn_apply(p, x, dims: AttnDims, positions, theta, window, cache, cache_ind
 def mlp_apply(p: dict, x: torch.Tensor, fcfg: FalconConfig | None = None) -> torch.Tensor:
     """SwiGLU (``mlp_gate`` present) or the tanh GELU MLP; ``fcfg`` is a
     deprecated per-call override of the context config."""
-    with engine.deprecated_fcfg(fcfg, "mlp_apply"):
+    with engine.deprecated_fcfg(fcfg, "mlp_apply"), trace.span("model.mlp"):
         u = engine.dense(x, p["mlp_up"])
         if "mlp_gate" in p:
             h = silu(engine.dense(x, p["mlp_gate"])) * u

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import FAMILIES, ModelConfig
 from repro_torch.core import engine
 from repro_torch.core.falcon_gemm import FalconConfig
@@ -314,8 +315,9 @@ def _layer(x, lp, window: int, cfg: ModelConfig, positions, cache_layer=None,
         # serving step's: the whole step's), as the reference's layer stack
         # serves it (the grouped plan keys embed C)
         cap = layer_capacity(cfg, MOE.capacity_rows(h2.shape[0]) * h2.shape[1])
-        y2, aux = MOE.moe_apply(lp["moe"], h2, cfg.experts_per_token, cfg.capacity_factor,
-                                deterministic_capacity=cap, num_experts=cfg.num_experts)
+        with trace.span("model.mlp"):
+            y2, aux = MOE.moe_apply(lp["moe"], h2, cfg.experts_per_token, cfg.capacity_factor,
+                                    deterministic_capacity=cap, num_experts=cfg.num_experts)
         return x + y2, aux
     if "mlp" not in lp:                           # d_ff == 0: no MLP, zeros added
         return x + torch.zeros_like(x), None
@@ -360,7 +362,8 @@ def _forward(params, cfg: ModelConfig, tokens, *, patch_embeds=None, cache=None,
     under ``cfg.remat_policy``: ``layers.remat``)."""
     _check_family(cfg)
     with engine.config_scope(None, "forward", lambda: falcon_config_for(cfg)):
-        x = _embed_tokens(params, cfg, tokens, patch_embeds)   # (B, S, d)
+        with trace.span("model.embed"):
+            x = _embed_tokens(params, cfg, tokens, patch_embeds)   # (B, S, d)
         B, S = x.shape[:2]
         steps = torch.arange(S, device=x.device)
         if cache is None:
@@ -407,7 +410,8 @@ def compute_logits(params, cfg: ModelConfig, x, fcfg: FalconConfig | None = None
     all-gathered over the model axis (backward: this rank's slice, since
     every rank of the axis computes the same loss from them). ``fcfg`` is a
     deprecated per-call override."""
-    with engine.config_scope(fcfg, "compute_logits", lambda: falcon_config_for(cfg)):
+    with engine.config_scope(fcfg, "compute_logits", lambda: falcon_config_for(cfg)), \
+            trace.span("model.lm_head"):
         Vp = padded_vocab(cfg)
         if cfg.frontend == "audio_codebooks":
             head = _gathered(params, "lm_head")

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 import repro_torch.api as falcon
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine as core_engine, plan_cache
 from repro_torch.models import model as M, moe as MOE
@@ -337,8 +338,10 @@ class ServeEngine:
            live request pays a first run or a capture.
 
         Returns ``plans``, ``shapes`` (the engine's own step shapes), and
-        ``seconds``, split into ``plan_seconds`` and ``capture_seconds``,
-        with the number of ``graphs`` and the graph pool's ``pool_bytes``.
+        ``seconds``, split into ``plan_seconds`` and ``capture_seconds``
+        (of which ``map_seconds`` counting the graphs' nodes for their
+        capture maps), with the number of ``graphs`` and the graph pool's
+        ``pool_bytes``.
         """
         t0 = time.perf_counter()
         grid = (list(self.policy.prefill_shapes())
@@ -369,23 +372,32 @@ class ServeEngine:
         return {"plans": n_plans, "shapes": len(self._compiled),
                 "seconds": self.stats.t_warm, "plan_seconds": t_plan,
                 "capture_seconds": self.graphs.seconds - captured,
+                "map_seconds": self.graphs.map_seconds,
                 "graphs": self.graphs.n_graphs, "pool_bytes": self.graphs.pool_bytes()}
 
     # -- step loop -----------------------------------------------------------
 
     def step(self) -> bool:
-        """Run one scheduler-selected micro-batch. False when idle."""
-        work = self.scheduler.next_work()
-        if work is None:
-            return False
-        with self._ctx():
-            if isinstance(work, PrefillWork):
-                self._run_prefill(work)
-            elif self.gamma:
-                self._run_spec_decode(work)
-            else:
-                self._run_decode(work)
-        return True
+        """Run one scheduler-selected micro-batch. False when idle.
+
+        Spans (``repro_torch.trace``): ``serve.step`` around it, inside it
+        ``serve.schedule``, ``serve.inputs`` (host arrays, then the load:
+        one host-to-device copy), ``serve.launch`` (the step's graph replay,
+        or its eager run; ``key``, and ``map``: the graph's capture map),
+        ``serve.readback`` (the one synchronization) and ``serve.emit``."""
+        with trace.span("serve.step"):
+            with trace.span("serve.schedule"):
+                work = self.scheduler.next_work()
+            if work is None:
+                return False
+            with self._ctx():
+                if isinstance(work, PrefillWork):
+                    self._run_prefill(work)
+                elif self.gamma:
+                    self._run_spec_decode(work)
+                else:
+                    self._run_decode(work)
+            return True
 
     def run(self, max_steps: int | None = None) -> list[Request]:
         """Step until idle (or ``max_steps``); returns finished requests."""
@@ -424,21 +436,24 @@ class ServeEngine:
         b = key[1]
         lb, mine = PM.data_rows(b, self.data, self.data_rank)
         n = lb * self.data
-        if n > b:
-            arrays = {name: np.concatenate([a, np.repeat(a[-1:], n - b, axis=0)])
-                      for name, a in arrays.items()}
-        gidx, sidx = slot_index(slots, n, self.spare)
-        step = self._note_shape((key[0], lb, *key[2:]))
-        step.load(**{name: a[mine] for name, a in arrays.items()},
-                  gidx=gidx[mine], sidx=sidx[mine])
-        with MOE.route_over_data(b):
+        with trace.span("serve.inputs"):
+            if n > b:
+                arrays = {name: np.concatenate([a, np.repeat(a[-1:], n - b, axis=0)])
+                          for name, a in arrays.items()}
+            gidx, sidx = slot_index(slots, n, self.spare)
+            key = (key[0], lb, *key[2:])
+            step = self._note_shape(key)
+            step.load(**{name: a[mine] for name, a in arrays.items()},
+                      gidx=gidx[mine], sidx=sidx[mine])
+        with trace.span("serve.launch", key=key, map=step.map), MOE.route_over_data(b):
             greedy, logits = step()
         if self.data > 1:
             greedy, logits = self._gather_rows((greedy, logits), step.inputs,
                                                arrays["index"], sidx)
         if last_only:
             greedy, logits = greedy[:, -1], logits[:, -1]
-        return self._read(greedy[:b], logits[:b])
+        with trace.span("serve.readback"):
+            return self._read(greedy[:b], logits[:b])
 
     def _gather_rows(self, out, inputs: dict, index: np.ndarray, sidx: np.ndarray):
         """After a data rank's step: one all-gather over "data" of what each
@@ -473,34 +488,36 @@ class ServeEngine:
         for i, r in enumerate(work.requests):
             if r.prefix_entry is not None and work.starts[i] == r.prefix_len:
                 self._load_prefix(work.slots[i], r)
-        toks = np.zeros((B, S), np.int64)
-        last = np.zeros((B,), np.int64)
-        start = np.zeros((B,), np.int64)
-        for i, r in enumerate(work.requests):
-            n = work.lengths[i]
-            toks[i, :n] = r.prompt[work.starts[i]:work.starts[i] + n]
-            last[i] = n - 1
-            start[i] = work.starts[i]
+        with trace.span("serve.inputs"):
+            toks = np.zeros((B, S), np.int64)
+            last = np.zeros((B,), np.int64)
+            start = np.zeros((B,), np.int64)
+            for i, r in enumerate(work.requests):
+                n = work.lengths[i]
+                toks[i, :n] = r.prompt[work.starts[i]:work.starts[i] + n]
+                last[i] = n - 1
+                start[i] = work.starts[i]
         t0 = time.perf_counter()
         if self.draft is not None:
             self.draft.prefill_chunk(toks, start, last, work.slots, k)
         greedy, logits = self._run_rows(("prefill", B, S), work.slots, True,
                                         tokens=toks, index=start, last=last)
         now = time.perf_counter()
-        self.stats.t_prefill += now - t0
-        self.stats.prefill_steps += 1
-        self.stats.prompt_tokens += work.real_tokens
-        self.stats.prefill_padded_tokens += work.padded_tokens
-        for i, r in enumerate(work.requests):
-            r.prefilled = work.starts[i] + work.lengths[i]
-            if not work.final[i]:
-                continue                    # chunk done; more prompt to go
-            if self.prefix is not None and r.prompt_len > 1:
-                self._insert_prefix(r, work.slots[i])
-            self.pos[work.slots[i]] = r.prompt_len
-            r.first_token_t = now
-            self.stats.generated_tokens += 1
-            self._emit(r, int(greedy[i]), None if logits is None else logits[i])
+        with trace.span("serve.emit"):
+            self.stats.t_prefill += now - t0
+            self.stats.prefill_steps += 1
+            self.stats.prompt_tokens += work.real_tokens
+            self.stats.prefill_padded_tokens += work.padded_tokens
+            for i, r in enumerate(work.requests):
+                r.prefilled = work.starts[i] + work.lengths[i]
+                if not work.final[i]:
+                    continue                    # chunk done; more prompt to go
+                if self.prefix is not None and r.prompt_len > 1:
+                    self._insert_prefix(r, work.slots[i])
+                self.pos[work.slots[i]] = r.prompt_len
+                r.first_token_t = now
+                self.stats.generated_tokens += 1
+                self._emit(r, int(greedy[i]), None if logits is None else logits[i])
 
     # -- prefix cache --------------------------------------------------------
 
@@ -540,22 +557,24 @@ class ServeEngine:
 
     def _run_decode(self, work: DecodeWork) -> None:
         b = work.batch_pad
-        toks = np.zeros((b, 1), np.int64)
-        pos = np.zeros((b,), np.int64)
-        for i, r in enumerate(work.requests):
-            toks[i, 0] = r.generated[-1]
-            pos[i] = self.pos[work.slots[i]]
+        with trace.span("serve.inputs"):
+            toks = np.zeros((b, 1), np.int64)
+            pos = np.zeros((b,), np.int64)
+            for i, r in enumerate(work.requests):
+                toks[i, 0] = r.generated[-1]
+                pos[i] = self.pos[work.slots[i]]
         t0 = time.perf_counter()
         greedy, logits = self._run_rows(("decode", b), work.slots, True, tokens=toks, index=pos)
-        self.stats.t_decode += time.perf_counter() - t0
-        self.stats.decode_steps += 1
-        self.stats.generated_tokens += work.real_tokens
-        self.stats.decode_real_rows += work.real_tokens
-        self.stats.decode_emitted_tokens += work.real_tokens
-        self.stats.decode_padded_tokens += work.padded_tokens
-        for i, r in enumerate(work.requests):
-            self.pos[work.slots[i]] += 1
-            self._emit(r, int(greedy[i]), None if logits is None else logits[i])
+        with trace.span("serve.emit"):
+            self.stats.t_decode += time.perf_counter() - t0
+            self.stats.decode_steps += 1
+            self.stats.generated_tokens += work.real_tokens
+            self.stats.decode_real_rows += work.real_tokens
+            self.stats.decode_emitted_tokens += work.real_tokens
+            self.stats.decode_padded_tokens += work.padded_tokens
+            for i, r in enumerate(work.requests):
+                self.pos[work.slots[i]] += 1
+                self._emit(r, int(greedy[i]), None if logits is None else logits[i])
 
     def _run_spec_decode(self, work: DecodeWork) -> None:
         """One speculative round: draft γ, verify in one forward, accept.

@@ -33,6 +33,7 @@ class Request:
     generated: list[int] = dataclasses.field(default_factory=list)
     slot: int = -1                      # engine slot while running
     submit_t: float = dataclasses.field(default_factory=time.perf_counter)
+    admit_t: float | None = None        # first handed out in a prefill micro-batch
     first_token_t: float | None = None  # time-to-first-token source
     finish_t: float | None = None
     logits: list = dataclasses.field(default_factory=list)  # engine record mode

@@ -27,6 +27,9 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
+
+from repro_torch import trace
 
 from .buckets import BucketPolicy
 from .request import Request, RequestQueue
@@ -183,12 +186,16 @@ class Scheduler:
                 break
             picked.append(r)
         self.queue.pop(picked)
+        now = time.perf_counter()
         with self._lock:
             slots = [self._free.pop() for _ in picked]
             for s, r in zip(slots, picked):
                 r.state, r.slot = "running", s
                 r.prefilled = r.prefix_len
+                r.admit_t = now
                 self._active[s] = r
+        for r in picked:
+            trace.event("serve.queue", r.submit_t, now, rid=r.rid)
         return self._pack_chunks(picked, slots)
 
     def _pack_chunks(self, reqs: list[Request],

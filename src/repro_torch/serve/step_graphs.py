@@ -25,6 +25,11 @@ adds them again on every replay, so the counters stay true.
 
 A replay overwrites the graph's outputs: read them, or copy what must
 outlive the step, before the same step runs again.
+
+A replay runs no span (``repro_torch.trace``) either. The capture counts
+the graph's device-operation nodes at each span's entry and exit, and the
+step keeps the capture map (``Step.map``): for each node, in the order a
+replay runs them, the spans that were open when it was made.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, trace
 
 __all__ = ["Step", "StepGraphs", "rows_step", "slot_index"]
 
@@ -81,6 +86,8 @@ class Step:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.out = None
         self.counts: Counter = Counter()    # launches per replay, from the capture
+        self.map: tuple | None = None       # the capture map (trace.node_map)
+        self.map_seconds = 0.0              # the capture's time spent counting nodes
 
     def load(self, **arrays) -> None:
         """Set every input from host arrays of its shape, in one copy."""
@@ -114,7 +121,7 @@ class Step:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool):
+            with torch.cuda.graph(graph, pool=pool), trace.capture() as mapped:
                 out = self.fn(**self.inputs)
         finally:
             if collecting:
@@ -122,13 +129,15 @@ class Step:
         self.counts = kernels.launch_state() - before
         kernels.add_launches(self.counts, -1)
         self.graph, self.out = graph, out
+        self.map, self.map_seconds = mapped.map, mapped.seconds
 
 
 class StepGraphs:
     """The bucket steps of one engine, by key, with their shared graph pool.
 
     ``enabled`` asks for graphs; they are used on a CUDA device only.
-    ``seconds`` is the time spent making steps (warm-up runs and captures).
+    ``seconds`` is the time spent making steps (warm-up runs and captures),
+    ``map_seconds`` the part of it the captures spent counting nodes.
     """
 
     def __init__(self, device, enabled: bool = True):
@@ -154,6 +163,10 @@ class StepGraphs:
             self.steps[key] = step
             self.seconds += time.perf_counter() - t0
         return step
+
+    @property
+    def map_seconds(self) -> float:
+        return sum(step.map_seconds for step in self.steps.values())
 
     @property
     def n_graphs(self) -> int:
@@ -192,11 +205,14 @@ def rows_step(step_fn, params, cache: dict):
     pad rows into the spare slot). Returns (greedy tokens, logits)."""
 
     def run(tokens, index, gidx, sidx, last=None):
-        rows = {name: c.index_select(1, gidx) for name, c in cache.items()}
+        with trace.span("rows.gather"):
+            rows = {name: c.index_select(1, gidx) for name, c in cache.items()}
         extra = () if last is None else (last,)
         logits, rows = step_fn(params, rows, tokens, index, *extra)
-        for name, c in cache.items():
-            c.index_copy_(1, sidx, rows[name])
-        return logits.argmax(-1), logits
+        with trace.span("rows.scatter"):
+            for name, c in cache.items():
+                c.index_copy_(1, sidx, rows[name])
+        with trace.span("rows.sample"):
+            return logits.argmax(-1), logits
 
     return run

@@ -447,6 +447,49 @@ def test_cuda_engine_graphs_match_eager(quantize, cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_replays_run_their_capture_maps(cuda_device, tmp_path):
+    """Each bucket graph keeps its capture map (one entry a device-operation
+    node, in replay order, with the spans open at capture). Under the
+    profiler a step runs its input copy, then exactly the map's operations,
+    then its readback; a replay runs no span of the model."""
+    import dataclasses
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+    from repro_torch.configs import lcma_smoke_config
+    from repro_torch.serve import ServeEngine
+    cfg = dataclasses.replace(lcma_smoke_config("granite_3_2b"), falcon_mode="strassen")
+    engine = ServeEngine(cfg, max_slots=4, max_prompt_len=16, max_new_tokens=4, seed=0)
+    engine.warm()
+    steps = engine.graphs.steps
+    assert steps and all(st.map for st in steps.values())
+    kinds = {k for st in steps.values() for k, _ in st.map}
+    assert "kernel" in kinds and kinds <= {"kernel", "memcpy", "memset"}
+    names = {f.name for st in steps.values() for _, stack in st.map for f in stack}
+    assert {"rows.gather", "model.attention", "model.mlp", "falcon.leaf",
+            "model.lm_head"} <= names
+    engine.submit(list(range(1, 12)), max_new_tokens=3)
+    engine.step()                                   # the prefill, unprofiled
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.step()                               # one decode step
+    recs = trace.records()
+    assert not {r.name for r in recs} & {"model.attention", "falcon.leaf", "rows.gather"}
+    launch = next(r for r in recs if r.name == "serve.launch")
+    assert launch.attrs["map"] is steps[launch.attrs["key"]].map
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = sorted((e["ts"], e["name"]) for e in events if e.get("ph") == "X"
+                 and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    assert len(ops) == len(launch.attrs["map"]) + 2
+    assert ops[0][1].startswith("Memcpy HtoD") and ops[-1][1].startswith("Memcpy DtoH")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_generated_backend_matches_the_cpu(dtype, cuda_device, rng):
     """The generated "torch" backend on the card: a bf16 product keeps H in
